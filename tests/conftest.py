@@ -6,6 +6,12 @@ import sys
 # dry-run entrypoint forces 512 host devices (see repro/launch/dryrun.py).
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "src"))
 
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device; skipped without one")
+
+
 # ---------------------------------------------------------------------------
 # Shared hypothesis strategies (tests/test_properties.py).
 #
