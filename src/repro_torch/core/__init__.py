@@ -1,8 +1,11 @@
 # ShuffleSoftSort in PyTorch: softsort, the Algorithm 1 driver (fixed
-# schedule, dense apply), losses eq. 2-4, metrics, and the shuffle sources.
+# schedule, dense and banded apply), losses eq. 2-4, metrics, and the
+# shuffle sources.
 from repro_torch.core.softsort import (  # noqa: F401
     softsort_matrix,
     softsort_apply_chunked,
+    softsort_apply_banded,
+    band_tail_bound,
     hard_permutation,
     is_valid_permutation,
     fix_permutation,
@@ -25,6 +28,7 @@ from repro_torch.core.shufflesoftsort import (  # noqa: F401
     BatchedSortResult,
     NumericalDivergence,
     ShuffleSoftSortConfig,
+    resolve_band,
     resolve_device,
     shuffle_soft_sort,
     shuffle_soft_sort_batched,

@@ -15,13 +15,15 @@ Learns a permutation of N items with only N parameters by iterating:
       order <- commit argsort(w) through the shuffle
 
 Counterpart of ``repro.core.shufflesoftsort`` on its fixed-schedule,
-single-device, dense path.  The engine runs B problems x S restarts as
-one (BS, N) batch; ``shuffle_soft_sort`` is the BS = 1 case of the same
+single-device path.  The engine runs B problems x S restarts as one
+(BS, N) batch; ``shuffle_soft_sort`` is the BS = 1 case of the same
 code.  Each round's shuffles come from a shuffle source
 (``repro_torch.core.prng``): per-instance ``torch.Generator`` streams by
 default, or a replayed array.  ``cfg.use_kernel`` routes the SoftSort
 apply, forward and backward, through the kernel tier
-(``repro_torch.kernels.ops``).
+(``repro_torch.kernels.ops``).  ``cfg.band`` (K or "auto") swaps the
+O(N^2) apply for the O(N K) banded one from the round
+``_band_switch_round`` names on, in both engines alike.
 
 Entry points run on CUDA unless ``device`` says otherwise; without a CUDA
 device they raise rather than fall back to the CPU.
@@ -45,7 +47,10 @@ from repro_torch.core.prng import (
     TorchShuffleSource,
     instance_seeds,
 )
-from repro_torch.core.softsort import softsort_apply_chunked
+from repro_torch.core.softsort import (
+    softsort_apply_banded,
+    softsort_apply_chunked,
+)
 
 _F32 = torch.float32
 
@@ -64,7 +69,8 @@ class ShuffleSoftSortConfig:
     lambda_sigma: float = 2.0
     chunk: int = 256            # row-block size for streamed softsort
     use_kernel: bool = False    # route the apply through the kernel tier
-    band: int | str | None = None   # banded tier: not ported yet
+    band: int | str | None = None   # K or "auto": O(N*K) banded apply
+                                    # once the anneal is cold enough
     band_eps: float = 1e-6
     compute_dtype: str = "float32"  # kernel tier: "float32" or "bfloat16"
     schedule: str = "fixed"     # "adaptive": not ported yet
@@ -127,8 +133,6 @@ def _check_ported(cfg: ShuffleSoftSortConfig, **features) -> None:
         raise ValueError(
             f"cfg.schedule={cfg.schedule!r} must be 'fixed' or 'adaptive'")
     todo = {
-        "band": (cfg.band is not None,
-                 "the banded tier (ROADMAP.md Queue A1 remainder, B5-B8)"),
         "schedule='adaptive'": (cfg.schedule == "adaptive",
                                 "adaptive annealing (ROADMAP.md Queue A8)"),
         "mesh": (features.get("mesh") is not None,
@@ -214,22 +218,86 @@ def _tau_schedule(cfg: ShuffleSoftSortConfig) -> np.ndarray:
                       ** (np.arange(1, cfg.rounds + 1) / cfg.rounds))
 
 
-def _select_apply_fn(cfg: ShuffleSoftSortConfig):
-    """``use_kernel=False`` — the streamed ``softsort_apply_chunked``;
-    ``use_kernel=True`` — the kernel tier, forward and backward."""
+def _select_apply_fn(cfg: ShuffleSoftSortConfig, band: int | None = None):
+    """The apply of one round, from ``cfg.use_kernel`` and a resolved band
+    half-width (``resolve_band``; None means dense):
+
+    * ``use_kernel=False`` — the streamed ``softsort_apply_chunked``, or
+      with a band the windowed oracle ``softsort_apply_banded``;
+    * ``use_kernel=True`` — the kernel tier, forward and backward: the
+      dense ``softsort_apply``, or with a band ``softsort_apply_banded``
+      of ``repro_torch.kernels.ops``.
+
+    ``cfg.compute_dtype`` reaches only the kernel tier; the plain applies
+    are float32.
+    """
     if cfg.use_kernel:
-        from repro_torch.kernels.ops import softsort_apply
-        return functools.partial(softsort_apply,
+        from repro_torch.kernels import ops
+        if band is not None:
+            return functools.partial(ops.softsort_apply_banded, band=band,
+                                     compute_dtype=cfg.compute_dtype)
+        return functools.partial(ops.softsort_apply,
                                  compute_dtype=cfg.compute_dtype)
+    if band is not None:
+        return functools.partial(softsort_apply_banded, band=band)
     return functools.partial(softsort_apply_chunked, chunk=cfg.chunk)
 
 
+def resolve_band(cfg: ShuffleSoftSortConfig, n: int) -> int | None:
+    """``cfg.band`` as a half-width K, or None for the dense apply.
+
+    ``"auto"`` takes the largest of 64, the K at which the modeled tail
+    ``(N - K) exp(-(K/2) / tau)`` clears ``band_eps`` at the coldest
+    temperature ``tau_end`` (``K >= 2 tau_end ln(N / eps)``; the hot
+    rounds stay dense through ``_band_switch_round``), and N/16 rounded up
+    to a multiple of 64.  A K that covers every pair (K >= N - 1)
+    resolves to None: the dense apply is the same math.
+    """
+    if cfg.band is None:
+        return None
+    if cfg.band == "auto":
+        eps = max(cfg.band_eps, 1e-30)
+        safety = int(np.ceil(2.0 * cfg.tau_end * np.log(max(n, 2) / eps)))
+        floor = -(-max(n // 16, 1) // 64) * 64
+        k = max(64, safety, floor)
+    else:
+        k = int(cfg.band)
+    if k >= n - 1:
+        return None
+    return max(1, k)
+
+
+def _band_switch_round(cfg: ShuffleSoftSortConfig, n: int) -> int:
+    """The first round that runs banded (``cfg.rounds``: none does).
+
+    Every round re-initializes the keys to ``arange(N)``, so the gap
+    across K ranks starts at K; with a factor of 2 for the drift of the
+    inner Adam steps, a round switches once ``(N - K) exp(-(K/2) / tau_r)
+    <= band_eps`` at its schedule temperature.  The anneal cools
+    monotonically, so the rounds split into a dense prefix and a banded
+    suffix.
+    """
+    k = resolve_band(cfg, n)
+    if k is None:
+        return cfg.rounds
+    taus = _tau_schedule(cfg)
+    ok = (n - k) * np.exp(-(k / 2.0) / taus) <= cfg.band_eps
+    idx = np.flatnonzero(ok)
+    return int(idx[0]) if idx.size else cfg.rounds
+
+
 def _run_rounds(xs_t, orders, source: ShuffleSource, norms_t, start: int, *,
-                hw, cfg: ShuffleSoftSortConfig, apply_fn,
+                hw, cfg: ShuffleSoftSortConfig,
                 on_round: Optional[Callable] = None):
-    """Rounds ``start .. R-1`` over a (BS, N) batch.  Returns the orders
-    and the (R - start, BS) losses, both on the device."""
+    """Rounds ``start .. R-1`` over a (BS, N) batch: dense before the
+    switch round, banded from it on.  Returns the orders and the
+    (R - start, BS) losses, both on the device."""
     dev = xs_t.device
+    n = orders.shape[1]
+    dense_fn = _select_apply_fn(cfg)
+    band = resolve_band(cfg, n)
+    band_fn = dense_fn if band is None else _select_apply_fn(cfg, band)
+    switch = _band_switch_round(cfg, n)
     tau_inner = torch.as_tensor(_inner_taus(cfg), device=dev)
     t = torch.arange(1, cfg.inner_steps + 1, dtype=_F32, device=dev)
     bias1 = 1 - cfg.b1 ** t
@@ -239,7 +307,7 @@ def _run_rounds(xs_t, orders, source: ShuffleSource, norms_t, start: int, *,
         shuf = source.next_round()
         orders, loss = _outer_round(
             xs_t, orders, shuf, tau_inner[r], norms_t, bias1, bias2,
-            hw=hw, cfg=cfg, apply_fn=apply_fn)
+            hw=hw, cfg=cfg, apply_fn=band_fn if r >= switch else dense_fn)
         losses.append(loss)
         if on_round is not None:
             on_round(r, orders, loss)
@@ -335,8 +403,7 @@ def shuffle_soft_sort(
                      losses[-1])
 
     orders, _ = _run_rounds(xs_t, orders, source, norms_t, start, hw=hw,
-                            cfg=cfg, apply_fn=_select_apply_fn(cfg),
-                            on_round=on_round)
+                            cfg=cfg, on_round=on_round)
     order = orders[0].to(torch.int32).cpu().numpy()
     return order, xs[0].cpu().numpy()[order], losses
 
@@ -401,9 +468,7 @@ def shuffle_soft_sort_batched(
             callback(r, orders_r.to(torch.int32).cpu().numpy(), loss_np)
 
     orders, losses_rb = _run_rounds(xs_t, orders, source, norms_t, start,
-                                    hw=hw, cfg=cfg,
-                                    apply_fn=_select_apply_fn(cfg),
-                                    on_round=on_round)
+                                    hw=hw, cfg=cfg, on_round=on_round)
     losses_np = losses_rb.cpu().numpy()
     if callback is None:
         _check_finite(losses_np, start, cfg, "batched")

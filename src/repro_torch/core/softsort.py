@@ -2,7 +2,7 @@
 
     SoftSort_tau(w) = softmax_rows( -|sort(w)_i - w_j| / tau )          (eq. 1)
 
-Counterpart of ``repro.core.softsort`` (dense part):
+Counterpart of ``repro.core.softsort``:
 
 * ``softsort_matrix``         — the full (N, N) matrix; reference path.
 * ``softsort_apply_chunked``  — row-block streaming ``(P @ x, colsum(P))``
@@ -11,6 +11,9 @@ Counterpart of ``repro.core.softsort`` (dense part):
                                 ``descending``.  The everywhere-runnable
                                 twin of the kernel tier in
                                 ``repro_torch.kernels.ops``.
+* ``softsort_apply_banded``   — the O(N * K) windowed apply in rank space,
+                                the oracle of the banded kernel tier.
+* ``band_tail_bound``         — the mass the band drops, bounded.
 * ``hard_permutation`` / ``is_valid_permutation`` / ``fix_permutation``.
 
 Every order-deciding sort is ``torch.argsort(..., stable=True)``, which is
@@ -88,6 +91,90 @@ def softsort_apply_chunked(
         ys.append(p @ x)
         colsum = colsum + p.sum(dim=-2)
     return torch.cat(ys, dim=-2)[:, :n], colsum
+
+
+def softsort_apply_banded(
+    w: torch.Tensor,
+    x: torch.Tensor,
+    tau,
+    band: int,
+    descending: bool = False,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Windowed ``(P_soft @ x, column_sums(P_soft))`` in O(N * K * d).
+
+    Keys and payload are gathered into sorted-key order (the gather keeps
+    the gradient, as in ``_sort_diff``); row i then softmaxes only over the
+    keys whose rank is within ``band`` of i, a width-(2K+1) diagonal band
+    of the soft permutation matrix in rank space.  Out-of-band entries are
+    exactly zero; ``band_tail_bound`` bounds the mass they would carry.
+    The everywhere-runnable oracle of the banded kernel tier
+    (``repro_torch.kernels.ops.softsort_apply_banded``).
+
+    Args:
+      w: (N,) sort keys, or (B, N) for B instances sharing one ``tau``.
+      x: (N, d) payload ((B, N, d) batched).
+      tau: temperature (float or one-element tensor).
+      band: K, the band half-width in rank space; ``band >= N - 1`` gives
+        the dense result.
+      descending: a flip of y; colsum is row-order invariant.
+
+    Returns:
+      y (N, d) and colsum (N,), in the dense paths' row and column order
+      (batched shapes for (B, N) keys).
+    """
+    if descending:
+        y, colsum = softsort_apply_banded(w, x, tau, band)
+        return torch.flip(y, dims=(-2,)), colsum
+    if w.dim() == 1:
+        y, colsum = softsort_apply_banded(w[None], x[None], tau, band)
+        return y[0], colsum[0]
+    assert x.dim() == 3 and x.shape[:2] == w.shape, (w.shape, x.shape)
+    bsz, n = w.shape
+    d = x.shape[-1]
+    k = int(band)
+    assert k >= 1, band
+    perm = torch.argsort(w.detach(), dim=-1, stable=True)
+    ws = torch.gather(w, -1, perm)                     # grad-carrying
+    xs = torch.gather(x, 1, perm[..., None].expand(-1, -1, d))
+    # (N, 2K+1) rank window around each row; clipped indices keep the
+    # gathers in bounds and the mask zeroes the clipped slots.
+    idx = (torch.arange(n, device=w.device)[:, None]
+           + torch.arange(-k, k + 1, device=w.device)[None, :])
+    valid = (idx >= 0) & (idx < n)
+    idxc = idx.clamp(0, n - 1)
+    s = -torch.abs(ws[:, :, None] - ws[:, idxc]) / tau
+    # Finite mask value: exp(-1e30 - m) is exactly 0 in float32.
+    s = torch.where(valid, s, torch.full_like(s, -1e30))
+    p = torch.softmax(s, dim=-1)                       # (B, N, 2K+1)
+    y = torch.einsum("bnk,bnkd->bnd", p, xs[:, idxc])
+    # Column sums in rank order, then back to the columns' own order.
+    colsum_sorted = torch.zeros_like(ws).scatter_add(
+        -1, idxc.reshape(1, -1).expand(bsz, -1), p.reshape(bsz, -1))
+    colsum = torch.zeros_like(ws).scatter(-1, perm, colsum_sorted)
+    return y, colsum
+
+
+def band_tail_bound(w: torch.Tensor, tau, band: int) -> torch.Tensor:
+    """Upper bound on the per-row probability mass a banded apply drops:
+    ``(N - K) * exp(-g_K / tau)``, with ``g_K`` the smallest spread of the
+    sorted keys across K ranks.
+
+    Row i's own key scores 0, so its softmax denominator is >= 1, and each
+    of the <= N - K keys more than K ranks away lies at least ``g_K``
+    from it.  ``tau`` is a scalar, or (B,) for (B, N) keys (one
+    temperature per instance).  Returns a scalar ((B,) batched), exactly 0
+    when the band covers every pair (``band >= N - 1``).
+    """
+    n = w.shape[-1]
+    k = int(band)
+    assert k >= 1, band
+    if k >= n - 1:
+        return torch.zeros(w.shape[:-1], dtype=torch.float32, device=w.device)
+    if not isinstance(tau, (int, float)):
+        tau = torch.as_tensor(tau, dtype=torch.float32, device=w.device)
+    ws = torch.sort(w, dim=-1).values
+    g = torch.amin(ws[..., k:] - ws[..., :n - k], dim=-1)
+    return (n - k) * torch.exp(-g / tau)
 
 
 def hard_permutation(w: torch.Tensor) -> torch.Tensor:

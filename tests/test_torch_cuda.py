@@ -152,7 +152,9 @@ def test_cuda_launch_counts_and_no_fallback(cuda):
     (y.sum() + c.square().sum()).backward()
     torch.cuda.synchronize()
     assert K.launch_counts() == {"fwd_fused": 1, "colsum": 1,
-                                 "bwd_dws_delta": 1, "bwd_dx": 1}
+                                 "bwd_dws_delta": 1, "bwd_dx": 1,
+                                 "fwd_band": 0, "colsum_band": 0,
+                                 "bwd_band_dws_delta": 0, "bwd_band_dcol": 0}
 
 
 @pytest.mark.cuda
@@ -183,3 +185,103 @@ def test_cuda_engine_matches_cpu_engine(cuda):
     for (o_cpu, l_cpu), (o_gpu, l_gpu) in zip(runs["cpu"], runs["cuda"]):
         np.testing.assert_array_equal(o_gpu, o_cpu)
         np.testing.assert_allclose(l_gpu, l_cpu, rtol=1e-5)
+
+
+def _band_operands(bsz, n, d, seed, cuda, cd):
+    """Sorted keys, payload in rank order, cotangents (dc in rank order)."""
+    w, ws, x, dy, dc, tau = _operands(bsz, n, d, seed)
+    t = lambda a, dtype=torch.float32: torch.tensor(a, device=cuda).to(dtype)  # noqa: E731
+    return (t(ws), t(x, cd), t(tau).reshape(1), t(dy, cd), t(dc, cd))
+
+
+def _band_pipeline(ws, xs, tau, dy, dc, k, plain=False):
+    """Kernels 5-8 (or their twins) in order; all their outputs."""
+    f = {name: getattr(K, name + ("_plain" if plain else ""))
+         for name in ("fwd_band", "colsum_band", "bwd_band_dws_delta",
+                      "bwd_band_dcol")}
+    y, m, l = f["fwd_band"](ws, xs, tau, k)
+    c = f["colsum_band"](ws, tau, m, l, k, xs.dtype)
+    D, dws_row = f["bwd_band_dws_delta"](ws, xs, tau, m, l, dy, y, dc, k)
+    return (y, m, l, c, D, dws_row,
+            *f["bwd_band_dcol"](ws, xs, tau, m, l, dy, dc, D, k))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bsz,n,d,k", [(8, 4096, 50, 256), (3, 1000, 3, 40),
+                                       (1, 17, 1, 3), (2, 300, 130, 100)])
+@pytest.mark.parametrize("cd", ["float32", "bfloat16"])
+def test_cuda_band_kernels_match_plain_twins(cuda, bsz, n, d, k, cd):
+    """Each banded CUDA kernel against its plain twin on the same card
+    tensors; the twins' backward takes the kernels' own y, m, l and D."""
+    dt = {"float32": torch.float32, "bfloat16": torch.bfloat16}[cd]
+    rtol = GRAD_RTOL if cd == "float32" else BF16_RTOL
+    ws, xs, tt, dyt, dct = _band_operands(bsz, n, d, n + d + k, cuda, dt)
+    y, m, l = K.fwd_band(ws, xs, tt, k)
+    y0, m0, l0 = K.fwd_band_plain(ws, xs, tt, k)
+    _close(y.float().cpu(), y0.float().cpu(), rtol)
+    _close(m.cpu(), m0.cpu(), FWD_ATOL)
+    _close(l.cpu(), l0.cpu(), FWD_ATOL)
+    _close(K.colsum_band(ws, tt, m, l, k, dt).cpu(),
+           K.colsum_band_plain(ws, tt, m, l, k, dt).cpu(), rtol)
+    D, dws = K.bwd_band_dws_delta(ws, xs, tt, m, l, dyt, y, dct, k)
+    D0, dws0 = K.bwd_band_dws_delta_plain(ws, xs, tt, m, l, dyt, y, dct, k)
+    _close(D.cpu(), D0.cpu(), rtol)
+    _close(dws.cpu(), dws0.cpu(), rtol)
+    out = K.bwd_band_dcol(ws, xs, tt, m, l, dyt, dct, D, k)
+    ref = K.bwd_band_dcol_plain(ws, xs, tt, m, l, dyt, dct, D, k)
+    for g, r in zip(out, ref):
+        _close(g.float().cpu(), r.float().cpu(), rtol)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cd", [torch.float32, torch.bfloat16])
+def test_cuda_band_kernels_batch_invariant(cuda, cd):
+    """Banded: an instance run alone gives bitwise its row of the batch."""
+    ops_ = _band_operands(4, 700, 70, 5, cuda, cd)
+    batched = _band_pipeline(*ops_, 33)
+    alone = _band_pipeline(*[t[2:3].contiguous() if t.dim() > 1 else t
+                             for t in ops_], 33)
+    for b_out, a_out in zip(batched, alone):
+        assert torch.equal(b_out[2], a_out[0])
+
+
+@pytest.mark.cuda
+def test_cuda_softsort_apply_banded_matches_oracle(cuda):
+    """The banded Function on the card against the windowed oracle."""
+    from repro_torch.core import softsort_apply_banded as oracle
+
+    rng = np.random.default_rng(6)
+    keys = np.stack([rng.permutation(1000) for _ in range(3)]) + 0.8 * (
+        rng.random((3, 1000)) - 0.5)
+    w = torch.tensor(keys.astype(np.float32), device=cuda,
+                     requires_grad=True)
+    x = torch.tensor(rng.normal(size=(3, 1000, 3)).astype(np.float32),
+                     device=cuda, requires_grad=True)
+    a = torch.tensor(rng.normal(size=(3, 1000, 3)).astype(np.float32),
+                     device=cuda)
+    grads = []
+    for fn in (tops.softsort_apply_banded, oracle):
+        tau = torch.tensor(0.4, device=cuda, requires_grad=True)
+        y, c = fn(w, x, tau, 40)
+        loss = (y * a).sum() + c.square().sum()
+        grads.append((y, c, *torch.autograd.grad(loss, (w, x, tau))))
+    for g, r in zip(*grads):
+        _close(g.detach().cpu(), r.detach().cpu(), GRAD_RTOL)
+
+
+@pytest.mark.cuda
+def test_cuda_launch_counts_across_the_band_switch(cuda):
+    """band=16 at N = 64, 6 rounds x 4 inner steps: rounds 0-1 dense,
+    2-5 banded, each inner step one launch of each kernel of its tier."""
+    from repro_torch.core import ShuffleSoftSortConfig, shuffle_soft_sort_batched
+
+    cfg = ShuffleSoftSortConfig(use_kernel=True, rounds=6, inner_steps=4,
+                                band=16)
+    xs = np.random.default_rng(1).normal(size=(2, 64, 3)).astype(np.float32)
+    K.reset_launch_counts()
+    shuffle_soft_sort_batched(xs, (8, 8), cfg, n_restarts=2, device=cuda)
+    torch.cuda.synchronize()
+    counts = K.launch_counts()
+    assert all(counts[k.__name__] == 8 for k in K.DENSE_KERNELS), counts
+    assert all(counts[k.__name__] == 16 for k in K.BAND_KERNELS), counts

@@ -294,8 +294,6 @@ def test_entry_points_never_fall_back_to_cpu(monkeypatch):
 
 
 @pytest.mark.parametrize("kw,feature", [
-    ({"cfg": {"band": 8}}, "band"),
-    ({"cfg": {"band": "auto"}}, "band"),
     ({"cfg": {"schedule": "adaptive"}}, "adaptive"),
     ({"mesh": object()}, "mesh"),
     ({"checkpoint_dir": "ckpt"}, "checkpoint_dir"),
