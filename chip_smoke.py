@@ -46,6 +46,31 @@ start):
    steps; neighbour distance and the zlib codec proxy against a random
    order, and 256 launches of each banded kernel.
 
+9. ``v1_kernel_check`` / ``v1_kernel_times`` — the v1 split forward
+   (``v1_stats``, ``v1_apply``, float32) against its twins at the shapes
+   of phase 2, the last instance alone bitwise; times at (8, 4096, 50).
+10. ``kernel_bench`` — the port's kernel bench
+    (``repro_torch.bench.kernel_bench``), its full sweep in both dtypes
+    with ``--check``, in this process: one line per cell, the gate must
+    pass and the ``v1_stats``, ``v1_apply`` and ``colsum`` counts must
+    move.
+11. ``flash_check`` / ``flash_times`` — both flash-attention kernels
+    against their twins at the five shapes of
+    ``tests/test_flash_attention.py`` and at one attention layer of
+    Mistral-NeMo-12B (32 query heads, 8 kv heads, head_dim 128, float32)
+    at prefill (B = 1, T = S = 4096, causal) and decode (T = 1, S = 4096,
+    ``q_offset = 4095``); ``flash_function_check``: ``flash_attention``
+    against ``flash_attention_ref``, values and dq, dk, dv, at a small GQA
+    shape; times at the NeMo shapes with the yardstick
+    ``scaled_dot_product_attention`` (float32, TF32 off).
+12. ``flash_main_run`` — that NeMo layer's attention through
+    ``flash_attention``, prefill then one decode step, against the oracle,
+    the decode row against the prefill's last row, and 2 launches of each
+    flash kernel.
+
+Phases 9 and 11 run right after phase 3, so that a faulty kernel stops
+the script before the long runs; 10 and 12 run after phase 8.
+
 Then the ``{"kernels": [...]}`` summary line, the card's name and power
 limit as ``nvidia-smi`` reports them, and ``{"ok": true, "device": ...}``
 as the last line.
@@ -62,7 +87,8 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 T0 = time.perf_counter()
-SOURCE = "src/repro_torch/kernels/csrc/softsort_apply.cu"
+SOFTSORT_CU = "src/repro_torch/kernels/csrc/softsort_apply.cu"
+FLASH_CU = "src/repro_torch/kernels/csrc/flash_attention.cu"
 REPLACES = {
     "fwd_fused": "src/repro/kernels/softsort_apply.py:150",
     "colsum": "src/repro/kernels/softsort_apply.py:182",
@@ -72,12 +98,15 @@ REPLACES = {
     "colsum_band": "src/repro/kernels/softsort_apply.py:567",
     "bwd_band_dws_delta": "src/repro/kernels/softsort_apply.py:657",
     "bwd_band_dcol": "src/repro/kernels/softsort_apply.py:706",
+    "v1_stats": "src/repro/kernels/softsort_apply.py:843",
+    "v1_apply": "src/repro/kernels/softsort_apply.py:862",
+    "flash_stats": "src/repro/kernels/flash_attention.py:42",
+    "flash_apply": "src/repro/kernels/flash_attention.py:62",
 }
 DENSE = ("fwd_fused", "colsum", "bwd_dws_delta", "bwd_dx")
 BAND = ("fwd_band", "colsum_band", "bwd_band_dws_delta", "bwd_band_dcol")
-# H100 SXM peaks (NVIDIA data sheet): float32 on the CUDA cores, HBM3.
-PEAK_F32_FLOPS = 67e12
-PEAK_BYTES = 3.35e12
+V1 = ("v1_stats", "v1_apply")
+FLASH = ("flash_stats", "flash_apply")
 FWD_ATOL, GRAD_RTOL, BF16_RTOL = 2e-5, 1e-4, 2e-2
 SHAPES = [(8, 4096, 50), (3, 1000, 3), (1, 17, 1)]
 MAIN_SHAPE = SHAPES[0]
@@ -86,6 +115,18 @@ BAND_SHAPES = [(8, 4096, 50, 256), (2, 65536, 14, 4096), (3, 1000, 3, 40),
 BAND_TIMED = BAND_SHAPES[:2]
 SOG_SHAPE = BAND_SHAPES[1]       # the shape of the slice's main path
 TAU = 0.5
+# (B, Tq, S, H, Hkv, Dh, causal, q_offset): the cases of
+# tests/test_flash_attention.py, then one Mistral-NeMo-12B attention layer
+# (src/repro/configs/mistral_nemo_12b.py) at prefill and at decode.
+FLASH_SHAPES = [(2, 64, 64, 4, 2, 32, True, 0),
+                (1, 100, 100, 5, 5, 16, True, 0),
+                (2, 1, 128, 8, 2, 64, True, 127),
+                (2, 48, 80, 6, 3, 32, False, 0),
+                (1, 256, 256, 2, 1, 128, True, 0)]
+NEMO_PREFILL = (1, 4096, 4096, 32, 8, 128, True, 0)
+NEMO_DECODE = (1, 1, 4096, 32, 8, 128, True, 4095)
+NEMO_CUTS = ["context 128k -> 4096 keys, for time",
+             "one layer's attention of 40, not the model"]
 
 
 def emit(phase, **fields):
@@ -199,31 +240,6 @@ def check(name, got, want, rtol=None, atol=None):
     return err
 
 
-def bound_ms(kernel, bsz, n, d, k=None, payload_bytes=4):
-    """Least time for the work on the card: each input read once, each
-    output written once, over HBM bandwidth; float32 operations counted
-    per (row, column) pair from the algorithm, over the CUDA-core peak.
-    Dense kernels score N^2 pairs per instance, banded ones the
-    N (2K + 1) - K (K + 1) pairs within K ranks."""
-    pairs = bsz * (n * n if k is None else n * (2 * k + 1) - k * (k + 1))
-    bn, bnd = bsz * n * 4, bsz * n * d * payload_bytes
-    work = {   # (flops per pair, bytes moved)
-        "fwd_fused": (2 * d + 6, 2 * bn + bnd + 4 + bnd + 2 * bn),
-        "colsum": (6, 4 * bn + 4 + bn),
-        "bwd_dws_delta": (2 * d + 14, 4 * bn + 3 * bnd + bn + 4 + 2 * bn),
-        "bwd_dx": (4 * d + 13, 5 * bn + 2 * bnd + bn + 4 + bnd + 2 * bn),
-        "fwd_band": (2 * d + 6, bn + bnd + 4 + bnd + 2 * bn),
-        "colsum_band": (6, 3 * bn + 4 + bn),
-        "bwd_band_dws_delta": (2 * d + 14, 4 * bn + 3 * bnd + 4 + 2 * bn),
-        "bwd_band_dcol": (4 * d + 13, 5 * bn + 2 * bnd + 4 + bnd + 2 * bn),
-    }
-    flops_per_pair, nbytes = work[kernel]
-    t_ops = pairs * flops_per_pair / PEAK_F32_FLOPS * 1e3
-    t_bytes = nbytes / PEAK_BYTES * 1e3
-    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
-                                 else "bytes")
-
-
 def kernel_operands(torch, bsz, n, d, cd, seed):
     """Untied keys: a random permutation of 0..N-1 jittered by < 0.4, as
     the anneal's keys start from arange(N)."""
@@ -292,6 +308,8 @@ def time_kernels(torch, stats, names, calls, shape):
     """ms (kernel), plain_ms (twin) and bound_ms of each kernel at
     ``shape`` into ``stats``; library_ms is None unless the caller sets
     it."""
+    from repro_torch.kernels.bounds import bound_ms
+
     for name, (kern, plain) in zip(names, calls):
         stats[name]["ms"] = time_ms(torch, kern)
         stats[name]["plain_ms"] = time_ms(torch, plain, reps=5)
@@ -577,6 +595,205 @@ def sog_run(torch, core, K):
     return counts
 
 
+def v1_pipeline(K, ws, w, x, tau):
+    """The v1 split forward's two kernels in order; returns m, l, y."""
+    m, l = K.v1_stats(ws, w, tau)
+    return m, l, K.v1_apply(ws, w, x, tau, m, l)
+
+
+def v1_kernel_phase(torch, K):
+    """Phase 9: v1_stats and v1_apply against their twins at SHAPES,
+    float32; times at the main shape."""
+    stats = {}
+    for bsz, n, d in SHAPES:
+        ws, w, x, tau, _, _ = kernel_operands(torch, bsz, n, d,
+                                              torch.float32, seed=n + d + 1)
+        outs = v1_pipeline(K, ws, w, x, tau)
+        m, l, y = outs
+        m0, l0 = K.v1_stats_plain(ws, w, tau)
+        y0 = K.v1_apply_plain(ws, w, x, tau, m, l)
+        torch.cuda.synchronize()
+        require_batch_invariant(torch, lambda *a: v1_pipeline(K, *a),
+                                (ws, w, x, tau), outs)
+        errs = {"v1_stats": max(check("m", m, m0, atol=FWD_ATOL),
+                                check("l", l, l0, rtol=FWD_ATOL)),
+                "v1_apply": check("y", y, y0, atol=FWD_ATOL)}
+        emit("v1_kernel_check", shape=[bsz, n, d], dtype="torch.float32",
+             max_abs_err=errs, batch_invariant=True)
+        if (bsz, n, d) != MAIN_SHAPE:
+            continue
+        stats = {k: {"max_abs_err": v} for k, v in errs.items()}
+        time_kernels(torch, stats, V1, [
+            (lambda: K.v1_stats(ws, w, tau),
+             lambda: K.v1_stats_plain(ws, w, tau)),
+            (lambda: K.v1_apply(ws, w, x, tau, m, l),
+             lambda: K.v1_apply_plain(ws, w, x, tau, m, l)),
+        ], (bsz, n, d))
+        inv_tau = 1.0 / tau
+
+        def library_fwd():   # yardstick only: the port never calls it
+            s = -(ws[:, :, None] - w[:, None, :]).abs() * inv_tau
+            return torch.softmax(s, dim=-1) @ x
+
+        stats["v1_apply"]["library_ms"] = time_ms(torch, library_fwd,
+                                                  reps=5)
+        emit("v1_kernel_times", shape=[bsz, n, d], dtype="torch.float32",
+             times=stats)
+    return stats
+
+
+def kernel_bench_phase(torch, kernels):
+    """Phase 10: the kernel bench's full sweep with its parity gate, in
+    this process.  Returns the launch counts of the sweep."""
+    from repro_torch.bench import kernel_bench
+
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    doc = kernel_bench.main(["--check"])     # SystemExit if the gate fails
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    for cell in doc["cells"]:
+        emit("kernel_bench", **{k: cell[k] for k in (
+            "N", "d", "B", "K", "dtype", "wall_clock", "fwd_s", "fwdgrad_s",
+            "bound_ms")}, worst_parity=max(cell["parity"].values()),
+             band_vs_oracle=max(v for k, v in cell["band"].items()
+                                if k.startswith("vs_oracle")))
+    require(doc["wall_clock"] == "measured", "kernel bench not on the card")
+    moved = ("v1_stats", "v1_apply", "colsum")
+    require(all(counts[k] > 0 for k in moved),
+            f"kernel bench launch counts {counts}: {moved} must move")
+    emit("kernel_bench_summary", seconds=seconds, cells=len(doc["cells"]),
+         gate="passed", launches=counts)
+    return counts
+
+
+def flash_operands(torch, b, tq, s, h, hkv, dh, seed):
+    """q (B, Tq, H, Dh), k and v (B, S, Hkv, Dh), float32 normal."""
+    g = torch.Generator().manual_seed(seed)
+    q = torch.randn(b, tq, h, dh, generator=g)
+    k = torch.randn(b, s, hkv, dh, generator=g)
+    v = torch.randn(b, s, hkv, dh, generator=g)
+    return tuple(t.to("cuda") for t in (q, k, v))
+
+
+def sdpa_ms(torch, q, k, v, causal):
+    """The yardstick: one scaled_dot_product_attention call on the same
+    inputs, float32 (TF32 off).  The port never calls it.  SDPA's causal
+    mask is aligned to the first key, which is the NeMo prefill's
+    (q_offset 0); the decode row sees every key, which is no mask."""
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    return time_ms(torch, lambda: torch.nn.functional.
+                   scaled_dot_product_attention(qt, kt, vt,
+                                                is_causal=causal,
+                                                enable_gqa=True), reps=5)
+
+
+def flash_kernel_phase(torch, F, fops):
+    """Phase 11: both flash kernels against their twins at FLASH_SHAPES
+    and the NeMo shapes; the Function against the oracle; times at the
+    NeMo shapes.  Returns the stats at the NeMo prefill shape."""
+    from repro_torch.kernels.bounds import flash_bound_ms
+
+    timed = {}
+    for shape in FLASH_SHAPES + [NEMO_PREFILL, NEMO_DECODE]:
+        b, tq, s, h, hkv, dh, causal, off = shape
+        q, k, v = flash_operands(torch, b, tq, s, h, hkv, dh, seed=tq + s)
+        qf, kf, vf = (fops.fold_heads(t) for t in (q, k, v))
+        m, l = F.flash_stats(qf, kf, causal, off)
+        o = F.flash_apply(qf, kf, vf, m, l, causal, off)
+        m0, l0 = F.flash_stats_plain(qf, kf, causal, off)
+        o0 = F.flash_apply_plain(qf, kf, vf, m, l, causal, off)
+        torch.cuda.synchronize()
+        errs = {"flash_stats": max(check("m", m, m0, atol=FWD_ATOL),
+                                   check("l", l, l0, rtol=FWD_ATOL)),
+                "flash_apply": check("o", o, o0, atol=FWD_ATOL)}
+        emit("flash_check", shape=list(shape), max_abs_err=errs)
+        if shape not in (NEMO_PREFILL, NEMO_DECODE):
+            continue
+        stats = {k_: {"max_abs_err": v_} for k_, v_ in errs.items()}
+        calls = {
+            "flash_stats": (lambda: F.flash_stats(qf, kf, causal, off),
+                            lambda: F.flash_stats_plain(qf, kf, causal,
+                                                        off)),
+            "flash_apply": (lambda: F.flash_apply(qf, kf, vf, m, l, causal,
+                                                  off),
+                            lambda: F.flash_apply_plain(qf, kf, vf, m, l,
+                                                        causal, off)),
+        }
+        for name, (kern, plain) in calls.items():
+            st = stats[name]
+            st["ms"] = time_ms(torch, kern)
+            st["plain_ms"] = time_ms(torch, plain, reps=5)
+            st["bound_ms"], st["bound_by"] = flash_bound_ms(
+                name, b * h, b * hkv, tq, s, dh, causal, off)
+            st["library_ms"] = None
+            st["shape"] = list(shape)
+        stats["flash_apply"]["library_ms"] = sdpa_ms(torch, q, k, v,
+                                                     causal and tq > 1)
+        emit("flash_times", shape=list(shape), dtype="torch.float32",
+             cuts=NEMO_CUTS, times=stats)
+        timed[shape] = stats
+
+    # The Function: values and dq, dk, dv against the oracle's autograd.
+    q, k, v = flash_operands(torch, 2, 64, 64, 4, 2, 32, seed=9)
+    dout = torch.randn(q.shape, generator=torch.Generator().manual_seed(10)
+                       ).to("cuda")
+    results = []
+    for fn in (lambda *a: fops.flash_attention(*a, True, 0, 16),
+               lambda *a: fops.flash_attention_ref(*a, causal=True)):
+        args = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        o = fn(*args)
+        results.append((o, *torch.autograd.grad(o, args, dout)))
+    torch.cuda.synchronize()
+    (o, dq, dk, dv), (o_r, dq_r, dk_r, dv_r) = results
+    emit("flash_function_check", shape=[2, 64, 64, 4, 2, 32, True, 0],
+         max_abs_err={"o": check("o", o, o_r, atol=FWD_ATOL),
+                      "dq": check("dq", dq, dq_r, rtol=GRAD_RTOL),
+                      "dk": check("dk", dk, dk_r, rtol=GRAD_RTOL),
+                      "dv": check("dv", dv, dv_r, rtol=GRAD_RTOL)})
+    return timed[NEMO_PREFILL]
+
+
+def flash_main_run(torch, kernels, fops):
+    """Phase 12: one Mistral-NeMo-12B attention layer through
+    ``flash_attention``, prefill then one decode step, counts set to 0
+    just before and read just after.  Returns the counts."""
+    b, tq, s, h, hkv, dh, _, _ = NEMO_PREFILL
+    q, k, v = flash_operands(torch, b, tq, s, h, hkv, dh, seed=123)
+    q_dec = q[:, -1:].clone()
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    o_pre = fops.flash_attention(q, k, v, True, 0)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    o_dec = fops.flash_attention(q_dec, k, v, True, NEMO_DECODE[-1])
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    counts = kernels.launch_counts()
+    require_counts(counts, {"flash_stats": 2, "flash_apply": 2})
+    require(o_pre.shape == q.shape and o_dec.shape == q_dec.shape,
+            "flash output shapes")
+    require(bool(torch.isfinite(o_pre).all() and torch.isfinite(o_dec).all()),
+            "non-finite attention output")
+    errs = {"prefill_vs_oracle": check(
+                "prefill", o_pre, fops.flash_attention_ref(q, k, v),
+                atol=FWD_ATOL),
+            "decode_vs_oracle": check(
+                "decode", o_dec, fops.flash_attention_ref(
+                    q_dec, k, v, q_offset=NEMO_DECODE[-1]), atol=FWD_ATOL),
+            "decode_vs_prefill_last_row": check(
+                "decode row", o_dec, o_pre[:, -1:], atol=FWD_ATOL)}
+    emit("flash_main_run", model="mistral-nemo-12b", heads=h, kv_heads=hkv,
+         head_dim=dh, prefill_tokens=tq, decode_q_offset=NEMO_DECODE[-1],
+         dtype="torch.float32", reduced=NEMO_CUTS,
+         prefill_host_ms=(t1 - t0) * 1e3, decode_host_ms=(t2 - t1) * 1e3,
+         max_abs_err=errs, launches={k_: counts[k_] for k_ in FLASH})
+    return counts
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -586,9 +803,10 @@ def main():
     sys.path.insert(0, os.path.join(ROOT, "src"))
     import importlib
 
-    from repro_torch import core
-    from repro_torch.kernels import build, ops, ref
+    from repro_torch import core, kernels
+    from repro_torch.kernels import build, flash_ops, ops, ref
     K = importlib.import_module("repro_torch.kernels.softsort_apply")
+    F = importlib.import_module("repro_torch.kernels.flash_attention")
 
     # Full float32 products in the plain twins and the yardstick.
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -608,13 +826,20 @@ def main():
     stats = kernel_phase(torch, K)
     band_stats = band_kernel_phase(torch, K, core)
     stats.update(band_stats[SOG_SHAPE])
+    stats.update(v1_kernel_phase(torch, K))
+    stats.update(flash_kernel_phase(torch, F, flash_ops))
     function_phase(torch, ops, ref, core)
     launches = catalog_runs(torch, core, K)
     launches.update({k: v for k, v in sog_run(torch, core, K).items()
                      if k in BAND})
+    launches.update({k: v for k, v in kernel_bench_phase(
+        torch, kernels).items() if k in V1})
+    launches.update({k: v for k, v in flash_main_run(
+        torch, kernels, flash_ops).items() if k in FLASH})
 
     print(json.dumps({"kernels": [
-        {"name": k, "route": "cuda", "source": SOURCE,
+        {"name": k, "route": "cuda",
+         "source": FLASH_CU if k in FLASH else SOFTSORT_CU,
          "replaces": REPLACES[k], "launches": launches[k],
          "max_abs_err": v["max_abs_err"], "ms": v["ms"],
          "plain_ms": v["plain_ms"], "bound_ms": v["bound_ms"],

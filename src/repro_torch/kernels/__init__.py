@@ -1,24 +1,44 @@
-# Hand-written CUDA kernels for the SoftSort apply (forward + backward),
-# dense and banded, each beside its plain PyTorch twin.
+# Hand-written CUDA kernels, each beside its plain PyTorch twin: the
+# SoftSort apply (forward + backward, dense and banded, and the v1 split
+# forward of the kernel bench) and the flash-attention forward.
 #
-#   ops.py              — ``softsort_apply`` / ``softsort_apply_banded``:
-#                         the autograd.Functions over the four dense and the
-#                         four banded kernels; save (perm, m, l, y) residuals
-#   softsort_apply.py   — the kernel wrappers (CPU -> plain twin, CUDA ->
-#                         kernel, launch counters) and the twins
+#   ops.py              — ``softsort_apply`` / ``softsort_apply_banded`` /
+#                         ``softsort_apply_v1``: the autograd.Functions over
+#                         the SoftSort-apply kernels
+#   flash_ops.py        — ``flash_attention`` (autograd.Function over the two
+#                         flash kernels) and its oracle
+#                         ``flash_attention_ref``
+#   softsort_apply.py,  — the kernel wrappers (CPU -> plain twin, CUDA ->
+#   flash_attention.py    kernel, launch counters) and the twins
 #   csrc/*.cu           — the CUDA C++ sources, sm_90a
-#   build.py            — nvcc build at first use, ctypes loading
-#   ref.py              — O(N^2) dense oracle
+#   build.py, clib.py   — nvcc build at first use; ctypes launch
+#   bounds.py           — the least time each kernel's work takes on the card
+#   ref.py              — O(N^2) dense SoftSort oracle
 #
 # Importing this package builds nothing: a kernel is compiled at its first
 # launch on a CUDA tensor.
+from repro_torch.kernels import flash_attention as _flash
+from repro_torch.kernels import softsort_apply as _softsort
+from repro_torch.kernels.flash_ops import (  # noqa: F401
+    flash_attention,
+    flash_attention_ref,
+)
 from repro_torch.kernels.ops import (  # noqa: F401
     softsort_apply,
     softsort_apply_banded,
+    softsort_apply_v1,
 )
 from repro_torch.kernels.ref import softsort_apply_ref  # noqa: F401
-from repro_torch.kernels.softsort_apply import (  # noqa: F401
-    KERNELS,
-    launch_counts,
-    reset_launch_counts,
-)
+
+KERNELS = _softsort.KERNELS + _flash.KERNELS
+
+
+def reset_launch_counts() -> None:
+    """Set the launch count of every kernel of the package to 0."""
+    for k in KERNELS:
+        k.launches = 0
+
+
+def launch_counts() -> dict[str, int]:
+    """Kernel name -> launches since the last reset, for every kernel."""
+    return {k.__name__: k.launches for k in KERNELS}

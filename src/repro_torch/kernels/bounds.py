@@ -1,0 +1,105 @@
+"""The least time an H100 could take for each kernel's work.
+
+A bound is the larger of two times: the bytes the function must move
+(each input read once, each output written once) over the card's memory
+rate, and the float32 operations it does over the card's CUDA-core peak
+(the kernels use no tensor cores).  Operations are counted per scored
+pair from the algorithm; pairs are what these inputs need: N^2 per
+SoftSort instance dense, N (2K + 1) - K (K + 1) within K ranks banded,
+and for attention the (query, key) pairs the causal mask leaves.
+
+``chip_smoke.py`` and ``repro_torch.bench.kernel_bench`` both read these
+counts, so a kernel's bound is the same number wherever it is printed.
+"""
+from __future__ import annotations
+
+# H100 SXM peaks (NVIDIA data sheet, 700 W): float32 on the CUDA cores,
+# HBM3.
+PEAK_F32_FLOPS = 67e12
+PEAK_BYTES = 3.35e12
+
+# The kernels one fwd+grad of each kernel tier of the SoftSort apply
+# launches (the v1 backward is plain torch and launches none).
+TIER_KERNELS = {
+    "kernel_v1": ("v1_stats", "v1_apply", "colsum"),
+    "fused": ("fwd_fused", "colsum", "bwd_dws_delta", "bwd_dx"),
+    "banded": ("fwd_band", "colsum_band", "bwd_band_dws_delta",
+               "bwd_band_dcol"),
+}
+
+
+def _roofline(flops: float, nbytes: float) -> tuple[float, str]:
+    t_ops = flops / PEAK_F32_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                 else "bytes")
+
+
+def bound_ms(kernel: str, bsz: int, n: int, d: int, k: int | None = None,
+             payload_bytes: int = 4) -> tuple[float, str]:
+    """(ms, "operations" or "bytes") of a SoftSort-apply kernel at B
+    instances of N keys and a d-wide payload of ``payload_bytes`` per
+    value; ``k`` is the band half-width of the banded kernels."""
+    pairs = bsz * (n * n if k is None else n * (2 * k + 1) - k * (k + 1))
+    bn, bnd = bsz * n * 4, bsz * n * d * payload_bytes
+    work = {   # (flops per pair, bytes moved)
+        "fwd_fused": (2 * d + 6, 2 * bn + bnd + 4 + bnd + 2 * bn),
+        "colsum": (6, 4 * bn + 4 + bn),
+        "bwd_dws_delta": (2 * d + 14, 4 * bn + 3 * bnd + bn + 4 + 2 * bn),
+        "bwd_dx": (4 * d + 13, 5 * bn + 2 * bnd + bn + 4 + bnd + 2 * bn),
+        "fwd_band": (2 * d + 6, bn + bnd + 4 + bnd + 2 * bn),
+        "colsum_band": (6, 3 * bn + 4 + bn),
+        "bwd_band_dws_delta": (2 * d + 14, 4 * bn + 3 * bnd + 4 + 2 * bn),
+        "bwd_band_dcol": (4 * d + 13, 5 * bn + 2 * bnd + 4 + bnd + 2 * bn),
+        # score, max, exp, add; ws, w and tau in, m and l out
+        "v1_stats": (7, 2 * bn + 4 + 2 * bn),
+        # score, exp, divide, 2d of P x; ws, w, m, l, x and tau in, y out
+        "v1_apply": (2 * d + 6, 4 * bn + bnd + 4 + bnd),
+    }
+    flops_per_pair, nbytes = work[kernel]
+    return _roofline(pairs * flops_per_pair, nbytes)
+
+
+def tier_bound_ms(tier: str, bsz: int, n: int, d: int, k: int,
+                  payload_bytes: int = 4) -> float | None:
+    """Sum of the bounds of the kernels one fwd+grad of ``tier`` launches
+    (None for a tier with no kernel).  The banded tier runs the dense
+    kernels when the band covers every pair (K >= N - 1)."""
+    if tier == "banded" and k >= n - 1:
+        tier = "fused"
+    if tier not in TIER_KERNELS:
+        return None
+    band = k if tier == "banded" else None
+    return sum(bound_ms(name, bsz, n, d, band,
+                        4 if name.startswith("v1") else payload_bytes)[0]
+               for name in TIER_KERNELS[tier])
+
+
+def attention_pairs(tq: int, tk: int, causal: bool, q_offset: int) -> int:
+    """Scored (query, key) pairs of one plane: row i scores keys
+    j <= i + q_offset when causal (all tk keys if it has none)."""
+    if not causal:
+        return tq * tk
+    total = 0
+    for i in range(tq):
+        reach = i + q_offset + 1
+        total += tk if reach <= 0 else min(tk, reach)
+    return total
+
+
+def flash_bound_ms(kernel: str, bh: int, bhkv: int, tq: int, tk: int,
+                   dh: int, causal: bool = True, q_offset: int = 0
+                   ) -> tuple[float, str]:
+    """(ms, "operations" or "bytes") of a flash-attention kernel on bh
+    query planes of (tq, dh) float32 over bhkv key/value planes of
+    (tk, dh)."""
+    pairs = bh * attention_pairs(tq, tk, causal, q_offset)
+    bq, bkv, brow = bh * tq * dh * 4, bhkv * tk * dh * 4, bh * tq * 4
+    work = {   # (flops per pair, bytes moved)
+        # q.k, scale, max, exp, add; q and k in, m and l out
+        "flash_stats": (2 * dh + 5, bq + bkv + 2 * brow),
+        # q.k, scale, exp, divide, 2 dh of P v; q, k, v, m, l in, o out
+        "flash_apply": (4 * dh + 4, bq + 2 * bkv + 2 * brow + bq),
+    }
+    flops_per_pair, nbytes = work[kernel]
+    return _roofline(pairs * flops_per_pair, nbytes)

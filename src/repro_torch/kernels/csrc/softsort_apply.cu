@@ -14,6 +14,11 @@
 //   ss_bwd_dws_delta  D_i, dws_i                             (kernel 3)
 //   ss_bwd_dx         dx = P^T dy, dw_cols, dtau_cols        (kernel 4)
 //
+// The v1 split forward (kernels 9a and 9b: ss_v1_stats, ss_v1_apply,
+// float32 only) is the baseline the kernel bench holds kernel 1 against:
+// one pass for m and l, one for y = P x that reads them back, then
+// ss_colsum as its third pass.
+//
 // The banded tier (kernels 5-8: ss_fwd_band, ss_colsum_band,
 // ss_bwd_band_dws_delta, ss_bwd_band_dcol) runs the same four sweeps with
 // both axes the sorted keys ws and the payload in rank order, over the
@@ -28,7 +33,8 @@
 // _fwd_fused_kernel (:150), _colsum_kernel (:182), _bwd_dws_delta_kernel
 // (:280), _bwd_dx_kernel (:324), and their banded forms _fwd_band_kernel
 // (:517), _colsum_band_kernel (:567), _bwd_band_dws_delta_kernel (:657)
-// and _bwd_band_dcol_kernel (:706).  On the TPU each carried its running
+// and _bwd_band_dcol_kernel (:706), and the v1 _stats_kernel (:843) and
+// _apply_kernel (:862).  On the TPU each carried its running
 // sums across a sequential grid axis; here a thread block owns a tile of
 // rows (kernels 1, 3, 5, 7) or of columns (kernels 2, 4, 6, 8) of one
 // instance and loops over the other axis itself, so blocks need nothing
@@ -550,6 +556,119 @@ bwd_dx_kernel(const float* __restrict__ ws, const float* __restrict__ w,
   }
 }
 
+// ---------------------------------------------------------------------------
+// Kernels 9a and 9b: the v1 split forward, float32 only, as the TPU
+// kernels are.  Separate kernels with their own symbols, not a flag on
+// kernel 1: their design is what the kernel bench measures the fused tier
+// against, the scores computed in each of three passes (9a, 9b and
+// colsum_kernel<float, false>) and m, l written to device memory by 9a and
+// read back by 9b and colsum.
+//   v1_stats  m_i = max_j s_ij, l_i = sum_j exp(s_ij - m_i)
+//   v1_apply  y_i = sum_j exp(s_ij - m_i) / max(l_i, 1e-30) x_j
+// What bounds them on the card: operations.  v1_stats does a score, a
+// max, an expf and an add per pair against O(N) bytes of keys; v1_apply
+// does kernel 1's 2d FMA flops per pair with no rescaling (m and l are
+// final), against O(N d) bytes.  Same tiles and thread layout as kernel 1:
+// thread t owns row t/4 and columns t%4 + 4k; every payload-tile block of
+// v1_apply recomputes its scores.
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(NT)
+v1_stats_kernel(const float* __restrict__ ws, const float* __restrict__ w,
+                const float* __restrict__ tau, float* __restrict__ m_out,
+                float* __restrict__ l_out, int n) {
+  __shared__ float w_s[TC];
+
+  const int b = blockIdx.y, r0 = blockIdx.x * TR;
+  const int tid = threadIdx.x, r = tid / 4, q = tid % 4, i = r0 + r;
+  ws += (size_t)b * n;
+  w += (size_t)b * n;
+  const float inv_tau = 1.0f / tau[0];
+  const float wr = i < n ? ws[i] : 0.f;
+
+  // The four lanes of a row hold the same m and l (quad reductions).
+  float m = NEG_INF, l = 0.f;
+  for (int j0 = 0; j0 < n; j0 += TC) {
+    __syncthreads();
+    if (tid < TC) w_s[tid] = j0 + tid < n ? w[j0 + tid] : 0.f;
+    __syncthreads();
+    float s[16], mx = NEG_INF;
+#pragma unroll
+    for (int k = 0; k < 16; ++k) {
+      const int j = q + 4 * k;
+      s[k] = pair_ok<false>(i, j0 + j, n, 0)
+                 ? score<float>(wr, w_s[j], inv_tau) : NEG_INF;
+      mx = fmaxf(mx, s[k]);
+    }
+    const float m_new = fmaxf(m, quad_max(mx));
+    float sum = 0.f;
+#pragma unroll
+    for (int k = 0; k < 16; ++k)
+      sum += pair_ok<false>(i, j0 + q + 4 * k, n, 0) ? expf(s[k] - m_new)
+                                                      : 0.f;
+    l = l * expf(m - m_new) + quad_sum(sum);
+    m = m_new;
+  }
+  if (q == 0 && i < n) {
+    m_out[(size_t)b * n + i] = m;
+    l_out[(size_t)b * n + i] = l;
+  }
+}
+
+__global__ void __launch_bounds__(NT)
+v1_apply_kernel(const float* __restrict__ ws, const float* __restrict__ w,
+                const float* __restrict__ x, const float* __restrict__ tau,
+                const float* __restrict__ m, const float* __restrict__ l,
+                float* __restrict__ y, int n, int d) {
+  __shared__ float w_s[TC];
+  __shared__ float p_s[TR][TC + 1];
+  __shared__ float x_s[TC][DT + 1];
+
+  const int b = blockIdx.z, r0 = blockIdx.x * TR, c0 = blockIdx.y * DT;
+  const int tid = threadIdx.x, r = tid / 4, q = tid % 4, i = r0 + r;
+  ws += (size_t)b * n;
+  w += (size_t)b * n;
+  x += (size_t)b * n * d;
+  const float inv_tau = 1.0f / tau[0];
+  const bool row_ok = i < n;
+  const float wr = row_ok ? ws[i] : 0.f;
+  const float mr = row_ok ? m[(size_t)b * n + i] : 0.f;
+  const float lr = row_ok ? fmaxf(l[(size_t)b * n + i], 1e-30f) : 1.f;
+
+  float acc[16];
+#pragma unroll
+  for (int k = 0; k < 16; ++k) acc[k] = 0.f;
+
+  for (int j0 = 0; j0 < n; j0 += TC) {
+    __syncthreads();
+    if (tid < TC) w_s[tid] = j0 + tid < n ? w[j0 + tid] : 0.f;
+    stage<float, TC>(x_s, x, j0, c0, n, d);
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < 16; ++k) {
+      const int j = q + 4 * k;
+      p_s[r][j] = pair_ok<false>(i, j0 + j, n, 0)
+                      ? expf(score<float>(wr, w_s[j], inv_tau) - mr) / lr
+                      : 0.f;
+    }
+    __syncthreads();
+#pragma unroll 4
+    for (int j = 0; j < TC; ++j) {
+      const float p = p_s[r][j];
+#pragma unroll
+      for (int k = 0; k < 16; ++k) acc[k] = fmaf(p, x_s[j][q + 4 * k], acc[k]);
+    }
+  }
+
+  if (row_ok) {
+    float* yr = y + (size_t)b * n * d + (size_t)i * d;
+#pragma unroll
+    for (int k = 0; k < 16; ++k) {
+      const int c = c0 + q + 4 * k;
+      if (c < d) yr[c] = acc[k];
+    }
+  }
+}
+
 inline int n_dtiles(int d) { return d > 0 ? (d + DT - 1) / DT : 1; }
 
 template <typename T, bool BAND>
@@ -599,6 +718,25 @@ int launch_bwd_dx(const void* ws, const void* w, const void* x,
       (const float*)ws, (const float*)w, (const T*)x, (const float*)tau,
       (const float*)m, (const float*)l, (const T*)dy, (const T*)dc,
       (const float*)D, (T*)dx, (float*)dwc, (float*)dtc, n, d, K);
+  return (int)cudaGetLastError();
+}
+
+int launch_v1_stats(const void* ws, const void* w, const void* tau, void* m,
+                    void* l, int B, int n, void* stream) {
+  dim3 grid((n + TR - 1) / TR, B);
+  v1_stats_kernel<<<grid, NT, 0, (cudaStream_t)stream>>>(
+      (const float*)ws, (const float*)w, (const float*)tau, (float*)m,
+      (float*)l, n);
+  return (int)cudaGetLastError();
+}
+
+int launch_v1_apply(const void* ws, const void* w, const void* x,
+                    const void* tau, const void* m, const void* l, void* y,
+                    int B, int n, int d, void* stream) {
+  dim3 grid((n + TR - 1) / TR, n_dtiles(d), B);
+  v1_apply_kernel<<<grid, NT, 0, (cudaStream_t)stream>>>(
+      (const float*)ws, (const float*)w, (const float*)x, (const float*)tau,
+      (const float*)m, (const float*)l, (float*)y, n, d);
   return (int)cudaGetLastError();
 }
 
@@ -669,6 +807,19 @@ int launch_bwd_dx(const void* ws, const void* w, const void* x,
 
 SS_INSTANTIATE(f32, float)
 SS_INSTANTIATE(bf16, __nv_bfloat16)
+
+// The v1 split forward (kernels 9a, 9b), float32 only; its third pass is
+// ss_colsum_f32.
+SS_EXPORT int ss_v1_stats_f32(const void* ws, const void* w, const void* tau,
+                              void* m, void* l, int B, int n, void* stream) {
+  return launch_v1_stats(ws, w, tau, m, l, B, n, stream);
+}
+
+SS_EXPORT int ss_v1_apply_f32(const void* ws, const void* w, const void* x,
+                              const void* tau, const void* m, const void* l,
+                              void* y, int B, int n, int d, void* stream) {
+  return launch_v1_apply(ws, w, x, tau, m, l, y, B, n, d, stream);
+}
 
 SS_EXPORT const char* ss_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);

@@ -1,0 +1,100 @@
+"""Flash attention on model-layout tensors, and its plain GQA oracle.
+
+Counterpart of ``repro.kernels.flash_ops``.  ``flash_attention(q, k, v)``
+takes q (B, T, H, Dh) and k, v (B, S, Hkv, Dh), folds them into
+(batch·head, T, Dh) planes in float32 and runs the two forward kernels of
+``repro_torch.kernels.flash_attention``; the output comes back in
+``q.dtype``.  The backward is the reference's: for each ``bwd_chunk`` of
+query rows, the gradient of the oracle on that chunk (its query rows at
+``q_offset + start``), with dk and dv summed over the chunks, so its
+memory is O(chunk · S).  CPU tensors run the kernels' plain twins; CUDA
+tensors launch the kernels.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.flash_attention import flash_apply, flash_stats
+
+_F32 = torch.float32
+
+
+def flash_attention_ref(q, k, v, *, causal=True, q_offset=0):
+    """Plain GQA oracle.  q (B, T, H, Dh), k and v (B, S, Hkv, Dh);
+    query head h attends to kv head h // (H / Hkv)."""
+    b, tq, h, dh = q.shape
+    hkv = k.shape[2]
+    rep = h // hkv
+    qg = q.reshape(b, tq, hkv, rep, dh)
+    s = torch.einsum("bqhrd,bkhd->bhrqk", qg.to(_F32),
+                     k.to(_F32)) * (dh ** -0.5)
+    if causal:
+        rows = torch.arange(tq, device=q.device)[:, None] + q_offset
+        cols = torch.arange(k.shape[1], device=q.device)[None, :]
+        s = torch.where(cols <= rows, s, torch.full_like(s, -1e30))
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhrqk,bkhd->bqhrd", p, v.to(_F32))
+    return out.reshape(b, tq, h, dh)
+
+
+def fold_heads(t):
+    """(B, T, heads, Dh) -> contiguous float32 (B·heads, T, Dh)."""
+    b, n, heads, dh = t.shape
+    return t.to(_F32).transpose(1, 2).reshape(b * heads, n, dh).contiguous()
+
+
+class _FlashAttention(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, q_offset, bwd_chunk):
+        b, tq, h, dh = q.shape
+        qf, kf, vf = (fold_heads(t.detach()) for t in (q, k, v))
+        m, l = flash_stats(qf, kf, causal, q_offset)
+        o = flash_apply(qf, kf, vf, m, l, causal, q_offset)
+        ctx.save_for_backward(q, k, v)
+        ctx.args = (causal, q_offset, bwd_chunk)
+        return o.reshape(b, h, tq, dh).transpose(1, 2).to(q.dtype)
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v = ctx.saved_tensors
+        causal, q_offset, chunk = ctx.args
+        dq = torch.empty(q.shape, dtype=_F32, device=q.device)
+        dk = torch.zeros(k.shape, dtype=_F32, device=k.device)
+        dv = torch.zeros(v.shape, dtype=_F32, device=v.device)
+        with torch.enable_grad():
+            kv = (k.detach().requires_grad_(), v.detach().requires_grad_())
+            for start in range(0, q.shape[1], chunk):
+                rows = slice(start, start + chunk)
+                qb = q[:, rows].detach().requires_grad_()
+                o = flash_attention_ref(qb, *kv, causal=causal,
+                                        q_offset=q_offset + start)
+                gq, gk, gv = torch.autograd.grad(o, (qb, *kv),
+                                                 dout[:, rows].to(o.dtype))
+                dq[:, rows] = gq
+                dk += gk
+                dv += gv
+        return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None,
+                None)
+
+
+def flash_attention(q, k, v, causal: bool = True, q_offset: int = 0,
+                    bwd_chunk: int = 128):
+    """Attention of q (B, T, H, Dh) over k, v (B, S, Hkv, Dh), H a
+    multiple of Hkv (GQA), scaled by Dh^-1/2, computed in float32 and
+    returned in q's dtype.  ``causal`` masks key j for query row i unless
+    ``j <= i + q_offset`` (``q_offset``: the position of query row 0, e.g.
+    the cache length when decoding).  ``bwd_chunk``: query rows per
+    backward chunk."""
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError(f"expected q (B, T, H, Dh) and k, v (B, S, Hkv, "
+                         f"Dh), got {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    b, _, h, dh = q.shape
+    if k.shape[0] != b or k.shape[3] != dh or h % k.shape[2]:
+        raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} do not "
+                         "share batch and head_dim with H a multiple of Hkv")
+    if int(bwd_chunk) < 1:
+        raise ValueError(f"bwd_chunk must be >= 1, got {bwd_chunk}")
+    return _FlashAttention.apply(q, k, v, bool(causal), int(q_offset),
+                                 int(bwd_chunk))

@@ -20,6 +20,12 @@ back in rank order and is scattered through ``perm``; the backward sums
 the row and column parts of the key gradient in rank order and scatters
 them, and the payload gradient, through the saved ``perm``.
 
+``softsort_apply_v1(w, x, tau)`` keeps the v1 design, the baseline of
+the kernel bench (``repro_torch.bench.kernel_bench``): a three-pass
+float32 forward (``v1_stats``, ``v1_apply``, ``colsum``) that saves only
+``(w, x, tau)``, and a plain-torch backward that re-sorts and re-forms
+the dense softmax chunk by chunk, with ``(B, chunk, N)`` temporaries.
+
 ``descending`` is a flip of y outside the Function.  ``compute_dtype``
 ("float32" or "bfloat16") is the payload and score precision of the
 kernels; keys, stats, accumulators and every returned gradient stay
@@ -39,6 +45,8 @@ from repro_torch.kernels.softsort_apply import (
     colsum_band,
     fwd_band,
     fwd_fused,
+    v1_apply,
+    v1_stats,
 )
 
 _F32 = torch.float32
@@ -186,3 +194,72 @@ def softsort_apply_banded(w, x, tau, band: int, descending: bool = False,
     if descending:
         y = torch.flip(y, dims=(-2,))
     return y, c
+
+
+class _SoftSortApplyV1(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, w, x, tau, bwd_chunk):
+        w32 = w.detach().to(_F32).contiguous()
+        xf = x.detach().to(_F32).contiguous()
+        perm = torch.argsort(w32, dim=-1, stable=True)
+        ws = torch.gather(w32, -1, perm)
+        m, l = v1_stats(ws, w32, tau)
+        y = v1_apply(ws, w32, xf, tau, m, l)
+        c = colsum(ws, w32, tau, m, l)
+        ctx.save_for_backward(w32, xf, tau)    # v1 keeps no residuals
+        ctx.bwd_chunk = bwd_chunk
+        ctx.dtypes = (w.dtype, x.dtype)
+        return y, c
+
+    @staticmethod
+    def backward(ctx, dy, dc):
+        """The reference's ``_bwd_rule_v1`` in plain torch: re-sort, then
+        for each chunk of sorted rows the dense softmax and its
+        ``(B, chunk, N)`` temporaries p, dP and ds."""
+        w, x, tau = ctx.saved_tensors
+        t = tau.reshape(())
+        dy = dy.to(_F32)
+        dcf = dc.to(_F32)
+        perm = torch.argsort(w, dim=-1, stable=True)
+        ws = torch.gather(w, -1, perm)
+        dw_cols = torch.zeros_like(w)
+        dws = torch.empty_like(w)
+        dx = torch.zeros_like(x)
+        dtau = torch.zeros((), dtype=_F32, device=w.device)
+        for r in range(0, w.shape[-1], ctx.bwd_chunk):
+            rows = slice(r, r + ctx.bwd_chunk)
+            delta = ws[:, rows, None] - w[:, None, :]        # (B, chunk, N)
+            s = -torch.abs(delta) / t
+            p = torch.softmax(s, dim=-1)
+            dp = dy[:, rows] @ x.transpose(1, 2) + dcf[:, None, :]
+            ds = p * (dp - (p * dp).sum(dim=-1, keepdim=True))
+            sgn = torch.sign(delta)
+            dws[:, rows] = (ds * (-sgn)).sum(dim=-1) / t
+            dw_cols += (ds * sgn).sum(dim=1) / t
+            dx += p.transpose(1, 2) @ dy[:, rows]
+            dtau += (ds * (-s)).sum() / t
+        dw = dw_cols.scatter_add(-1, perm, dws)
+        dtau = dtau.reshape(1) if ctx.needs_input_grad[2] else None
+        return dw.to(ctx.dtypes[0]), dx.to(ctx.dtypes[1]), dtau, None
+
+
+def softsort_apply_v1(w, x, tau, bwd_chunk: int = 256):
+    """The v1 kernel tier's ``(P_soft @ x, colsum(P_soft))``, float32: the
+    benchmark baseline, not the engine's path.
+
+    Same arguments and returns as ``softsort_apply`` (no ``descending``
+    or ``compute_dtype``); ``bwd_chunk`` is the rows of P the backward
+    forms at a time.
+    """
+    if int(bwd_chunk) < 1:
+        raise ValueError(f"bwd_chunk must be >= 1, got {bwd_chunk}")
+    batched = w.dim() == 2
+    wb = w if batched else w[None]
+    xb = x if batched else x[None]
+    if xb.dim() != 3 or xb.shape[:2] != wb.shape:
+        raise ValueError(f"shapes w {tuple(w.shape)} and x {tuple(x.shape)} "
+                         "do not match")
+    y, c = _SoftSortApplyV1.apply(wb, xb, _tau_tensor(tau, w.device),
+                                  int(bwd_chunk))
+    return (y, c) if batched else (y[0], c[0])

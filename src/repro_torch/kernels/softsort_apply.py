@@ -39,6 +39,14 @@ are scored; out-of-band entries of P are exactly 0.
                            part ``dws_col`` of the key gradient and the
                            dtau partials, all in rank order.
 
+Two more, the v1 split forward (counterparts of the Pallas
+``_stats_kernel`` and ``_apply_kernel`` of the v1 baseline), float32 only:
+
+* ``v1_stats``  — one sweep per row for the row max ``m`` and the
+                  denominator ``l``, no payload.
+* ``v1_apply``  — ``y_i = sum_j exp(s_ij - m_i) / l_i x_j`` with m and l
+                  read back, no rescaling.  ``colsum`` is the third pass.
+
 Operands are unpadded: ``ws``/``w`` (B, N) float32, ``x`` (B, N, d) in the
 compute dtype (float32 or bfloat16), ``tau`` a one-element float32
 tensor shared by the batch, read by the kernels through its pointer.
@@ -53,15 +61,16 @@ counts its kernel launches in its ``launches`` attribute.
 """
 from __future__ import annotations
 
-import ctypes
-import functools
-
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import clib
 
 NEG_INF = -1e30
 PLAIN_BLOCK = 128      # column / row block of the plain twins
+# The kernels' tile sizes, the constexprs of csrc/softsort_apply.cu: rows
+# and columns of a score tile, payload columns per block, and the row
+# tile of the column sweep (kernels 4 and 8).
+TILES = {"TR": 64, "TC": 64, "DT": 64, "TR4": 32}
 _F32 = torch.float32
 _DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
@@ -117,6 +126,34 @@ def colsum_plain(ws, w, tau, m, l, cd=_F32):
              / torch.clamp_min(l[:, i, None], 1e-30))
         c = c + p.sum(dim=1)
     return c
+
+
+def v1_stats_plain(ws, w, tau):
+    """Twin of kernel 9a: running max and denominator over column
+    blocks.  m and l (B, N) float32."""
+    inv_tau = 1.0 / tau.reshape(())
+    bsz, n = w.shape
+    m = torch.full((bsz, n), NEG_INF, dtype=_F32, device=w.device)
+    l = torch.zeros((bsz, n), dtype=_F32, device=w.device)
+    for j in _blocks(n):
+        s = _score(ws[:, :, None], w[:, None, j], inv_tau, _F32)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        l = l * torch.exp(m - m_new) + torch.exp(s - m_new[..., None]).sum(-1)
+        m = m_new
+    return m, l
+
+
+def v1_apply_plain(ws, w, x, tau, m, l):
+    """Twin of kernel 9b: ``y = P x`` over column blocks, P from the
+    given m and l.  (B, N, d) float32."""
+    inv_tau = 1.0 / tau.reshape(())
+    mc = m[..., None]
+    lc = torch.clamp_min(l, 1e-30)[..., None]
+    y = torch.zeros(x.shape, dtype=_F32, device=x.device)
+    for j in _blocks(w.shape[-1]):
+        s = _score(ws[:, :, None], w[:, None, j], inv_tau, _F32)
+        y = y + (torch.exp(s - mc) / lc) @ x[:, j]
+    return y
 
 
 def bwd_dws_delta_plain(ws, w, x, tau, m, l, dy, y, dc):
@@ -285,30 +322,19 @@ def bwd_band_dcol_plain(ws, xs, tau, m, l, dy, dc, D, band):
 # Wrappers: CPU -> plain twin, CUDA -> hand-written kernel.
 # --------------------------------------------------------------------------
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I = clib.P, clib.I
 _SIGNATURES = {
-    "ss_fwd_fused": [_P] * 7 + [_I] * 3 + [_P],
-    "ss_colsum": [_P] * 6 + [_I] * 2 + [_P],
-    "ss_bwd_dws_delta": [_P] * 11 + [_I] * 3 + [_P],
-    "ss_bwd_dx": [_P] * 12 + [_I] * 3 + [_P],
-    "ss_fwd_band": [_P] * 6 + [_I] * 4 + [_P],
-    "ss_colsum_band": [_P] * 5 + [_I] * 3 + [_P],
-    "ss_bwd_band_dws_delta": [_P] * 10 + [_I] * 4 + [_P],
-    "ss_bwd_band_dcol": [_P] * 11 + [_I] * 4 + [_P],
+    "ss_fwd_fused": [_P] * 7 + [_I] * 3,
+    "ss_colsum": [_P] * 6 + [_I] * 2,
+    "ss_bwd_dws_delta": [_P] * 11 + [_I] * 3,
+    "ss_bwd_dx": [_P] * 12 + [_I] * 3,
+    "ss_fwd_band": [_P] * 6 + [_I] * 4,
+    "ss_colsum_band": [_P] * 5 + [_I] * 3,
+    "ss_bwd_band_dws_delta": [_P] * 10 + [_I] * 4,
+    "ss_bwd_band_dcol": [_P] * 11 + [_I] * 4,
+    "ss_v1_stats": [_P] * 5 + [_I] * 2,
+    "ss_v1_apply": [_P] * 7 + [_I] * 3,
 }
-
-
-def _route(*tensors) -> str:
-    """"cpu" or "cuda" — the one device type all operands share."""
-    kinds = {t.device.type for t in tensors}
-    devices = {t.device for t in tensors}
-    if len(devices) != 1:
-        raise ValueError("operands on different devices: "
-                         f"{sorted(map(str, devices))}")
-    kind = kinds.pop()
-    if kind not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device type {kind!r}")
-    return kind
 
 
 def _check(ws, w, x, tau, *extra_rows):
@@ -355,42 +381,18 @@ def _check_band(band, n) -> int:
     return min(int(band), max(n, 1))
 
 
-@functools.lru_cache(maxsize=None)
-def _c_function(name: str):
-    """``name`` from the kernel library (built at first use), with its
-    ctypes signature declared."""
-    lib = build.load("softsort_apply")
-    fn = getattr(lib, name)
-    if name == "ss_error_string":
-        fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_char_p
-    else:
-        fn.argtypes = _SIGNATURES[name.rsplit("_", 1)[0]]
-        fn.restype = ctypes.c_int
-    return fn
-
-
 def _launch(wrapper, symbol: str, cd, *args) -> None:
-    """Call ``symbol`` for compute dtype ``cd`` on the current stream of
-    the operands' device; raise on a CUDA error, count the launch."""
+    """Launch ``symbol`` for compute dtype ``cd`` (see ``clib.launch``)."""
     if cd not in _DTYPES:
         raise ValueError(f"compute dtype must be float32 or bfloat16, "
                          f"got {cd}")
-    fn = _c_function(f"{symbol}_{_DTYPES[cd]}")
-    dev = next(a.device for a in args if isinstance(a, torch.Tensor))
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(*[a.data_ptr() if isinstance(a, torch.Tensor) else a
-                  for a in args], stream)
-    if rc != 0:
-        msg = _c_function("ss_error_string")(rc).decode()
-        raise RuntimeError(f"{wrapper.__name__}: CUDA launch failed "
-                           f"({rc}: {msg})")
-    wrapper.launches += 1
+    clib.launch(wrapper, "softsort_apply", f"{symbol}_{_DTYPES[cd]}",
+                _SIGNATURES[symbol], *args)
 
 
 def fwd_fused(ws, w, x, tau):
     """Kernel 1.  (y (B, N, d) in x's dtype, m, l (B, N) float32)."""
-    if _route(ws, w, x, tau) == "cpu":
+    if clib.route(ws, w, x, tau) == "cpu":
         return fwd_fused_plain(ws, w, x, tau)
     bsz, n, d = _check(ws, w, x, tau)
     y = torch.empty_like(x)
@@ -405,7 +407,7 @@ def fwd_fused(ws, w, x, tau):
 def colsum(ws, w, tau, m, l, cd=_F32):
     """Kernel 2.  Column sums of P, (B, N) float32; ``cd`` is the compute
     dtype the scores are rounded to."""
-    if _route(ws, w, tau, m, l) == "cpu":
+    if clib.route(ws, w, tau, m, l) == "cpu":
         return colsum_plain(ws, w, tau, m, l, cd)
     bsz, n, _ = _check(ws, w, None, tau, m, l)
     c = torch.empty_like(w)
@@ -416,7 +418,7 @@ def colsum(ws, w, tau, m, l, cd=_F32):
 
 def bwd_dws_delta(ws, w, x, tau, m, l, dy, y, dc):
     """Kernel 3.  (D, dws), (B, N) float32."""
-    if _route(ws, w, x, tau, m, l, dy, y, dc) == "cpu":
+    if clib.route(ws, w, x, tau, m, l, dy, y, dc) == "cpu":
         return bwd_dws_delta_plain(ws, w, x, tau, m, l, dy, y, dc)
     bsz, n, d = _check(ws, w, x, tau, m, l)
     _check_cotangents(x, dc, dy, y)
@@ -431,7 +433,7 @@ def bwd_dws_delta(ws, w, x, tau, m, l, dy, y, dc):
 def bwd_dx(ws, w, x, tau, m, l, dy, dc, D):
     """Kernel 4.  (dx (B, N, d) in x's dtype, dw_cols, dtau_cols (B, N)
     float32)."""
-    if _route(ws, w, x, tau, m, l, dy, dc, D) == "cpu":
+    if clib.route(ws, w, x, tau, m, l, dy, dc, D) == "cpu":
         return bwd_dx_plain(ws, w, x, tau, m, l, dy, dc, D)
     bsz, n, d = _check(ws, w, x, tau, m, l, D)
     _check_cotangents(x, dc, dy)
@@ -446,7 +448,7 @@ def bwd_dx(ws, w, x, tau, m, l, dy, dc, D):
 
 def fwd_band(ws, xs, tau, band):
     """Kernel 5.  (y (B, N, d) in xs's dtype, m, l (B, N) float32)."""
-    if _route(ws, xs, tau) == "cpu":
+    if clib.route(ws, xs, tau) == "cpu":
         return fwd_band_plain(ws, xs, tau, band)
     bsz, n, d = _check(ws, ws, xs, tau)
     k = _check_band(band, n)
@@ -461,7 +463,7 @@ def fwd_band(ws, xs, tau, band):
 
 def colsum_band(ws, tau, m, l, band, cd=_F32):
     """Kernel 6.  Column sums of the band, (B, N) float32, rank order."""
-    if _route(ws, tau, m, l) == "cpu":
+    if clib.route(ws, tau, m, l) == "cpu":
         return colsum_band_plain(ws, tau, m, l, band, cd)
     bsz, n, _ = _check(ws, ws, None, tau, m, l)
     k = _check_band(band, n)
@@ -474,7 +476,7 @@ def colsum_band(ws, tau, m, l, band, cd=_F32):
 
 def bwd_band_dws_delta(ws, xs, tau, m, l, dy, y, dc, band):
     """Kernel 7.  (D, dws_row), (B, N) float32, rank order."""
-    if _route(ws, xs, tau, m, l, dy, y, dc) == "cpu":
+    if clib.route(ws, xs, tau, m, l, dy, y, dc) == "cpu":
         return bwd_band_dws_delta_plain(ws, xs, tau, m, l, dy, y, dc, band)
     bsz, n, d = _check(ws, ws, xs, tau, m, l)
     k = _check_band(band, n)
@@ -490,7 +492,7 @@ def bwd_band_dws_delta(ws, xs, tau, m, l, dy, y, dc, band):
 def bwd_band_dcol(ws, xs, tau, m, l, dy, dc, D, band):
     """Kernel 8.  (dxs (B, N, d) in xs's dtype, dws_col, dtau_cols (B, N)
     float32), all in rank order."""
-    if _route(ws, xs, tau, m, l, dy, dc, D) == "cpu":
+    if clib.route(ws, xs, tau, m, l, dy, dc, D) == "cpu":
         return bwd_band_dcol_plain(ws, xs, tau, m, l, dy, dc, D, band)
     bsz, n, d = _check(ws, ws, xs, tau, m, l, D)
     k = _check_band(band, n)
@@ -504,9 +506,41 @@ def bwd_band_dcol(ws, xs, tau, m, l, dy, dc, D, band):
     return dxs, dwc, dtc
 
 
+def _check_f32(x):
+    if x.dtype != _F32:
+        raise ValueError(f"the v1 kernels take a float32 payload, got "
+                         f"{x.dtype}")
+
+
+def v1_stats(ws, w, tau):
+    """Kernel 9a.  (m, l), (B, N) float32."""
+    if clib.route(ws, w, tau) == "cpu":
+        return v1_stats_plain(ws, w, tau)
+    bsz, n, _ = _check(ws, w, None, tau)
+    m = torch.empty_like(w)
+    l = torch.empty_like(w)
+    if bsz * n:
+        _launch(v1_stats, "ss_v1_stats", _F32, ws, w, tau, m, l, bsz, n)
+    return m, l
+
+
+def v1_apply(ws, w, x, tau, m, l):
+    """Kernel 9b.  y (B, N, d) float32."""
+    if clib.route(ws, w, x, tau, m, l) == "cpu":
+        return v1_apply_plain(ws, w, x, tau, m, l)
+    bsz, n, d = _check(ws, w, x, tau, m, l)
+    _check_f32(x)
+    y = torch.empty_like(x)
+    if bsz * n:
+        _launch(v1_apply, "ss_v1_apply", _F32, ws, w, x, tau, m, l, y, bsz,
+                n, d)
+    return y
+
+
 DENSE_KERNELS = (fwd_fused, colsum, bwd_dws_delta, bwd_dx)
 BAND_KERNELS = (fwd_band, colsum_band, bwd_band_dws_delta, bwd_band_dcol)
-KERNELS = DENSE_KERNELS + BAND_KERNELS
+V1_KERNELS = (v1_stats, v1_apply)
+KERNELS = DENSE_KERNELS + BAND_KERNELS + V1_KERNELS
 for _k in KERNELS:
     _k.launches = 0
 

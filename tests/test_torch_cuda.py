@@ -1,5 +1,6 @@
 """The CUDA kernels of the port on the card, against their plain PyTorch
-twins and the dense oracle.  Every test here is marked ``cuda`` and skips
+twins and the oracles: the SoftSort apply (dense, banded, v1) and the
+flash-attention forward.  Every test here is marked ``cuda`` and skips
 without a CUDA device; the file imports neither JAX nor the reference
 package, so it runs on a machine that has only PyTorch:
 
@@ -154,7 +155,8 @@ def test_cuda_launch_counts_and_no_fallback(cuda):
     assert K.launch_counts() == {"fwd_fused": 1, "colsum": 1,
                                  "bwd_dws_delta": 1, "bwd_dx": 1,
                                  "fwd_band": 0, "colsum_band": 0,
-                                 "bwd_band_dws_delta": 0, "bwd_band_dcol": 0}
+                                 "bwd_band_dws_delta": 0, "bwd_band_dcol": 0,
+                                 "v1_stats": 0, "v1_apply": 0}
 
 
 @pytest.mark.cuda
@@ -285,3 +287,138 @@ def test_cuda_launch_counts_across_the_band_switch(cuda):
     counts = K.launch_counts()
     assert all(counts[k.__name__] == 8 for k in K.DENSE_KERNELS), counts
     assert all(counts[k.__name__] == 16 for k in K.BAND_KERNELS), counts
+
+
+def _v1_operands(bsz, n, d, seed, cuda):
+    w, ws, x, _, _, tau = _operands(bsz, n, d, seed)
+    t = lambda a: torch.tensor(a, device=cuda)  # noqa: E731
+    return t(ws), t(w), t(x), t(tau).reshape(1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bsz,n,d", [(8, 4096, 50), (3, 1000, 3), (1, 17, 1),
+                                     (2, 300, 130)])
+def test_cuda_v1_kernels_match_plain_twins(cuda, bsz, n, d):
+    """v1_stats and v1_apply (float32 only) against their twins; the
+    apply twin takes the kernel's own m and l."""
+    ws, w, x, tt = _v1_operands(bsz, n, d, n + d, cuda)
+    m, l = K.v1_stats(ws, w, tt)
+    m0, l0 = K.v1_stats_plain(ws, w, tt)
+    _close(m.cpu(), m0.cpu(), FWD_ATOL)
+    np.testing.assert_allclose(l.cpu(), l0.cpu(), rtol=FWD_ATOL)
+    y = K.v1_apply(ws, w, x, tt, m, l)
+    np.testing.assert_allclose(y.cpu(), K.v1_apply_plain(ws, w, x, tt, m,
+                                                         l).cpu(),
+                               atol=FWD_ATOL)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_cuda_v1_kernels_batch_invariant(cuda):
+    """v1: an instance run alone gives bitwise its row of the batch."""
+    ops_ = _v1_operands(4, 700, 70, 5, cuda)
+
+    def run(sl):
+        ws, w, x, tt = [t[sl].contiguous() if t.dim() > 1 else t
+                        for t in ops_]
+        m, l = K.v1_stats(ws, w, tt)
+        return m, l, K.v1_apply(ws, w, x, tt, m, l)
+
+    for b_out, a_out in zip(run(slice(0, 4)), run(slice(2, 3))):
+        assert torch.equal(b_out[2], a_out[0])
+
+
+@pytest.mark.cuda
+def test_cuda_softsort_apply_v1_matches_fused(cuda):
+    """The v1 Function on the card: values and gradients against the
+    fused Function (the same math), and one launch of each v1 kernel and
+    of colsum per forward."""
+    rng = np.random.default_rng(8)
+    keys = np.stack([rng.permutation(1000) for _ in range(3)]) + 0.8 * (
+        rng.random((3, 1000)) - 0.5)
+    w = torch.tensor(keys.astype(np.float32), device=cuda,
+                     requires_grad=True)
+    x = torch.tensor(rng.normal(size=(3, 1000, 3)).astype(np.float32),
+                     device=cuda, requires_grad=True)
+    a = torch.tensor(rng.normal(size=(3, 1000, 3)).astype(np.float32),
+                     device=cuda)
+    grads = []
+    for fn in (tops.softsort_apply_v1, tops.softsort_apply):
+        K.reset_launch_counts()
+        tau = torch.tensor(0.4, device=cuda, requires_grad=True)
+        y, c = fn(w, x, tau)
+        loss = (y * a).sum() + c.square().sum()
+        grads.append((y, c, *torch.autograd.grad(loss, (w, x, tau))))
+        if fn is tops.softsort_apply_v1:
+            counts = K.launch_counts()
+            assert (counts["v1_stats"], counts["v1_apply"],
+                    counts["colsum"], counts["fwd_fused"]) == (1, 1, 1, 0)
+    for g, r in zip(*grads):
+        _close(g.detach().cpu(), r.detach().cpu(), GRAD_RTOL)
+
+
+# (B, Tq, S, H, Hkv, Dh, causal, q_offset): tests/test_flash_attention.py's
+# cases, a negative offset (rows with no key), ragged T and Dh.
+FLASH_SHAPES = [(2, 64, 64, 4, 2, 32, True, 0),
+                (1, 100, 100, 5, 5, 16, True, 0),
+                (2, 1, 128, 8, 2, 64, True, 127),
+                (2, 48, 80, 6, 3, 32, False, 0),
+                (1, 256, 256, 2, 1, 128, True, 0),
+                (1, 70, 90, 4, 1, 100, True, -5),
+                (1, 1, 4096, 32, 8, 128, True, 4095)]
+
+
+def _flash_operands(b, tq, s, h, hkv, dh, seed, cuda):
+    rng = np.random.default_rng(seed)
+    f = lambda *shape: torch.tensor(  # noqa: E731
+        rng.normal(size=shape).astype(np.float32), device=cuda)
+    return f(b, tq, h, dh), f(b, s, hkv, dh), f(b, s, hkv, dh)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", FLASH_SHAPES)
+def test_cuda_flash_kernels_match_plain_twins(cuda, shape):
+    """flash_stats and flash_apply against their twins on folded card
+    tensors; the apply twin takes the kernel's own m and l."""
+    from repro_torch.kernels import flash_ops
+
+    F = importlib.import_module("repro_torch.kernels.flash_attention")
+    b, tq, s, h, hkv, dh, causal, off = shape
+    q, k, v = (flash_ops.fold_heads(t) for t in _flash_operands(
+        b, tq, s, h, hkv, dh, tq + s, cuda))
+    m, l = F.flash_stats(q, k, causal, off)
+    m0, l0 = F.flash_stats_plain(q, k, causal, off)
+    np.testing.assert_allclose(m.cpu(), m0.cpu(), atol=FWD_ATOL)
+    np.testing.assert_allclose(l.cpu(), l0.cpu(), rtol=FWD_ATOL)
+    o = F.flash_apply(q, k, v, m, l, causal, off)
+    o0 = F.flash_apply_plain(q, k, v, m, l, causal, off)
+    np.testing.assert_allclose(o.cpu(), o0.cpu(), atol=FWD_ATOL)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 64, 64, 4, 2, 32, True, 0),
+                                   (1, 70, 90, 4, 1, 100, True, -5),
+                                   (2, 48, 80, 6, 3, 32, False, 0)])
+def test_cuda_flash_attention_matches_oracle(cuda, shape):
+    """The Function on the card: output and dq, dk, dv against the
+    oracle's autograd, and one launch of each kernel per forward."""
+    from repro_torch.kernels import (flash_attention, flash_attention_ref,
+                                     launch_counts, reset_launch_counts)
+
+    b, tq, s, h, hkv, dh, causal, off = shape
+    q, k, v = _flash_operands(b, tq, s, h, hkv, dh, 3, cuda)
+    dout = torch.randn(q.shape, device=cuda)
+    results = []
+    for fn in (lambda *a: flash_attention(*a, causal, off, 16),
+               lambda *a: flash_attention_ref(*a, causal=causal,
+                                              q_offset=off)):
+        reset_launch_counts()
+        args = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        o = fn(*args)
+        results.append((o, *torch.autograd.grad(o, args, dout)))
+        if len(results) == 1:
+            counts = launch_counts()
+            assert (counts["flash_stats"], counts["flash_apply"]) == (1, 1)
+    for g, r in zip(*results):
+        _close(g.detach().cpu(), r.detach().cpu(), GRAD_RTOL)

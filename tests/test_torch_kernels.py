@@ -207,7 +207,8 @@ def test_cpu_route_never_launches_kernels():
     assert K.launch_counts() == {"fwd_fused": 0, "colsum": 0,
                                  "bwd_dws_delta": 0, "bwd_dx": 0,
                                  "fwd_band": 0, "colsum_band": 0,
-                                 "bwd_band_dws_delta": 0, "bwd_band_dcol": 0}
+                                 "bwd_band_dws_delta": 0, "bwd_band_dcol": 0,
+                                 "v1_stats": 0, "v1_apply": 0}
 
 
 def test_wrappers_reject_mixed_and_unknown_devices():
