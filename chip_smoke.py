@@ -54,19 +54,25 @@ start):
     with ``--check``, in this process: one line per cell, the gate must
     pass and the ``v1_stats``, ``v1_apply`` and ``colsum`` counts must
     move.
-11. ``flash_check`` / ``flash_times`` — both flash-attention kernels
-    against their twins at the five shapes of
-    ``tests/test_flash_attention.py`` and at one attention layer of
+11. ``flash_check`` / ``flash_times`` — the one-pass flash-attention
+    kernel ``flash_forward`` (and its split-K merge ``flash_combine``) on
+    the model layout read in place, at ``decode_splits``' split count and
+    at 3 splits, at the shapes of ``tests/test_flash_attention.py``, a
+    negative offset, ragged Dh (100, 30), and one attention layer of
     Mistral-NeMo-12B (32 query heads, 8 kv heads, head_dim 128, float32)
     at prefill (B = 1, T = S = 4096, causal) and decode (T = 1, S = 4096,
-    ``q_offset = 4095``); ``flash_function_check``: ``flash_attention``
+    ``q_offset = 4095``): m and l against the stats twin, o against the
+    apply twin fed the kernel's m and l and against the one-pass twin at
+    the same splits; ``flash_combine`` against its twin on the decode
+    step's own partials; ``flash_function_check``: ``flash_attention``
     against ``flash_attention_ref``, values and dq, dk, dv, at a small GQA
     shape; times at the NeMo shapes with the yardstick
-    ``scaled_dot_product_attention`` (float32, TF32 off).
+    ``scaled_dot_product_attention`` (float32, TF32 off), decode both
+    warm and with the L2 cache flushed before each launch.
 12. ``flash_main_run`` — that NeMo layer's attention through
     ``flash_attention``, prefill then one decode step, against the oracle,
-    the decode row against the prefill's last row, and 2 launches of each
-    flash kernel.
+    the decode row against the prefill's last row; 2 launches of
+    ``flash_forward`` and 1 of ``flash_combine`` (the decode step's).
 
 Phases 9 and 11 run right after phase 3, so that a faulty kernel stops
 the script before the long runs; 10 and 12 run after phase 8.
@@ -100,13 +106,15 @@ REPLACES = {
     "bwd_band_dcol": "src/repro/kernels/softsort_apply.py:706",
     "v1_stats": "src/repro/kernels/softsort_apply.py:843",
     "v1_apply": "src/repro/kernels/softsort_apply.py:862",
-    "flash_stats": "src/repro/kernels/flash_attention.py:42",
-    "flash_apply": "src/repro/kernels/flash_attention.py:62",
+    "flash_forward": "src/repro/kernels/flash_attention.py:42, "
+                     "src/repro/kernels/flash_attention.py:62",
+    "flash_combine": "src/repro/kernels/flash_attention.py:42, "
+                     "src/repro/kernels/flash_attention.py:62",
 }
 DENSE = ("fwd_fused", "colsum", "bwd_dws_delta", "bwd_dx")
 BAND = ("fwd_band", "colsum_band", "bwd_band_dws_delta", "bwd_band_dcol")
 V1 = ("v1_stats", "v1_apply")
-FLASH = ("flash_stats", "flash_apply")
+FLASH = ("flash_forward", "flash_combine")
 FWD_ATOL, GRAD_RTOL, BF16_RTOL = 2e-5, 1e-4, 2e-2
 SHAPES = [(8, 4096, 50), (3, 1000, 3), (1, 17, 1)]
 MAIN_SHAPE = SHAPES[0]
@@ -116,13 +124,16 @@ BAND_TIMED = BAND_SHAPES[:2]
 SOG_SHAPE = BAND_SHAPES[1]       # the shape of the slice's main path
 TAU = 0.5
 # (B, Tq, S, H, Hkv, Dh, causal, q_offset): the cases of
-# tests/test_flash_attention.py, then one Mistral-NeMo-12B attention layer
-# (src/repro/configs/mistral_nemo_12b.py) at prefill and at decode.
+# tests/test_flash_attention.py, a negative offset and ragged Dh, then one
+# Mistral-NeMo-12B attention layer (src/repro/configs/mistral_nemo_12b.py)
+# at prefill and at decode.
 FLASH_SHAPES = [(2, 64, 64, 4, 2, 32, True, 0),
                 (1, 100, 100, 5, 5, 16, True, 0),
                 (2, 1, 128, 8, 2, 64, True, 127),
                 (2, 48, 80, 6, 3, 32, False, 0),
-                (1, 256, 256, 2, 1, 128, True, 0)]
+                (1, 256, 256, 2, 1, 128, True, 0),
+                (1, 70, 90, 4, 1, 100, True, -5),
+                (1, 50, 300, 6, 2, 30, True, 3)]
 NEMO_PREFILL = (1, 4096, 4096, 32, 8, 128, True, 0)
 NEMO_DECODE = (1, 1, 4096, 32, 8, 128, True, 4095)
 NEMO_CUTS = ["context 128k -> 4096 keys, for time",
@@ -205,12 +216,16 @@ def nvidia_smi_line():
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(torch, fn, reps=15, warmup=3):
-    """Median milliseconds of ``fn()`` on the card, by CUDA events."""
+def time_ms(torch, fn, reps=15, warmup=3, flush=None):
+    """Median milliseconds of ``fn()`` on the card, by CUDA events.
+    ``flush``, when given, runs before each launch, outside the timed
+    span."""
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(reps):
+        if flush is not None:
+            flush()
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -219,6 +234,23 @@ def time_ms(torch, fn, reps=15, warmup=3):
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def graph_ms(torch, fn, reps=15, flush=None):
+    """Median milliseconds of one replay of a CUDA graph of ``fn()``: the
+    device time of its launches, without the host's Python and dispatch
+    time between them (which an eager call of a ~10 us kernel is mostly
+    made of).  ``flush`` as in ``time_ms``."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return time_ms(torch, graph.replay, reps, flush=flush)
 
 
 def max_err(got, want):
@@ -678,63 +710,131 @@ def flash_operands(torch, b, tq, s, h, hkv, dh, seed):
     return tuple(t.to("cuda") for t in (q, k, v))
 
 
-def sdpa_ms(torch, q, k, v, causal):
+def sdpa(torch, q, k, v, causal):
     """The yardstick: one scaled_dot_product_attention call on the same
-    inputs, float32 (TF32 off).  The port never calls it.  SDPA's causal
-    mask is aligned to the first key, which is the NeMo prefill's
-    (q_offset 0); the decode row sees every key, which is no mask."""
+    inputs, float32 (TF32 off), as a function to time.  The port never
+    calls it.  SDPA's causal mask is aligned to the first key, which is
+    the NeMo prefill's (q_offset 0); the decode row sees every key, which
+    is no mask."""
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    return time_ms(torch, lambda: torch.nn.functional.
-                   scaled_dot_product_attention(qt, kt, vt,
-                                                is_causal=causal,
-                                                enable_gqa=True), reps=5)
+    return lambda: torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=causal, enable_gqa=True)
+
+
+def l2_flush(torch):
+    """A function that writes 128 MB, more than the card's 50 MB L2, so
+    that the next launch finds K and V in device memory only."""
+    buf = torch.empty(32 * 2 ** 20, dtype=torch.float32, device="cuda")
+    return lambda: buf.fill_(1.0)
+
+
+def flash_errors(F, views, folded, causal, off, splits, s):
+    """flash_forward at ``splits`` on the in-place views against the twins
+    on the folded planes; max errors keyed by check, and the split count
+    run."""
+    qf, kf, vf = folded
+    o, m, l = F.flash_forward(*views, causal, off, splits)
+    o, m, l = o.reshape(qf.shape), m.reshape(qf.shape[:2]), l.reshape(
+        qf.shape[:2])
+    n = F.split_plan(s, splits)[0]
+    m0, l0 = F.flash_stats_plain(qf, kf, causal, off)
+    o0 = F.flash_apply_plain(qf, kf, vf, m, l, causal, off)
+    o1, m1, l1 = F.flash_forward_plain(qf, kf, vf, causal, off, n)
+    return {"m_vs_stats": check("m", m, m0, atol=FWD_ATOL),
+            "l_vs_stats": check("l", l, l0, rtol=FWD_ATOL),
+            "o_vs_apply": check("o", o, o0, atol=FWD_ATOL),
+            "o_vs_forward_twin": check("o", o, o1, atol=FWD_ATOL),
+            "m_vs_forward_twin": check("m", m, m1, atol=FWD_ATOL),
+            "l_vs_forward_twin": check("l", l, l1, rtol=FWD_ATOL)}, n
 
 
 def flash_kernel_phase(torch, F, fops):
-    """Phase 11: both flash kernels against their twins at FLASH_SHAPES
-    and the NeMo shapes; the Function against the oracle; times at the
-    NeMo shapes.  Returns the stats at the NeMo prefill shape."""
+    """Phase 11: flash_forward (and flash_combine) against the twins at
+    FLASH_SHAPES and the NeMo shapes; flash_combine against its twin on
+    the decode step's partials; the Function against the oracle; times at
+    the NeMo shapes, decode warm and cold.  Returns the stats of both
+    kernels: flash_forward at the prefill, flash_combine at decode."""
     from repro_torch.kernels.bounds import flash_bound_ms
 
-    timed = {}
+    stats = {}
+    flush = l2_flush(torch)
     for shape in FLASH_SHAPES + [NEMO_PREFILL, NEMO_DECODE]:
         b, tq, s, h, hkv, dh, causal, off = shape
         q, k, v = flash_operands(torch, b, tq, s, h, hkv, dh, seed=tq + s)
-        qf, kf, vf = (fops.fold_heads(t) for t in (q, k, v))
-        m, l = F.flash_stats(qf, kf, causal, off)
-        o = F.flash_apply(qf, kf, vf, m, l, causal, off)
-        m0, l0 = F.flash_stats_plain(qf, kf, causal, off)
-        o0 = F.flash_apply_plain(qf, kf, vf, m, l, causal, off)
-        torch.cuda.synchronize()
-        errs = {"flash_stats": max(check("m", m, m0, atol=FWD_ATOL),
-                                   check("l", l, l0, rtol=FWD_ATOL)),
-                "flash_apply": check("o", o, o0, atol=FWD_ATOL)}
-        emit("flash_check", shape=list(shape), max_abs_err=errs)
-        if shape not in (NEMO_PREFILL, NEMO_DECODE):
+        views = [fops.heads_major(t) for t in (q, k, v)]
+        folded = [fops.fold_heads(t) for t in (q, k, v)]
+        auto = F.decode_splits(b * hkv, h // hkv * tq, s)
+        nemo = shape in (NEMO_PREFILL, NEMO_DECODE)
+        worst = {}
+        for splits in sorted({auto} if nemo else {auto, 3}):
+            errs, n = flash_errors(F, views, folded, causal, off, splits, s)
+            emit("flash_check", shape=list(shape), splits=n, max_abs_err=errs)
+            worst[n] = max(errs.values())
+        if not nemo:
             continue
-        stats = {k_: {"max_abs_err": v_} for k_, v_ in errs.items()}
-        calls = {
-            "flash_stats": (lambda: F.flash_stats(qf, kf, causal, off),
-                            lambda: F.flash_stats_plain(qf, kf, causal,
-                                                        off)),
-            "flash_apply": (lambda: F.flash_apply(qf, kf, vf, m, l, causal,
-                                                  off),
-                            lambda: F.flash_apply_plain(qf, kf, vf, m, l,
-                                                        causal, off)),
-        }
-        for name, (kern, plain) in calls.items():
-            st = stats[name]
-            st["ms"] = time_ms(torch, kern)
-            st["plain_ms"] = time_ms(torch, plain, reps=5)
-            st["bound_ms"], st["bound_by"] = flash_bound_ms(
-                name, b * h, b * hkv, tq, s, dh, causal, off)
-            st["library_ms"] = None
-            st["shape"] = list(shape)
-        stats["flash_apply"]["library_ms"] = sdpa_ms(torch, q, k, v,
-                                                     causal and tq > 1)
+        n, _ = F.split_plan(s, auto)
+        bh, bhkv = b * h, b * hkv
+        qf, kf, vf = folded
+
+        def fwd():
+            return F.flash_forward_split(*views, causal, off, auto)
+
+        def total():
+            return F.flash_forward(*views, causal, off, auto)
+
+        lib = sdpa(torch, q, k, v, causal and tq > 1)
+        # ms: device time (graph replay); call_ms: an eager call, host
+        # time included, as everywhere else in this script.
+        row = {"max_abs_err": worst[n], "shape": list(shape), "splits": n,
+               "ms": graph_ms(torch, fwd), "call_ms": time_ms(torch, fwd),
+               "plain_ms": time_ms(torch, lambda: F.flash_forward_plain(
+                   qf, kf, vf, causal, off, n), reps=5),
+               "library_ms": graph_ms(torch, lib, reps=5),
+               "library_call_ms": time_ms(torch, lib, reps=5)}
+        row["bound_ms"], row["bound_by"] = flash_bound_ms(
+            "flash_forward", bh, bhkv, tq, s, dh, causal, off)
+        times = {"flash_forward": row}
+        if n > 1:
+            parts = fwd()
+            got = F.flash_combine(*parts)
+            want = F.flash_combine_plain(*parts)
+            torch.cuda.synchronize()
+            err = max(check("combine o", got[0], want[0], atol=FWD_ATOL),
+                      check("combine m", got[1], want[1], atol=FWD_ATOL),
+                      check("combine l", got[2], want[2], rtol=FWD_ATOL))
+            merge = lambda: F.flash_combine(*parts)  # noqa: E731
+            comb = {"max_abs_err": err, "shape": list(shape), "splits": n,
+                    "ms": graph_ms(torch, merge),
+                    "call_ms": time_ms(torch, merge),
+                    "plain_ms": time_ms(torch, lambda: F.flash_combine_plain(
+                        *parts), reps=5),
+                    "library_ms": None}
+            comb["bound_ms"], comb["bound_by"] = flash_bound_ms(
+                "flash_combine", bh, bhkv, tq, s, dh, causal, off, n)
+            times["flash_combine"] = comb
+            # Warm: K and V stay in the 50 MB L2 from launch to launch;
+            # cold: 128 MB written before each launch, as a decode step
+            # after the other layers' work would find them.
+            row["decode"] = {
+                "total_ms_warm": graph_ms(torch, total),
+                "total_ms_cold": graph_ms(torch, total, flush=flush),
+                "forward_ms_cold": graph_ms(torch, fwd, flush=flush),
+                "combine_ms_cold": graph_ms(torch, merge, flush=flush),
+                "sdpa_ms_warm": row["library_ms"],
+                "sdpa_ms_cold": graph_ms(torch, lib, reps=5, flush=flush),
+                "total_call_ms_warm": time_ms(torch, total),
+                "total_call_ms_cold": time_ms(torch, total, flush=flush),
+                "sdpa_call_ms_warm": row["library_call_ms"],
+                "sdpa_call_ms_cold": time_ms(torch, lib, reps=5,
+                                             flush=flush)}
+            del parts
         emit("flash_times", shape=list(shape), dtype="torch.float32",
-             cuts=NEMO_CUTS, times=stats)
-        timed[shape] = stats
+             cuts=NEMO_CUTS, times=times)
+        if shape == NEMO_PREFILL:
+            stats["flash_forward"] = row
+        else:
+            stats["flash_combine"] = times["flash_combine"]
+        del qf, kf, vf, folded, views, q, k, v
 
     # The Function: values and dq, dk, dv against the oracle's autograd.
     q, k, v = flash_operands(torch, 2, 64, 64, 4, 2, 32, seed=9)
@@ -753,16 +853,18 @@ def flash_kernel_phase(torch, F, fops):
                       "dq": check("dq", dq, dq_r, rtol=GRAD_RTOL),
                       "dk": check("dk", dk, dk_r, rtol=GRAD_RTOL),
                       "dv": check("dv", dv, dv_r, rtol=GRAD_RTOL)})
-    return timed[NEMO_PREFILL]
+    return stats
 
 
-def flash_main_run(torch, kernels, fops):
+def flash_main_run(torch, kernels, F, fops):
     """Phase 12: one Mistral-NeMo-12B attention layer through
     ``flash_attention``, prefill then one decode step, counts set to 0
     just before and read just after.  Returns the counts."""
     b, tq, s, h, hkv, dh, _, _ = NEMO_PREFILL
     q, k, v = flash_operands(torch, b, tq, s, h, hkv, dh, seed=123)
     q_dec = q[:, -1:].clone()
+    splits = sum(F.decode_splits(b * hkv, h // hkv * t, s) > 1
+                 for t in (tq, 1))    # the steps whose keys split
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
@@ -773,7 +875,7 @@ def flash_main_run(torch, kernels, fops):
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     counts = kernels.launch_counts()
-    require_counts(counts, {"flash_stats": 2, "flash_apply": 2})
+    require_counts(counts, {"flash_forward": 2, "flash_combine": splits})
     require(o_pre.shape == q.shape and o_dec.shape == q_dec.shape,
             "flash output shapes")
     require(bool(torch.isfinite(o_pre).all() and torch.isfinite(o_dec).all()),
@@ -835,7 +937,7 @@ def main():
     launches.update({k: v for k, v in kernel_bench_phase(
         torch, kernels).items() if k in V1})
     launches.update({k: v for k, v in flash_main_run(
-        torch, kernels, flash_ops).items() if k in FLASH})
+        torch, kernels, F, flash_ops).items() if k in FLASH})
 
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda",

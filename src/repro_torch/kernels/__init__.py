@@ -5,9 +5,9 @@
 #   ops.py              — ``softsort_apply`` / ``softsort_apply_banded`` /
 #                         ``softsort_apply_v1``: the autograd.Functions over
 #                         the SoftSort-apply kernels
-#   flash_ops.py        — ``flash_attention`` (autograd.Function over the two
-#                         flash kernels) and its oracle
-#                         ``flash_attention_ref``
+#   flash_ops.py        — ``flash_attention`` (autograd.Function over the
+#                         one-pass flash kernel and its split-K combine) and
+#                         its oracle ``flash_attention_ref``
 #   softsort_apply.py,  — the kernel wrappers (CPU -> plain twin, CUDA ->
 #   flash_attention.py    kernel, launch counters) and the twins
 #   csrc/*.cu           — the CUDA C++ sources, sm_90a

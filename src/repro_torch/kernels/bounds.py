@@ -88,18 +88,21 @@ def attention_pairs(tq: int, tk: int, causal: bool, q_offset: int) -> int:
 
 
 def flash_bound_ms(kernel: str, bh: int, bhkv: int, tq: int, tk: int,
-                   dh: int, causal: bool = True, q_offset: int = 0
-                   ) -> tuple[float, str]:
+                   dh: int, causal: bool = True, q_offset: int = 0,
+                   splits: int = 1) -> tuple[float, str]:
     """(ms, "operations" or "bytes") of a flash-attention kernel on bh
     query planes of (tq, dh) float32 over bhkv key/value planes of
-    (tk, dh)."""
+    (tk, dh); ``splits`` the key splits whose partials ``flash_combine``
+    merges."""
     pairs = bh * attention_pairs(tq, tk, causal, q_offset)
     bq, bkv, brow = bh * tq * dh * 4, bhkv * tk * dh * 4, bh * tq * 4
-    work = {   # (flops per pair, bytes moved)
-        # q.k, scale, max, exp, add; q and k in, m and l out
-        "flash_stats": (2 * dh + 5, bq + bkv + 2 * brow),
-        # q.k, scale, exp, divide, 2 dh of P v; q, k, v, m, l in, o out
-        "flash_apply": (4 * dh + 4, bq + 2 * bkv + 2 * brow + bq),
+    work = {   # (flops, bytes moved)
+        # q.k, scale, max, exp, add, 2 dh of P v, rescale; q, k, v in,
+        # o, m and l out
+        "flash_forward": (pairs * (4 * dh + 6), bq + 2 * bkv + bq + 2 * brow),
+        # per row and split: max, exp, l and o terms; partials in, o, m, l
+        # out
+        "flash_combine": (splits * bh * tq * (2 * dh + 5),
+                          splits * (bq + 2 * brow) + bq + 2 * brow),
     }
-    flops_per_pair, nbytes = work[kernel]
-    return _roofline(pairs * flops_per_pair, nbytes)
+    return _roofline(*work[kernel])

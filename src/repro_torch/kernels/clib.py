@@ -17,7 +17,7 @@ import torch
 
 from repro_torch.kernels import build
 
-P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+P, I, F, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 
 
 def route(*tensors) -> str:

@@ -1,265 +1,566 @@
 // Flash-attention forward for Hopper (sm_90a), float32, with causal,
-// q_offset and ragged-length masks and grouped-query heads (GQA).
+// q_offset and ragged-length masks and grouped-query heads (GQA): one
+// pass over the keys with an online softmax, plus a split-K combine.
 //
-// Operands are folded and unpadded: q (BH, tq, dh), k and v (BHkv, tk, dh),
-// with BH = B * H query planes and BHkv = B * Hkv key/value planes, both
-// ordered (batch, head).  Query plane p reads key/value plane p / rep,
-// rep = H / Hkv: with p = b H + h that is b Hkv + h / rep, the head's own
-// kv head, read in place, so repeated K and V are never materialised.
+// Operands are read where they lie, through strides: q is (B, H, Tq, Dh)
+// and k, v are (B, Hkv, Tk, Dh), each with any batch, head and row stride
+// and a unit stride along Dh, so the model layout (B, T, heads, Dh) is read
+// as it is, with no copy.  Query head h of batch b reads kv head h / rep,
+// rep = H / Hkv.  With s_ij = (q_i . k_j) * scale, scored where
+// j < tk && (!causal || j <= i + q_offset):
 //
-//   s_ij = (q_i . k_j) * scale, scored where
-//          i < tq && j < tk && (!causal || j <= i + q_offset)
-//   fa_stats  m_i = max_j s_ij, l_i = sum_j exp(s_ij - m_i)      (10a)
-//   fa_apply  o_i = sum_j exp(s_ij - m_i) / max(l_i, 1e-30) v_j  (10b)
+//   fa_fwd      m_i = max_j s_ij, l_i = sum_j exp(s_ij - m_i),
+//               o_i = sum_j exp(s_ij - m_i) / max(l_i, 1e-30) v_j
+//   fa_combine  (o, m, l) from the partials of the key splits of fa_fwd
 //
 // They replace the Pallas TPU kernels of src/repro/kernels/
-// flash_attention.py: _stats_kernel (:42) and _apply_kernel (:62), driven
-// by flash_attention_fwd_pallas (:80).  On the TPU the key axis was a
-// sequential grid axis carrying m and l (or the o block) from one step to
-// the next; here a thread block owns one 64-row query tile of one plane
-// and loops over the key tiles itself, so no block needs another's data
-// and no atomics are used.  The TPU's padding of T to the tile and of dh
-// to 128 lanes is not carried over: ragged rows, keys and dh are masked
-// in-kernel.
+// flash_attention.py: _stats_kernel (:42), which gave m and l, and
+// _apply_kernel (:62), which gave o from them, both driven by
+// flash_attention_fwd_pallas (:80).  The TPU ran them as two passes
+// because its grid is sequential; here one block owns one query-row tile
+// of one kv plane and loops over its key tiles with a running m, l and an
+// o accumulator rescaled by exp(m_old - m_new), so q.k and P.v run once
+// per pair (4 Dh + 6 flops) and m and l never leave the chip mid-way.
+//
+// GQA packing: the rep query heads of kv plane g are one (rep * tq, Dh)
+// block of packed rows; packed row p is query head g * rep + p / tq at
+// position p % tq, and that position sets its causal mask.  A block's
+// rows come from all the heads that share its K and V tiles, so K and V
+// are read once per kv plane, not once per query head.
+//
+// What bounds it on the card, and what the design does about it:
+// - At prefill (tq = tk = 4096, Dh = 128) operations: 512 FMA-flops of
+//   products per causal pair against O(T Dh) bytes.  The products run as
+//   float32 FMAs on the CUDA cores (no tensor cores, no TF32: the port
+//   holds the oracle to 2e-5), fed from shared memory through register
+//   micro-tiles: a thread owns 4 x 4 scores (8 LDS.128 for 64 FMAs) and
+//   a 4 x 8 block of the 64 x Dh output (12 LDS.128 for 128 FMAs).  Rows
+//   are padded by 4 words, so the 16-byte reads of 8 neighbouring keys
+//   fall in 8 different bank groups.  K and V tiles arrive by 16-byte
+//   cp.async into two stages, tile j + 1 loading while tile j computes;
+//   q stays resident.  The key loop of a tile ends at its last row's
+//   diagonal, and the heaviest row tiles launch first, so the triangle's
+//   tail is filled with light tiles.
+// - At decode (tq = 1) bytes: every key and value row is read for a few
+//   query rows.  A 16-row tile holds the rep packed rows, and the keys are
+//   split into ranges, one block each, so that some 2 blocks per SM
+//   stream K and V; fa_combine merges the splits' partial (o, m, l),
+//   weighting each by exp(m_s - m).  A split of one key tile has no next
+//   tile to prefetch, so it keeps one K/V stage (81 KB, two blocks per
+//   SM), and the warps whose 16-row share is all padding skip the
+//   products.
 //
 // Masked pairs score the finite NEG_INF = -1e30 and get P = 0 explicitly,
-// so a tile with no scored pair adds exactly 0.  In the causal case the
-// key loop of a tile ends at its last row's diagonal: the key tiles wholly
-// above it would add 0, and tile 0 always holds a scored column of every
-// real row when q_offset >= 0, so the skip changes no number.  A row with
-// no scored key at all (causal with i + q_offset < 0, only possible for a
-// negative q_offset) is the uniform average over the tk keys, as the
-// oracle's softmax of a row of equal -1e30 scores is; such a tile loops
-// over every key.
-//
-// What bounds them on the card: at prefill (tq = tk = 4096, dh = 128)
-// operations, 2 dh flops of q.k per pair (and 2 dh more of P v in
-// fa_apply) against O(T dh) bytes; at decode (tq = 1) bytes, every key
-// and value row read for one query.  The products run as float32 FMAs on
-// the CUDA cores (no tensor cores, no TF32): q, k and v tiles are staged
-// in shared memory 64 wide along dh (rows padded by one word against bank
-// conflicts), and each thread keeps 16 scores and 16 accumulators in
-// registers.  Block = (64-row query tile, [64-wide dh tile of o,] plane);
-// fa_apply recomputes the scores in each dh tile's block.  Making the
-// products run on wgmma with TMA-fed pipelines is later work.
+// so a tile (or a split) with no scored pair adds exactly 0, and a split
+// carries m = NEG_INF, l = 0, o = 0 into the combine.  A row with no
+// scored key at all (causal with i + q_offset < 0, only for a negative
+// q_offset) scores every key 0: the oracle's mean of the value rows.
 //
 // Each exported function launches on the given stream and returns
-// cudaGetLastError() as an int.  Build:
+// cudaGetLastError() as an int (or the error of setting the kernel's
+// shared-memory limit).  Build:
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
 //        -Xcompiler -fPIC -o libflash_attention.so flash_attention.cu
 // (no --use_fast_math: the parity needs expf, not __expf).
 
 #include <cuda_runtime.h>
 
+#include <climits>
+
 namespace {
 
 constexpr float NEG_INF = -1e30f;
-constexpr int NT = 256;   // threads per block
-constexpr int TR = 64;    // query rows per tile
-constexpr int TC = 64;    // keys per tile
-constexpr int DT = 64;    // dh per staged chunk, and the o tile width
+constexpr int NT = 256;        // threads per block
+constexpr int KT = 64;         // keys per tile
+constexpr int TPR = 16;        // threads sharing a row group
+constexpr int PLD = KT + 16;   // row stride of the P tile, in floats
 constexpr unsigned FULL = 0xffffffffu;
-static_assert(TC == DT, "the P tile reuses the q chunk's buffer");
 
 struct Geom {
-  int tq, tk, dh, causal, q_offset;
+  long long sqb, sqh, sqt;   // q strides: batch, head, row (elements)
+  long long skb, skh, skt;   // k strides
+  long long svb, svh, svt;   // v strides
+  int hq, hkv, rep, tq, tk, dh, causal, q_offset;
+  int bhkv, row_tiles, tiles_per_split, vec16;
   float scale;
 };
 
-// Sum (max) over the 4 adjacent lanes that share a row.
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(FULL, v, 1);
-  v += __shfl_xor_sync(FULL, v, 2);
+// Sum (max) over the 16 lanes of a half-warp, which share a row group.
+__device__ __forceinline__ float group_sum(float v) {
+#pragma unroll
+  for (int o = 1; o < TPR; o <<= 1) v += __shfl_xor_sync(FULL, v, o);
   return v;
 }
 
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(FULL, v, 1));
-  v = fmaxf(v, __shfl_xor_sync(FULL, v, 2));
+__device__ __forceinline__ float group_max(float v) {
+#pragma unroll
+  for (int o = 1; o < TPR; o <<= 1) v = fmaxf(v, __shfl_xor_sync(FULL, v, o));
   return v;
 }
 
-// A row with no scored key: causal and wholly before the first key.
-__device__ __forceinline__ bool empty_row(int i, const Geom& g) {
-  return g.causal && i + g.q_offset < 0;
+// Asynchronous copies global -> shared; a copy with valid == false
+// writes zeros and reads nothing.
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool valid) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(valid ? 16 : 0));
 }
 
-// Whether (row i, key j) is scored; an empty row scores every real key.
-__device__ __forceinline__ bool pair_ok(int i, int j, const Geom& g) {
-  if (i >= g.tq || j >= g.tk) return false;
-  return !g.causal || j <= i + g.q_offset || empty_row(i, g);
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool valid) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(src), "r"(valid ? 4 : 0));
 }
 
-// The end of the key loop of the row tile at r0.
-__device__ __forceinline__ int key_end(int r0, const Geom& g) {
-  if (!g.causal || empty_row(r0, g)) return g.tk;
-  return min(g.tk, min(r0 + TR, g.tq) + g.q_offset);
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
 }
 
-// Stage rows [r0, r0 + 64) x columns [c0, c0 + DT) of a (rows, dh) plane
-// into a tile, zero outside the plane.
-__device__ __forceinline__ void stage(float (*dst)[DT + 1],
-                                      const float* __restrict__ src, int r0,
-                                      int c0, int rows, int dh) {
-  for (int idx = threadIdx.x; idx < 64 * DT; idx += NT) {
-    const int r = idx / DT, c = idx % DT;
-    dst[r][c] = (r0 + r < rows && c0 + c < dh)
-                    ? src[(size_t)(r0 + r) * dh + c0 + c]
-                    : 0.f;
-  }
+template <int N> __device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// The scores of row r against keys j0 + c4 + 4k (k < 16), masked: q.k over
-// dh in DT-wide chunks staged into qs and ks, then scaled.  Starts with a
-// barrier, so the caller may reuse both buffers until its next call.
-__device__ __forceinline__ void tile_scores(
-    float s[16], float (*qs)[DT + 1], float (*ks)[DT + 1],
-    const float* __restrict__ qp, const float* __restrict__ kp, int r0,
-    int j0, int r, int c4, const Geom& g) {
-#pragma unroll
-  for (int k = 0; k < 16; ++k) s[k] = 0.f;
-  for (int c0 = 0; c0 < g.dh; c0 += DT) {
-    __syncthreads();
-    stage(qs, qp, r0, c0, g.tq, g.dh);
-    stage(ks, kp, j0, c0, g.tk, g.dh);
-    __syncthreads();
-    const int dn = min(DT, g.dh - c0);
-    for (int c = 0; c < dn; ++c) {
-      const float qv = qs[r][c];
-#pragma unroll
-      for (int k = 0; k < 16; ++k) s[k] = fmaf(qv, ks[c4 + 4 * k][c], s[k]);
+// Start copying NROWS rows into dst (row stride LD floats), columns
+// [0, dh rounded up to 4); row(i) is the address of row i, or nullptr for
+// a row outside the operand (zero-filled), as are columns >= dh.  `any` is
+// a valid address for the zero-filling copies.  With vec16 (dh, the
+// strides and the base all multiples of 4 floats) the copies are 16 bytes.
+template <int NROWS, int LD, class RowPtr>
+__device__ __forceinline__ void stage(float* dst, RowPtr row, int dh,
+                                      int vec16, const float* any) {
+  const int dh4 = (dh + 3) & ~3;
+  if (vec16) {
+    const int per_row = dh4 / 4;
+    for (int idx = threadIdx.x; idx < NROWS * per_row; idx += NT) {
+      const int r = idx / per_row, c = (idx - r * per_row) * 4;
+      const float* src = row(r);
+      cp_async16(dst + r * LD + c, src ? src + c : any, src != nullptr);
+    }
+  } else {
+    for (int idx = threadIdx.x; idx < NROWS * dh4; idx += NT) {
+      const int r = idx / dh4, c = idx - r * dh4;
+      const float* src = row(r);
+      const bool ok = src != nullptr && c < dh;
+      cp_async4(dst + r * LD + c, ok ? src + c : any, ok);
     }
   }
-  const int i = r0 + r;
-#pragma unroll
-  for (int k = 0; k < 16; ++k) {
-    const int j = j0 + c4 + 4 * k;
-    s[k] = !pair_ok(i, j, g) ? NEG_INF : (empty_row(i, g) ? 0.f
-                                                          : s[k] * g.scale);
+}
+
+template <int ROWS, int DHP, int STAGES>
+constexpr int smem_floats() {
+  return ROWS * (DHP + 4) + 2 * STAGES * KT * (DHP + 4) + ROWS * PLD;
+}
+
+// The row tile of launch rank `rank`, heaviest first: with tiles inside
+// one head (tq a multiple of ROWS) the last positions of every head come
+// first, else the tiles in reverse order.
+template <int ROWS>
+__device__ __forceinline__ int tile_of_rank(int rank, const Geom& g) {
+  if (g.tq % ROWS == 0) {
+    const int per_head = g.tq / ROWS;
+    return (rank % g.rep) * per_head + per_head - 1 - rank / g.rep;
   }
+  return g.row_tiles - 1 - rank;
 }
 
 // ---------------------------------------------------------------------------
-// Kernel 10a: row statistics.  Block = (query tile, plane); thread t owns
-// row t/4 and, in each key tile, keys t%4 + 4k.
+// fa_fwd: block = (row tile x kv plane, key split).  Thread t owns the rows
+// t / 16 + 16 rr (rr < ROWS / 16) of the tile; in a score tile the keys
+// t % 16 + 16 kk (kk < 4), in the output the columns 64 gg + 4 (t % 16) +
+// cc (gg < DHP / 64, cc < 4).  With one split the block writes o, m and l;
+// with several, the split's partial: o unnormalised, m and l, into the
+// (split, row) planes of the same buffers.  STAGES = 2 double-buffers the
+// K and V tiles; a split of one tile takes STAGES = 1, half the shared
+// memory, so that two blocks share an SM.  A warp whose rows are all
+// padding (a decode tile holds rep real rows of 16) stages tiles but
+// skips the products.
 // ---------------------------------------------------------------------------
+template <int ROWS, int DHP, int STAGES>
 __global__ void __launch_bounds__(NT)
-fa_stats_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                float* __restrict__ m_out, float* __restrict__ l_out,
-                int rep, Geom g) {
-  __shared__ float qs[TR][DT + 1];
-  __shared__ float ks[TC][DT + 1];
+fa_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+              const float* __restrict__ v, float* __restrict__ o,
+              float* __restrict__ m_out, float* __restrict__ l_out, Geom g) {
+  constexpr int RPT = ROWS / TPR;   // rows per thread
+  constexpr int NG = DHP / 64;      // 4-column groups per thread in P v
+  constexpr int LD = DHP + 4;       // row stride of q, k and v tiles
+  extern __shared__ float4 smem4[];
+  float* const q_s = reinterpret_cast<float*>(smem4);
+  float* const k_s = q_s + ROWS * LD;
+  float* const v_s = k_s + STAGES * KT * LD;
+  float* const p_s = v_s + STAGES * KT * LD;
 
-  const int plane = blockIdx.y, r0 = blockIdx.x * TR;
-  const int r = threadIdx.x / 4, c4 = threadIdx.x % 4, i = r0 + r;
-  const float* qp = q + (size_t)plane * g.tq * g.dh;
-  const float* kp = k + (size_t)(plane / rep) * g.tk * g.dh;
+  const int tid = threadIdx.x, tr = tid / TPR, tc = tid % TPR;
+  const int plane = blockIdx.x % g.bhkv;
+  const int p0 = tile_of_rank<ROWS>(blockIdx.x / g.bhkv, g) * ROWS;
+  const int rows = g.rep * g.tq;
 
-  // The four lanes of a row hold the same m and l (quad reductions).
-  float m = NEG_INF, l = 0.f;
-  const int end = key_end(r0, g);
-  for (int j0 = 0; j0 < end; j0 += TC) {
-    float s[16];
-    tile_scores(s, qs, ks, qp, kp, r0, j0, r, c4, g);
-    float mx = NEG_INF;
+  // The positions the tile's real rows span, and the end of its keys.
+  const int p_end = min(p0 + ROWS, rows);
+  const int h_first = p0 / g.tq, h_last = (p_end - 1) / g.tq;
+  const int pos_lo = h_first == h_last ? p0 - h_first * g.tq : 0;
+  const int pos_hi = h_first == h_last ? p_end - 1 - h_last * g.tq
+                                       : g.tq - 1;
+  const bool any_empty = g.causal && pos_lo + g.q_offset < 0;
+  const int key_end = (!g.causal || any_empty)
+                          ? g.tk
+                          : min(g.tk, pos_hi + g.q_offset + 1);
+  const int t_lo = blockIdx.y * g.tiles_per_split;
+  const int t_hi = min(t_lo + g.tiles_per_split, (key_end + KT - 1) / KT);
+  // The lowest row of warp w is 2 w (rr = 0): is any of its rows real?
+  const bool live = p0 + 2 * (tid / 32) < p_end;
+
+  // Per owned row: whether it is real, whether it has no key, its limit.
+  int lim[RPT];
+  bool real[RPT], empty[RPT];
 #pragma unroll
-    for (int kk = 0; kk < 16; ++kk) mx = fmaxf(mx, s[kk]);
-    const float m_new = fmaxf(m, quad_max(mx));
-    float sum = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < 16; ++kk)
-      sum += pair_ok(i, j0 + c4 + 4 * kk, g) ? expf(s[kk] - m_new) : 0.f;
-    l = l * expf(m - m_new) + quad_sum(sum);
-    m = m_new;
+  for (int rr = 0; rr < RPT; ++rr) {
+    const int p = p0 + tr + TPR * rr;
+    const int pos = p % g.tq;
+    real[rr] = p < rows;
+    empty[rr] = g.causal && pos + g.q_offset < 0;
+    lim[rr] = (g.causal && !empty[rr]) ? pos + g.q_offset : INT_MAX;
   }
-  if (c4 == 0 && i < g.tq) {
-    m_out[(size_t)plane * g.tq + i] = m;
-    l_out[(size_t)plane * g.tq + i] = l;
+
+  const int b_kv = plane / g.hkv, h_kv = plane - b_kv * g.hkv;
+  const float* const kb = k + b_kv * g.skb + h_kv * g.skh;
+  const float* const vb = v + b_kv * g.svb + h_kv * g.svh;
+  auto stage_kv = [&](int tile, int st) {
+    const int j0 = tile * KT;
+    stage<KT, LD>(k_s + st * KT * LD, [&](int i) {
+      const int j = j0 + i;
+      return j < g.tk ? kb + j * g.skt : (const float*)nullptr;
+    }, g.dh, g.vec16, k);
+    stage<KT, LD>(v_s + st * KT * LD, [&](int i) {
+      const int j = j0 + i;
+      return j < g.tk ? vb + j * g.svt : (const float*)nullptr;
+    }, g.dh, g.vec16, v);
+  };
+
+  float acc[RPT][NG * 4], m_r[RPT], l_r[RPT];
+#pragma unroll
+  for (int rr = 0; rr < RPT; ++rr) {
+    m_r[rr] = NEG_INF;
+    l_r[rr] = 0.f;
+#pragma unroll
+    for (int n = 0; n < NG * 4; ++n) acc[rr][n] = 0.f;
   }
-}
 
-// ---------------------------------------------------------------------------
-// Kernel 10b: o = P v with P from the saved m and l, no rescaling.  Block =
-// (query tile, dh tile of o, plane); thread t owns row t/4, and o columns
-// c0 + t%4 + 4k.  The q chunk's buffer then holds the P tile, the k
-// chunk's the v tile.
-// ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(NT)
-fa_apply_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                const float* __restrict__ v, const float* __restrict__ m,
-                const float* __restrict__ l, float* __restrict__ o, int rep,
-                Geom g) {
-  __shared__ float buf_a[TR][DT + 1];   // q chunk, then P
-  __shared__ float buf_b[TC][DT + 1];   // k chunk, then the v tile
+  if (t_lo < t_hi) {
+    stage<ROWS, LD>(q_s, [&](int i) {
+      const int p = p0 + i;
+      if (p >= rows) return (const float*)nullptr;
+      const int head = p / g.tq, t = p - head * g.tq;
+      const int qp = plane * g.rep + head;
+      const int b = qp / g.hq, h = qp - b * g.hq;
+      return q + b * g.sqb + h * g.sqh + t * g.sqt;
+    }, g.dh, g.vec16, q);
+    stage_kv(t_lo, 0);
+    cp_commit();
+  }
+  const int dh4 = (g.dh + 3) & ~3;
 
-  const int plane = blockIdx.z, r0 = blockIdx.x * TR, c0 = blockIdx.y * DT;
-  const int r = threadIdx.x / 4, c4 = threadIdx.x % 4, i = r0 + r;
-  const float* qp = q + (size_t)plane * g.tq * g.dh;
-  const float* kp = k + (size_t)(plane / rep) * g.tk * g.dh;
-  const float* vp = v + (size_t)(plane / rep) * g.tk * g.dh;
-  const bool row_ok = i < g.tq;
-  const float mr = row_ok ? m[(size_t)plane * g.tq + i] : 0.f;
-  const float lr = row_ok ? fmaxf(l[(size_t)plane * g.tq + i], 1e-30f) : 1.f;
-
-  float acc[16];
-#pragma unroll
-  for (int kk = 0; kk < 16; ++kk) acc[kk] = 0.f;
-
-  const int end = key_end(r0, g);
-  for (int j0 = 0; j0 < end; j0 += TC) {
-    float s[16];
-    tile_scores(s, buf_a, buf_b, qp, kp, r0, j0, r, c4, g);
-    __syncthreads();   // every thread has read the q and k chunks
-#pragma unroll
-    for (int kk = 0; kk < 16; ++kk) {
-      const int j = c4 + 4 * kk;
-      buf_a[r][j] = pair_ok(i, j0 + j, g) ? expf(s[kk] - mr) / lr : 0.f;
+  for (int tile = t_lo; tile < t_hi; ++tile) {
+    const int st = STAGES == 2 ? (tile - t_lo) & 1 : 0;
+    if (STAGES == 2 && tile + 1 < t_hi) {
+      stage_kv(tile + 1, st ^ 1);
+      cp_commit();
+      cp_wait<1>();
+    } else {
+      if (STAGES == 1 && tile > t_lo) {
+        stage_kv(tile, 0);
+        cp_commit();
+      }
+      cp_wait<0>();
     }
-    stage(buf_b, vp, j0, c0, g.tk, g.dh);
     __syncthreads();
+    float corr[RPT];
+    if (live) {
+      // Scores of the owned rows x keys: 4-wide float4 steps along Dh.
+      float s[RPT][4];
+#pragma unroll
+      for (int rr = 0; rr < RPT; ++rr)
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) s[rr][kk] = 0.f;
+      const float* const ks = k_s + st * KT * LD;
 #pragma unroll 4
-    for (int j = 0; j < TC; ++j) {
-      const float p = buf_a[r][j];
+      for (int c = 0; c < dh4; c += 4) {
+        float4 qv[RPT], kv[4];
 #pragma unroll
-      for (int kk = 0; kk < 16; ++kk)
-        acc[kk] = fmaf(p, buf_b[j][c4 + 4 * kk], acc[kk]);
+        for (int rr = 0; rr < RPT; ++rr)
+          qv[rr] = *reinterpret_cast<const float4*>(
+              q_s + (tr + TPR * rr) * LD + c);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          kv[kk] = *reinterpret_cast<const float4*>(
+              ks + (tc + TPR * kk) * LD + c);
+#pragma unroll
+        for (int rr = 0; rr < RPT; ++rr)
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) {
+            float a = s[rr][kk];
+            a = fmaf(qv[rr].x, kv[kk].x, a);
+            a = fmaf(qv[rr].y, kv[kk].y, a);
+            a = fmaf(qv[rr].z, kv[kk].z, a);
+            a = fmaf(qv[rr].w, kv[kk].w, a);
+            s[rr][kk] = a;
+          }
+      }
+
+      // Mask, online max and denominator, and P into shared memory.
+      const int j0 = tile * KT;
+#pragma unroll
+      for (int rr = 0; rr < RPT; ++rr) {
+        bool ok[4];
+        float mx = NEG_INF;
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const int j = j0 + tc + TPR * kk;
+          ok[kk] = real[rr] && j < g.tk && j <= lim[rr];
+          s[rr][kk] = !ok[kk] ? NEG_INF
+                              : (empty[rr] ? 0.f : s[rr][kk] * g.scale);
+          mx = fmaxf(mx, s[rr][kk]);
+        }
+        const float m_new = fmaxf(m_r[rr], group_max(mx));
+        float sum = 0.f;
+        float* const prow = p_s + (tr + TPR * rr) * PLD;
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          // Explicitly 0 when masked: in a row with no scored key yet m_new
+          // is NEG_INF and exp(s - m_new) would be 1.
+          const float p = ok[kk] ? expf(s[rr][kk] - m_new) : 0.f;
+          sum += p;
+          prow[tc + TPR * kk] = p;
+        }
+        corr[rr] = expf(m_r[rr] - m_new);
+        l_r[rr] = l_r[rr] * corr[rr] + group_sum(sum);
+        m_r[rr] = m_new;
+      }
     }
+    __syncthreads();
+
+    // acc = acc * corr + P v over the tile's keys.
+    if (live) {
+#pragma unroll
+      for (int rr = 0; rr < RPT; ++rr)
+#pragma unroll
+        for (int n = 0; n < NG * 4; ++n) acc[rr][n] *= corr[rr];
+      const float* const vs = v_s + st * KT * LD;
+#pragma unroll 2
+      for (int j = 0; j < KT; j += 4) {
+        float pr[RPT][4];
+#pragma unroll
+        for (int rr = 0; rr < RPT; ++rr) {
+          const float4 t4 = *reinterpret_cast<const float4*>(
+              p_s + (tr + TPR * rr) * PLD + j);
+          pr[rr][0] = t4.x;
+          pr[rr][1] = t4.y;
+          pr[rr][2] = t4.z;
+          pr[rr][3] = t4.w;
+        }
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+          for (int gg = 0; gg < NG; ++gg) {
+            const float4 vv = *reinterpret_cast<const float4*>(
+                vs + (j + jj) * LD + 64 * gg + 4 * tc);
+#pragma unroll
+            for (int rr = 0; rr < RPT; ++rr) {
+              const float p = pr[rr][jj];
+              acc[rr][4 * gg] = fmaf(p, vv.x, acc[rr][4 * gg]);
+              acc[rr][4 * gg + 1] = fmaf(p, vv.y, acc[rr][4 * gg + 1]);
+              acc[rr][4 * gg + 2] = fmaf(p, vv.z, acc[rr][4 * gg + 2]);
+              acc[rr][4 * gg + 3] = fmaf(p, vv.w, acc[rr][4 * gg + 3]);
+            }
+          }
+      }
+    }
+    __syncthreads();   // before the next tile's copies and P overwrite
   }
 
-  if (row_ok) {
-    float* orow = o + (size_t)plane * g.tq * g.dh + (size_t)i * g.dh;
+  // Output rows: split s, query plane plane * rep + p / tq, position p % tq
+  // -> row s * (bhkv * rows) + plane * rows + p of (o, m, l).
+  const bool final_out = gridDim.y == 1;
 #pragma unroll
-    for (int kk = 0; kk < 16; ++kk) {
-      const int c = c0 + c4 + 4 * kk;
-      if (c < g.dh) orow[c] = acc[kk];
+  for (int rr = 0; rr < RPT; ++rr) {
+    const int p = p0 + tr + TPR * rr;
+    if (!real[rr]) continue;
+    const long long row = ((long long)blockIdx.y * g.bhkv + plane) * rows + p;
+    const float den = final_out ? fmaxf(l_r[rr], 1e-30f) : 1.f;
+    float* const orow = o + row * g.dh;
+#pragma unroll
+    for (int gg = 0; gg < NG; ++gg)
+#pragma unroll
+      for (int cc = 0; cc < 4; ++cc) {
+        const int c = 64 * gg + 4 * tc + cc;
+        if (c < g.dh) orow[c] = acc[rr][4 * gg + cc] / den;
+      }
+    if (tc == 0) {
+      m_out[row] = m_r[rr];
+      l_out[row] = l_r[rr];
     }
   }
+}
+
+// ---------------------------------------------------------------------------
+// fa_combine: one block per output row merges the splits' partials:
+//   m = max_s m_s, w_s = exp(m_s - m), l = sum_s w_s l_s,
+//   o = sum_s w_s o_s / max(l, 1e-30).
+// The weights of up to CW splits at a time sit in shared memory; thread c
+// sums column c over them with four independent accumulators, the loop
+// unrolled so that 16 loads of the splits' o rows are in flight at once.
+// A split with no scored key of the row (m_s = NEG_INF, l_s = 0, o_s = 0)
+// adds exactly 0.
+// ---------------------------------------------------------------------------
+constexpr int CT = 128;    // threads per combine block
+constexpr int CW = 1024;   // splits whose weights are held at a time
+
+__device__ __forceinline__ float block_reduce(float v, bool is_max,
+                                              float* red) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    const float u = __shfl_xor_sync(FULL, v, o);
+    v = is_max ? fmaxf(v, u) : v + u;
+  }
+  __syncthreads();   // red is free again
+  if (threadIdx.x % 32 == 0) red[threadIdx.x / 32] = v;
+  __syncthreads();
+  v = red[0];
+#pragma unroll
+  for (int w = 1; w < CT / 32; ++w) v = is_max ? fmaxf(v, red[w]) : v + red[w];
+  return v;
+}
+
+__global__ void __launch_bounds__(CT)
+fa_combine_kernel(const float* __restrict__ o_part,
+                  const float* __restrict__ m_part,
+                  const float* __restrict__ l_part, float* __restrict__ o,
+                  float* __restrict__ m_out, float* __restrict__ l_out,
+                  long long nrows, int dh, int splits) {
+  __shared__ float w_s[CW];
+  __shared__ float red[CT / 32];
+  const long long row = blockIdx.x;
+  float m = NEG_INF;
+  for (int s = threadIdx.x; s < splits; s += CT)
+    m = fmaxf(m, m_part[s * nrows + row]);
+  m = block_reduce(m, true, red);
+  float l = 0.f;
+  for (int s = threadIdx.x; s < splits; s += CT)
+    l += l_part[s * nrows + row] * expf(m_part[s * nrows + row] - m);
+  l = block_reduce(l, false, red);
+  const float den = fmaxf(l, 1e-30f);
+
+  for (int c0 = 0; c0 < dh; c0 += CT) {
+    const int c = c0 + threadIdx.x;
+    float a[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int s0 = 0; s0 < splits; s0 += CW) {
+      const int ns = min(CW, splits - s0);
+      __syncthreads();   // the previous weights are read
+      for (int s = threadIdx.x; s < ns; s += CT)
+        w_s[s] = expf(m_part[(s0 + s) * nrows + row] - m);
+      __syncthreads();
+      if (c < dh) {
+        const float* op = o_part + (s0 * nrows + row) * dh + c;
+        const long long step = nrows * dh;
+        int s = 0;
+#pragma unroll 4
+        for (; s + 4 <= ns; s += 4) {
+#pragma unroll
+          for (int u = 0; u < 4; ++u)
+            a[u] = fmaf(op[(s + u) * step], w_s[s + u], a[u]);
+        }
+        for (; s < ns; ++s) a[0] = fmaf(op[s * step], w_s[s], a[0]);
+      }
+    }
+    if (c < dh) o[row * dh + c] = ((a[0] + a[1]) + (a[2] + a[3])) / den;
+  }
+  if (threadIdx.x == 0) {
+    m_out[row] = m;
+    l_out[row] = l;
+  }
+}
+
+template <int ROWS, int DHP, int STAGES>
+int launch_fwd(const float* q, const float* k, const float* v, float* o,
+               float* m, float* l, const Geom& g, int splits,
+               cudaStream_t stream) {
+  constexpr int bytes = smem_floats<ROWS, DHP, STAGES>() * (int)sizeof(float);
+  static bool limit_set = false;
+  if (!limit_set) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        fa_fwd_kernel<ROWS, DHP, STAGES>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (e != cudaSuccess) return (int)e;
+    limit_set = true;
+  }
+  const dim3 grid(g.row_tiles * g.bhkv, splits);
+  fa_fwd_kernel<ROWS, DHP, STAGES><<<grid, NT, bytes, stream>>>(q, k, v, o, m,
+                                                               l, g);
+  return (int)cudaGetLastError();
+}
+
+template <int ROWS, int DHP>
+int launch_fwd_staged(const float* q, const float* k, const float* v,
+                      float* o, float* m, float* l, const Geom& g, int splits,
+                      cudaStream_t stream) {
+  return g.tiles_per_split == 1
+             ? launch_fwd<ROWS, DHP, 1>(q, k, v, o, m, l, g, splits, stream)
+             : launch_fwd<ROWS, DHP, 2>(q, k, v, o, m, l, g, splits, stream);
 }
 
 }  // namespace
 
 #define FA_EXPORT extern "C" __attribute__((visibility("default")))
 
-FA_EXPORT int fa_stats_f32(const void* q, const void* k, void* m, void* l,
-                           int bh, int rep, int tq, int tk, int dh,
-                           float scale, int causal, int q_offset,
-                           void* stream) {
-  const Geom g{tq, tk, dh, causal, q_offset, scale};
-  dim3 grid((tq + TR - 1) / TR, bh);
-  fa_stats_kernel<<<grid, NT, 0, (cudaStream_t)stream>>>(
-      (const float*)q, (const float*)k, (float*)m, (float*)l, rep, g);
-  return (int)cudaGetLastError();
+// q (B, H, tq, dh), k and v (B, Hkv, tk, dh) through their strides (in
+// elements, unit along dh); o (splits, B H tq, dh), m and l (splits,
+// B H tq), contiguous.  rows_tile is 16 or 64, dh at most 128; splits key
+// splits of tiles_per_split 64-key tiles each.
+FA_EXPORT int fa_fwd_f32(const void* q, const void* k, const void* v,
+                         void* o, void* m, void* l, int batch, int hq,
+                         int hkv, int tq, int tk, int dh, long long sqb,
+                         long long sqh, long long sqt, long long skb,
+                         long long skh, long long skt, long long svb,
+                         long long svh, long long svt, float scale,
+                         int causal, int q_offset, int splits,
+                         int tiles_per_split, int rows_tile, int vec16,
+                         void* stream) {
+  if (dh < 1 || dh > 128 || (rows_tile != 16 && rows_tile != 64) ||
+      hkv < 1 || hq % hkv != 0)
+    return (int)cudaErrorInvalidValue;
+  Geom g{sqb, sqh, sqt, skb, skh, skt, svb, svh, svt,
+         hq, hkv, hq / hkv, tq, tk, dh, causal, q_offset,
+         batch * hkv, 0, tiles_per_split, vec16, scale};
+  g.row_tiles = (g.rep * tq + rows_tile - 1) / rows_tile;
+  const auto* qf = (const float*)q;
+  const auto* kf = (const float*)k;
+  const auto* vf = (const float*)v;
+  auto* of = (float*)o;
+  auto* mf = (float*)m;
+  auto* lf = (float*)l;
+  const auto st = (cudaStream_t)stream;
+  if (rows_tile == 16)
+    return dh <= 64
+               ? launch_fwd_staged<16, 64>(qf, kf, vf, of, mf, lf, g, splits,
+                                           st)
+               : launch_fwd_staged<16, 128>(qf, kf, vf, of, mf, lf, g,
+                                            splits, st);
+  return dh <= 64
+             ? launch_fwd_staged<64, 64>(qf, kf, vf, of, mf, lf, g, splits, st)
+             : launch_fwd_staged<64, 128>(qf, kf, vf, of, mf, lf, g, splits,
+                                          st);
 }
 
-FA_EXPORT int fa_apply_f32(const void* q, const void* k, const void* v,
-                           const void* m, const void* l, void* o, int bh,
-                           int rep, int tq, int tk, int dh, float scale,
-                           int causal, int q_offset, void* stream) {
-  const Geom g{tq, tk, dh, causal, q_offset, scale};
-  dim3 grid((tq + TR - 1) / TR, (dh + DT - 1) / DT, bh);
-  fa_apply_kernel<<<grid, NT, 0, (cudaStream_t)stream>>>(
-      (const float*)q, (const float*)k, (const float*)v, (const float*)m,
-      (const float*)l, (float*)o, rep, g);
+// o_part (splits, nrows, dh), m_part and l_part (splits, nrows) -> o
+// (nrows, dh), m and l (nrows), all contiguous.
+FA_EXPORT int fa_combine_f32(const void* o_part, const void* m_part,
+                             const void* l_part, void* o, void* m, void* l,
+                             long long nrows, int dh, int splits,
+                             void* stream) {
+  fa_combine_kernel<<<(unsigned)nrows, CT, 0, (cudaStream_t)stream>>>(
+      (const float*)o_part, (const float*)m_part, (const float*)l_part,
+      (float*)o, (float*)m, (float*)l, nrows, dh, splits);
   return (int)cudaGetLastError();
 }
 

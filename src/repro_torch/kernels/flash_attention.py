@@ -1,22 +1,34 @@
 """The flash-attention forward kernels for Hopper, each beside its plain
-PyTorch twin: the counterparts of the Pallas ``_stats_kernel`` and
+PyTorch twin: the counterpart of the Pallas ``_stats_kernel`` and
 ``_apply_kernel`` of ``repro.kernels.flash_attention``.
 
-Operands are folded and unpadded, float32: ``q`` (B·H, Tq, Dh) and ``k``,
-``v`` (B·Hkv, Tk, Dh), planes ordered (batch, head).  Query plane ``p``
-attends to key/value plane ``p // rep`` with ``rep = H / Hkv`` (GQA):
-for ``p = b H + h`` that is ``b Hkv + h // rep``.  With
-``s_ij = (q_i . k_j) / sqrt(Dh)``, scored where ``j < Tk`` and, causal,
-``j <= i + q_offset``:
+Operands are float32 and unpadded, either folded, ``q`` (B·H, Tq, Dh) and
+``k``, ``v`` (B·Hkv, Tk, Dh) with planes ordered (batch, head), or
+heads-major views ``q`` (B, H, Tq, Dh) and ``k``, ``v`` (B, Hkv, Tk, Dh)
+with any strides (the model layout transposed, read in place).  Query
+head ``h`` attends to kv head ``h // rep``, ``rep = H / Hkv`` (GQA).
+With ``s_ij = (q_i . k_j) / sqrt(Dh)``, scored where ``j < Tk`` and,
+causal, ``j <= i + q_offset``:
 
-* ``flash_stats`` — one sweep per row for the row max ``m`` and the
-                    denominator ``l = sum_j exp(s_ij - m_i)``, (B·H, Tq).
-* ``flash_apply`` — ``o_i = sum_j exp(s_ij - m_i) / l_i v_j`` with m and
-                    l read back, (B·H, Tq, Dh).
+* ``flash_forward`` — one pass over the keys with an online softmax: o,
+                      and the row max ``m`` and denominator
+                      ``l = sum_j exp(s_ij - m_i)``.  With ``splits > 1``
+                      each block covers one range of 64-key tiles and
+                      writes a partial (o, m, l);
+* ``flash_combine`` — merges those partials.
 
-A row with no scored key (causal with ``i + q_offset < 0``) is the
-uniform average of the Tk value rows, as the oracle
-``flash_ops.flash_attention_ref`` gives it.
+``flash_forward_split`` is the forward kernel alone (its partials), for
+timing it apart from the merge.
+
+``decode_splits`` picks the split count: 1 when the row tiles alone fill
+the card, else enough key ranges for about two blocks per SM.  A row with
+no scored key (causal with ``i + q_offset < 0``) is the uniform average of
+the Tk value rows, as the oracle ``flash_ops.flash_attention_ref`` gives
+it.
+
+``flash_stats_plain`` and ``flash_apply_plain`` are the twins of the two
+TPU passes (m and l; o from given m and l), against which the card checks
+hold the kernel's m, l and o.
 
 Each wrapper routes on the device of its operands: CPU tensors go to the
 plain twin (``*_plain``), which computes the same blocked algorithm in
@@ -32,29 +44,39 @@ from repro_torch.kernels import clib
 
 NEG_INF = -1e30
 PLAIN_BLOCK = 128      # key block of the plain twins
+KT = 64                # keys per tile of the kernel (csrc KT)
+MAX_DH = 128           # the widest head the kernel's tiles hold
+BLOCKS_WANTED = 264    # about two blocks on each of an H100's 132 SMs
 _F32 = torch.float32
 
 
 def _check(q, k, v=None):
-    """Validate the folded operands; return (rep, Tq, Tk, Dh)."""
-    if q.dim() != 3 or k.dim() != 3:
-        raise ValueError(f"q and k must be (planes, T, Dh), got "
-                         f"{tuple(q.shape)} and {tuple(k.shape)}")
-    bh, tq, dh = q.shape
-    bhkv, tk, dhk = k.shape
-    if dhk != dh or bhkv == 0 or bh % bhkv:
-        raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} do not "
-                         "fold to B·H and B·Hkv planes of one head_dim")
-    if tk == 0:
-        raise ValueError("attention over zero keys")
+    """Validate the operands; return (batch, H, Hkv, Tq, Tk, Dh), with
+    batch 1 and the planes as heads for folded (3-D) operands."""
+    if q.dim() not in (3, 4) or k.dim() != q.dim():
+        raise ValueError(f"q and k must be (planes, T, Dh) or (B, heads, T, "
+                         f"Dh), got {tuple(q.shape)} and {tuple(k.shape)}")
     if v is not None and v.shape != k.shape:
         raise ValueError(f"v {tuple(v.shape)} != k {tuple(k.shape)}")
+    batch = q.shape[0] if q.dim() == 4 else 1
+    hq, tq, dh = q.shape[-3:]
+    hkv, tk, dhk = k.shape[-3:]
+    if (dhk != dh or hkv == 0 or hq % hkv
+            or (q.dim() == 4 and k.shape[0] != batch)):
+        raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} do not "
+                         "share batch and head_dim with H a multiple of Hkv")
+    if tk == 0:
+        raise ValueError("attention over zero keys")
     for t in (q, k, v):
-        if t is not None and (t.dtype != _F32 or not t.is_contiguous()):
-            raise ValueError("flash operands must be contiguous float32")
-    if bh > 65535:
-        raise ValueError(f"{bh} query planes exceed the grid limit 65535")
-    return bh // bhkv, tq, tk, dh
+        if t is not None and t.dtype != _F32:
+            raise ValueError("flash operands must be float32")
+    return batch, hq, hkv, tq, tk, dh
+
+
+def _planes(t):
+    """(…, T, Dh) -> (planes, T, Dh); a copy only for a view that has no
+    such shape in place."""
+    return t.reshape(-1, *t.shape[-2:])
 
 
 def _scores(qg, kj, rows, cols, causal, q_offset, scale):
@@ -71,82 +93,212 @@ def _scores(qg, kj, rows, cols, causal, q_offset, scale):
 
 
 def _grouped(q, k):
-    """The query planes grouped by their kv plane, and what ``_scores``
-    needs besides a key block."""
-    rep, tq, tk, dh = _check(q, k)
-    qg = q.reshape(k.shape[0], rep * tq, dh)
-    rows = torch.arange(tq, device=q.device).repeat(rep)
-    return qg, rows, tk, dh ** -0.5
+    """The query planes grouped by their kv plane, the kv planes, and what
+    ``_scores`` needs besides a key block."""
+    batch, hq, hkv, tq, tk, dh = _check(q, k)
+    kg = _planes(k)
+    qg = q.reshape(kg.shape[0], hq // hkv * tq, dh)
+    rows = torch.arange(tq, device=q.device).repeat(hq // hkv)
+    return qg, kg, rows, tk, dh ** -0.5
 
 
 def flash_stats_plain(q, k, causal=True, q_offset=0):
-    """Twin of kernel 10a: online max and denominator over key blocks.
-    m and l (B·H, Tq) float32."""
-    qg, rows, tk, scale = _grouped(q, k)
+    """Twin of the TPU stats pass: online max and denominator over key
+    blocks.  m and l, q.shape[:-1], float32."""
+    qg, kg, rows, tk, scale = _grouped(q, k)
     m = torch.full(qg.shape[:2], NEG_INF, dtype=_F32, device=q.device)
     l = torch.zeros_like(m)
     for j0 in range(0, tk, PLAIN_BLOCK):
-        cols = torch.arange(j0, min(j0 + PLAIN_BLOCK, tk), device=q.device)
-        s, ok = _scores(qg, k[:, j0:j0 + PLAIN_BLOCK], rows, cols, causal,
-                        q_offset, scale)
+        j1 = min(j0 + PLAIN_BLOCK, tk)
+        cols = torch.arange(j0, j1, device=q.device)
+        s, ok = _scores(qg, kg[:, j0:j1], rows, cols, causal, q_offset,
+                        scale)
         m_new = torch.maximum(m, s.amax(dim=-1))
         p = torch.where(ok, torch.exp(s - m_new[..., None]), 0.0)
         l = l * torch.exp(m - m_new) + p.sum(dim=-1)
         m = m_new
-    return m.reshape(q.shape[:2]), l.reshape(q.shape[:2])
+    return m.reshape(q.shape[:-1]), l.reshape(q.shape[:-1])
 
 
 def flash_apply_plain(q, k, v, m, l, causal=True, q_offset=0):
-    """Twin of kernel 10b: ``o = P v`` over key blocks, P from the given m
-    and l.  (B·H, Tq, Dh) float32."""
-    qg, rows, tk, scale = _grouped(q, k)
+    """Twin of the TPU apply pass: ``o = P v`` over key blocks, P from the
+    given m and l.  Shaped like q, float32."""
+    qg, kg, rows, tk, scale = _grouped(q, k)
+    vg = _planes(v)
     mc = m.reshape(qg.shape[:2])[..., None]
     lc = torch.clamp_min(l.reshape(qg.shape[:2]), 1e-30)[..., None]
     o = torch.zeros(qg.shape, dtype=_F32, device=q.device)
     for j0 in range(0, tk, PLAIN_BLOCK):
-        cols = torch.arange(j0, min(j0 + PLAIN_BLOCK, tk), device=q.device)
-        s, ok = _scores(qg, k[:, j0:j0 + PLAIN_BLOCK], rows, cols, causal,
-                        q_offset, scale)
+        j1 = min(j0 + PLAIN_BLOCK, tk)
+        cols = torch.arange(j0, j1, device=q.device)
+        s, ok = _scores(qg, kg[:, j0:j1], rows, cols, causal, q_offset,
+                        scale)
         p = torch.where(ok, torch.exp(s - mc) / lc, 0.0)
-        o = o + p @ v[:, j0:j0 + PLAIN_BLOCK]
+        o = o + p @ vg[:, j0:j1]
     return o.reshape(q.shape)
 
 
-_P, _I, _F = clib.P, clib.I, clib.F
-_GEOM = [_I] * 5 + [_F, _I, _I]      # bh, rep, tq, tk, dh, scale, causal, off
+def row_tile(rows: int) -> int:
+    """Query rows per block of the kernel for ``rows`` packed rows
+    (rep·Tq) per kv plane: 16 for a short block (decode), else 64."""
+    return 16 if rows <= 16 else 64
 
 
-def flash_stats(q, k, causal=True, q_offset=0):
-    """Kernel 10a.  (m, l), (B·H, Tq) float32."""
-    if clib.route(q, k) == "cpu":
-        return flash_stats_plain(q, k, causal, q_offset)
-    rep, tq, tk, dh = _check(q, k)
-    m = torch.empty(q.shape[:2], dtype=_F32, device=q.device)
+def split_plan(tk: int, splits: int) -> tuple[int, int]:
+    """(splits, key tiles per split) for about ``splits`` key ranges over
+    ``tk`` keys: every range holds at least one 64-key tile, none is
+    empty, and no more than 65535 (the grid's y limit)."""
+    nkt = -(-tk // KT)
+    want = max(1, min(int(splits), nkt, 65535))
+    tps = -(-nkt // want)
+    return -(-nkt // tps), tps
+
+
+def decode_splits(bhkv: int, rows: int, tk: int) -> int:
+    """The key split count of ``flash_forward`` for ``bhkv`` kv planes of
+    ``rows`` packed query rows over ``tk`` keys: 1 when the row tiles fill
+    the card (``BLOCKS_WANTED`` blocks), else as many key ranges as give
+    that many blocks with at least one 64-key tile each."""
+    blocks = bhkv * -(-rows // row_tile(rows))
+    if blocks == 0 or blocks >= BLOCKS_WANTED:
+        return 1
+    nkt = -(-tk // KT)
+    tps = max(1, nkt // -(-BLOCKS_WANTED // blocks))
+    return -(-nkt // tps)
+
+
+def flash_combine_plain(o_part, m_part, l_part):
+    """Twin of ``flash_combine``: (o, m, l) from the partials, weighting
+    split s by ``exp(m_s - m)``.  o_part (S, R, Dh), m_part and l_part
+    (S, R); returns (R, Dh), (R,), (R,)."""
+    m = m_part.amax(dim=0)
+    w = torch.exp(m_part - m)
+    l = (l_part * w).sum(dim=0)
+    o = (o_part * w[..., None]).sum(dim=0) / torch.clamp_min(l, 1e-30)[
+        ..., None]
+    return o, m, l
+
+
+def flash_forward_split_plain(q, k, v, causal=True, q_offset=0, splits=1):
+    """Twin of ``flash_forward_split``: the online softmax over each key
+    range of ``split_plan``.  (o, m, l) of shapes (S, R, Dh), (S, R),
+    (S, R), R = B·H·Tq; o normalised when S = 1, else unnormalised."""
+    qg, kg, rows, tk, scale = _grouped(q, k)
+    vg = _planes(v)
+    n, tps = split_plan(tk, splits)
+    parts = []
+    for s_ in range(n):
+        m = torch.full(qg.shape[:2], NEG_INF, dtype=_F32, device=q.device)
+        l = torch.zeros_like(m)
+        acc = torch.zeros(qg.shape, dtype=_F32, device=q.device)
+        hi = min((s_ + 1) * tps * KT, tk)
+        for j0 in range(s_ * tps * KT, hi, PLAIN_BLOCK):
+            j1 = min(j0 + PLAIN_BLOCK, hi)
+            cols = torch.arange(j0, j1, device=q.device)
+            s, ok = _scores(qg, kg[:, j0:j1], rows, cols, causal, q_offset,
+                            scale)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            corr = torch.exp(m - m_new)
+            p = torch.where(ok, torch.exp(s - m_new[..., None]), 0.0)
+            l = l * corr + p.sum(dim=-1)
+            acc = acc * corr[..., None] + p @ vg[:, j0:j1]
+            m = m_new
+        if n == 1:
+            acc = acc / torch.clamp_min(l, 1e-30)[..., None]
+        parts.append((acc.reshape(-1, qg.shape[2]), m.reshape(-1),
+                      l.reshape(-1)))
+    return tuple(torch.stack(t) for t in zip(*parts))
+
+
+def flash_forward_plain(q, k, v, causal=True, q_offset=0, splits=1):
+    """Twin of ``flash_forward``: the split-K online softmax, then the
+    merge.  (o, m, l): o shaped like q, m and l q.shape[:-1], float32."""
+    o, m, l = flash_forward_split_plain(q, k, v, causal, q_offset, splits)
+    o, m, l = flash_combine_plain(o, m, l) if o.shape[0] > 1 else (
+        o[0], m[0], l[0])
+    return o.reshape(q.shape), m.reshape(q.shape[:-1]), l.reshape(
+        q.shape[:-1])
+
+
+_P, _I, _F, _L = clib.P, clib.I, clib.F, clib.L
+_FWD_ARGS = ([_P] * 6 + [_I] * 6 + [_L] * 9 + [_F] + [_I] * 6)
+
+
+def _strides(t):
+    """(batch, head, row) strides in elements of a 3-D or 4-D operand."""
+    return (t.stride(0), t.stride(1), t.stride(2)) if t.dim() == 4 else (
+        0, t.stride(0), t.stride(1))
+
+
+def flash_combine(o_part, m_part, l_part):
+    """The split-K merge kernel.  o_part (S, R, Dh), m_part and l_part
+    (S, R), contiguous float32 -> o (R, Dh), m and l (R,)."""
+    splits, nrows, dh = o_part.shape
+    for t in (o_part, m_part, l_part):
+        if t.dtype != _F32:
+            raise ValueError("flash_combine operands must be float32")
+    if m_part.shape != (splits, nrows) or l_part.shape != m_part.shape:
+        raise ValueError(f"m_part {tuple(m_part.shape)} and l_part "
+                         f"{tuple(l_part.shape)} must be {(splits, nrows)}")
+    if clib.route(o_part, m_part, l_part) == "cpu":
+        return flash_combine_plain(o_part, m_part, l_part)
+    if not all(t.is_contiguous() for t in (o_part, m_part, l_part)):
+        raise ValueError("flash_combine operands must be contiguous")
+    o = torch.empty(nrows, dh, dtype=_F32, device=o_part.device)
+    m = torch.empty(nrows, dtype=_F32, device=o_part.device)
     l = torch.empty_like(m)
-    if m.numel():
-        clib.launch(flash_stats, "flash_attention", "fa_stats_f32",
-                    [_P] * 4 + _GEOM, q, k, m, l, q.shape[0], rep, tq, tk,
-                    dh, dh ** -0.5, int(causal), int(q_offset))
-    return m, l
+    if nrows:
+        clib.launch(flash_combine, "flash_attention", "fa_combine_f32",
+                    [_P] * 6 + [_L, _I, _I], o_part, m_part, l_part, o, m, l,
+                    nrows, dh, splits)
+    return o, m, l
 
 
-def flash_apply(q, k, v, m, l, causal=True, q_offset=0):
-    """Kernel 10b.  o (B·H, Tq, Dh) float32."""
-    if clib.route(q, k, v, m, l) == "cpu":
-        return flash_apply_plain(q, k, v, m, l, causal, q_offset)
-    rep, tq, tk, dh = _check(q, k, v)
-    for t in (m, l):
-        if (t.shape != q.shape[:2] or t.dtype != _F32
-                or not t.is_contiguous()):
-            raise ValueError("m and l must be contiguous (B·H, Tq) float32")
-    o = torch.empty_like(q)
-    if o.numel():
-        clib.launch(flash_apply, "flash_attention", "fa_apply_f32",
-                    [_P] * 6 + _GEOM, q, k, v, m, l, o, q.shape[0], rep, tq,
-                    tk, dh, dh ** -0.5, int(causal), int(q_offset))
-    return o
+def flash_forward_split(q, k, v, causal=True, q_offset=0, splits=1):
+    """The forward kernel alone, on CUDA operands, at the key ranges of
+    ``split_plan(Tk, splits)``: (o, m, l) of shapes (S, R, Dh), (S, R),
+    (S, R) with R = B·H·Tq rows.  With S = 1 they are the result; with
+    more, each split's partial (o unnormalised) for ``flash_combine``.
+    Counts its launch on ``flash_forward``."""
+    batch, hq, hkv, tq, tk, dh = _check(q, k, v)
+    if clib.route(q, k, v) == "cpu":
+        return flash_forward_split_plain(q, k, v, causal, q_offset, splits)
+    if dh > MAX_DH:
+        raise ValueError(f"head_dim {dh} > {MAX_DH}, the kernel's widest")
+    if any(t.stride(-1) != 1 for t in (q, k, v)):
+        raise ValueError("flash operands need a unit stride along Dh")
+    strides = [s for t in (q, k, v) for s in _strides(t)]
+    vec16 = (dh % 4 == 0 and all(s % 4 == 0 for s in strides)
+             and all(t.data_ptr() % 16 == 0 for t in (q, k, v)))
+    n, tps = split_plan(tk, splits)
+    nrows = batch * hq * tq
+    o = torch.empty(n, nrows, dh, dtype=_F32, device=q.device)
+    m = torch.empty(n, nrows, dtype=_F32, device=q.device)
+    l = torch.empty_like(m)
+    if nrows:
+        clib.launch(flash_forward, "flash_attention", "fa_fwd_f32",
+                    _FWD_ARGS, q, k, v, o, m, l, batch, hq, hkv, tq, tk, dh,
+                    *strides, dh ** -0.5, int(causal), int(q_offset), n, tps,
+                    row_tile(hq // hkv * tq), int(vec16))
+    return o, m, l
 
 
-KERNELS = (flash_stats, flash_apply)
+def flash_forward(q, k, v, causal=True, q_offset=0, splits=None):
+    """The one-pass forward kernel and, with several key splits, the
+    combine.  ``splits`` None takes ``decode_splits``.  Returns (o, m, l):
+    o shaped like q, m and l q.shape[:-1], contiguous float32."""
+    batch, hq, hkv, tq, tk, dh = _check(q, k, v)
+    if splits is None:
+        splits = decode_splits(batch * hkv, hq // hkv * tq, tk)
+    if clib.route(q, k, v) == "cpu":
+        return flash_forward_plain(q, k, v, causal, q_offset, splits)
+    o, m, l = flash_forward_split(q, k, v, causal, q_offset, splits)
+    o, m, l = flash_combine(o, m, l) if o.shape[0] > 1 else (
+        o[0], m[0], l[0])
+    return o.reshape(q.shape), m.reshape(q.shape[:-1]), l.reshape(
+        q.shape[:-1])
+
+
+KERNELS = (flash_forward, flash_combine)
 for _k in KERNELS:
     _k.launches = 0

@@ -1,20 +1,20 @@
 """Flash attention on model-layout tensors, and its plain GQA oracle.
 
 Counterpart of ``repro.kernels.flash_ops``.  ``flash_attention(q, k, v)``
-takes q (B, T, H, Dh) and k, v (B, S, Hkv, Dh), folds them into
-(batch·head, T, Dh) planes in float32 and runs the two forward kernels of
-``repro_torch.kernels.flash_attention``; the output comes back in
-``q.dtype``.  The backward is the reference's: for each ``bwd_chunk`` of
-query rows, the gradient of the oracle on that chunk (its query rows at
-``q_offset + start``), with dk and dv summed over the chunks, so its
-memory is O(chunk · S).  CPU tensors run the kernels' plain twins; CUDA
-tensors launch the kernels.
+takes q (B, T, H, Dh) and k, v (B, S, Hkv, Dh) and runs the one-pass
+forward of ``repro_torch.kernels.flash_attention`` on their heads-major
+views, read in place (a non-float32 input is cast first); the output
+comes back in ``q.dtype``.  The backward is the reference's: for each
+``bwd_chunk`` of query rows, the gradient of the oracle on that chunk (its
+query rows at ``q_offset + start``), with dk and dv summed over the
+chunks, so its memory is O(chunk · S).  CPU tensors run the kernels'
+plain twins; CUDA tensors launch the kernels.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.flash_attention import flash_apply, flash_stats
+from repro_torch.kernels.flash_attention import flash_forward
 
 _F32 = torch.float32
 
@@ -43,17 +43,22 @@ def fold_heads(t):
     return t.to(_F32).transpose(1, 2).reshape(b * heads, n, dh).contiguous()
 
 
+def heads_major(t):
+    """(B, T, heads, Dh) -> float32 (B, heads, T, Dh), a view of t itself
+    when t is float32 with a unit stride along Dh."""
+    t = t.to(_F32)
+    return (t if t.stride(-1) == 1 else t.contiguous()).transpose(1, 2)
+
+
 class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal, q_offset, bwd_chunk):
-        b, tq, h, dh = q.shape
-        qf, kf, vf = (fold_heads(t.detach()) for t in (q, k, v))
-        m, l = flash_stats(qf, kf, causal, q_offset)
-        o = flash_apply(qf, kf, vf, m, l, causal, q_offset)
+        o, _, _ = flash_forward(*(heads_major(t.detach()) for t in (q, k, v)),
+                                causal, q_offset)
         ctx.save_for_backward(q, k, v)
         ctx.args = (causal, q_offset, bwd_chunk)
-        return o.reshape(b, h, tq, dh).transpose(1, 2).to(q.dtype)
+        return o.transpose(1, 2).to(q.dtype)
 
     @staticmethod
     def backward(ctx, dout):

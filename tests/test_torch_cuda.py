@@ -358,13 +358,15 @@ def test_cuda_softsort_apply_v1_matches_fused(cuda):
 
 
 # (B, Tq, S, H, Hkv, Dh, causal, q_offset): tests/test_flash_attention.py's
-# cases, a negative offset (rows with no key), ragged T and Dh.
+# cases, a negative offset (rows with no key), ragged T and Dh (100, and 30,
+# which takes the 4-byte copies), and the NeMo decode step.
 FLASH_SHAPES = [(2, 64, 64, 4, 2, 32, True, 0),
                 (1, 100, 100, 5, 5, 16, True, 0),
                 (2, 1, 128, 8, 2, 64, True, 127),
                 (2, 48, 80, 6, 3, 32, False, 0),
                 (1, 256, 256, 2, 1, 128, True, 0),
                 (1, 70, 90, 4, 1, 100, True, -5),
+                (1, 50, 300, 6, 2, 30, True, 3),
                 (1, 1, 4096, 32, 8, 128, True, 4095)]
 
 
@@ -376,36 +378,74 @@ def _flash_operands(b, tq, s, h, hkv, dh, seed, cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("splits", [1, 5, None])
 @pytest.mark.parametrize("shape", FLASH_SHAPES)
-def test_cuda_flash_kernels_match_plain_twins(cuda, shape):
-    """flash_stats and flash_apply against their twins on folded card
-    tensors; the apply twin takes the kernel's own m and l."""
+def test_cuda_flash_kernels_match_plain_twins(cuda, shape, splits):
+    """flash_forward (and flash_combine) on the model layout read in place,
+    at one key split, at five and at decode_splits' count, against the
+    twins on folded card tensors: m and l against the stats twin, o against
+    the apply twin fed the kernel's own m and l and against the one-pass
+    twin at the same split count; one launch of flash_forward, and one of
+    flash_combine exactly when the keys split."""
     from repro_torch.kernels import flash_ops
 
     F = importlib.import_module("repro_torch.kernels.flash_attention")
     b, tq, s, h, hkv, dh, causal, off = shape
-    q, k, v = (flash_ops.fold_heads(t) for t in _flash_operands(
-        b, tq, s, h, hkv, dh, tq + s, cuda))
-    m, l = F.flash_stats(q, k, causal, off)
+    ops_ = _flash_operands(b, tq, s, h, hkv, dh, tq + s, cuda)
+    q, k, v = (flash_ops.fold_heads(t) for t in ops_)
+    n = F.split_plan(s, splits if splits is not None else
+                     F.decode_splits(b * hkv, h // hkv * tq, s))[0]
+    for kern in F.KERNELS:
+        kern.launches = 0
+    o, m, l = F.flash_forward(*(flash_ops.heads_major(t) for t in ops_),
+                              causal, off, splits)
+    torch.cuda.synchronize()
+    assert (F.flash_forward.launches, F.flash_combine.launches) == (
+        1, int(n > 1))
+    o, m, l = o.reshape(q.shape), m.reshape(q.shape[:2]), l.reshape(
+        q.shape[:2])
     m0, l0 = F.flash_stats_plain(q, k, causal, off)
     np.testing.assert_allclose(m.cpu(), m0.cpu(), atol=FWD_ATOL)
     np.testing.assert_allclose(l.cpu(), l0.cpu(), rtol=FWD_ATOL)
-    o = F.flash_apply(q, k, v, m, l, causal, off)
     o0 = F.flash_apply_plain(q, k, v, m, l, causal, off)
     np.testing.assert_allclose(o.cpu(), o0.cpu(), atol=FWD_ATOL)
-    torch.cuda.synchronize()
+    o1, m1, l1 = F.flash_forward_plain(q, k, v, causal, off, n)
+    np.testing.assert_allclose(o.cpu(), o1.cpu(), atol=FWD_ATOL)
+    np.testing.assert_allclose(m.cpu(), m1.cpu(), atol=FWD_ATOL)
+    np.testing.assert_allclose(l.cpu(), l1.cpu(), rtol=FWD_ATOL)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_forward_strided_matches_contiguous(cuda):
+    """The kernel on the model layout read in place and on the contiguous
+    folded planes gives the same o, m and l, with and without splits."""
+    from repro_torch.kernels import flash_ops
+
+    F = importlib.import_module("repro_torch.kernels.flash_attention")
+    ops_ = _flash_operands(2, 40, 130, 8, 2, 16, 6, cuda)
+    for splits in (1, 3):
+        got = F.flash_forward(*(flash_ops.heads_major(t) for t in ops_),
+                              True, 90, splits)
+        want = F.flash_forward(*(flash_ops.fold_heads(t) for t in ops_),
+                               True, 90, splits)
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(g.reshape(w.shape).cpu(), w.cpu(),
+                                       atol=FWD_ATOL)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(2, 64, 64, 4, 2, 32, True, 0),
                                    (1, 70, 90, 4, 1, 100, True, -5),
-                                   (2, 48, 80, 6, 3, 32, False, 0)])
+                                   (2, 48, 80, 6, 3, 32, False, 0),
+                                   (1, 1, 300, 8, 2, 64, True, 299)])
 def test_cuda_flash_attention_matches_oracle(cuda, shape):
     """The Function on the card: output and dq, dk, dv against the
-    oracle's autograd, and one launch of each kernel per forward."""
+    oracle's autograd, one launch of flash_forward per forward, and one
+    of flash_combine when the keys split (the decode step)."""
     from repro_torch.kernels import (flash_attention, flash_attention_ref,
                                      launch_counts, reset_launch_counts)
 
+    F = importlib.import_module("repro_torch.kernels.flash_attention")
     b, tq, s, h, hkv, dh, causal, off = shape
     q, k, v = _flash_operands(b, tq, s, h, hkv, dh, 3, cuda)
     dout = torch.randn(q.shape, device=cuda)
@@ -419,6 +459,8 @@ def test_cuda_flash_attention_matches_oracle(cuda, shape):
         results.append((o, *torch.autograd.grad(o, args, dout)))
         if len(results) == 1:
             counts = launch_counts()
-            assert (counts["flash_stats"], counts["flash_apply"]) == (1, 1)
+            split = F.decode_splits(b * hkv, h // hkv * tq, s) > 1
+            assert (counts["flash_forward"], counts["flash_combine"]) == (
+                1, int(split))
     for g, r in zip(*results):
         _close(g.detach().cpu(), r.detach().cpu(), GRAD_RTOL)

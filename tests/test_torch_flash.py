@@ -1,5 +1,6 @@
-"""The flash-attention forward of the port (kernels 10a/10b,
-``repro_torch.kernels.flash_attention``) and its autograd wrapper
+"""The flash-attention forward of the port (``flash_forward`` and
+``flash_combine`` in ``repro_torch.kernels.flash_attention``, replacing
+the TPU's two passes 10a/10b) and its autograd wrapper
 ``repro_torch.kernels.flash_ops.flash_attention``, against the
 reference's ``repro.kernels.flash_ops`` and its Pallas kernels.
 
@@ -15,6 +16,8 @@ Tolerances: forward atol 2e-5, as ``tests/test_flash_attention.py``
 max-abs of the reference; bfloat16 inputs atol 3e-2, as that file's
 ``test_dtypes``.
 """
+import functools
+
 import numpy as np
 import pytest
 
@@ -34,10 +37,18 @@ from repro_torch.kernels import (  # noqa: E402
     launch_counts,
     reset_launch_counts,
 )
-from repro_torch.kernels.bounds import attention_pairs  # noqa: E402
+from repro_torch.kernels.bounds import (  # noqa: E402
+    attention_pairs,
+    flash_bound_ms,
+)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
-    flash_apply,
-    flash_stats,
+    decode_splits,
+    flash_apply_plain,
+    flash_combine,
+    flash_forward,
+    flash_forward_plain,
+    flash_stats_plain,
+    split_plan,
 )
 
 ATOL = 2e-5
@@ -97,31 +108,41 @@ def _numpy_stats(qf, kf, rep, causal, off):
     return m, np.exp(s - m[..., None]).sum(axis=-1)
 
 
-@pytest.mark.parametrize("b,tq,s,h,hkv,dh,causal", CASES)
-def test_flash_twins_match_jax_pallas_kernels(b, tq, s, h, hkv, dh, causal):
-    """flash_stats / flash_apply twins on folded operands against the
-    Pallas forward's o (unpadded rows and Dh) and the stats' definition."""
+@functools.lru_cache(maxsize=None)
+def _pallas_o(b, tq, s, h, hkv, dh, causal):
+    """o of the reference's Pallas forward (interpret mode) at a CASES
+    case with the ``tq + s`` seed, on unpadded rows and Dh, folded."""
     q, k, v = _qkv(b, tq, s, h, hkv, dh, tq + s)
     off = s - tq if causal else 0
-    rep = h // hkv
-    qf, kf, vf = (tfo.fold_heads(torch.tensor(t)) for t in (q, k, v))
-    m, l = flash_stats(qf, kf, causal, off)
-    o = flash_apply(qf, kf, vf, m, l, causal, off)
-
+    qf, kf, vf = (tfo.fold_heads(torch.tensor(t)).numpy() for t in (q, k, v))
     br = min(128, -(-tq // 8) * 8)
     bc = min(128, -(-s // 128) * 128)
     tqp, tkp, dhp = -(-tq // br) * br, -(-s // bc) * bc, -(-dh // 128) * 128
 
     def pad(t, t_pad):
-        return jnp.pad(jnp.asarray(t.numpy()),
+        return jnp.pad(jnp.asarray(t),
                        ((0, 0), (0, t_pad - t.shape[1]), (0, dhp - dh)))
 
     o_j = flash_attention_fwd_pallas(
-        pad(qf, tqp), pad(kf, tkp), pad(vf, tkp), rep=rep, scale=dh ** -0.5,
-        q_len=tq, kv_len=s, causal=causal, q_offset=off, br=br, bc=bc,
-        interpret=True)
-    np.testing.assert_allclose(o.numpy(), np.asarray(o_j[:, :tq, :dh]),
-                               atol=ATOL)
+        pad(qf, tqp), pad(kf, tkp), pad(vf, tkp), rep=h // hkv,
+        scale=dh ** -0.5, q_len=tq, kv_len=s, causal=causal, q_offset=off,
+        br=br, bc=bc, interpret=True)
+    return np.asarray(o_j[:, :tq, :dh])
+
+
+@pytest.mark.parametrize("b,tq,s,h,hkv,dh,causal", CASES)
+def test_flash_twins_match_jax_pallas_kernels(b, tq, s, h, hkv, dh, causal):
+    """The twins of the TPU's stats and apply passes on folded operands
+    against the Pallas forward's o (unpadded rows and Dh) and the stats'
+    definition."""
+    q, k, v = _qkv(b, tq, s, h, hkv, dh, tq + s)
+    off = s - tq if causal else 0
+    rep = h // hkv
+    qf, kf, vf = (tfo.fold_heads(torch.tensor(t)) for t in (q, k, v))
+    m, l = flash_stats_plain(qf, kf, causal, off)
+    o = flash_apply_plain(qf, kf, vf, m, l, causal, off)
+    np.testing.assert_allclose(o.numpy(), _pallas_o(b, tq, s, h, hkv, dh,
+                                                    causal), atol=ATOL)
     m_n, l_n = _numpy_stats(qf.numpy(), kf.numpy(), rep, causal, off)
     np.testing.assert_allclose(m.numpy(), m_n, atol=ATOL)
     np.testing.assert_allclose(l.numpy(), l_n, rtol=ATOL)
@@ -190,18 +211,25 @@ def test_cpu_route_launches_nothing():
     q, k, v = (torch.tensor(t, requires_grad=True)
                for t in _qkv(1, 8, 8, 2, 1, 4, 1))
     flash_attention(q, k, v).sum().backward()
-    assert launch_counts()["flash_stats"] == launch_counts()[
-        "flash_apply"] == 0
+    assert launch_counts()["flash_forward"] == launch_counts()[
+        "flash_combine"] == 0
 
 
 def test_wrappers_reject_bad_operands():
-    q = torch.zeros(4, 8, 16)
-    with pytest.raises(ValueError):
-        flash_stats(q, torch.zeros(3, 8, 16))          # 4 planes over 3
-    with pytest.raises(ValueError):
-        flash_stats(q.double(), torch.zeros(2, 8, 16).double())
-    with pytest.raises(ValueError):
-        flash_stats(q, torch.zeros(2, 0, 16))          # no keys
+    q, kv = torch.zeros(4, 8, 16), torch.zeros(2, 8, 16)
+    bad = [
+        (q, torch.zeros(3, 8, 16), torch.zeros(3, 8, 16)),  # 4 planes / 3
+        (q.double(), kv.double(), kv.double()),
+        (q, torch.zeros(2, 0, 16), torch.zeros(2, 0, 16)),  # no keys
+        (q, kv, torch.zeros(2, 8, 8)),                      # v unlike k
+        (q[None], torch.zeros(2, 2, 8, 16), torch.zeros(2, 2, 8, 16)),
+    ]
+    for args in bad:
+        with pytest.raises(ValueError):
+            flash_forward(*args)
+    with pytest.raises(ValueError):                         # partials
+        flash_combine(torch.zeros(2, 4, 16), torch.zeros(2, 4),
+                      torch.zeros(3, 4))
     with pytest.raises(ValueError):
         flash_attention(torch.zeros(1, 8, 3, 16), torch.zeros(1, 8, 2, 16),
                         torch.zeros(1, 8, 2, 16))      # 3 heads over 2
@@ -219,3 +247,130 @@ def test_attention_pairs_counts_the_scored_pairs(tq, tk, causal, off):
     if causal:
         ok = (np.arange(tk)[None, :] <= rows) | (rows < 0)
     assert attention_pairs(tq, tk, causal, off) == int(ok.sum())
+
+
+def _folded(b, tq, s, h, hkv, dh, seed):
+    return tuple(tfo.fold_heads(torch.tensor(t))
+                 for t in _qkv(b, tq, s, h, hkv, dh, seed))
+
+
+@pytest.mark.parametrize("splits", [1, 2, 7])
+@pytest.mark.parametrize("b,tq,s,h,hkv,dh,causal", CASES)
+def test_flash_forward_twin_matches_jax(b, tq, s, h, hkv, dh, causal,
+                                        splits):
+    """The one-pass twin at 1, 2 and 7 key splits against the reference's
+    Pallas forward (interpret mode) and its oracle, and its m and l
+    against the stats' definition."""
+    qf, kf, vf = _folded(b, tq, s, h, hkv, dh, tq + s)
+    off = s - tq if causal else 0
+    o, m, l = flash_forward(qf, kf, vf, causal, off, splits)
+    np.testing.assert_allclose(o.numpy(), _pallas_o(b, tq, s, h, hkv, dh,
+                                                    causal), atol=ATOL)
+    q, k, v = _qkv(b, tq, s, h, hkv, dh, tq + s)
+    ref = jfo.flash_attention_ref(jnp.asarray(q), jnp.asarray(k),
+                                  jnp.asarray(v), causal=causal,
+                                  q_offset=off)
+    np.testing.assert_allclose(
+        o.reshape(b, h, tq, dh).transpose(1, 2).numpy(), np.asarray(ref),
+        atol=ATOL)
+    m_n, l_n = _numpy_stats(qf.numpy(), kf.numpy(), h // hkv, causal, off)
+    np.testing.assert_allclose(m.numpy(), m_n, atol=ATOL)
+    np.testing.assert_allclose(l.numpy(), l_n, rtol=ATOL)
+
+
+@pytest.mark.parametrize("splits", [1, 3])
+@pytest.mark.parametrize("b,tq,s,h,hkv,dh,off", [
+    (1, 20, 150, 2, 1, 8, -6),       # rows with no key
+    (2, 33, 200, 8, 2, 24, 167),     # GQA, rep = 4, ragged tiles
+])
+def test_flash_forward_twin_edge_cases(b, tq, s, h, hkv, dh, off, splits):
+    """A negative q_offset (rows with no key: the mean of the value rows)
+    and a rep = 4 GQA case, against the JAX oracle; the twin's m and l
+    against the twins of the TPU passes."""
+    q, k, v = _qkv(b, tq, s, h, hkv, dh, 5)
+    qf, kf, vf = (tfo.fold_heads(torch.tensor(t)) for t in (q, k, v))
+    o, m, l = flash_forward_plain(qf, kf, vf, True, off, splits)
+    ref = jfo.flash_attention_ref(jnp.asarray(q), jnp.asarray(k),
+                                  jnp.asarray(v), causal=True, q_offset=off)
+    np.testing.assert_allclose(
+        o.reshape(b, h, tq, dh).transpose(1, 2).numpy(), np.asarray(ref),
+        atol=ATOL)
+    m0, l0 = flash_stats_plain(qf, kf, True, off)
+    np.testing.assert_allclose(m.numpy(), m0.numpy(), atol=ATOL)
+    np.testing.assert_allclose(l.numpy(), l0.numpy(), rtol=ATOL)
+    np.testing.assert_allclose(
+        o.numpy(), flash_apply_plain(qf, kf, vf, m, l, True, off).numpy(),
+        atol=ATOL)
+
+
+def test_strided_model_layout_matches_contiguous():
+    """The heads-major view of the model layout, read in place, gives the
+    result of the contiguous folded planes; the Function passes its
+    float32 inputs as such views, with no copy."""
+    q, k, v = (torch.tensor(t) for t in _qkv(2, 40, 130, 8, 2, 16, 6))
+    views = [tfo.heads_major(t) for t in (q, k, v)]
+    assert not views[0].is_contiguous()
+    assert all(w.data_ptr() == t.data_ptr() for w, t in zip(views, (q, k, v)))
+    for splits in (1, 3):
+        o, m, l = flash_forward(*views, True, 90, splits)
+        o2, m2, l2 = flash_forward(*(tfo.fold_heads(t) for t in (q, k, v)),
+                                   True, 90, splits)
+        np.testing.assert_allclose(o.reshape(o2.shape).numpy(), o2.numpy(),
+                                   atol=ATOL)
+        np.testing.assert_allclose(m.reshape(m2.shape).numpy(), m2.numpy(),
+                                   atol=ATOL)
+        np.testing.assert_allclose(l.reshape(l2.shape).numpy(), l2.numpy(),
+                                   rtol=ATOL)
+
+
+def test_flash_combine_adds_nothing_for_an_empty_split():
+    """A split with no scored key (m = -1e30, l = 0, o = 0) leaves the
+    merge of the others exactly as it was."""
+    rng = np.random.default_rng(7)
+    o = torch.tensor(rng.normal(size=(2, 5, 8)).astype(np.float32))
+    m = torch.tensor(rng.normal(size=(2, 5)).astype(np.float32))
+    l = torch.tensor(rng.uniform(1, 3, size=(2, 5)).astype(np.float32))
+    want = flash_combine(o, m, l)
+    got = flash_combine(torch.cat([o, torch.zeros(1, 5, 8)]),
+                        torch.cat([m, torch.full((1, 5), -1e30)]),
+                        torch.cat([l, torch.zeros(1, 5)]))
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+# One Mistral-NeMo-12B attention layer (32 query heads, 8 kv heads,
+# head_dim 128) at a 4096-token prefill and one decode step after it.
+NEMO = {"prefill": (32, 8, 4096, 4096, 128, True, 0),
+        "decode": (32, 8, 1, 4096, 128, True, 4095)}
+
+
+@pytest.mark.parametrize("cell", sorted(NEMO))
+def test_decode_splits_at_nemo_shapes(cell):
+    """Prefill fills the card with 2048 row tiles and does not split;
+    decode's 8 blocks of 4 packed rows split the 64 key tiles one each,
+    512 blocks; every split holds at least one key tile."""
+    h, hkv, tq, tk, _, _, _ = NEMO[cell]
+    splits = decode_splits(hkv, h // hkv * tq, tk)
+    assert splits == {"prefill": 1, "decode": 64}[cell]
+    n, tps = split_plan(tk, splits)
+    assert n == splits and (n - 1) * tps < -(-tk // 64) <= n * tps
+
+
+def test_flash_bounds_at_nemo_shapes():
+    """The bounds of the two kernels at the NeMo shapes: prefill bound by
+    operations, (4 Dh + 6) flops per causal pair at 67 TFLOP/s; decode by
+    the 33.6 MB of K, V, q, o, m and l at 3.35 TB/s; the combine of
+    decode's 64 splits by its partials' bytes."""
+    pairs = 32 * 4096 * 4097 // 2
+    ms, by = flash_bound_ms("flash_forward", 32, 8, 4096, 4096, 128, True, 0)
+    assert by == "operations"
+    np.testing.assert_allclose(ms, pairs * 518 / 67e12 * 1e3, rtol=1e-12)
+    ms, by = flash_bound_ms("flash_forward", 32, 8, 1, 4096, 128, True, 4095)
+    nbytes = 2 * 8 * 4096 * 128 * 4 + 2 * 32 * 128 * 4 + 2 * 32 * 4
+    assert by == "bytes"
+    np.testing.assert_allclose(ms, nbytes / 3.35e12 * 1e3, rtol=1e-12)
+    ms, by = flash_bound_ms("flash_combine", 32, 8, 1, 4096, 128, True, 4095,
+                            splits=64)
+    nbytes = 65 * (32 * 128 * 4 + 2 * 32 * 4)
+    assert by == "bytes"
+    np.testing.assert_allclose(ms, nbytes / 3.35e12 * 1e3, rtol=1e-12)
