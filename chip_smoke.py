@@ -22,9 +22,10 @@ start):
 3. ``band_kernel_check`` — the same for the four banded kernels (5-8) at
    (B, N, d, K) = (8, 4096, 50, 256) (the main run's shape with
    ``band="auto"``), (2, 65536, 14, 4096) (the SOG run's shape),
-   (3, 1000, 3, 40) and (1, 17, 1, 3); ``band_kernel_times`` at the first
-   two shapes in float32, with the dense yardstick at N = 4096 and the
-   ``band_tail_bound`` it is within.
+   (3, 1000, 3, 40), (1, 17, 1, 3) and (2, 3000, 30, 500), so that kernels
+   5 and 8 run at each of their payload tiles (64, 16, 16, 16, 32);
+   ``band_kernel_times`` at the first two shapes in float32, with the
+   dense yardstick at N = 4096 and the ``band_tail_bound`` it is within.
 4. ``function_check`` / ``band_function_check`` — the dense
    autograd.Function against the O(N^2) oracle, and the banded one
    against the windowed oracle ``core.softsort_apply_banded``: values
@@ -119,7 +120,7 @@ FWD_ATOL, GRAD_RTOL, BF16_RTOL = 2e-5, 1e-4, 2e-2
 SHAPES = [(8, 4096, 50), (3, 1000, 3), (1, 17, 1)]
 MAIN_SHAPE = SHAPES[0]
 BAND_SHAPES = [(8, 4096, 50, 256), (2, 65536, 14, 4096), (3, 1000, 3, 40),
-               (1, 17, 1, 3)]
+               (1, 17, 1, 3), (2, 3000, 30, 500)]
 BAND_TIMED = BAND_SHAPES[:2]
 SOG_SHAPE = BAND_SHAPES[1]       # the shape of the slice's main path
 TAU = 0.5
@@ -921,7 +922,7 @@ def main():
     t0 = time.perf_counter()
     logs = build.build_all(verbose=True)
     ptxas = [ln.strip() for log in logs.values() for ln in log.splitlines()
-             if "registers" in ln or "spill" in ln]
+             if "registers" in ln or "spill" in ln or "entry function" in ln]
     emit("build", seconds=time.perf_counter() - t0, sources=sorted(logs),
          flags=build.NVCC_FLAGS, ptxas=ptxas)
 

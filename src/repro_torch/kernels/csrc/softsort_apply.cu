@@ -22,12 +22,12 @@
 // The banded tier (kernels 5-8: ss_fwd_band, ss_colsum_band,
 // ss_bwd_band_dws_delta, ss_bwd_band_dcol) runs the same four sweeps with
 // both axes the sorted keys ws and the payload in rank order, over the
-// pairs with |i - j| <= K only: P~ is exactly 0 off the band.  Each
-// kernel template takes BAND; with BAND a tile of rows (or columns)
-// [t0, t0 + 64) loops over the other axis only across
-// [max(0, t0 - K), min(n, t0 + 64 + K)) and masks the pairs outside the
-// band, so the work is O(N K) instead of O(N^2).  The dense instantiation
-// (BAND = false) is the code of the dense tier, unchanged.
+// pairs with |i - j| <= K only: P~ is exactly 0 off the band.  A tile of
+// rows (or columns) [t0, t0 + len) loops over the other axis only across
+// [max(0, t0 - K), min(n, t0 + len + K)) and masks the pairs outside the
+// band, so the work is O(N K) instead of O(N^2).  Kernels 6 and 7 are the
+// dense templates instantiated with BAND; kernels 5 and 8 have templates
+// of their own (below).
 //
 // They replace the Pallas TPU kernels of src/repro/kernels/softsort_apply.py:
 // _fwd_fused_kernel (:150), _colsum_kernel (:182), _bwd_dws_delta_kernel
@@ -50,13 +50,55 @@
 // N = 4096, d = 50 that is thousands of flops per byte (and with the band,
 // O(K d) per byte).  The products run as float32 FMAs on the CUDA cores
 // (no tensor cores, so no TF32 rounding: the float32 results hold the JAX
-// reference to ~1e-6), and the design keeps those FMA loops fed from
-// shared memory: key and payload tiles are staged in shared memory (rows
-// padded by one word against bank conflicts), each thread keeps 8-16
-// accumulators in registers, and the score tile is computed once per
-// block and reused by every payload column.  The payload tile is 64 wide
-// whatever d is, so at small d most of its lanes are padding.  Making the
-// products run on wgmma with TMA-fed pipelines is later work.
+// reference to ~1e-6).  The dense kernels (1-4, 6, 7) stage key and
+// payload tiles in shared memory (rows padded by one word), each thread
+// keeps 8-16 accumulators in registers, and the score tile is computed
+// once per block and reused by every payload column; their payload tile
+// is 64 wide whatever d is.
+//
+// Kernels 5 and 8, designed for the Self-Organizing-Gaussians shape
+// (N = 65536, d = 14, K = 4096):
+// - The payload tile DT is a template parameter, 16, 32 or 64: the
+//   smallest that holds d, or tiles of 64 above that (the wrapper's
+//   band_payload_tile picks it).  Only the real
+//   columns are read, 16 bytes at a time when d * sizeof(T) and the base
+//   allow, else one element at a time; the tile's other columns are zero.
+// - Register micro-tiles read as float4.  In both payload products a
+//   thread owns 4 x 4 outputs (4 rows x 4 payload columns of y, or 4
+//   columns x 4 payload columns of dx), and P is stored so that its four
+//   values are one 16-byte load: each step is 2 LDS.128 for 16 FMAs, all
+//   lanes of a warp on one P row (broadcast, no bank conflict).  Kernel
+//   8's dP = dy x^T gives each thread an RA x CA block of pairs on
+//   interleaved rows and columns, read in float4 steps along d from
+//   tiles whose rows are padded by 4 words (odd 16-byte stride, so 8
+//   neighbouring rows hit 8 bank groups); its P tile rows are padded by
+//   16 words so that the two rows a warp writes fall in different banks.
+// - Each (row tile, column tile) pair is classified once: wholly inside
+//   the band and the matrix (interior, no per-pair test), or an edge
+//   tile, whose pairs are tested and masked.
+// - Kernel 5 knows its row maximum.  Rows and columns are the same
+//   sorted keys, the diagonal pair is always in the band, and for
+//   0 < 1 / tau < inf its score -|ws_i - ws_i| / tau = -0 is the largest
+//   any pair can have, so m_i = -0.0f (what the twin's max gives) and one
+//   sweep sums p = exp(s) with no rescale and no per-tile reduction.  For
+//   any other tau (no caller passes one) a first sweep over the same tiles
+//   takes the exact row maximum, and the second uses it: the branch is on
+//   the device scalar tau, uniform across the block.
+// - Kernel 8 steps 64 rows at a time over a tile of 64 columns (129
+//   steps at the SOG shape) and multiplies by a per-row 1 / l.  The dy
+//   tile, the row keys and the row stats of the next step are loaded into
+//   registers while the current step computes, then stored into the other
+//   half of a double buffer: two barriers per step.  For d > 64 each step
+//   sums dP over the payload tiles, its own last, as the dense kernel
+//   does.
+// - Occupancy: __launch_bounds__ asks for 2-4 blocks per SM (MIN_BLOCKS),
+//   so that more warps hide the latency of expf and of the shared loads;
+//   on the card this was faster than the register counts the compiler
+//   picks on its own (255 at DT = 16 in kernel 8), small spills included.
+// - Both use dynamic shared memory (up to 92 KB, the limit set once per
+//   instantiation) and write each output from one block in a fixed order:
+//   the row or column sums over the threads that share a row or column
+//   are added in shared memory in thread order, not with atomics.
 //
 // Masking follows the TPU kernels: columns >= n (and, banded, pairs off
 // the band) score NEG_INF = -1e30 (finite, so exp underflows to exactly 0
@@ -72,6 +114,9 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
+#include <type_traits>
 
 namespace {
 
@@ -169,17 +214,17 @@ __device__ __forceinline__ void stage(float (*dst)[DT + 1], const T* src,
 }
 
 // ---------------------------------------------------------------------------
-// Kernels 1 and 5: fused online-softmax forward.  Block = (row tile,
+// Kernel 1: fused online-softmax forward.  Block = (row tile,
 // payload tile, instance); thread t owns row t/4 and payload columns
 // t%4 + 4k.  Every payload tile block recomputes the row stats (cheap next
 // to the products); the one with blockIdx.y == 0 writes m and l.
 // ---------------------------------------------------------------------------
-template <typename T, bool BAND>
+template <typename T>
 __global__ void __launch_bounds__(NT)
 fwd_fused_kernel(const float* __restrict__ ws, const float* __restrict__ w,
                  const T* __restrict__ x, const float* __restrict__ tau,
                  T* __restrict__ y, float* __restrict__ m_out,
-                 float* __restrict__ l_out, int n, int d, int K) {
+                 float* __restrict__ l_out, int n, int d) {
   __shared__ float ws_s[TR], w_s[TC], m_s[TR], l_s[TR], corr_s[TR];
   __shared__ float p_s[TR][TC + 1];
   __shared__ float x_s[TC][DT + 1];
@@ -190,7 +235,7 @@ fwd_fused_kernel(const float* __restrict__ ws, const float* __restrict__ w,
   w += (size_t)b * n;
   x += (size_t)b * n * d;
   const float inv_tau = 1.0f / tau[0];
-  const int j_lo = span_lo<BAND>(r0, K), j_hi = span_hi<BAND>(r0, TR, n, K);
+  const int j_lo = 0, j_hi = n;
 
   if (tid < TR) {
     ws_s[tid] = r0 + tid < n ? ws[r0 + tid] : 0.f;
@@ -214,8 +259,8 @@ fwd_fused_kernel(const float* __restrict__ ws, const float* __restrict__ w,
 #pragma unroll
       for (int k = 0; k < 16; ++k) {
         const int j = q + 4 * k;
-        s[k] = pair_ok<BAND>(i, j0 + j, n, K) ? score<T>(wr, w_s[j], inv_tau)
-                                              : NEG_INF;
+        s[k] = pair_ok<false>(i, j0 + j, n, 0) ? score<T>(wr, w_s[j], inv_tau)
+                                               : NEG_INF;
         mx = fmaxf(mx, s[k]);
       }
       mx = quad_max(mx);
@@ -226,7 +271,7 @@ fwd_fused_kernel(const float* __restrict__ ws, const float* __restrict__ w,
       for (int k = 0; k < 16; ++k) {
         // The explicit mask keeps a fully masked tile exact: there m_new
         // is still NEG_INF and exp(s - m_new) would be exp(0) = 1.
-        const float p = pair_ok<BAND>(i, j0 + q + 4 * k, n, K)
+        const float p = pair_ok<false>(i, j0 + q + 4 * k, n, 0)
                             ? expf(s[k] - m_new) : 0.f;
         sum += p;
         p_s[r][q + 4 * k] = rnd<T>(p);
@@ -425,7 +470,7 @@ bwd_dws_delta_kernel(const float* __restrict__ ws,
 }
 
 // ---------------------------------------------------------------------------
-// Kernels 4 and 8: column sweep.  Block = (column tile, payload tile,
+// Kernel 4: column sweep.  Block = (column tile, payload tile,
 // instance); thread t owns column t/4: in the score phase rows t%4 + 4k of
 // each row tile, in the payload phase dx columns t%4 + 4k.
 //   ds_ij = P_ij (dP_ij - D_i)
@@ -433,9 +478,8 @@ bwd_dws_delta_kernel(const float* __restrict__ ws,
 //   dtau_cols_j = sum_i ds_ij (-s_ij) / tau
 // dP needs the full payload width, so each block sums it over every
 // payload tile, taking its own tile last so that dy_s then holds it.
-// Banded, dx and dw_cols are the rank-order dxs and dws_col.
 // ---------------------------------------------------------------------------
-template <typename T, bool BAND>
+template <typename T>
 __global__ void __launch_bounds__(NT)
 bwd_dx_kernel(const float* __restrict__ ws, const float* __restrict__ w,
               const T* __restrict__ x, const float* __restrict__ tau,
@@ -443,7 +487,7 @@ bwd_dx_kernel(const float* __restrict__ ws, const float* __restrict__ w,
               const T* __restrict__ dy, const T* __restrict__ dc,
               const float* __restrict__ Dv, T* __restrict__ dx,
               float* __restrict__ dwc_out, float* __restrict__ dtc_out,
-              int n, int d, int K) {
+              int n, int d) {
   __shared__ float ws_s[TR4], m_s[TR4], l_s[TR4], D_s[TR4];
   __shared__ float w_s[TC], dc_s[TC];
   __shared__ float dy_s[TR4][DT + 1];
@@ -463,7 +507,7 @@ bwd_dx_kernel(const float* __restrict__ ws, const float* __restrict__ w,
   const float inv_tau = 1.0f / tau[0];
   const int nd = (d + DT - 1) / DT;
   const bool x_resident = nd == 1;   // x tile staged once for d <= DT
-  const int i_lo = span_lo<BAND>(j0, K), i_hi = span_hi<BAND>(j0, TC, n, K);
+  const int i_lo = 0, i_hi = n;
 
   if (tid < TC) {
     const bool ok = j0 + tid < n;
@@ -509,8 +553,7 @@ bwd_dx_kernel(const float* __restrict__ ws, const float* __restrict__ w,
 #pragma unroll
       for (int k = 0; k < TR4 / 4; ++k) {
         const int i = q + 4 * k;
-        bool ok = i0 + i < n;
-        if constexpr (BAND) ok = pair_ok<true>(i0 + i, j, n, K);
+        const bool ok = i0 + i < n;
         float p = 0.f;
         if (ok) {
           const float s = score<T>(ws_s[i], wc, inv_tau);
@@ -553,6 +596,559 @@ bwd_dx_kernel(const float* __restrict__ ws, const float* __restrict__ w,
   if (own == 0 && q == 0 && j < n) {
     dwc_out[(size_t)b * n + j] = dwc * inv_tau;
     dtc_out[(size_t)b * n + j] = dtc * inv_tau;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Kernels 5 and 8 (see the header): payload tiles of DT = 16, 32 or 64
+// columns, 4 x 4 register micro-tiles, interior tiles unmasked.
+// ---------------------------------------------------------------------------
+
+// Load 16 bytes of T (4 floats or 8 bfloat16) as floats.
+__device__ __forceinline__ void load16(const float* src, float* v) {
+  const float4 t = __ldg(reinterpret_cast<const float4*>(src));
+  v[0] = t.x;
+  v[1] = t.y;
+  v[2] = t.z;
+  v[3] = t.w;
+}
+
+__device__ __forceinline__ void load16(const __nv_bfloat16* src, float* v) {
+  const uint4 t = __ldg(reinterpret_cast<const uint4*>(src));
+  const unsigned u[4] = {t.x, t.y, t.z, t.w};
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const float2 f = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(&u[k]));
+    v[2 * k] = f.x;
+    v[2 * k + 1] = f.y;
+  }
+}
+
+// One thread's share of an R x DT tile of a row-major (n, d) matrix of T,
+// held in registers as floats between a load and a store: rows
+// [r0, r0 + R), columns [c0, c0 + dn) with dn <= DT; the rest of the tile
+// is zero.  With vec (d a multiple of 16 bytes and the base 16-byte
+// aligned) a thread moves 16-byte chunks, else single elements; only the
+// real columns are read.
+template <typename T, int R, int DT, int NTH>
+struct TileRegs {
+  static constexpr int E = R * DT / NTH;      // floats per thread
+  static constexpr int V = 16 / sizeof(T);    // elements per chunk
+  static_assert(E % V == 0, "a thread's share must be whole chunks");
+  float v[E];
+
+  __device__ __forceinline__ void load(const T* src, int r0, int n, int d,
+                                       int c0, int dn, bool vec) {
+    if (vec) {
+#pragma unroll
+      for (int k = 0; k < E / V; ++k) {
+        const int idx = threadIdx.x + k * NTH;
+        const int r = idx / (DT / V), c = idx % (DT / V) * V;
+        if (r0 + r < n && c < dn) {
+          load16(src + (size_t)(r0 + r) * d + c0 + c, v + k * V);
+        } else {
+#pragma unroll
+          for (int e = 0; e < V; ++e) v[k * V + e] = 0.f;
+        }
+      }
+    } else {
+#pragma unroll
+      for (int k = 0; k < E; ++k) {
+        const int idx = threadIdx.x + k * NTH;
+        const int r = idx / DT, c = idx % DT;
+        v[k] = (r0 + r < n && c < dn)
+                   ? to_f(src[(size_t)(r0 + r) * d + c0 + c]) : 0.f;
+      }
+    }
+  }
+
+  // Into dst (row stride ld floats, a multiple of 4), the same layout.
+  __device__ __forceinline__ void store(float* dst, int ld, bool vec) const {
+    if (vec) {
+#pragma unroll
+      for (int k = 0; k < E / V; ++k) {
+        const int idx = threadIdx.x + k * NTH;
+        const int r = idx / (DT / V), c = idx % (DT / V) * V;
+#pragma unroll
+        for (int e = 0; e < V; e += 4)
+          *reinterpret_cast<float4*>(dst + r * ld + c + e) = make_float4(
+              v[k * V + e], v[k * V + e + 1], v[k * V + e + 2],
+              v[k * V + e + 3]);
+      }
+    } else {
+#pragma unroll
+      for (int k = 0; k < E; ++k) {
+        const int idx = threadIdx.x + k * NTH;
+        dst[idx / DT * ld + idx % DT] = v[k];
+      }
+    }
+  }
+};
+
+__device__ __forceinline__ float comp(const float4& v, int k) {
+  return k == 0 ? v.x : (k == 1 ? v.y : (k == 2 ? v.z : v.w));
+}
+
+// Whether every pair of rows [i0, i0 + R) x columns [j0, j0 + C) is real
+// and within K ranks: such a tile needs no per-pair test.
+__device__ __forceinline__ bool interior(int i0, int R, int j0, int C, int n,
+                                         int K) {
+  return i0 + R <= n && j0 + C <= n && j0 + C - 1 - i0 <= K &&
+         i0 + R - 1 - j0 <= K;
+}
+
+template <bool V> using Edge = std::integral_constant<bool, V>;
+
+// ---------------------------------------------------------------------------
+// Kernel 5: banded forward.  Block = (TR-row tile, DT-wide payload tile,
+// instance), NT = TR / 4 x DT / 4 threads; column tiles of BTC keys.
+//   Score phase: thread t scores rows 4 sr + u (u < 4) of the tile
+//   against columns sc + SCOLS k, sr = t % NRG, and stores P^T: the four
+//   rows of a column are one float4 of p_s[column][row].
+//   Product phase: thread t owns rows 4 pr + u and payload columns
+//   4 pc + v, pc = t % NCG: per column j one float4 of P and one of x.
+// Every payload-tile block recomputes the scores; blockIdx.y == 0 writes
+// m and l.
+// ---------------------------------------------------------------------------
+constexpr int BTC = 64;   // kernel 5: keys per column tile
+
+template <int DT>
+struct FwdBand {
+  static constexpr int TR = DT <= 16 ? 128 : 64;   // rows per block
+  static constexpr int NRG = TR / 4;               // 4-row groups
+  static constexpr int NCG = DT / 4;               // 4-column payload groups
+  static constexpr int NT = NRG * NCG;             // 128, 128, 256
+  static constexpr int SCOLS = NT / NRG;           // columns scored at once
+  static constexpr int SK = BTC / SCOLS;           // per thread per tile
+  static constexpr int FLOATS = BTC * TR + 2 * BTC * DT + 2 * BTC;
+  // Blocks per SM the registers must allow (<= 128 registers at DT = 16
+  // and 64, 170 at 32): more warps to hide the exp and load latencies.
+  static constexpr int MIN_BLOCKS = DT == 64 ? 2 : (DT == 32 ? 3 : 4);
+};
+
+template <typename T, int DT>
+__global__ void __launch_bounds__(FwdBand<DT>::NT, FwdBand<DT>::MIN_BLOCKS)
+fwd_band_kernel(const float* __restrict__ ws, const T* __restrict__ x,
+                const float* __restrict__ tau, T* __restrict__ y,
+                float* __restrict__ m_out, float* __restrict__ l_out, int n,
+                int d, int K, int vec) {
+  using C = FwdBand<DT>;
+  constexpr int TR = C::TR, NT = C::NT, NRG = C::NRG, NCG = C::NCG;
+  constexpr int SCOLS = C::SCOLS, SK = C::SK;
+  extern __shared__ float4 smem4[];
+  float* const p_s = reinterpret_cast<float*>(smem4);   // [BTC][TR]
+  float* const x_s = p_s + BTC * TR;                    // [2][BTC][DT]
+  float* const w_s = x_s + 2 * BTC * DT;                // [2][BTC]
+
+  const int b = blockIdx.z, r0 = blockIdx.x * TR, c0 = blockIdx.y * DT;
+  const int tid = threadIdx.x;
+  const int sr = tid % NRG, sc = tid / NRG;   // score phase
+  const int pc = tid % NCG, pr = tid / NCG;   // product phase
+  ws += (size_t)b * n;
+  x += (size_t)b * n * d;
+  const float inv_tau = 1.0f / tau[0];
+  const int j_lo = max(0, r0 - K), j_hi = min(n, r0 + TR + K);
+  const int dn = min(DT, d - c0);
+
+  float wr[4], mr[4], lsum[4];
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    const int i = r0 + 4 * sr + u;
+    wr[u] = i < n ? ws[i] : 0.f;
+    mr[u] = -0.0f;   // the diagonal's score: the row maximum for tau > 0
+    lsum[u] = 0.f;
+  }
+
+  // Any other tau: a first sweep for the exact row maximum.
+  if (!(inv_tau > 0.f && inv_tau <= 3.4028235e38f)) {
+    float mx[4] = {NEG_INF, NEG_INF, NEG_INF, NEG_INF};
+    for (int j = j_lo + sc; j < j_hi; j += SCOLS) {
+      const float wc = ws[j];
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        if (pair_ok<true>(r0 + 4 * sr + u, j, n, K))
+          mx[u] = fmaxf(mx[u], score<T>(wr[u], wc, inv_tau));
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) p_s[sc * TR + 4 * sr + u] = mx[u];
+    __syncthreads();
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      float v = p_s[4 * sr + u];
+      for (int k = 1; k < SCOLS; ++k) v = fmaxf(v, p_s[k * TR + 4 * sr + u]);
+      mr[u] = v;
+    }
+    __syncthreads();
+  }
+
+  TileRegs<T, BTC, DT, NT> xr;
+  float wk = 0.f;
+  auto fetch = [&](int j0) {
+    xr.load(x, j0, n, d, c0, dn, vec);
+    if (tid < BTC) wk = j0 + tid < n ? ws[j0 + tid] : 0.f;
+  };
+  auto put = [&](int buf) {
+    xr.store(x_s + buf * BTC * DT, DT, vec);
+    if (tid < BTC) w_s[buf * BTC + tid] = wk;
+  };
+  fetch(j_lo);
+  put(0);
+  __syncthreads();
+
+  // P^T of one column tile into p_s, summing l; edge tiles test each pair.
+  auto score_tile = [&](auto edge, int j0, const float* wcs) {
+#pragma unroll 4
+    for (int k = 0; k < SK; ++k) {
+      const int jl = sc + SCOLS * k;
+      const float wc = wcs[jl];
+      float p[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const float s = score<T>(wr[u], wc, inv_tau);
+        bool ok = true;
+        if constexpr (decltype(edge)::value)
+          ok = pair_ok<true>(r0 + 4 * sr + u, j0 + jl, n, K);
+        // Explicitly 0 when masked (the finite NEG_INF convention).
+        const float e = ok ? expf(s - mr[u]) : 0.f;
+        lsum[u] += e;
+        p[u] = rnd<T>(e);
+      }
+      *reinterpret_cast<float4*>(p_s + jl * TR + 4 * sr) =
+          make_float4(p[0], p[1], p[2], p[3]);
+    }
+  };
+
+  float acc[4][4];
+#pragma unroll
+  for (int u = 0; u < 4; ++u)
+#pragma unroll
+    for (int v = 0; v < 4; ++v) acc[u][v] = 0.f;
+
+  int cur = 0;
+  for (int j0 = j_lo; j0 < j_hi; j0 += BTC, cur ^= 1) {
+    const bool more = j0 + BTC < j_hi;
+    if (more) fetch(j0 + BTC);
+    if (interior(r0, TR, j0, BTC, n, K))
+      score_tile(Edge<false>{}, j0, w_s + cur * BTC);
+    else
+      score_tile(Edge<true>{}, j0, w_s + cur * BTC);
+    if (more) put(cur ^ 1);
+    __syncthreads();
+
+    const float* const xs = x_s + cur * BTC * DT;
+#pragma unroll 4
+    for (int j = 0; j < BTC; ++j) {
+      const float4 p4 = *reinterpret_cast<const float4*>(p_s + j * TR + 4 * pr);
+      const float4 x4 = *reinterpret_cast<const float4*>(xs + j * DT + 4 * pc);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const float p = comp(p4, u);
+        acc[u][0] = fmaf(p, x4.x, acc[u][0]);
+        acc[u][1] = fmaf(p, x4.y, acc[u][1]);
+        acc[u][2] = fmaf(p, x4.z, acc[u][2]);
+        acc[u][3] = fmaf(p, x4.w, acc[u][3]);
+      }
+    }
+    __syncthreads();   // before the next tile's P and x overwrite these
+  }
+
+  // l of each row: the SCOLS partial sums, added in a fixed order.
+#pragma unroll
+  for (int u = 0; u < 4; ++u) p_s[sc * TR + 4 * sr + u] = lsum[u];
+  __syncthreads();
+  auto row_l = [&](int r) {
+    float v = p_s[r];
+    for (int k = 1; k < SCOLS; ++k) v += p_s[k * TR + r];
+    return v;
+  };
+
+  T* const yb = y + (size_t)b * n * d;
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    const int i = r0 + 4 * pr + u;
+    if (i >= n) continue;
+    const float l = fmaxf(row_l(4 * pr + u), 1e-30f);
+#pragma unroll
+    for (int v = 0; v < 4; ++v) {
+      const int c = c0 + 4 * pc + v;
+      if (c < d) yb[(size_t)i * d + c] = from_f<T>(acc[u][v] / l);
+    }
+  }
+  if (blockIdx.y == 0 && sc == 0) {
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int i = r0 + 4 * sr + u;
+      if (i < n) {
+        m_out[(size_t)b * n + i] = mr[u];
+        l_out[(size_t)b * n + i] = row_l(4 * sr + u);
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Kernel 8: banded column sweep.  Block = (TC-column tile, DT-wide payload
+// tile `own`, instance); steps of BTRS rows over the tile's span.
+//   ds_ij = P_ij (dP_ij - D_i),  dP_ij = dy_i . x_j + dc_j
+//   dxs_j = sum_i P_ij dy_i,  dws_col_j = sum_i ds_ij sgn_ij / tau,
+//   dtau_cols_j = sum_i ds_ij (-s_ij) / tau
+//   dP and score phase: thread t owns rows ra + NRA u (u < RA) and columns
+//   ca + NCA v (v < CA), ca = t % NCA; dP in float4 steps along d.
+//   Product phase: thread t owns columns 4 cb + u and payload columns
+//   4 pg + v, pg = t % NPG, over rows [h BTRS / RS, (h + 1) BTRS / RS) of
+//   each step, h = t / (NPG TC / 4): per row one float4 of P and one of
+//   dy.  At DT = 16 the RS = 2 halves of the block split the rows, and
+//   their sums are added once at the end.
+// A step is one stage per payload tile (one for d <= 64), its own tile
+// last, so that the dy buffer of the last stage holds the own tile.
+// ---------------------------------------------------------------------------
+constexpr int BTRS = 64;   // kernel 8: rows per step
+
+template <int DT>
+struct DcolBand {
+  static constexpr int TC = 64;                    // columns per block
+  static constexpr int NPG = DT / 4;
+  static constexpr int NT = DT == 64 ? 256 : 128;
+  static constexpr int RS = NT / (TC / 4 * NPG);   // 2, 1, 1 row splits
+  static constexpr int NCA = 16;
+  static constexpr int NRA = NT / NCA;
+  static constexpr int RA = BTRS / NRA;            // 8, 8, 4
+  static constexpr int CA = TC / NCA;              // 4
+  static constexpr int LD = DT + 4;                // dy and x tile rows
+  static constexpr int PLD = TC + 16;              // P tile rows
+  static constexpr int MIN_BLOCKS = DT == 64 ? 2 : 3;   // per SM
+  static constexpr int floats(int nd) {
+    return BTRS * PLD + 2 * BTRS * LD + 2 * 4 * BTRS +
+           (nd > 1 ? 2 : 1) * TC * LD;
+  }
+};
+
+template <typename T, int DT>
+__global__ void __launch_bounds__(DcolBand<DT>::NT, DcolBand<DT>::MIN_BLOCKS)
+bwd_band_dcol_kernel(const float* __restrict__ ws, const T* __restrict__ x,
+                     const float* __restrict__ tau,
+                     const float* __restrict__ m, const float* __restrict__ l,
+                     const T* __restrict__ dy, const T* __restrict__ dc,
+                     const float* __restrict__ Dv, T* __restrict__ dx,
+                     float* __restrict__ dwc_out, float* __restrict__ dtc_out,
+                     int n, int d, int K, int vec) {
+  using C = DcolBand<DT>;
+  constexpr int TC = C::TC, NT = C::NT, NPG = C::NPG, NCA = C::NCA;
+  constexpr int NRA = C::NRA, RA = C::RA, CA = C::CA, LD = C::LD;
+  constexpr int PLD = C::PLD, RS = C::RS, RH = BTRS / RS;
+  const int b = blockIdx.z, j0 = blockIdx.x * TC, own = blockIdx.y;
+  const int nd = DT == 64 ? gridDim.y : 1;   // d > 64 only at DT = 64
+  extern __shared__ float4 smem4[];
+  float* const p_s = reinterpret_cast<float*>(smem4);   // [BTRS][PLD]
+  float* const dy_s = p_s + BTRS * PLD;                 // [2][BTRS][LD]
+  float* const st_s = dy_s + 2 * BTRS * LD;             // [2][4][BTRS]
+  float* const x_s = st_s + 2 * 4 * BTRS;               // [1 or 2][TC][LD]
+
+  const int tid = threadIdx.x;
+  const int ca = tid % NCA, ra = tid / NCA;   // dP and score phase
+  const int pg = tid % NPG, cb = tid / NPG % (TC / 4);   // product phase
+  const int h0 = tid / (NPG * TC / 4) * RH;
+  ws += (size_t)b * n;
+  m += (size_t)b * n;
+  l += (size_t)b * n;
+  dc += (size_t)b * n;
+  Dv += (size_t)b * n;
+  x += (size_t)b * n * d;
+  dy += (size_t)b * n * d;
+  const float inv_tau = 1.0f / tau[0];
+  const int i_lo = max(0, j0 - K), i_hi = min(n, j0 + TC + K);
+  const int nstage = (i_hi - i_lo + BTRS - 1) / BTRS * nd;
+
+  float wc[CA], dcj[CA], pw[CA], pt[CA];
+#pragma unroll
+  for (int v = 0; v < CA; ++v) {
+    const int j = j0 + ca + NCA * v;
+    wc[v] = j < n ? ws[j] : 0.f;
+    dcj[v] = j < n ? to_f(dc[j]) : 0.f;
+    pw[v] = pt[v] = 0.f;
+  }
+
+  // Stage q: step q / nd, payload tile (own + 1 + q % nd) % nd.  dy (and,
+  // for nd > 1, x) go to buffer q & 1; a step's row keys and stats, fetched
+  // with its first stage, to buffer (q / nd) & 1.
+  TileRegs<T, BTRS, DT, NT> dyr;
+  TileRegs<T, TC, DT, NT> xr;
+  float st[4] = {0.f, 0.f, 1.f, 0.f};
+  auto tile_c0 = [&](int q) { return (own + 1 + q % nd) % nd * DT; };
+  auto fetch = [&](int q) {
+    const int i0 = i_lo + q / nd * BTRS, c0 = tile_c0(q);
+    dyr.load(dy, i0, n, d, c0, min(DT, d - c0), vec);
+    if (nd > 1) xr.load(x, j0, n, d, c0, min(DT, d - c0), vec);
+    if (q % nd == 0 && tid < BTRS) {
+      const int i = i0 + tid;
+      const bool ok = i < n;
+      st[0] = ok ? ws[i] : 0.f;
+      st[1] = ok ? m[i] : 0.f;
+      st[2] = ok ? 1.0f / fmaxf(l[i], 1e-30f) : 1.f;
+      st[3] = ok ? Dv[i] : 0.f;
+    }
+  };
+  auto put = [&](int q) {
+    dyr.store(dy_s + (q & 1) * BTRS * LD, LD, vec);
+    if (nd > 1) xr.store(x_s + (q & 1) * TC * LD, LD, vec);
+    if (q % nd == 0 && tid < BTRS) {
+#pragma unroll
+      for (int f = 0; f < 4; ++f)
+        st_s[((q / nd & 1) * 4 + f) * BTRS + tid] = st[f];
+    }
+  };
+  if (nd == 1) {   // x stays resident
+    xr.load(x, j0, n, d, 0, min(DT, d), vec);
+    xr.store(x_s, LD, vec);
+  }
+  fetch(0);
+  put(0);
+  __syncthreads();
+
+  // P, ds and the column sums of one step; edge tiles test each pair.
+  float dp[RA][CA];
+  auto score_step = [&](auto edge, int i0, const float* sts) {
+#pragma unroll
+    for (int u = 0; u < RA; ++u) {
+      const int rl = ra + NRA * u;
+      const float wsi = sts[rl], mi = sts[BTRS + rl];
+      const float rli = sts[2 * BTRS + rl], Di = sts[3 * BTRS + rl];
+#pragma unroll
+      for (int v = 0; v < CA; ++v) {
+        const float s = score<T>(wsi, wc[v], inv_tau);
+        bool ok = true;
+        if constexpr (decltype(edge)::value)
+          ok = pair_ok<true>(i0 + rl, j0 + ca + NCA * v, n, K);
+        float p = 0.f;
+        if (ok) {
+          p = expf(s - mi) * rli;
+          const float ds = p * (dp[u][v] + dcj[v] - Di);
+          pw[v] += ds * sgnf(wsi - wc[v]);
+          pt[v] += ds * (-s);
+        }
+        p_s[rl * PLD + ca + NCA * v] = rnd<T>(p);
+      }
+    }
+  };
+
+  float acc[4][4];
+#pragma unroll
+  for (int u = 0; u < 4; ++u)
+#pragma unroll
+    for (int v = 0; v < 4; ++v) acc[u][v] = 0.f;
+
+  for (int q = 0; q < nstage; ++q) {
+    const bool more = q + 1 < nstage, last = q % nd == nd - 1;
+    if (more) fetch(q + 1);
+    if (q % nd == 0) {
+#pragma unroll
+      for (int u = 0; u < RA; ++u)
+#pragma unroll
+        for (int v = 0; v < CA; ++v) dp[u][v] = 0.f;
+    }
+    // dP += dy_tile x_tile^T.
+    const float* const dys = dy_s + (q & 1) * BTRS * LD;
+    const float* const xs = x_s + (nd > 1 ? (q & 1) : 0) * TC * LD;
+#pragma unroll 2
+    for (int c = 0; c < DT; c += 4) {
+      float4 a[RA];
+#pragma unroll
+      for (int u = 0; u < RA; ++u)
+        a[u] = *reinterpret_cast<const float4*>(dys + (ra + NRA * u) * LD + c);
+#pragma unroll
+      for (int v = 0; v < CA; ++v) {
+        const float4 xv =
+            *reinterpret_cast<const float4*>(xs + (ca + NCA * v) * LD + c);
+#pragma unroll
+        for (int u = 0; u < RA; ++u) {
+          float t = dp[u][v];
+          t = fmaf(a[u].x, xv.x, t);
+          t = fmaf(a[u].y, xv.y, t);
+          t = fmaf(a[u].z, xv.z, t);
+          t = fmaf(a[u].w, xv.w, t);
+          dp[u][v] = t;
+        }
+      }
+    }
+    if (!last) {
+      if (more) put(q + 1);
+      __syncthreads();
+      continue;
+    }
+
+    const int i0 = i_lo + q / nd * BTRS;
+    const float* const sts = st_s + (q / nd & 1) * 4 * BTRS;
+    if (interior(i0, BTRS, j0, TC, n, K))
+      score_step(Edge<false>{}, i0, sts);
+    else
+      score_step(Edge<true>{}, i0, sts);
+    if (more) put(q + 1);
+    __syncthreads();
+
+    // dx += P^T dy over this thread's rows of the step, own payload tile.
+#pragma unroll 4
+    for (int i = h0; i < h0 + RH; ++i) {
+      const float4 p4 = *reinterpret_cast<const float4*>(p_s + i * PLD + 4 * cb);
+      const float4 g4 = *reinterpret_cast<const float4*>(dys + i * LD + 4 * pg);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const float p = comp(p4, u);
+        acc[u][0] = fmaf(p, g4.x, acc[u][0]);
+        acc[u][1] = fmaf(p, g4.y, acc[u][1]);
+        acc[u][2] = fmaf(p, g4.z, acc[u][2]);
+        acc[u][3] = fmaf(p, g4.w, acc[u][3]);
+      }
+    }
+    __syncthreads();   // before the next step's P and dy overwrite these
+  }
+
+  // The row splits' dx sums and the NRA partials of each column sum,
+  // added in a fixed order.
+  float* const red = p_s;                   // [2][NRA][TC]
+  float* const red_dx = red + 2 * NRA * TC;  // [RS - 1][NT / RS][16]
+  if (RS > 1 && h0 > 0) {
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+#pragma unroll
+      for (int v = 0; v < 4; ++v)
+        red_dx[((h0 / RH - 1) * (NT / RS) + tid % (NT / RS)) * 16 + 4 * u +
+               v] = acc[u][v];
+  }
+#pragma unroll
+  for (int v = 0; v < CA; ++v) {
+    red[ra * TC + ca + NCA * v] = pw[v];
+    red[(NRA + ra) * TC + ca + NCA * v] = pt[v];
+  }
+  __syncthreads();
+
+  T* const dxb = dx + (size_t)b * n * d;
+  if (h0 == 0) {
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int j = j0 + 4 * cb + u;
+#pragma unroll
+      for (int v = 0; v < 4; ++v) {
+        float a = acc[u][v];
+        for (int h = 1; h < RS; ++h)
+          a += red_dx[((h - 1) * (NT / RS) + tid) * 16 + 4 * u + v];
+        const int c = own * DT + 4 * pg + v;
+        if (j < n && c < d) dxb[(size_t)j * d + c] = from_f<T>(a);
+      }
+    }
+  }
+
+  if (own != 0) return;
+  for (int jl = tid; jl < TC; jl += NT) {
+    const int j = j0 + jl;
+    if (j >= n) continue;
+    float a = 0.f, t = 0.f;
+    for (int r = 0; r < NRA; ++r) {
+      a += red[r * TC + jl];
+      t += red[(NRA + r) * TC + jl];
+    }
+    dwc_out[(size_t)b * n + j] = a * inv_tau;
+    dtc_out[(size_t)b * n + j] = t * inv_tau;
   }
 }
 
@@ -671,14 +1267,14 @@ v1_apply_kernel(const float* __restrict__ ws, const float* __restrict__ w,
 
 inline int n_dtiles(int d) { return d > 0 ? (d + DT - 1) / DT : 1; }
 
-template <typename T, bool BAND>
+template <typename T>
 int launch_fwd_fused(const void* ws, const void* w, const void* x,
                      const void* tau, void* y, void* m, void* l, int B, int n,
-                     int d, int K, void* stream) {
+                     int d, void* stream) {
   dim3 grid((n + TR - 1) / TR, n_dtiles(d), B);
-  fwd_fused_kernel<T, BAND><<<grid, NT, 0, (cudaStream_t)stream>>>(
+  fwd_fused_kernel<T><<<grid, NT, 0, (cudaStream_t)stream>>>(
       (const float*)ws, (const float*)w, (const T*)x, (const float*)tau,
-      (T*)y, (float*)m, (float*)l, n, d, K);
+      (T*)y, (float*)m, (float*)l, n, d);
   return (int)cudaGetLastError();
 }
 
@@ -707,18 +1303,109 @@ int launch_bwd_dws_delta(const void* ws, const void* w, const void* x,
   return (int)cudaGetLastError();
 }
 
-template <typename T, bool BAND>
+template <typename T>
 int launch_bwd_dx(const void* ws, const void* w, const void* x,
                   const void* tau, const void* m, const void* l,
                   const void* dy, const void* dc, const void* D, void* dx,
-                  void* dwc, void* dtc, int B, int n, int d, int K,
-                  void* stream) {
+                  void* dwc, void* dtc, int B, int n, int d, void* stream) {
   dim3 grid((n + TC - 1) / TC, n_dtiles(d), B);
-  bwd_dx_kernel<T, BAND><<<grid, NT, 0, (cudaStream_t)stream>>>(
+  bwd_dx_kernel<T><<<grid, NT, 0, (cudaStream_t)stream>>>(
       (const float*)ws, (const float*)w, (const T*)x, (const float*)tau,
       (const float*)m, (const float*)l, (const T*)dy, (const T*)dc,
-      (const float*)D, (T*)dx, (float*)dwc, (float*)dtc, n, d, K);
+      (const float*)D, (T*)dx, (float*)dwc, (float*)dtc, n, d);
   return (int)cudaGetLastError();
+}
+
+// 16-byte staging: d a whole number of 16-byte chunks, bases aligned.
+template <typename T>
+int vec_ok(int d, const void* a, const void* b) {
+  return d % (16 / (int)sizeof(T)) == 0 && (uintptr_t)a % 16 == 0 &&
+         (uintptr_t)b % 16 == 0;
+}
+
+template <typename T, int DT>
+int launch_fwd_band(const void* ws, const void* x, const void* tau, void* y,
+                    void* m, void* l, int B, int n, int d, int K,
+                    cudaStream_t stream) {
+  using C = FwdBand<DT>;
+  constexpr int bytes = C::FLOATS * (int)sizeof(float);
+  static bool limit_set = false;
+  if (!limit_set) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        fwd_band_kernel<T, DT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        bytes);
+    if (e != cudaSuccess) return (int)e;
+    limit_set = true;
+  }
+  dim3 grid((n + C::TR - 1) / C::TR, d > DT ? (d + DT - 1) / DT : 1, B);
+  fwd_band_kernel<T, DT><<<grid, C::NT, bytes, stream>>>(
+      (const float*)ws, (const T*)x, (const float*)tau, (T*)y, (float*)m,
+      (float*)l, n, d, K, vec_ok<T>(d, x, x));
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int DT>
+int launch_band_dcol(const void* ws, const void* x, const void* tau,
+                     const void* m, const void* l, const void* dy,
+                     const void* dc, const void* D, void* dx, void* dwc,
+                     void* dtc, int B, int n, int d, int K,
+                     cudaStream_t stream) {
+  using C = DcolBand<DT>;
+  const int nd = d > DT ? (d + DT - 1) / DT : 1;
+  const int bytes = C::floats(nd) * (int)sizeof(float);
+  static bool limit_set = false;
+  if (!limit_set) {   // the larger of the two sizes, once
+    const cudaError_t e = cudaFuncSetAttribute(
+        bwd_band_dcol_kernel<T, DT>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
+        C::floats(2) * (int)sizeof(float));
+    if (e != cudaSuccess) return (int)e;
+    limit_set = true;
+  }
+  dim3 grid((n + C::TC - 1) / C::TC, nd, B);
+  bwd_band_dcol_kernel<T, DT><<<grid, C::NT, bytes, stream>>>(
+      (const float*)ws, (const T*)x, (const float*)tau, (const float*)m,
+      (const float*)l, (const T*)dy, (const T*)dc, (const float*)D, (T*)dx,
+      (float*)dwc, (float*)dtc, n, d, K, vec_ok<T>(d, x, dy));
+  return (int)cudaGetLastError();
+}
+
+// Kernels 5 and 8 at the payload tile dt the caller chose (the wrapper's
+// band_payload_tile): 16, 32 or 64, and 64 if it does not hold d, as
+// kernel 8 loops over payload tiles only at DT = 64.
+inline bool dt_ok(int dt, int d) {
+  return dt == 64 || ((dt == 16 || dt == 32) && d <= dt);
+}
+
+template <typename T>
+int launch_fwd_band_dt(const void* ws, const void* x, const void* tau,
+                       void* y, void* m, void* l, int B, int n, int d, int K,
+                       int dt, void* stream) {
+  if (!dt_ok(dt, d)) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (dt == 16)
+    return launch_fwd_band<T, 16>(ws, x, tau, y, m, l, B, n, d, K, st);
+  if (dt == 32)
+    return launch_fwd_band<T, 32>(ws, x, tau, y, m, l, B, n, d, K, st);
+  return launch_fwd_band<T, 64>(ws, x, tau, y, m, l, B, n, d, K, st);
+}
+
+template <typename T>
+int launch_band_dcol_dt(const void* ws, const void* x, const void* tau,
+                        const void* m, const void* l, const void* dy,
+                        const void* dc, const void* D, void* dx, void* dwc,
+                        void* dtc, int B, int n, int d, int K, int dt,
+                        void* stream) {
+  if (!dt_ok(dt, d)) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (dt == 16)
+    return launch_band_dcol<T, 16>(ws, x, tau, m, l, dy, dc, D, dx, dwc, dtc,
+                                   B, n, d, K, st);
+  if (dt == 32)
+    return launch_band_dcol<T, 32>(ws, x, tau, m, l, dy, dc, D, dx, dwc, dtc,
+                                   B, n, d, K, st);
+  return launch_band_dcol<T, 64>(ws, x, tau, m, l, dy, dc, D, dx, dwc, dtc,
+                                 B, n, d, K, st);
 }
 
 int launch_v1_stats(const void* ws, const void* w, const void* tau, void* m,
@@ -745,14 +1432,14 @@ int launch_v1_apply(const void* ws, const void* w, const void* x,
 #define SS_EXPORT extern "C" __attribute__((visibility("default")))
 
 // Dense (kernels 1-4): rows ws, columns w.  Banded (kernels 5-8): both
-// axes ws, the payload in rank order, half-width K.
+// axes ws, the payload in rank order, half-width K; kernels 5 and 8 also
+// take their payload tile dt (16, 32 or 64, see dt_ok).
 #define SS_INSTANTIATE(SUFFIX, T)                                             \
   SS_EXPORT int ss_fwd_fused_##SUFFIX(const void* ws, const void* w,         \
                                       const void* x, const void* tau,        \
                                       void* y, void* m, void* l, int B,      \
                                       int n, int d, void* stream) {          \
-    return launch_fwd_fused<T, false>(ws, w, x, tau, y, m, l, B, n, d, 0,    \
-                                      stream);                               \
+    return launch_fwd_fused<T>(ws, w, x, tau, y, m, l, B, n, d, stream);     \
   }                                                                          \
   SS_EXPORT int ss_colsum_##SUFFIX(const void* ws, const void* w,            \
                                    const void* tau, const void* m,           \
@@ -773,15 +1460,15 @@ int launch_v1_apply(const void* ws, const void* w, const void* x,
       const void* m, const void* l, const void* dy, const void* dc,          \
       const void* D, void* dx, void* dwc, void* dtc, int B, int n, int d,    \
       void* stream) {                                                        \
-    return launch_bwd_dx<T, false>(ws, w, x, tau, m, l, dy, dc, D, dx, dwc,  \
-                                   dtc, B, n, d, 0, stream);                 \
+    return launch_bwd_dx<T>(ws, w, x, tau, m, l, dy, dc, D, dx, dwc, dtc, B, \
+                            n, d, stream);                                   \
   }                                                                          \
   SS_EXPORT int ss_fwd_band_##SUFFIX(const void* ws, const void* x,          \
                                      const void* tau, void* y, void* m,      \
                                      void* l, int B, int n, int d, int K,    \
-                                     void* stream) {                         \
-    return launch_fwd_fused<T, true>(ws, ws, x, tau, y, m, l, B, n, d, K,    \
-                                     stream);                                \
+                                     int dt, void* stream) {                 \
+    return launch_fwd_band_dt<T>(ws, x, tau, y, m, l, B, n, d, K, dt,        \
+                                 stream);                                    \
   }                                                                          \
   SS_EXPORT int ss_colsum_band_##SUFFIX(const void* ws, const void* tau,     \
                                         const void* m, const void* l,        \
@@ -799,10 +1486,10 @@ int launch_v1_apply(const void* ws, const void* w, const void* x,
   SS_EXPORT int ss_bwd_band_dcol_##SUFFIX(                                   \
       const void* ws, const void* x, const void* tau, const void* m,         \
       const void* l, const void* dy, const void* dc, const void* D,          \
-      void* dx, void* dwc, void* dtc, int B, int n, int d, int K,            \
+      void* dx, void* dwc, void* dtc, int B, int n, int d, int K, int dt,    \
       void* stream) {                                                        \
-    return launch_bwd_dx<T, true>(ws, ws, x, tau, m, l, dy, dc, D, dx, dwc,  \
-                                  dtc, B, n, d, K, stream);                  \
+    return launch_band_dcol_dt<T>(ws, x, tau, m, l, dy, dc, D, dx, dwc, dtc, \
+                                  B, n, d, K, dt, stream);                   \
   }
 
 SS_INSTANTIATE(f32, float)

@@ -67,10 +67,12 @@ from repro_torch.kernels import clib
 
 NEG_INF = -1e30
 PLAIN_BLOCK = 128      # column / row block of the plain twins
-# The kernels' tile sizes, the constexprs of csrc/softsort_apply.cu: rows
-# and columns of a score tile, payload columns per block, and the row
-# tile of the column sweep (kernels 4 and 8).
+# The tile sizes of the dense templates (kernels 1-4, 6, 7), constexprs of
+# csrc/softsort_apply.cu: rows and columns of a score tile, payload
+# columns per block, and the row tile of the column sweep (kernel 4).
+# Kernels 5 and 8 take their payload tile from ``band_payload_tile``.
 TILES = {"TR": 64, "TC": 64, "DT": 64, "TR4": 32}
+BAND_PAYLOAD_TILES = (16, 32, 64)
 _F32 = torch.float32
 _DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
@@ -322,16 +324,25 @@ def bwd_band_dcol_plain(ws, xs, tau, m, l, dy, dc, D, band):
 # Wrappers: CPU -> plain twin, CUDA -> hand-written kernel.
 # --------------------------------------------------------------------------
 
+def band_payload_tile(d: int) -> tuple[int, int]:
+    """(DT, tiles) of kernels 5 and 8 at payload width d: the smallest of
+    16, 32 and 64 that holds d, and one tile; above 64, tiles of 64."""
+    for dt in BAND_PAYLOAD_TILES:
+        if d <= dt:
+            return dt, 1
+    return 64, -(-d // 64)
+
+
 _P, _I = clib.P, clib.I
 _SIGNATURES = {
     "ss_fwd_fused": [_P] * 7 + [_I] * 3,
     "ss_colsum": [_P] * 6 + [_I] * 2,
     "ss_bwd_dws_delta": [_P] * 11 + [_I] * 3,
     "ss_bwd_dx": [_P] * 12 + [_I] * 3,
-    "ss_fwd_band": [_P] * 6 + [_I] * 4,
+    "ss_fwd_band": [_P] * 6 + [_I] * 5,
     "ss_colsum_band": [_P] * 5 + [_I] * 3,
     "ss_bwd_band_dws_delta": [_P] * 10 + [_I] * 4,
-    "ss_bwd_band_dcol": [_P] * 11 + [_I] * 4,
+    "ss_bwd_band_dcol": [_P] * 11 + [_I] * 5,
     "ss_v1_stats": [_P] * 5 + [_I] * 2,
     "ss_v1_apply": [_P] * 7 + [_I] * 3,
 }
@@ -457,7 +468,7 @@ def fwd_band(ws, xs, tau, band):
     l = torch.empty_like(ws)
     if bsz * n:
         _launch(fwd_band, "ss_fwd_band", xs.dtype, ws, xs, tau, y, m, l,
-                bsz, n, d, k)
+                bsz, n, d, k, band_payload_tile(d)[0])
     return y, m, l
 
 
@@ -502,7 +513,8 @@ def bwd_band_dcol(ws, xs, tau, m, l, dy, dc, D, band):
     dtc = torch.empty_like(ws)
     if bsz * n:
         _launch(bwd_band_dcol, "ss_bwd_band_dcol", xs.dtype, ws, xs, tau, m,
-                l, dy, dc, D, dxs, dwc, dtc, bsz, n, d, k)
+                l, dy, dc, D, dxs, dwc, dtc, bsz, n, d, k,
+                band_payload_tile(d)[0])
     return dxs, dwc, dtc
 
 

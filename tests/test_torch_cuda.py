@@ -249,6 +249,50 @@ def test_cuda_band_kernels_batch_invariant(cuda, cd):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d", [1, 14, 16, 17, 33, 64, 65, 130])
+@pytest.mark.parametrize("cd", ["float32", "bfloat16"])
+@pytest.mark.parametrize("tau", [0.6, -0.6])
+def test_cuda_band_fwd_and_dcol_match_plain_twins(cuda, d, cd, tau):
+    """Kernels 5 and 8 at every payload tile (16, 32, 64, 2 x 64, 3 x 64)
+    and ragged widths; N = 1000 is no multiple of any row or column tile
+    and K = 150 none of a tile but larger than each, so interior and edge
+    tiles both occur.  tau = -0.6 takes kernel 5's exact-maximum branch;
+    for tau > 0 its m is -0.0 in every row."""
+    dt = {"float32": torch.float32, "bfloat16": torch.bfloat16}[cd]
+    rtol = GRAD_RTOL if cd == "float32" else BF16_RTOL
+    k = 150
+    ws, xs, tt, dyt, dct = _band_operands(2, 1000, d, 40 + d, cuda, dt)
+    tt = tt * np.sign(tau)
+    y, m, l = K.fwd_band(ws, xs, tt, k)
+    y0, m0, l0 = K.fwd_band_plain(ws, xs, tt, k)
+    _close(y.float().cpu(), y0.float().cpu(),
+           FWD_ATOL if cd == "float32" else rtol)
+    _close(m.cpu(), m0.cpu(), FWD_ATOL)
+    _close(l.cpu(), l0.cpu(), FWD_ATOL)
+    if tau > 0:
+        assert bool((m == 0).all()) and bool(torch.signbit(m).all())
+    D, _ = K.bwd_band_dws_delta_plain(ws, xs, tt, m, l, dyt, y, dct, k)
+    out = K.bwd_band_dcol(ws, xs, tt, m, l, dyt, dct, D, k)
+    ref = K.bwd_band_dcol_plain(ws, xs, tt, m, l, dyt, dct, D, k)
+    for g, r in zip(out, ref):
+        _close(g.float().cpu(), r.float().cpu(), rtol)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cd", [torch.float32, torch.bfloat16])
+def test_cuda_band_fwd_and_dcol_batch_invariant_at_d14(cuda, cd):
+    """Kernels 5 and 8 at the Self-Organizing-Gaussians width d = 14: an
+    instance run alone gives bitwise its row of the batch."""
+    ops_ = _band_operands(3, 2000, 14, 11, cuda, cd)
+    batched = _band_pipeline(*ops_, 300)
+    alone = _band_pipeline(*[t[1:2].contiguous() if t.dim() > 1 else t
+                             for t in ops_], 300)
+    for b_out, a_out in zip(batched, alone):
+        assert torch.equal(b_out[1], a_out[0])
+
+
+@pytest.mark.cuda
 def test_cuda_softsort_apply_banded_matches_oracle(cuda):
     """The banded Function on the card against the windowed oracle."""
     from repro_torch.core import softsort_apply_banded as oracle
