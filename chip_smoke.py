@@ -22,10 +22,12 @@ start):
 3. ``band_kernel_check`` — the same for the four banded kernels (5-8) at
    (B, N, d, K) = (8, 4096, 50, 256) (the main run's shape with
    ``band="auto"``), (2, 65536, 14, 4096) (the SOG run's shape),
-   (3, 1000, 3, 40), (1, 17, 1, 3) and (2, 3000, 30, 500), so that kernels
-   5 and 8 run at each of their payload tiles (64, 16, 16, 16, 32);
-   ``band_kernel_times`` at the first two shapes in float32, with the
-   dense yardstick at N = 4096 and the ``band_tail_bound`` it is within.
+   (3, 1000, 3, 40), (1, 17, 1, 3), (2, 3000, 30, 500) and
+   (2, 1000, 130, 150), so that kernels 5, 7 and 8 run at each of their
+   payload tiles (64, 16, 16, 16, 32, and three tiles of 64; kernel 6 has
+   no payload); ``band_kernel_times`` at the first two shapes in float32,
+   with the dense yardstick at N = 4096 and the ``band_tail_bound`` it is
+   within.
 4. ``function_check`` / ``band_function_check`` — the dense
    autograd.Function against the O(N^2) oracle, and the banded one
    against the windowed oracle ``core.softsort_apply_banded``: values
@@ -120,7 +122,7 @@ FWD_ATOL, GRAD_RTOL, BF16_RTOL = 2e-5, 1e-4, 2e-2
 SHAPES = [(8, 4096, 50), (3, 1000, 3), (1, 17, 1)]
 MAIN_SHAPE = SHAPES[0]
 BAND_SHAPES = [(8, 4096, 50, 256), (2, 65536, 14, 4096), (3, 1000, 3, 40),
-               (1, 17, 1, 3), (2, 3000, 30, 500)]
+               (1, 17, 1, 3), (2, 3000, 30, 500), (2, 1000, 130, 150)]
 BAND_TIMED = BAND_SHAPES[:2]
 SOG_SHAPE = BAND_SHAPES[1]       # the shape of the slice's main path
 TAU = 0.5

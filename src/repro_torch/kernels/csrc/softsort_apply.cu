@@ -25,9 +25,8 @@
 // pairs with |i - j| <= K only: P~ is exactly 0 off the band.  A tile of
 // rows (or columns) [t0, t0 + len) loops over the other axis only across
 // [max(0, t0 - K), min(n, t0 + len + K)) and masks the pairs outside the
-// band, so the work is O(N K) instead of O(N^2).  Kernels 6 and 7 are the
-// dense templates instantiated with BAND; kernels 5 and 8 have templates
-// of their own (below).
+// band, so the work is O(N K) instead of O(N^2).  They share no template
+// with the dense kernels (below).
 //
 // They replace the Pallas TPU kernels of src/repro/kernels/softsort_apply.py:
 // _fwd_fused_kernel (:150), _colsum_kernel (:182), _bwd_dws_delta_kernel
@@ -50,29 +49,31 @@
 // N = 4096, d = 50 that is thousands of flops per byte (and with the band,
 // O(K d) per byte).  The products run as float32 FMAs on the CUDA cores
 // (no tensor cores, so no TF32 rounding: the float32 results hold the JAX
-// reference to ~1e-6).  The dense kernels (1-4, 6, 7) stage key and
+// reference to ~1e-6).  The dense kernels (1-4) stage key and
 // payload tiles in shared memory (rows padded by one word), each thread
 // keeps 8-16 accumulators in registers, and the score tile is computed
 // once per block and reused by every payload column; their payload tile
 // is 64 wide whatever d is.
 //
-// Kernels 5 and 8, designed for the Self-Organizing-Gaussians shape
-// (N = 65536, d = 14, K = 4096):
-// - The payload tile DT is a template parameter, 16, 32 or 64: the
-//   smallest that holds d, or tiles of 64 above that (the wrapper's
-//   band_payload_tile picks it).  Only the real
+// The banded kernels 5-8, designed for the Self-Organizing-Gaussians
+// shape (N = 65536, d = 14, K = 4096):
+// - The payload tile DT of kernels 5, 7 and 8 is a template parameter,
+//   16, 32 or 64: the smallest that holds d, or tiles of 64 above that
+//   (the wrapper's band_payload_tile picks it).  Only the real
 //   columns are read, 16 bytes at a time when d * sizeof(T) and the base
 //   allow, else one element at a time; the tile's other columns are zero.
 // - Register micro-tiles read as float4.  In both payload products a
 //   thread owns 4 x 4 outputs (4 rows x 4 payload columns of y, or 4
 //   columns x 4 payload columns of dx), and P is stored so that its four
 //   values are one 16-byte load: each step is 2 LDS.128 for 16 FMAs, all
-//   lanes of a warp on one P row (broadcast, no bank conflict).  Kernel
-//   8's dP = dy x^T gives each thread an RA x CA block of pairs on
-//   interleaved rows and columns, read in float4 steps along d from
-//   tiles whose rows are padded by 4 words (odd 16-byte stride, so 8
-//   neighbouring rows hit 8 bank groups); its P tile rows are padded by
-//   16 words so that the two rows a warp writes fall in different banks.
+//   lanes of a warp on one P row (broadcast, no bank conflict).  The
+//   dP = dy x^T of kernels 7 and 8 gives each thread an RA x CA block of
+//   pairs on interleaved rows and columns, read in float4 steps along d
+//   from tiles whose rows are padded by 4 words (odd 16-byte stride, so
+//   8 neighbouring rows hit 8 bank groups); kernel 8's P tile rows are
+//   padded by 16 words so that the two rows a warp writes fall in
+//   different banks.  Kernel 6 gives each thread CA columns x RA rows, a
+//   row's key, m and 1 / l one float4 reused across its columns.
 // - Each (row tile, column tile) pair is classified once: wholly inside
 //   the band and the matrix (interior, no per-pair test), or an edge
 //   tile, whose pairs are tested and masked.
@@ -84,21 +85,23 @@
 //   any other tau (no caller passes one) a first sweep over the same tiles
 //   takes the exact row maximum, and the second uses it: the branch is on
 //   the device scalar tau, uniform across the block.
-// - Kernel 8 steps 64 rows at a time over a tile of 64 columns (129
-//   steps at the SOG shape) and multiplies by a per-row 1 / l.  The dy
-//   tile, the row keys and the row stats of the next step are loaded into
-//   registers while the current step computes, then stored into the other
-//   half of a double buffer: two barriers per step.  For d > 64 each step
-//   sums dP over the payload tiles, its own last, as the dense kernel
-//   does.
-// - Occupancy: __launch_bounds__ asks for 2-4 blocks per SM (MIN_BLOCKS),
+// - Kernels 6-8 read the saved m and multiply by a per-row 1 / l: no
+//   division per pair.  Kernel 8 steps 64 rows at a time over a tile of
+//   64 columns (129 steps at the SOG shape), kernel 6 the same, kernel 7
+//   64 columns at a time over a tile of 64 rows.  The next step's tiles
+//   and keys are loaded into registers while the current step computes,
+//   then stored into the other half of a double buffer (one or two
+//   barriers per step).  For d > 64 kernels 7 and 8 sum dP over the
+//   payload tiles before a step scores.
+// - Occupancy: __launch_bounds__ asks for 2-8 blocks per SM (MIN_BLOCKS),
 //   so that more warps hide the latency of expf and of the shared loads;
 //   on the card this was faster than the register counts the compiler
 //   picks on its own (255 at DT = 16 in kernel 8), small spills included.
-// - Both use dynamic shared memory (up to 92 KB, the limit set once per
-//   instantiation) and write each output from one block in a fixed order:
-//   the row or column sums over the threads that share a row or column
-//   are added in shared memory in thread order, not with atomics.
+// - Kernels 5, 7 and 8 use dynamic shared memory (up to 92 KB, the limit
+//   set once per instantiation).  All four write each output from one
+//   block in a fixed order: the row or column sums over the threads that
+//   share a row or column are added in shared memory in thread order, not
+//   with atomics.
 //
 // Masking follows the TPU kernels: columns >= n (and, banded, pairs off
 // the band) score NEG_INF = -1e30 (finite, so exp underflows to exactly 0
@@ -165,25 +168,6 @@ __device__ __forceinline__ bool pair_ok(int i, int j, int n, int K) {
     return i < n && j < n && abs(i - j) <= K;
   } else {
     return j < n;
-  }
-}
-
-// The span [lo, hi) of the other axis that a tile [t0, t0 + len) meets.
-template <bool BAND>
-__device__ __forceinline__ int span_lo(int t0, int K) {
-  if constexpr (BAND) {
-    return max(0, t0 - K);
-  } else {
-    return 0;
-  }
-}
-
-template <bool BAND>
-__device__ __forceinline__ int span_hi(int t0, int len, int n, int K) {
-  if constexpr (BAND) {
-    return min(n, t0 + len + K);
-  } else {
-    return n;
   }
 }
 
@@ -321,15 +305,15 @@ fwd_fused_kernel(const float* __restrict__ ws, const float* __restrict__ w,
 }
 
 // ---------------------------------------------------------------------------
-// Kernels 2 and 6: column sums.  Block = (64 columns, instance), 256
-// threads as 64 columns x 4 row groups; rows are staged 256 at a time.
+// Kernel 2: column sums.  Block = (64 columns, instance), 256 threads as
+// 64 columns x 4 row groups; rows are staged 256 at a time.
 // ---------------------------------------------------------------------------
-template <typename T, bool BAND>
+template <typename T>
 __global__ void __launch_bounds__(NT)
 colsum_kernel(const float* __restrict__ ws, const float* __restrict__ w,
               const float* __restrict__ tau, const float* __restrict__ m,
-              const float* __restrict__ l, float* __restrict__ c_out, int n,
-              int K) {
+              const float* __restrict__ l, float* __restrict__ c_out,
+              int n) {
   __shared__ float ws_s[NT], m_s[NT], l_s[NT];
   __shared__ float part_s[4][TC];
 
@@ -341,22 +325,18 @@ colsum_kernel(const float* __restrict__ ws, const float* __restrict__ w,
   l += (size_t)b * n;
   const float inv_tau = 1.0f / tau[0];
   const float wj = j < n ? w[j] : 0.f;
-  const int i_lo = span_lo<BAND>(jt, K), i_hi = span_hi<BAND>(jt, TC, n, K);
 
   float acc = 0.f;
-  for (int i0 = i_lo; i0 < i_hi; i0 += NT) {
+  for (int i0 = 0; i0 < n; i0 += NT) {
     __syncthreads();
     const int i = i0 + threadIdx.x;
     ws_s[threadIdx.x] = i < n ? ws[i] : 0.f;
     m_s[threadIdx.x] = i < n ? m[i] : 0.f;
     l_s[threadIdx.x] = i < n ? fmaxf(l[i], 1e-30f) : 1.f;
     __syncthreads();
-    const int cnt = min(NT, i_hi - i0);
+    const int cnt = min(NT, n - i0);
     float part = 0.f;
     for (int ii = g; ii < cnt; ii += 4) {
-      if constexpr (BAND) {
-        if (!pair_ok<true>(i0 + ii, j, n, K)) continue;
-      }
       part += expf(score<T>(ws_s[ii], wj, inv_tau) - m_s[ii]) / l_s[ii];
     }
     acc += part;
@@ -371,16 +351,13 @@ colsum_kernel(const float* __restrict__ ws, const float* __restrict__ w,
 }
 
 // ---------------------------------------------------------------------------
-// Kernels 3 and 7: fused delta + dws row sweep.  Block = (row tile,
-// instance); thread t owns row t/4 and, in each column tile, columns
-// t%4 + 4k.
+// Kernel 3: fused delta + dws row sweep.  Block = (row tile, instance);
+// thread t owns row t/4 and, in each column tile, columns t%4 + 4k.
 //   D_i   = dy_i . y_i + sum_j P_ij dc_j
 //   A_i   = sum_j P_ij dP_ij sgn_ij,  S_i = sum_j P_ij sgn_ij
 //   dws_i = -(A_i - D_i S_i) / tau,   dP_ij = dy_i . x_j + dc_j
-// Banded, dws is the row part of the key gradient and the delta trick
-// holds for the truncated P~ with the saved banded y.
 // ---------------------------------------------------------------------------
-template <typename T, bool BAND>
+template <typename T>
 __global__ void __launch_bounds__(NT)
 bwd_dws_delta_kernel(const float* __restrict__ ws,
                      const float* __restrict__ w, const T* __restrict__ x,
@@ -388,7 +365,7 @@ bwd_dws_delta_kernel(const float* __restrict__ ws,
                      const float* __restrict__ m, const float* __restrict__ l,
                      const T* __restrict__ dy, const T* __restrict__ y,
                      const T* __restrict__ dc, float* __restrict__ D_out,
-                     float* __restrict__ dws_out, int n, int d, int K) {
+                     float* __restrict__ dws_out, int n, int d) {
   __shared__ float ws_s[TR], m_s[TR], l_s[TR], w_s[TC], dc_s[TC];
   __shared__ float dy_s[TR][DT + 1];
   __shared__ float x_s[TC][DT + 1];
@@ -406,7 +383,6 @@ bwd_dws_delta_kernel(const float* __restrict__ ws,
   const float inv_tau = 1.0f / tau[0];
   const int nd = (d + DT - 1) / DT;
   const bool dy_resident = nd == 1;   // dy tile staged once for d <= DT
-  const int j_lo = span_lo<BAND>(r0, K), j_hi = span_hi<BAND>(r0, TR, n, K);
 
   if (tid < TR) {
     const bool ok = r0 + tid < n;
@@ -425,7 +401,7 @@ bwd_dws_delta_kernel(const float* __restrict__ ws,
   if (dy_resident) stage<T, TR>(dy_s, dy, r0, 0, n, d);
 
   float d_acc = 0.f, a_acc = 0.f, s_acc = 0.f;
-  for (int j0 = j_lo; j0 < j_hi; j0 += TC) {
+  for (int j0 = 0; j0 < n; j0 += TC) {
     float dp[16];
 #pragma unroll
     for (int k = 0; k < 16; ++k) dp[k] = 0.f;
@@ -450,7 +426,7 @@ bwd_dws_delta_kernel(const float* __restrict__ ws,
 #pragma unroll
     for (int k = 0; k < 16; ++k) {
       const int j = q + 4 * k;
-      if (pair_ok<BAND>(i, j0 + j, n, K)) {
+      if (pair_ok<false>(i, j0 + j, n, 0)) {
         const float p = expf(score<T>(wr, w_s[j], inv_tau) - mr) / lr;
         const float sg = sgnf(wr - w_s[j]);
         d_acc += rnd<T>(p) * dc_s[j];
@@ -600,8 +576,8 @@ bwd_dx_kernel(const float* __restrict__ ws, const float* __restrict__ w,
 }
 
 // ---------------------------------------------------------------------------
-// Kernels 5 and 8 (see the header): payload tiles of DT = 16, 32 or 64
-// columns, 4 x 4 register micro-tiles, interior tiles unmasked.
+// Kernels 5-8 (see the header): payload tiles of DT = 16, 32 or 64
+// columns, register micro-tiles, interior tiles unmasked.
 // ---------------------------------------------------------------------------
 
 // Load 16 bytes of T (4 floats or 8 bfloat16) as floats.
@@ -711,7 +687,7 @@ template <bool V> using Edge = std::integral_constant<bool, V>;
 // Every payload-tile block recomputes the scores; blockIdx.y == 0 writes
 // m and l.
 // ---------------------------------------------------------------------------
-constexpr int BTC = 64;   // kernel 5: keys per column tile
+constexpr int BTC = 64;   // kernels 5 and 7: keys per column step
 
 template <int DT>
 struct FwdBand {
@@ -1153,11 +1129,363 @@ bwd_band_dcol_kernel(const float* __restrict__ ws, const T* __restrict__ x,
 }
 
 // ---------------------------------------------------------------------------
+// Kernel 6: banded column sums.  Replaces _colsum_band_kernel
+// (src/repro/kernels/softsort_apply.py:567).  Block = (TC-column tile,
+// instance); steps of BTR rows over the tile's span.
+//   c_j = sum_i exp(s_ij - m_i) / l_i  over |i - j| <= K
+// What bounds it on the card: operations.  A pair is a score, an expf and
+// a multiply-add (~12 f32 instructions, one of them on the MUFU) against
+// O(N) bytes of keys and row stats.  The design keeps every pair at that:
+// thread t owns columns ca + NCA v (v < CA), their keys in registers, and
+// rows ra + NRA u (u < RA) of each step; a row's key, m and 1 / l are one
+// float4, staged once per step and reused across the thread's CA columns
+// (no division per pair); interior steps test no pair.  The next step's
+// row stats are loaded into registers while the current one computes,
+// then stored into the other half of a double buffer: one barrier per
+// step.  The NRA partial sums of a column are added in shared memory in
+// thread order.
+// ---------------------------------------------------------------------------
+struct ColsumBand {
+  static constexpr int TC = 64;            // columns per block
+  static constexpr int BTR = 64;           // rows per step
+  static constexpr int NT = 128;
+  static constexpr int NCA = 16;
+  static constexpr int NRA = NT / NCA;     // 8
+  static constexpr int CA = TC / NCA;      // 4
+  static constexpr int RA = BTR / NRA;     // 8
+  static constexpr int MIN_BLOCKS = 8;     // per SM
+};
+
+template <typename T>
+__global__ void __launch_bounds__(ColsumBand::NT, ColsumBand::MIN_BLOCKS)
+colsum_band_kernel(const float* __restrict__ ws,
+                   const float* __restrict__ tau,
+                   const float* __restrict__ m, const float* __restrict__ l,
+                   float* __restrict__ c_out, int n, int K) {
+  using C = ColsumBand;
+  constexpr int TC = C::TC, BTR = C::BTR, NCA = C::NCA, NRA = C::NRA;
+  constexpr int CA = C::CA, RA = C::RA;
+  __shared__ float4 st_s[2][BTR];      // row key, m, 1 / l
+  __shared__ float red_s[NRA][TC];
+
+  const int b = blockIdx.y, j0 = blockIdx.x * TC;
+  const int tid = threadIdx.x, ca = tid % NCA, ra = tid / NCA;
+  ws += (size_t)b * n;
+  m += (size_t)b * n;
+  l += (size_t)b * n;
+  const float inv_tau = 1.0f / tau[0];
+  const int i_lo = max(0, j0 - K), i_hi = min(n, j0 + TC + K);
+  const int nstep = (i_hi - i_lo + BTR - 1) / BTR;
+
+  float wc[CA], acc[CA];
+#pragma unroll
+  for (int v = 0; v < CA; ++v) {
+    const int j = j0 + ca + NCA * v;
+    wc[v] = j < n ? ws[j] : 0.f;
+    acc[v] = 0.f;
+  }
+
+  float4 st = make_float4(0.f, 0.f, 1.f, 0.f);
+  auto fetch = [&](int q) {
+    const int i = i_lo + q * BTR + tid;
+    if (tid < BTR && i < n)
+      st = make_float4(ws[i], m[i], 1.0f / fmaxf(l[i], 1e-30f), 0.f);
+    else
+      st = make_float4(0.f, 0.f, 1.f, 0.f);
+  };
+  auto put = [&](int q) {
+    if (tid < BTR) st_s[q & 1][tid] = st;
+  };
+  fetch(0);
+  put(0);
+  __syncthreads();
+
+  auto step = [&](auto edge, int i0, const float4* sts) {
+#pragma unroll
+    for (int u = 0; u < RA; ++u) {
+      const int r = ra + NRA * u;
+      const float4 sr = sts[r];
+#pragma unroll
+      for (int v = 0; v < CA; ++v) {
+        const float s = score<T>(sr.x, wc[v], inv_tau);
+        bool ok = true;
+        if constexpr (decltype(edge)::value)
+          ok = pair_ok<true>(i0 + r, j0 + ca + NCA * v, n, K);
+        // Explicitly 0 when masked (the finite NEG_INF convention).
+        const float e = ok ? expf(s - sr.y) : 0.f;
+        acc[v] = fmaf(e, sr.z, acc[v]);
+      }
+    }
+  };
+
+  for (int q = 0; q < nstep; ++q) {
+    const bool more = q + 1 < nstep;
+    if (more) fetch(q + 1);
+    const int i0 = i_lo + q * BTR;
+    if (interior(i0, BTR, j0, TC, n, K))
+      step(Edge<false>{}, i0, st_s[q & 1]);
+    else
+      step(Edge<true>{}, i0, st_s[q & 1]);
+    if (more) put(q + 1);
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int v = 0; v < CA; ++v) red_s[ra][ca + NCA * v] = acc[v];
+  __syncthreads();
+  if (tid < TC && j0 + tid < n) {
+    float c = red_s[0][tid];
+#pragma unroll
+    for (int r = 1; r < NRA; ++r) c += red_s[r][tid];
+    c_out[(size_t)b * n + j0 + tid] = c;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Kernel 7: banded row sweep, the delta and the row part of the key
+// gradient.  Replaces _bwd_band_dws_delta_kernel
+// (src/repro/kernels/softsort_apply.py:657).  Block = (TR-row tile,
+// instance); steps of BTC columns over the tile's span, one stage per
+// payload tile (one for d <= 64).
+//   D_i   = dy_i . y_i + sum_j rnd(P_ij) dc_j
+//   A_i   = sum_j P_ij dP_ij sgn_ij,  S_i = sum_j P_ij sgn_ij
+//   dws_i = -(A_i - D_i S_i) / tau,    dP_ij = dc_j + dy_i . x_j
+// What bounds it on the card: operations.  A pair is d FMAs of dy . x, a
+// score, an expf and the three sums (~35 f32 instructions at d = 14)
+// against O(N d) bytes.  The design is kernel 8's dP and score phase with
+// rows and columns exchanged: thread t owns rows ra + NRA u (u < RA) and
+// columns ca + NCA v (v < CA), ca = t % NCA.  dP is read in float4 steps
+// along d, only as far as the tile's real columns reach: CA x values are
+// held while RA dy rows stream past, RA + CA LDS.128 per 4 RA CA FMAs.
+// For d <= 64 the dy tile of the block's rows stays resident; above, each
+// step sums dP over the payload tiles before it scores.  The thread's row
+// keys, m and 1 / l stay in registers (no division per pair), and
+// interior tiles test no pair.  Column keys, dc and x of the next stage
+// are loaded into registers while the current one computes, then stored
+// into the other half of a double buffer: one barrier per stage.  The NCA
+// partial sums of a row are added in shared memory in thread order.
+// ---------------------------------------------------------------------------
+template <int DT>
+struct DwsBand {
+  static constexpr int TR = 64;                    // rows per block
+  static constexpr int NT = DT == 64 ? 256 : 128;
+  static constexpr int NCA = 16;
+  static constexpr int NRA = NT / NCA;             // 8, 8, 16
+  static constexpr int RA = TR / NRA;              // 8, 8, 4
+  static constexpr int CA = BTC / NCA;             // 4
+  static constexpr int LD = DT + 4;                // dy and x tile rows
+  static constexpr int RLD = NCA + 1;              // row-sum rows
+  static constexpr int MIN_BLOCKS = DT == 64 ? 2 : 3;   // per SM
+  static_assert(3 * TR * RLD <= (TR + 2 * BTC) * LD,
+                "the row sums fit over the dy and x tiles");
+  static constexpr int floats(int nd) {
+    return (nd > 1 ? 2 : 1) * TR * LD + 2 * BTC * LD + 4 * BTC + TR;
+  }
+};
+
+template <typename T, int DT>
+__global__ void __launch_bounds__(DwsBand<DT>::NT, DwsBand<DT>::MIN_BLOCKS)
+bwd_band_dws_delta_kernel(const float* __restrict__ ws,
+                          const T* __restrict__ x,
+                          const float* __restrict__ tau,
+                          const float* __restrict__ m,
+                          const float* __restrict__ l,
+                          const T* __restrict__ dy, const T* __restrict__ y,
+                          const T* __restrict__ dc,
+                          float* __restrict__ D_out,
+                          float* __restrict__ dws_out, int n, int d, int K,
+                          int vec) {
+  using C = DwsBand<DT>;
+  constexpr int TR = C::TR, NT = C::NT, NCA = C::NCA, NRA = C::NRA;
+  constexpr int RA = C::RA, CA = C::CA, LD = C::LD, RLD = C::RLD;
+  const int b = blockIdx.y, r0 = blockIdx.x * TR;
+  const int nd = DT == 64 && d > DT ? (d + DT - 1) / DT : 1;
+  extern __shared__ float4 smem4[];
+  float* const dy_s = reinterpret_cast<float*>(smem4);   // [1 or 2][TR][LD]
+  float* const x_s = dy_s + (nd > 1 ? 2 : 1) * TR * LD;  // [2][BTC][LD]
+  float* const cs_s = x_s + 2 * BTC * LD;                // [2][key, dc][BTC]
+  float* const dyy_s = cs_s + 4 * BTC;                   // [TR]
+
+  const int tid = threadIdx.x, ca = tid % NCA, ra = tid / NCA;
+  ws += (size_t)b * n;
+  m += (size_t)b * n;
+  l += (size_t)b * n;
+  dc += (size_t)b * n;
+  x += (size_t)b * n * d;
+  dy += (size_t)b * n * d;
+  y += (size_t)b * n * d;
+  const float inv_tau = 1.0f / tau[0];
+  const int j_lo = max(0, r0 - K), j_hi = min(n, r0 + TR + K);
+  const int nstage = (j_hi - j_lo + BTC - 1) / BTC * nd;
+
+  float wr[RA], mr[RA], rl[RA], dacc[RA], aacc[RA], sacc[RA];
+#pragma unroll
+  for (int u = 0; u < RA; ++u) {
+    const int i = r0 + ra + NRA * u;
+    const bool ok = i < n;
+    wr[u] = ok ? ws[i] : 0.f;
+    mr[u] = ok ? m[i] : 0.f;
+    rl[u] = ok ? 1.0f / fmaxf(l[i], 1e-30f) : 1.f;
+    dacc[u] = aacc[u] = sacc[u] = 0.f;
+  }
+
+  // D_i starts at dy_i . y_i (the delta trick: y was saved); G threads
+  // per row, added in a fixed order.
+  {
+    constexpr int G = NT / TR;
+    const int r = tid / G, h = tid % G, i = r0 + r;
+    float t = 0.f;
+    if (i < n) {
+      const T* const dyr = dy + (size_t)i * d;
+      const T* const yr = y + (size_t)i * d;
+      for (int c = h; c < d; c += G) t = fmaf(to_f(dyr[c]), to_f(yr[c]), t);
+    }
+#pragma unroll
+    for (int o = 1; o < G; o *= 2) t += __shfl_xor_sync(FULL, t, o);
+    if (h == 0) dyy_s[r] = t;
+  }
+
+  // Stage q: column step q / nd, payload tile q % nd.  x (and, for
+  // nd > 1, dy) go to buffer q & 1; a step's column keys and dc, fetched
+  // with its first stage, to buffer (q / nd) & 1.
+  TileRegs<T, TR, DT, NT> dyr;
+  TileRegs<T, BTC, DT, NT> xr;
+  float ck = 0.f, cdc = 0.f;
+  auto fetch = [&](int q) {
+    const int j0 = j_lo + q / nd * BTC, c0 = q % nd * DT;
+    xr.load(x, j0, n, d, c0, min(DT, d - c0), vec);
+    if (nd > 1) dyr.load(dy, r0, n, d, c0, min(DT, d - c0), vec);
+    if (q % nd == 0 && tid < BTC) {
+      const int j = j0 + tid;
+      ck = j < n ? ws[j] : 0.f;
+      cdc = j < n ? to_f(dc[j]) : 0.f;
+    }
+  };
+  auto put = [&](int q) {
+    xr.store(x_s + (q & 1) * BTC * LD, LD, vec);
+    if (nd > 1) dyr.store(dy_s + (q & 1) * TR * LD, LD, vec);
+    if (q % nd == 0 && tid < BTC) {
+      float* const cs = cs_s + (q / nd & 1) * 2 * BTC;
+      cs[tid] = ck;
+      cs[BTC + tid] = cdc;
+    }
+  };
+  if (nd == 1) {   // dy stays resident
+    dyr.load(dy, r0, n, d, 0, min(DT, d), vec);
+    dyr.store(dy_s, LD, vec);
+  }
+  fetch(0);
+  put(0);
+  __syncthreads();
+
+  // P and the three row sums of one step; edge tiles test each pair.
+  float dp[RA][CA];
+  auto score_step = [&](auto edge, int j0, const float* cs) {
+    float wc[CA], dcv[CA];
+#pragma unroll
+    for (int v = 0; v < CA; ++v) {
+      wc[v] = cs[ca + NCA * v];
+      dcv[v] = cs[BTC + ca + NCA * v];
+    }
+#pragma unroll
+    for (int u = 0; u < RA; ++u) {
+#pragma unroll
+      for (int v = 0; v < CA; ++v) {
+        const float s = score<T>(wr[u], wc[v], inv_tau);
+        bool ok = true;
+        if constexpr (decltype(edge)::value)
+          ok = pair_ok<true>(r0 + ra + NRA * u, j0 + ca + NCA * v, n, K);
+        // Explicitly 0 when masked (the finite NEG_INF convention).
+        const float p = ok ? expf(s - mr[u]) * rl[u] : 0.f;
+        // p sgn(ws_i - ws_j): p >= 0 takes the sign, tied keys give 0.
+        const float df = wr[u] - wc[v];
+        const float ps = df != 0.f ? copysignf(p, df) : 0.f;
+        dacc[u] = fmaf(rnd<T>(p), dcv[v], dacc[u]);
+        aacc[u] = fmaf(ps, dp[u][v], aacc[u]);
+        sacc[u] += ps;
+      }
+    }
+  };
+
+  for (int q = 0; q < nstage; ++q) {
+    const bool more = q + 1 < nstage, last = q % nd == nd - 1;
+    if (more) fetch(q + 1);
+    if (q % nd == 0) {   // dP_ij starts at dc_j
+      const float* const dcs = cs_s + (q / nd & 1) * 2 * BTC + BTC;
+#pragma unroll
+      for (int u = 0; u < RA; ++u)
+#pragma unroll
+        for (int v = 0; v < CA; ++v) dp[u][v] = dcs[ca + NCA * v];
+    }
+    // dP += dy_tile x_tile^T over the real columns, rounded up to 4 (the
+    // tiles are zero beyond d).
+    const float* const dys = dy_s + (nd > 1 ? (q & 1) : 0) * TR * LD;
+    const float* const xs = x_s + (q & 1) * BTC * LD;
+    const int cn = min(DT, (d - q % nd * DT + 3) & ~3);
+#pragma unroll
+    for (int c = 0; c < DT; c += 4) {
+      if (c >= cn) break;
+      float4 xv[CA];
+#pragma unroll
+      for (int v = 0; v < CA; ++v)
+        xv[v] = *reinterpret_cast<const float4*>(xs + (ca + NCA * v) * LD + c);
+#pragma unroll
+      for (int u = 0; u < RA; ++u) {
+        const float4 a =
+            *reinterpret_cast<const float4*>(dys + (ra + NRA * u) * LD + c);
+#pragma unroll
+        for (int v = 0; v < CA; ++v) {
+          float t = dp[u][v];
+          t = fmaf(a.x, xv[v].x, t);
+          t = fmaf(a.y, xv[v].y, t);
+          t = fmaf(a.z, xv[v].z, t);
+          t = fmaf(a.w, xv[v].w, t);
+          dp[u][v] = t;
+        }
+      }
+    }
+    if (last) {
+      const int j0 = j_lo + q / nd * BTC;
+      const float* const cs = cs_s + (q / nd & 1) * 2 * BTC;
+      if (interior(r0, TR, j0, BTC, n, K))
+        score_step(Edge<false>{}, j0, cs);
+      else
+        score_step(Edge<true>{}, j0, cs);
+    }
+    if (more) put(q + 1);
+    __syncthreads();   // before the next stage's tiles overwrite these
+  }
+
+  // The NCA partials of each row, added in thread order.
+  float* const red = dy_s;   // [D, A, S][TR][RLD], over the dy and x tiles
+#pragma unroll
+  for (int u = 0; u < RA; ++u) {
+    const int r = ra + NRA * u;
+    red[(0 * TR + r) * RLD + ca] = dacc[u];
+    red[(1 * TR + r) * RLD + ca] = aacc[u];
+    red[(2 * TR + r) * RLD + ca] = sacc[u];
+  }
+  __syncthreads();
+  if (tid < TR && r0 + tid < n) {
+    float sd = 0.f, sa = 0.f, ss = 0.f;
+#pragma unroll
+    for (int c = 0; c < NCA; ++c) {
+      sd += red[(0 * TR + tid) * RLD + c];
+      sa += red[(1 * TR + tid) * RLD + c];
+      ss += red[(2 * TR + tid) * RLD + c];
+    }
+    const float D = dyy_s[tid] + sd;
+    D_out[(size_t)b * n + r0 + tid] = D;
+    dws_out[(size_t)b * n + r0 + tid] = -(sa - D * ss) * inv_tau;
+  }
+}
+
+// ---------------------------------------------------------------------------
 // Kernels 9a and 9b: the v1 split forward, float32 only, as the TPU
 // kernels are.  Separate kernels with their own symbols, not a flag on
 // kernel 1: their design is what the kernel bench measures the fused tier
 // against, the scores computed in each of three passes (9a, 9b and
-// colsum_kernel<float, false>) and m, l written to device memory by 9a and
+// colsum_kernel<float>) and m, l written to device memory by 9a and
 // read back by 9b and colsum.
 //   v1_stats  m_i = max_j s_ij, l_i = sum_j exp(s_ij - m_i)
 //   v1_apply  y_i = sum_j exp(s_ij - m_i) / max(l_i, 1e-30) x_j
@@ -1278,28 +1606,28 @@ int launch_fwd_fused(const void* ws, const void* w, const void* x,
   return (int)cudaGetLastError();
 }
 
-template <typename T, bool BAND>
+template <typename T>
 int launch_colsum(const void* ws, const void* w, const void* tau,
-                  const void* m, const void* l, void* c, int B, int n, int K,
+                  const void* m, const void* l, void* c, int B, int n,
                   void* stream) {
   dim3 grid((n + TC - 1) / TC, B);
-  colsum_kernel<T, BAND><<<grid, NT, 0, (cudaStream_t)stream>>>(
+  colsum_kernel<T><<<grid, NT, 0, (cudaStream_t)stream>>>(
       (const float*)ws, (const float*)w, (const float*)tau, (const float*)m,
-      (const float*)l, (float*)c, n, K);
+      (const float*)l, (float*)c, n);
   return (int)cudaGetLastError();
 }
 
-template <typename T, bool BAND>
+template <typename T>
 int launch_bwd_dws_delta(const void* ws, const void* w, const void* x,
                          const void* tau, const void* m, const void* l,
                          const void* dy, const void* y, const void* dc,
-                         void* D, void* dws, int B, int n, int d, int K,
+                         void* D, void* dws, int B, int n, int d,
                          void* stream) {
   dim3 grid((n + TR - 1) / TR, B);
-  bwd_dws_delta_kernel<T, BAND><<<grid, NT, 0, (cudaStream_t)stream>>>(
+  bwd_dws_delta_kernel<T><<<grid, NT, 0, (cudaStream_t)stream>>>(
       (const float*)ws, (const float*)w, (const T*)x, (const float*)tau,
       (const float*)m, (const float*)l, (const T*)dy, (const T*)y,
-      (const T*)dc, (float*)D, (float*)dws, n, d, K);
+      (const T*)dc, (float*)D, (float*)dws, n, d);
   return (int)cudaGetLastError();
 }
 
@@ -1370,9 +1698,46 @@ int launch_band_dcol(const void* ws, const void* x, const void* tau,
   return (int)cudaGetLastError();
 }
 
-// Kernels 5 and 8 at the payload tile dt the caller chose (the wrapper's
-// band_payload_tile): 16, 32 or 64, and 64 if it does not hold d, as
-// kernel 8 loops over payload tiles only at DT = 64.
+template <typename T>
+int launch_colsum_band(const void* ws, const void* tau, const void* m,
+                       const void* l, void* c, int B, int n, int K,
+                       void* stream) {
+  using C = ColsumBand;
+  dim3 grid((n + C::TC - 1) / C::TC, B);
+  colsum_band_kernel<T><<<grid, C::NT, 0, (cudaStream_t)stream>>>(
+      (const float*)ws, (const float*)tau, (const float*)m, (const float*)l,
+      (float*)c, n, K);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int DT>
+int launch_band_dws(const void* ws, const void* x, const void* tau,
+                    const void* m, const void* l, const void* dy,
+                    const void* y, const void* dc, void* D, void* dws, int B,
+                    int n, int d, int K, cudaStream_t stream) {
+  using C = DwsBand<DT>;
+  const int nd = DT == 64 && d > DT ? (d + DT - 1) / DT : 1;
+  const int bytes = C::floats(nd) * (int)sizeof(float);
+  static bool limit_set = false;
+  if (!limit_set) {   // the larger of the two sizes, once
+    const cudaError_t e = cudaFuncSetAttribute(
+        bwd_band_dws_delta_kernel<T, DT>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
+        C::floats(2) * (int)sizeof(float));
+    if (e != cudaSuccess) return (int)e;
+    limit_set = true;
+  }
+  dim3 grid((n + C::TR - 1) / C::TR, B);
+  bwd_band_dws_delta_kernel<T, DT><<<grid, C::NT, bytes, stream>>>(
+      (const float*)ws, (const T*)x, (const float*)tau, (const float*)m,
+      (const float*)l, (const T*)dy, (const T*)y, (const T*)dc, (float*)D,
+      (float*)dws, n, d, K, vec_ok<T>(d, x, dy));
+  return (int)cudaGetLastError();
+}
+
+// Kernels 5, 7 and 8 at the payload tile dt the caller chose (the
+// wrapper's band_payload_tile): 16, 32 or 64, and 64 if it does not hold
+// d, as kernels 7 and 8 loop over payload tiles only at DT = 64.
 inline bool dt_ok(int dt, int d) {
   return dt == 64 || ((dt == 16 || dt == 32) && d <= dt);
 }
@@ -1408,6 +1773,23 @@ int launch_band_dcol_dt(const void* ws, const void* x, const void* tau,
                                  B, n, d, K, st);
 }
 
+template <typename T>
+int launch_band_dws_dt(const void* ws, const void* x, const void* tau,
+                       const void* m, const void* l, const void* dy,
+                       const void* y, const void* dc, void* D, void* dws,
+                       int B, int n, int d, int K, int dt, void* stream) {
+  if (!dt_ok(dt, d)) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (dt == 16)
+    return launch_band_dws<T, 16>(ws, x, tau, m, l, dy, y, dc, D, dws, B, n,
+                                  d, K, st);
+  if (dt == 32)
+    return launch_band_dws<T, 32>(ws, x, tau, m, l, dy, y, dc, D, dws, B, n,
+                                  d, K, st);
+  return launch_band_dws<T, 64>(ws, x, tau, m, l, dy, y, dc, D, dws, B, n, d,
+                                K, st);
+}
+
 int launch_v1_stats(const void* ws, const void* w, const void* tau, void* m,
                     void* l, int B, int n, void* stream) {
   dim3 grid((n + TR - 1) / TR, B);
@@ -1432,8 +1814,8 @@ int launch_v1_apply(const void* ws, const void* w, const void* x,
 #define SS_EXPORT extern "C" __attribute__((visibility("default")))
 
 // Dense (kernels 1-4): rows ws, columns w.  Banded (kernels 5-8): both
-// axes ws, the payload in rank order, half-width K; kernels 5 and 8 also
-// take their payload tile dt (16, 32 or 64, see dt_ok).
+// axes ws, the payload in rank order, half-width K; kernels 5, 7 and 8
+// also take their payload tile dt (16, 32 or 64, see dt_ok).
 #define SS_INSTANTIATE(SUFFIX, T)                                             \
   SS_EXPORT int ss_fwd_fused_##SUFFIX(const void* ws, const void* w,         \
                                       const void* x, const void* tau,        \
@@ -1445,15 +1827,15 @@ int launch_v1_apply(const void* ws, const void* w, const void* x,
                                    const void* tau, const void* m,           \
                                    const void* l, void* c, int B, int n,     \
                                    void* stream) {                           \
-    return launch_colsum<T, false>(ws, w, tau, m, l, c, B, n, 0, stream);    \
+    return launch_colsum<T>(ws, w, tau, m, l, c, B, n, stream);              \
   }                                                                          \
   SS_EXPORT int ss_bwd_dws_delta_##SUFFIX(                                   \
       const void* ws, const void* w, const void* x, const void* tau,         \
       const void* m, const void* l, const void* dy, const void* y,           \
       const void* dc, void* D, void* dws, int B, int n, int d,               \
       void* stream) {                                                        \
-    return launch_bwd_dws_delta<T, false>(ws, w, x, tau, m, l, dy, y, dc, D, \
-                                          dws, B, n, d, 0, stream);          \
+    return launch_bwd_dws_delta<T>(ws, w, x, tau, m, l, dy, y, dc, D, dws,   \
+                                   B, n, d, stream);                         \
   }                                                                          \
   SS_EXPORT int ss_bwd_dx_##SUFFIX(                                          \
       const void* ws, const void* w, const void* x, const void* tau,         \
@@ -1474,14 +1856,14 @@ int launch_v1_apply(const void* ws, const void* w, const void* x,
                                         const void* m, const void* l,        \
                                         void* c, int B, int n, int K,        \
                                         void* stream) {                      \
-    return launch_colsum<T, true>(ws, ws, tau, m, l, c, B, n, K, stream);    \
+    return launch_colsum_band<T>(ws, tau, m, l, c, B, n, K, stream);         \
   }                                                                          \
   SS_EXPORT int ss_bwd_band_dws_delta_##SUFFIX(                              \
       const void* ws, const void* x, const void* tau, const void* m,         \
       const void* l, const void* dy, const void* y, const void* dc, void* D, \
-      void* dws, int B, int n, int d, int K, void* stream) {                 \
-    return launch_bwd_dws_delta<T, true>(ws, ws, x, tau, m, l, dy, y, dc, D, \
-                                         dws, B, n, d, K, stream);           \
+      void* dws, int B, int n, int d, int K, int dt, void* stream) {         \
+    return launch_band_dws_dt<T>(ws, x, tau, m, l, dy, y, dc, D, dws, B, n,  \
+                                 d, K, dt, stream);                          \
   }                                                                          \
   SS_EXPORT int ss_bwd_band_dcol_##SUFFIX(                                   \
       const void* ws, const void* x, const void* tau, const void* m,         \

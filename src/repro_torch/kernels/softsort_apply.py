@@ -67,10 +67,10 @@ from repro_torch.kernels import clib
 
 NEG_INF = -1e30
 PLAIN_BLOCK = 128      # column / row block of the plain twins
-# The tile sizes of the dense templates (kernels 1-4, 6, 7), constexprs of
+# The tile sizes of the dense kernels 1-4, constexprs of
 # csrc/softsort_apply.cu: rows and columns of a score tile, payload
 # columns per block, and the row tile of the column sweep (kernel 4).
-# Kernels 5 and 8 take their payload tile from ``band_payload_tile``.
+# Kernels 5, 7 and 8 take their payload tile from ``band_payload_tile``.
 TILES = {"TR": 64, "TC": 64, "DT": 64, "TR4": 32}
 BAND_PAYLOAD_TILES = (16, 32, 64)
 _F32 = torch.float32
@@ -325,7 +325,7 @@ def bwd_band_dcol_plain(ws, xs, tau, m, l, dy, dc, D, band):
 # --------------------------------------------------------------------------
 
 def band_payload_tile(d: int) -> tuple[int, int]:
-    """(DT, tiles) of kernels 5 and 8 at payload width d: the smallest of
+    """(DT, tiles) of kernels 5, 7 and 8 at payload width d: the smallest of
     16, 32 and 64 that holds d, and one tile; above 64, tiles of 64."""
     for dt in BAND_PAYLOAD_TILES:
         if d <= dt:
@@ -341,7 +341,7 @@ _SIGNATURES = {
     "ss_bwd_dx": [_P] * 12 + [_I] * 3,
     "ss_fwd_band": [_P] * 6 + [_I] * 5,
     "ss_colsum_band": [_P] * 5 + [_I] * 3,
-    "ss_bwd_band_dws_delta": [_P] * 10 + [_I] * 4,
+    "ss_bwd_band_dws_delta": [_P] * 10 + [_I] * 5,
     "ss_bwd_band_dcol": [_P] * 11 + [_I] * 5,
     "ss_v1_stats": [_P] * 5 + [_I] * 2,
     "ss_v1_apply": [_P] * 7 + [_I] * 3,
@@ -496,7 +496,8 @@ def bwd_band_dws_delta(ws, xs, tau, m, l, dy, y, dc, band):
     dws = torch.empty_like(ws)
     if bsz * n:
         _launch(bwd_band_dws_delta, "ss_bwd_band_dws_delta", xs.dtype, ws,
-                xs, tau, m, l, dy, y, dc, D, dws, bsz, n, d, k)
+                xs, tau, m, l, dy, y, dc, D, dws, bsz, n, d, k,
+                band_payload_tile(d)[0])
     return D, dws
 
 

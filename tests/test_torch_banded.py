@@ -214,10 +214,13 @@ def _torch_band_twins(ws, xs, dy, dc, tau, k, cd=torch.float32):
 
 
 @pytest.mark.parametrize("bsz,n,d,k", [(1, 300, 7, 40), (3, 129, 17, 16),
-                                       (2, 300, 2, 100)])
+                                       (2, 300, 2, 100), (2, 300, 14, 40),
+                                       (1, 200, 65, 30)])
 def test_band_twins_match_jax_pallas_kernels(bsz, n, d, k):
     """Kernels 5-8: each twin against its banded Pallas kernel; the
-    backward Pallas function takes the twin's own y as the saved residual."""
+    backward Pallas function takes the twin's own y as the saved residual.
+    d = 14 is the Self-Organizing-Gaussians width (one payload tile of 16
+    on the card), d = 65 takes two tiles of 64."""
     w, ws, x, xs, dy, dc, tau = _band_case(bsz, n, d, seed=n + d + k)
     got = _torch_band_twins(ws, xs, dy, dc, tau, k)
     want = _jax_band_pallas(w, x, dy, dc, tau, k, got["y"])
@@ -233,6 +236,16 @@ def test_band_twins_bf16_match_jax_pallas_kernels():
     """bfloat16: scores and payload rounded to bf16, stats float32."""
     k = 40
     w, ws, x, xs, dy, dc, tau = _band_case(2, 300, 7, seed=17)
+    got = _torch_band_twins(ws, xs, dy, dc, tau, k, cd=torch.bfloat16)
+    want = _jax_band_pallas(w, x, dy, dc, tau, k, got["y"], cd=jnp.bfloat16)
+    for key in ("y", "c", "dws_row", "dws_col", "dxs", "dtc"):
+        _close(got[key], want[key], BF16_RTOL)
+
+
+def test_band_twins_bf16_match_jax_pallas_kernels_at_d14():
+    """bfloat16 at the Self-Organizing-Gaussians width d = 14."""
+    k = 40
+    w, ws, x, xs, dy, dc, tau = _band_case(2, 300, 14, seed=19)
     got = _torch_band_twins(ws, xs, dy, dc, tau, k, cd=torch.bfloat16)
     want = _jax_band_pallas(w, x, dy, dc, tau, k, got["y"], cd=jnp.bfloat16)
     for key in ("y", "c", "dws_row", "dws_col", "dxs", "dtc"):

@@ -293,6 +293,53 @@ def test_cuda_band_fwd_and_dcol_batch_invariant_at_d14(cuda, cd):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d", [1, 14, 16, 17, 33, 64, 65, 130])
+@pytest.mark.parametrize("cd", ["float32", "bfloat16"])
+@pytest.mark.parametrize("tau", [0.6, -0.6])
+@pytest.mark.parametrize("k", [3, 24, 150, 1500])
+def test_cuda_band_colsum_and_dws_match_plain_twins(cuda, d, cd, tau, k):
+    """Kernels 6 and 7 at every payload tile of kernel 7 (16, 32, 64,
+    2 x 64, 3 x 64) and ragged widths; N = 1000 is no multiple of any row,
+    column or step tile.  K = 3 and 24 are narrower than a tile, K = 150
+    is wider (interior and edge tiles both occur), and K = 1500 >= N puts
+    every pair in the band.  Both take kernel 5's own y, m and l; tau =
+    -0.6 gives rows whose maximum is not -0."""
+    dt = {"float32": torch.float32, "bfloat16": torch.bfloat16}[cd]
+    rtol = GRAD_RTOL if cd == "float32" else BF16_RTOL
+    ws, xs, tt, dyt, dct = _band_operands(2, 1000, d, 40 + d + k, cuda, dt)
+    tt = tt * np.sign(tau)
+    y, m, l = K.fwd_band(ws, xs, tt, k)
+    _close(K.colsum_band(ws, tt, m, l, k, dt).cpu(),
+           K.colsum_band_plain(ws, tt, m, l, k, dt).cpu(),
+           FWD_ATOL if cd == "float32" else rtol)
+    D, dws = K.bwd_band_dws_delta(ws, xs, tt, m, l, dyt, y, dct, k)
+    D0, dws0 = K.bwd_band_dws_delta_plain(ws, xs, tt, m, l, dyt, y, dct, k)
+    _close(D.cpu(), D0.cpu(), rtol)
+    _close(dws.cpu(), dws0.cpu(), rtol)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cd", [torch.float32, torch.bfloat16])
+def test_cuda_band_colsum_and_dws_batch_invariant_at_d14(cuda, cd):
+    """Kernels 6 and 7 at the Self-Organizing-Gaussians width d = 14: an
+    instance run alone, on the batch's own y, m and l, gives bitwise its
+    row of the batch."""
+    k = 300
+    ws, xs, tt, dyt, dct = _band_operands(3, 2000, 14, 12, cuda, cd)
+    y, m, l = K.fwd_band(ws, xs, tt, k)
+
+    def run(sl):
+        ws_, xs_, m_, l_, dy_, y_, dc_ = (t[sl].contiguous() for t in (
+            ws, xs, m, l, dyt, y, dct))
+        return (K.colsum_band(ws_, tt, m_, l_, k, cd),
+                *K.bwd_band_dws_delta(ws_, xs_, tt, m_, l_, dy_, y_, dc_, k))
+
+    for b_out, a_out in zip(run(slice(0, 3)), run(slice(1, 2))):
+        assert torch.equal(b_out[1], a_out[0])
+
+
+@pytest.mark.cuda
 def test_cuda_softsort_apply_banded_matches_oracle(cuda):
     """The banded Function on the card against the windowed oracle."""
     from repro_torch.core import softsort_apply_banded as oracle
