@@ -14,11 +14,15 @@ start):
    ``src/repro_torch/kernels/csrc/*.cu`` for sm_90a, with its time.
 2. ``kernel_check`` — each of the four dense SoftSort-apply kernels
    (1-4) against its plain PyTorch twin on the same card tensors, at
-   (B, N, d) = (8, 4096, 50) (the main run's shape), (3, 1000, 3) and
-   (1, 17, 1), in float32 and bfloat16, and the last instance run alone
-   against its row of the batch, bitwise; ``kernel_times``: median times
-   of each kernel, its twin, and the dense ``torch.softmax(...) @ x``
-   yardstick at the main shape.
+   (B, N, d) = (8, 4096, 50) (the main run's shape), (3, 1000, 3),
+   (1, 17, 1), (2, 3000, 30) and (2, 1000, 130), so that kernels 1 and 4
+   run at each of their payload tiles (64, 16, 16, 32, and three tiles of
+   64), and at (2, 2000, 50) with row keys drawn apart from the column
+   keys (``ws`` not ``sort(w)``, so kernel 1's row maximum is not -0);
+   in float32 and bfloat16, m bitwise the twin's, and the last instance
+   run alone against its row of the batch, bitwise; ``kernel_times``:
+   median times of each kernel, its twin, and the dense
+   ``torch.softmax(...) @ x`` yardstick at the main shape.
 3. ``band_kernel_check`` — the same for the four banded kernels (5-8) at
    (B, N, d, K) = (8, 4096, 50, 256) (the main run's shape with
    ``band="auto"``), (2, 65536, 14, 4096) (the SOG run's shape),
@@ -121,6 +125,10 @@ FLASH = ("flash_forward", "flash_combine")
 FWD_ATOL, GRAD_RTOL, BF16_RTOL = 2e-5, 1e-4, 2e-2
 SHAPES = [(8, 4096, 50), (3, 1000, 3), (1, 17, 1)]
 MAIN_SHAPE = SHAPES[0]
+# kernel_check: SHAPES, DT = 32 and three payload tiles of 64, then the
+# shape run with row keys drawn apart from the column keys.
+DENSE_SHAPES = SHAPES + [(2, 3000, 30), (2, 1000, 130)]
+INDEPENDENT_SHAPE = (2, 2000, 50)
 BAND_SHAPES = [(8, 4096, 50, 256), (2, 65536, 14, 4096), (3, 1000, 3, 40),
                (1, 17, 1, 3), (2, 3000, 30, 500), (2, 1000, 130, 150)]
 BAND_TIMED = BAND_SHAPES[:2]
@@ -275,14 +283,19 @@ def check(name, got, want, rtol=None, atol=None):
     return err
 
 
-def kernel_operands(torch, bsz, n, d, cd, seed):
+def kernel_operands(torch, bsz, n, d, cd, seed, independent=False):
     """Untied keys: a random permutation of 0..N-1 jittered by < 0.4, as
-    the anneal's keys start from arange(N)."""
+    the anneal's keys start from arange(N).  The row keys are sort(w), or
+    with ``independent`` another such draw, sorted."""
     g = torch.Generator().manual_seed(seed)
-    w = torch.stack([torch.randperm(n, generator=g).float()
-                     for _ in range(bsz)])
-    w = w + 0.8 * (torch.rand(bsz, n, generator=g) - 0.5)
-    ws = torch.sort(w, dim=-1, stable=True).values
+
+    def keys():
+        w = torch.stack([torch.randperm(n, generator=g).float()
+                         for _ in range(bsz)])
+        return w + 0.8 * (torch.rand(bsz, n, generator=g) - 0.5)
+
+    w = keys()
+    ws = torch.sort(keys() if independent else w, dim=-1, stable=True).values
     x = torch.randn(bsz, n, d, generator=g)
     dy = torch.randn(bsz, n, d, generator=g)
     dc = torch.randn(bsz, n, generator=g)
@@ -358,11 +371,12 @@ def kernel_phase(torch, K):
     """Phase 2: every dense kernel against its twin; times at the main
     shape."""
     stats = {k: {"max_abs_err": 0.0} for k in DENSE}
-    for bsz, n, d in SHAPES:
+    cases = [(s, False) for s in DENSE_SHAPES] + [(INDEPENDENT_SHAPE, True)]
+    for (bsz, n, d), independent in cases:
         for cd in (torch.float32, torch.bfloat16):
             f32 = cd == torch.float32
-            ws, w, x, tau, dy, dc = kernel_operands(torch, bsz, n, d, cd,
-                                                    seed=n + d)
+            ws, w, x, tau, dy, dc = kernel_operands(
+                torch, bsz, n, d, cd, seed=n + d, independent=independent)
             outs = kernel_pipeline(K, ws, w, x, tau, dy, dc)
             y, m, l, c, D, dws, dx, dwc, dtc = outs
             twins = (*K.fwd_fused_plain(ws, w, x, tau),
@@ -370,14 +384,20 @@ def kernel_phase(torch, K):
                      *K.bwd_dws_delta_plain(ws, w, x, tau, m, l, dy, y, dc),
                      *K.bwd_dx_plain(ws, w, x, tau, m, l, dy, dc, D))
             torch.cuda.synchronize()
+            # Kernel 1's first sweep takes the maximum of the same rounded
+            # scores as the twin's running maximum: equal bitwise.
+            require(torch.equal(m, twins[1]), "m differs from the twin's")
+            require(independent == bool((m < 0).any()),
+                    "row maxima: -0 exactly when ws is sort(w)")
             require_batch_invariant(
                 torch, lambda *a: kernel_pipeline(K, *a),
                 (ws, w, x, tau, dy, dc), outs)
             errs = dict(zip(DENSE, kernel_errors(outs, twins, f32)))
             emit("kernel_check", shape=[bsz, n, d], dtype=str(cd),
+                 independent_keys=independent,
                  max_abs_err={k: max(v) for k, v in errs.items()},
                  batch_invariant=True)
-            if not (f32 and (bsz, n, d) == MAIN_SHAPE):
+            if not (f32 and (bsz, n, d) == MAIN_SHAPE and not independent):
                 continue
             for k, v in errs.items():
                 stats[k]["max_abs_err"] = max(v)

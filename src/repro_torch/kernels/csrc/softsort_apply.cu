@@ -25,8 +25,13 @@
 // pairs with |i - j| <= K only: P~ is exactly 0 off the band.  A tile of
 // rows (or columns) [t0, t0 + len) loops over the other axis only across
 // [max(0, t0 - K), min(n, t0 + len + K)) and masks the pairs outside the
-// band, so the work is O(N K) instead of O(N^2).  They share no template
-// with the dense kernels (below).
+// band, so the work is O(N K) instead of O(N^2).
+//
+// The dense kernels 1 and 4 are the bodies of kernels 5 and 8 with
+// K = n and a column-key pointer wc = w (the banded calls pass wc = ws):
+// every pair is then in the band, each span is all N rows or columns, and
+// every tile that lies inside the matrix is interior.  Kernels 2 and 3
+// (and the v1 kernels 9a, 9b) keep the first-cut design described below.
 //
 // They replace the Pallas TPU kernels of src/repro/kernels/softsort_apply.py:
 // _fwd_fused_kernel (:150), _colsum_kernel (:182), _bwd_dws_delta_kernel
@@ -49,17 +54,19 @@
 // N = 4096, d = 50 that is thousands of flops per byte (and with the band,
 // O(K d) per byte).  The products run as float32 FMAs on the CUDA cores
 // (no tensor cores, so no TF32 rounding: the float32 results hold the JAX
-// reference to ~1e-6).  The dense kernels (1-4) stage key and
-// payload tiles in shared memory (rows padded by one word), each thread
-// keeps 8-16 accumulators in registers, and the score tile is computed
-// once per block and reused by every payload column; their payload tile
-// is 64 wide whatever d is.
+// reference to ~1e-6).  Kernels 2, 3, 9a and 9b stage key (and payload)
+// tiles in shared memory (rows padded by one word), each thread keeps
+// up to 16 accumulators in registers, and the score tile is computed once
+// per block and reused by every payload column; the payload tile of 3 and
+// 9b is 64 wide whatever d is.
 //
 // The banded kernels 5-8, designed for the Self-Organizing-Gaussians
-// shape (N = 65536, d = 14, K = 4096):
-// - The payload tile DT of kernels 5, 7 and 8 is a template parameter,
-//   16, 32 or 64: the smallest that holds d, or tiles of 64 above that
-//   (the wrapper's band_payload_tile picks it).  Only the real
+// shape (N = 65536, d = 14, K = 4096), and the dense kernels 1 and 4,
+// which run the bodies of 5 and 8 (at the main dense shape N = 4096,
+// d = 50: DT = 64, 64 row or column tiles x B blocks):
+// - The payload tile DT of kernels 1, 4, 5, 7 and 8 is a template
+//   parameter, 16, 32 or 64: the smallest that holds d, or tiles of 64
+//   above that (the wrapper's band_payload_tile picks it).  Only the real
 //   columns are read, 16 bytes at a time when d * sizeof(T) and the base
 //   allow, else one element at a time; the tile's other columns are zero.
 // - Register micro-tiles read as float4.  In both payload products a
@@ -81,10 +88,16 @@
 //   sorted keys, the diagonal pair is always in the band, and for
 //   0 < 1 / tau < inf its score -|ws_i - ws_i| / tau = -0 is the largest
 //   any pair can have, so m_i = -0.0f (what the twin's max gives) and one
-//   sweep sums p = exp(s) with no rescale and no per-tile reduction.  For
-//   any other tau (no caller passes one) a first sweep over the same tiles
-//   takes the exact row maximum, and the second uses it: the branch is on
-//   the device scalar tau, uniform across the block.
+//   sweep sums p = exp(s) with no rescale and no per-tile reduction.
+//   Kernel 1 does not know it: its contract does not tie ws to w.  Its
+//   caller sets exact_max, and a first sweep of scores only (no exp, no
+//   payload: ~4 instructions per pair against ~85 of the main sweep)
+//   takes the exact row maximum; the second sweep uses it, again with no
+//   rescale.  The rounding through T is monotone, so this maximum is
+//   bitwise the running maximum of the twin and of the Pallas kernel.
+//   Kernel 5 takes the same first sweep for any tau outside
+//   0 < 1 / tau < inf (no caller passes one): the branch is on the
+//   launch flag and the device scalar tau, uniform across the block.
 // - Kernels 6-8 read the saved m and multiply by a per-row 1 / l: no
 //   division per pair.  Kernel 8 steps 64 rows at a time over a tile of
 //   64 columns (129 steps at the SOG shape), kernel 6 the same, kernel 7
@@ -128,7 +141,6 @@ constexpr int NT = 256;   // threads per block
 constexpr int TR = 64;    // row tile
 constexpr int TC = 64;    // column tile
 constexpr int DT = 64;    // payload-width tile
-constexpr int TR4 = 32;   // row tile of the column sweep (kernel 4)
 constexpr unsigned FULL = 0xffffffffu;
 
 __device__ __forceinline__ float to_f(float v) { return v; }
@@ -194,113 +206,6 @@ __device__ __forceinline__ void stage(float (*dst)[DT + 1], const T* src,
     dst[r][c] = (r0 + r < n && c0 + c < d)
                     ? to_f(src[(size_t)(r0 + r) * d + c0 + c])
                     : 0.f;
-  }
-}
-
-// ---------------------------------------------------------------------------
-// Kernel 1: fused online-softmax forward.  Block = (row tile,
-// payload tile, instance); thread t owns row t/4 and payload columns
-// t%4 + 4k.  Every payload tile block recomputes the row stats (cheap next
-// to the products); the one with blockIdx.y == 0 writes m and l.
-// ---------------------------------------------------------------------------
-template <typename T>
-__global__ void __launch_bounds__(NT)
-fwd_fused_kernel(const float* __restrict__ ws, const float* __restrict__ w,
-                 const T* __restrict__ x, const float* __restrict__ tau,
-                 T* __restrict__ y, float* __restrict__ m_out,
-                 float* __restrict__ l_out, int n, int d) {
-  __shared__ float ws_s[TR], w_s[TC], m_s[TR], l_s[TR], corr_s[TR];
-  __shared__ float p_s[TR][TC + 1];
-  __shared__ float x_s[TC][DT + 1];
-
-  const int b = blockIdx.z, r0 = blockIdx.x * TR, c0 = blockIdx.y * DT;
-  const int tid = threadIdx.x, r = tid / 4, q = tid % 4, i = r0 + r;
-  ws += (size_t)b * n;
-  w += (size_t)b * n;
-  x += (size_t)b * n * d;
-  const float inv_tau = 1.0f / tau[0];
-  const int j_lo = 0, j_hi = n;
-
-  if (tid < TR) {
-    ws_s[tid] = r0 + tid < n ? ws[r0 + tid] : 0.f;
-    m_s[tid] = NEG_INF;
-    l_s[tid] = 0.f;
-  }
-  float acc[16];
-#pragma unroll
-  for (int k = 0; k < 16; ++k) acc[k] = 0.f;
-
-  for (int j0 = j_lo; j0 < j_hi; j0 += TC) {
-    __syncthreads();
-    if (tid < TC) w_s[tid] = j0 + tid < n ? w[j0 + tid] : 0.f;
-    stage<T, TC>(x_s, x, j0, c0, n, d);
-    __syncthreads();
-
-    // Scores, tile max and the un-normalized probabilities of row r.
-    {
-      const float wr = ws_s[r];
-      float s[16], mx = NEG_INF;
-#pragma unroll
-      for (int k = 0; k < 16; ++k) {
-        const int j = q + 4 * k;
-        s[k] = pair_ok<false>(i, j0 + j, n, 0) ? score<T>(wr, w_s[j], inv_tau)
-                                               : NEG_INF;
-        mx = fmaxf(mx, s[k]);
-      }
-      mx = quad_max(mx);
-      const float m_prev = m_s[r];
-      const float m_new = fmaxf(m_prev, mx);
-      float sum = 0.f;
-#pragma unroll
-      for (int k = 0; k < 16; ++k) {
-        // The explicit mask keeps a fully masked tile exact: there m_new
-        // is still NEG_INF and exp(s - m_new) would be exp(0) = 1.
-        const float p = pair_ok<false>(i, j0 + q + 4 * k, n, 0)
-                            ? expf(s[k] - m_new) : 0.f;
-        sum += p;
-        p_s[r][q + 4 * k] = rnd<T>(p);
-      }
-      sum = quad_sum(sum);
-      __syncwarp();   // every lane has read m_s[r] before lane q == 0 writes
-      if (q == 0) {
-        const float corr = expf(m_prev - m_new);
-        corr_s[r] = corr;
-        l_s[r] = l_s[r] * corr + sum;
-        m_s[r] = m_new;
-      }
-    }
-    __syncthreads();
-
-    // acc = acc * corr + P_tile @ x_tile for row r, columns q + 4k.
-    {
-      float t[16];
-#pragma unroll
-      for (int k = 0; k < 16; ++k) t[k] = 0.f;
-#pragma unroll 4
-      for (int j = 0; j < TC; ++j) {
-        const float p = p_s[r][j];
-#pragma unroll
-        for (int k = 0; k < 16; ++k) t[k] = fmaf(p, x_s[j][q + 4 * k], t[k]);
-      }
-      const float corr = corr_s[r];
-#pragma unroll
-      for (int k = 0; k < 16; ++k) acc[k] = acc[k] * corr + t[k];
-    }
-  }
-
-  __syncthreads();
-  if (i < n) {
-    const float l = fmaxf(l_s[r], 1e-30f);
-    T* yr = y + (size_t)b * n * d + (size_t)i * d;
-#pragma unroll
-    for (int k = 0; k < 16; ++k) {
-      const int c = c0 + q + 4 * k;
-      if (c < d) yr[c] = from_f<T>(acc[k] / l);
-    }
-    if (blockIdx.y == 0 && q == 0) {
-      m_out[(size_t)b * n + i] = m_s[r];
-      l_out[(size_t)b * n + i] = l_s[r];
-    }
   }
 }
 
@@ -446,136 +351,6 @@ bwd_dws_delta_kernel(const float* __restrict__ ws,
 }
 
 // ---------------------------------------------------------------------------
-// Kernel 4: column sweep.  Block = (column tile, payload tile,
-// instance); thread t owns column t/4: in the score phase rows t%4 + 4k of
-// each row tile, in the payload phase dx columns t%4 + 4k.
-//   ds_ij = P_ij (dP_ij - D_i)
-//   dx_j = sum_i P_ij dy_i,  dw_cols_j = sum_i ds_ij sgn_ij / tau,
-//   dtau_cols_j = sum_i ds_ij (-s_ij) / tau
-// dP needs the full payload width, so each block sums it over every
-// payload tile, taking its own tile last so that dy_s then holds it.
-// ---------------------------------------------------------------------------
-template <typename T>
-__global__ void __launch_bounds__(NT)
-bwd_dx_kernel(const float* __restrict__ ws, const float* __restrict__ w,
-              const T* __restrict__ x, const float* __restrict__ tau,
-              const float* __restrict__ m, const float* __restrict__ l,
-              const T* __restrict__ dy, const T* __restrict__ dc,
-              const float* __restrict__ Dv, T* __restrict__ dx,
-              float* __restrict__ dwc_out, float* __restrict__ dtc_out,
-              int n, int d) {
-  __shared__ float ws_s[TR4], m_s[TR4], l_s[TR4], D_s[TR4];
-  __shared__ float w_s[TC], dc_s[TC];
-  __shared__ float dy_s[TR4][DT + 1];
-  __shared__ float x_s[TC][DT + 1];
-  __shared__ float p_s[TR4][TC + 1];
-
-  const int b = blockIdx.z, j0 = blockIdx.x * TC, own = blockIdx.y;
-  const int tid = threadIdx.x, jl = tid / 4, q = tid % 4, j = j0 + jl;
-  ws += (size_t)b * n;
-  w += (size_t)b * n;
-  m += (size_t)b * n;
-  l += (size_t)b * n;
-  dc += (size_t)b * n;
-  Dv += (size_t)b * n;
-  x += (size_t)b * n * d;
-  dy += (size_t)b * n * d;
-  const float inv_tau = 1.0f / tau[0];
-  const int nd = (d + DT - 1) / DT;
-  const bool x_resident = nd == 1;   // x tile staged once for d <= DT
-  const int i_lo = 0, i_hi = n;
-
-  if (tid < TC) {
-    const bool ok = j0 + tid < n;
-    w_s[tid] = ok ? w[j0 + tid] : 0.f;
-    dc_s[tid] = ok ? to_f(dc[j0 + tid]) : 0.f;
-  }
-  if (x_resident) stage<T, TC>(x_s, x, j0, 0, n, d);
-
-  float acc[16];
-#pragma unroll
-  for (int k = 0; k < 16; ++k) acc[k] = 0.f;
-  float dwc = 0.f, dtc = 0.f;
-
-  for (int i0 = i_lo; i0 < i_hi; i0 += TR4) {
-    float dp[TR4 / 4];
-#pragma unroll
-    for (int k = 0; k < TR4 / 4; ++k) dp[k] = 0.f;
-    for (int t = 1; t <= nd; ++t) {
-      const int cc = (own + t) % nd;   // own tile comes last
-      __syncthreads();
-      if (t == 1 && tid < TR4) {
-        const bool ok = i0 + tid < n;
-        ws_s[tid] = ok ? ws[i0 + tid] : 0.f;
-        m_s[tid] = ok ? m[i0 + tid] : 0.f;
-        l_s[tid] = ok ? fmaxf(l[i0 + tid], 1e-30f) : 1.f;
-        D_s[tid] = ok ? Dv[i0 + tid] : 0.f;
-      }
-      stage<T, TR4>(dy_s, dy, i0, cc * DT, n, d);
-      if (!x_resident) stage<T, TC>(x_s, x, j0, cc * DT, n, d);
-      __syncthreads();
-      const int dn = min(DT, d - cc * DT);
-      for (int c = 0; c < dn; ++c) {
-        const float xv = x_s[jl][c];
-#pragma unroll
-        for (int k = 0; k < TR4 / 4; ++k)
-          dp[k] = fmaf(dy_s[q + 4 * k][c], xv, dp[k]);
-      }
-    }
-    // Probabilities, ds and the column reductions for column jl.
-    {
-      const float wc = w_s[jl], dcj = dc_s[jl];
-      float pw = 0.f, pt = 0.f;
-#pragma unroll
-      for (int k = 0; k < TR4 / 4; ++k) {
-        const int i = q + 4 * k;
-        const bool ok = i0 + i < n;
-        float p = 0.f;
-        if (ok) {
-          const float s = score<T>(ws_s[i], wc, inv_tau);
-          p = expf(s - m_s[i]) / l_s[i];
-          const float ds = p * (dp[k] + dcj - D_s[i]);
-          pw += ds * sgnf(ws_s[i] - wc);
-          pt += ds * (-s);
-        }
-        p_s[i][jl] = rnd<T>(p);
-      }
-      dwc += pw;
-      dtc += pt;
-    }
-    __syncthreads();
-    // dx_j += P_tile^T dy_tile for column jl, payload columns q + 4k.
-    {
-      float t[16];
-#pragma unroll
-      for (int k = 0; k < 16; ++k) t[k] = 0.f;
-      for (int i = 0; i < TR4; ++i) {
-        const float p = p_s[i][jl];
-#pragma unroll
-        for (int k = 0; k < 16; ++k) t[k] = fmaf(p, dy_s[i][q + 4 * k], t[k]);
-      }
-#pragma unroll
-      for (int k = 0; k < 16; ++k) acc[k] += t[k];
-    }
-  }
-
-  if (j < n) {
-    T* dxr = dx + (size_t)b * n * d + (size_t)j * d;
-#pragma unroll
-    for (int k = 0; k < 16; ++k) {
-      const int c = own * DT + q + 4 * k;
-      if (c < d) dxr[c] = from_f<T>(acc[k]);
-    }
-  }
-  dwc = quad_sum(dwc);
-  dtc = quad_sum(dtc);
-  if (own == 0 && q == 0 && j < n) {
-    dwc_out[(size_t)b * n + j] = dwc * inv_tau;
-    dtc_out[(size_t)b * n + j] = dtc * inv_tau;
-  }
-}
-
-// ---------------------------------------------------------------------------
 // Kernels 5-8 (see the header): payload tiles of DT = 16, 32 or 64
 // columns, register micro-tiles, interior tiles unmasked.
 // ---------------------------------------------------------------------------
@@ -677,8 +452,9 @@ __device__ __forceinline__ bool interior(int i0, int R, int j0, int C, int n,
 template <bool V> using Edge = std::integral_constant<bool, V>;
 
 // ---------------------------------------------------------------------------
-// Kernel 5: banded forward.  Block = (TR-row tile, DT-wide payload tile,
-// instance), NT = TR / 4 x DT / 4 threads; column tiles of BTC keys.
+// Kernel 5: banded forward, and kernel 1 as the band K = n with column
+// keys wc = w.  Block = (TR-row tile, DT-wide payload tile, instance),
+// NT = TR / 4 x DT / 4 threads; column tiles of BTC keys.
 //   Score phase: thread t scores rows 4 sr + u (u < 4) of the tile
 //   against columns sc + SCOLS k, sr = t % NRG, and stores P^T: the four
 //   rows of a column are one float4 of p_s[column][row].
@@ -705,10 +481,11 @@ struct FwdBand {
 
 template <typename T, int DT>
 __global__ void __launch_bounds__(FwdBand<DT>::NT, FwdBand<DT>::MIN_BLOCKS)
-fwd_band_kernel(const float* __restrict__ ws, const T* __restrict__ x,
-                const float* __restrict__ tau, T* __restrict__ y,
-                float* __restrict__ m_out, float* __restrict__ l_out, int n,
-                int d, int K, int vec) {
+fwd_band_kernel(const float* __restrict__ ws, const float* __restrict__ wc,
+                const T* __restrict__ x, const float* __restrict__ tau,
+                T* __restrict__ y, float* __restrict__ m_out,
+                float* __restrict__ l_out, int n, int d, int K, int exact_max,
+                int vec) {
   using C = FwdBand<DT>;
   constexpr int TR = C::TR, NT = C::NT, NRG = C::NRG, NCG = C::NCG;
   constexpr int SCOLS = C::SCOLS, SK = C::SK;
@@ -722,6 +499,7 @@ fwd_band_kernel(const float* __restrict__ ws, const T* __restrict__ x,
   const int sr = tid % NRG, sc = tid / NRG;   // score phase
   const int pc = tid % NCG, pr = tid / NCG;   // product phase
   ws += (size_t)b * n;
+  wc += (size_t)b * n;
   x += (size_t)b * n * d;
   const float inv_tau = 1.0f / tau[0];
   const int j_lo = max(0, r0 - K), j_hi = min(n, r0 + TR + K);
@@ -736,16 +514,28 @@ fwd_band_kernel(const float* __restrict__ ws, const T* __restrict__ x,
     lsum[u] = 0.f;
   }
 
-  // Any other tau: a first sweep for the exact row maximum.
-  if (!(inv_tau > 0.f && inv_tau <= 3.4028235e38f)) {
+  // The dense call (exact_max: its row keys are not tied to its column
+  // keys) and any other tau: a first sweep of scores only, no exp and no
+  // payload, for the exact row maximum.  Where every real pair is scored
+  // (K >= n - 1) no pair is tested; rows >= n are masked below.
+  if (exact_max || !(inv_tau > 0.f && inv_tau <= 3.4028235e38f)) {
     float mx[4] = {NEG_INF, NEG_INF, NEG_INF, NEG_INF};
-    for (int j = j_lo + sc; j < j_hi; j += SCOLS) {
-      const float wc = ws[j];
+    auto sweep = [&](auto edge) {
+#pragma unroll 4
+      for (int j = j_lo + sc; j < j_hi; j += SCOLS) {
+        const float wj = wc[j];
 #pragma unroll
-      for (int u = 0; u < 4; ++u)
-        if (pair_ok<true>(r0 + 4 * sr + u, j, n, K))
-          mx[u] = fmaxf(mx[u], score<T>(wr[u], wc, inv_tau));
-    }
+        for (int u = 0; u < 4; ++u) {
+          if constexpr (decltype(edge)::value)
+            if (!pair_ok<true>(r0 + 4 * sr + u, j, n, K)) continue;
+          mx[u] = fmaxf(mx[u], score<T>(wr[u], wj, inv_tau));
+        }
+      }
+    };
+    if (K >= n - 1)
+      sweep(Edge<false>{});
+    else
+      sweep(Edge<true>{});
 #pragma unroll
     for (int u = 0; u < 4; ++u) p_s[sc * TR + 4 * sr + u] = mx[u];
     __syncthreads();
@@ -762,7 +552,7 @@ fwd_band_kernel(const float* __restrict__ ws, const T* __restrict__ x,
   float wk = 0.f;
   auto fetch = [&](int j0) {
     xr.load(x, j0, n, d, c0, dn, vec);
-    if (tid < BTC) wk = j0 + tid < n ? ws[j0 + tid] : 0.f;
+    if (tid < BTC) wk = j0 + tid < n ? wc[j0 + tid] : 0.f;
   };
   auto put = [&](int buf) {
     xr.store(x_s + buf * BTC * DT, DT, vec);
@@ -777,11 +567,11 @@ fwd_band_kernel(const float* __restrict__ ws, const T* __restrict__ x,
 #pragma unroll 4
     for (int k = 0; k < SK; ++k) {
       const int jl = sc + SCOLS * k;
-      const float wc = wcs[jl];
+      const float wj = wcs[jl];
       float p[4];
 #pragma unroll
       for (int u = 0; u < 4; ++u) {
-        const float s = score<T>(wr[u], wc, inv_tau);
+        const float s = score<T>(wr[u], wj, inv_tau);
         bool ok = true;
         if constexpr (decltype(edge)::value)
           ok = pair_ok<true>(r0 + 4 * sr + u, j0 + jl, n, K);
@@ -864,8 +654,9 @@ fwd_band_kernel(const float* __restrict__ ws, const T* __restrict__ x,
 }
 
 // ---------------------------------------------------------------------------
-// Kernel 8: banded column sweep.  Block = (TC-column tile, DT-wide payload
-// tile `own`, instance); steps of BTRS rows over the tile's span.
+// Kernel 8: banded column sweep, and kernel 4 as the band K = n with
+// column keys wc = w.  Block = (TC-column tile, DT-wide payload tile
+// `own`, instance); steps of BTRS rows over the tile's span.
 //   ds_ij = P_ij (dP_ij - D_i),  dP_ij = dy_i . x_j + dc_j
 //   dxs_j = sum_i P_ij dy_i,  dws_col_j = sum_i ds_ij sgn_ij / tau,
 //   dtau_cols_j = sum_i ds_ij (-s_ij) / tau
@@ -902,7 +693,8 @@ struct DcolBand {
 
 template <typename T, int DT>
 __global__ void __launch_bounds__(DcolBand<DT>::NT, DcolBand<DT>::MIN_BLOCKS)
-bwd_band_dcol_kernel(const float* __restrict__ ws, const T* __restrict__ x,
+bwd_band_dcol_kernel(const float* __restrict__ ws,
+                     const float* __restrict__ wc, const T* __restrict__ x,
                      const float* __restrict__ tau,
                      const float* __restrict__ m, const float* __restrict__ l,
                      const T* __restrict__ dy, const T* __restrict__ dc,
@@ -926,6 +718,7 @@ bwd_band_dcol_kernel(const float* __restrict__ ws, const T* __restrict__ x,
   const int pg = tid % NPG, cb = tid / NPG % (TC / 4);   // product phase
   const int h0 = tid / (NPG * TC / 4) * RH;
   ws += (size_t)b * n;
+  wc += (size_t)b * n;
   m += (size_t)b * n;
   l += (size_t)b * n;
   dc += (size_t)b * n;
@@ -936,11 +729,11 @@ bwd_band_dcol_kernel(const float* __restrict__ ws, const T* __restrict__ x,
   const int i_lo = max(0, j0 - K), i_hi = min(n, j0 + TC + K);
   const int nstage = (i_hi - i_lo + BTRS - 1) / BTRS * nd;
 
-  float wc[CA], dcj[CA], pw[CA], pt[CA];
+  float wj[CA], dcj[CA], pw[CA], pt[CA];
 #pragma unroll
   for (int v = 0; v < CA; ++v) {
     const int j = j0 + ca + NCA * v;
-    wc[v] = j < n ? ws[j] : 0.f;
+    wj[v] = j < n ? wc[j] : 0.f;
     dcj[v] = j < n ? to_f(dc[j]) : 0.f;
     pw[v] = pt[v] = 0.f;
   }
@@ -992,7 +785,7 @@ bwd_band_dcol_kernel(const float* __restrict__ ws, const T* __restrict__ x,
       const float rli = sts[2 * BTRS + rl], Di = sts[3 * BTRS + rl];
 #pragma unroll
       for (int v = 0; v < CA; ++v) {
-        const float s = score<T>(wsi, wc[v], inv_tau);
+        const float s = score<T>(wsi, wj[v], inv_tau);
         bool ok = true;
         if constexpr (decltype(edge)::value)
           ok = pair_ok<true>(i0 + rl, j0 + ca + NCA * v, n, K);
@@ -1000,7 +793,7 @@ bwd_band_dcol_kernel(const float* __restrict__ ws, const T* __restrict__ x,
         if (ok) {
           p = expf(s - mi) * rli;
           const float ds = p * (dp[u][v] + dcj[v] - Di);
-          pw[v] += ds * sgnf(wsi - wc[v]);
+          pw[v] += ds * sgnf(wsi - wj[v]);
           pt[v] += ds * (-s);
         }
         p_s[rl * PLD + ca + NCA * v] = rnd<T>(p);
@@ -1596,17 +1389,6 @@ v1_apply_kernel(const float* __restrict__ ws, const float* __restrict__ w,
 inline int n_dtiles(int d) { return d > 0 ? (d + DT - 1) / DT : 1; }
 
 template <typename T>
-int launch_fwd_fused(const void* ws, const void* w, const void* x,
-                     const void* tau, void* y, void* m, void* l, int B, int n,
-                     int d, void* stream) {
-  dim3 grid((n + TR - 1) / TR, n_dtiles(d), B);
-  fwd_fused_kernel<T><<<grid, NT, 0, (cudaStream_t)stream>>>(
-      (const float*)ws, (const float*)w, (const T*)x, (const float*)tau,
-      (T*)y, (float*)m, (float*)l, n, d);
-  return (int)cudaGetLastError();
-}
-
-template <typename T>
 int launch_colsum(const void* ws, const void* w, const void* tau,
                   const void* m, const void* l, void* c, int B, int n,
                   void* stream) {
@@ -1631,19 +1413,6 @@ int launch_bwd_dws_delta(const void* ws, const void* w, const void* x,
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_bwd_dx(const void* ws, const void* w, const void* x,
-                  const void* tau, const void* m, const void* l,
-                  const void* dy, const void* dc, const void* D, void* dx,
-                  void* dwc, void* dtc, int B, int n, int d, void* stream) {
-  dim3 grid((n + TC - 1) / TC, n_dtiles(d), B);
-  bwd_dx_kernel<T><<<grid, NT, 0, (cudaStream_t)stream>>>(
-      (const float*)ws, (const float*)w, (const T*)x, (const float*)tau,
-      (const float*)m, (const float*)l, (const T*)dy, (const T*)dc,
-      (const float*)D, (T*)dx, (float*)dwc, (float*)dtc, n, d);
-  return (int)cudaGetLastError();
-}
-
 // 16-byte staging: d a whole number of 16-byte chunks, bases aligned.
 template <typename T>
 int vec_ok(int d, const void* a, const void* b) {
@@ -1652,9 +1421,9 @@ int vec_ok(int d, const void* a, const void* b) {
 }
 
 template <typename T, int DT>
-int launch_fwd_band(const void* ws, const void* x, const void* tau, void* y,
-                    void* m, void* l, int B, int n, int d, int K,
-                    cudaStream_t stream) {
+int launch_fwd_band(const void* ws, const void* wc, const void* x,
+                    const void* tau, void* y, void* m, void* l, int B, int n,
+                    int d, int K, int exact_max, cudaStream_t stream) {
   using C = FwdBand<DT>;
   constexpr int bytes = C::FLOATS * (int)sizeof(float);
   static bool limit_set = false;
@@ -1667,14 +1436,15 @@ int launch_fwd_band(const void* ws, const void* x, const void* tau, void* y,
   }
   dim3 grid((n + C::TR - 1) / C::TR, d > DT ? (d + DT - 1) / DT : 1, B);
   fwd_band_kernel<T, DT><<<grid, C::NT, bytes, stream>>>(
-      (const float*)ws, (const T*)x, (const float*)tau, (T*)y, (float*)m,
-      (float*)l, n, d, K, vec_ok<T>(d, x, x));
+      (const float*)ws, (const float*)wc, (const T*)x, (const float*)tau,
+      (T*)y, (float*)m, (float*)l, n, d, K, exact_max, vec_ok<T>(d, x, x));
   return (int)cudaGetLastError();
 }
 
 template <typename T, int DT>
-int launch_band_dcol(const void* ws, const void* x, const void* tau,
-                     const void* m, const void* l, const void* dy,
+int launch_band_dcol(const void* ws, const void* wc, const void* x,
+                     const void* tau, const void* m, const void* l,
+                     const void* dy,
                      const void* dc, const void* D, void* dx, void* dwc,
                      void* dtc, int B, int n, int d, int K,
                      cudaStream_t stream) {
@@ -1692,7 +1462,8 @@ int launch_band_dcol(const void* ws, const void* x, const void* tau,
   }
   dim3 grid((n + C::TC - 1) / C::TC, nd, B);
   bwd_band_dcol_kernel<T, DT><<<grid, C::NT, bytes, stream>>>(
-      (const float*)ws, (const T*)x, (const float*)tau, (const float*)m,
+      (const float*)ws, (const float*)wc, (const T*)x, (const float*)tau,
+      (const float*)m,
       (const float*)l, (const T*)dy, (const T*)dc, (const float*)D, (T*)dx,
       (float*)dwc, (float*)dtc, n, d, K, vec_ok<T>(d, x, dy));
   return (int)cudaGetLastError();
@@ -1735,42 +1506,47 @@ int launch_band_dws(const void* ws, const void* x, const void* tau,
   return (int)cudaGetLastError();
 }
 
-// Kernels 5, 7 and 8 at the payload tile dt the caller chose (the
-// wrapper's band_payload_tile): 16, 32 or 64, and 64 if it does not hold
-// d, as kernels 7 and 8 loop over payload tiles only at DT = 64.
+// Kernels 5, 7 and 8 (and 1 and 4 through 5's and 8's bodies) at the
+// payload tile dt the caller chose (the wrapper's band_payload_tile): 16,
+// 32 or 64, and 64 if it does not hold d, as kernels 7 and 8 loop over
+// payload tiles only at DT = 64.
 inline bool dt_ok(int dt, int d) {
   return dt == 64 || ((dt == 16 || dt == 32) && d <= dt);
 }
 
 template <typename T>
-int launch_fwd_band_dt(const void* ws, const void* x, const void* tau,
-                       void* y, void* m, void* l, int B, int n, int d, int K,
-                       int dt, void* stream) {
+int launch_fwd_band_dt(const void* ws, const void* wc, const void* x,
+                       const void* tau, void* y, void* m, void* l, int B,
+                       int n, int d, int K, int dt, int exact_max,
+                       void* stream) {
   if (!dt_ok(dt, d)) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   if (dt == 16)
-    return launch_fwd_band<T, 16>(ws, x, tau, y, m, l, B, n, d, K, st);
+    return launch_fwd_band<T, 16>(ws, wc, x, tau, y, m, l, B, n, d, K,
+                                  exact_max, st);
   if (dt == 32)
-    return launch_fwd_band<T, 32>(ws, x, tau, y, m, l, B, n, d, K, st);
-  return launch_fwd_band<T, 64>(ws, x, tau, y, m, l, B, n, d, K, st);
+    return launch_fwd_band<T, 32>(ws, wc, x, tau, y, m, l, B, n, d, K,
+                                  exact_max, st);
+  return launch_fwd_band<T, 64>(ws, wc, x, tau, y, m, l, B, n, d, K,
+                                exact_max, st);
 }
 
 template <typename T>
-int launch_band_dcol_dt(const void* ws, const void* x, const void* tau,
-                        const void* m, const void* l, const void* dy,
-                        const void* dc, const void* D, void* dx, void* dwc,
-                        void* dtc, int B, int n, int d, int K, int dt,
-                        void* stream) {
+int launch_band_dcol_dt(const void* ws, const void* wc, const void* x,
+                        const void* tau, const void* m, const void* l,
+                        const void* dy, const void* dc, const void* D,
+                        void* dx, void* dwc, void* dtc, int B, int n, int d,
+                        int K, int dt, void* stream) {
   if (!dt_ok(dt, d)) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   if (dt == 16)
-    return launch_band_dcol<T, 16>(ws, x, tau, m, l, dy, dc, D, dx, dwc, dtc,
-                                   B, n, d, K, st);
+    return launch_band_dcol<T, 16>(ws, wc, x, tau, m, l, dy, dc, D, dx, dwc,
+                                   dtc, B, n, d, K, st);
   if (dt == 32)
-    return launch_band_dcol<T, 32>(ws, x, tau, m, l, dy, dc, D, dx, dwc, dtc,
-                                   B, n, d, K, st);
-  return launch_band_dcol<T, 64>(ws, x, tau, m, l, dy, dc, D, dx, dwc, dtc,
-                                 B, n, d, K, st);
+    return launch_band_dcol<T, 32>(ws, wc, x, tau, m, l, dy, dc, D, dx, dwc,
+                                   dtc, B, n, d, K, st);
+  return launch_band_dcol<T, 64>(ws, wc, x, tau, m, l, dy, dc, D, dx, dwc,
+                                 dtc, B, n, d, K, st);
 }
 
 template <typename T>
@@ -1814,14 +1590,18 @@ int launch_v1_apply(const void* ws, const void* w, const void* x,
 #define SS_EXPORT extern "C" __attribute__((visibility("default")))
 
 // Dense (kernels 1-4): rows ws, columns w.  Banded (kernels 5-8): both
-// axes ws, the payload in rank order, half-width K; kernels 5, 7 and 8
-// also take their payload tile dt (16, 32 or 64, see dt_ok).
-#define SS_INSTANTIATE(SUFFIX, T)                                             \
-  SS_EXPORT int ss_fwd_fused_##SUFFIX(const void* ws, const void* w,         \
-                                      const void* x, const void* tau,        \
-                                      void* y, void* m, void* l, int B,      \
-                                      int n, int d, void* stream) {          \
-    return launch_fwd_fused<T>(ws, w, x, tau, y, m, l, B, n, d, stream);     \
+// axes ws, the payload in rank order, half-width K.  Kernels 1 and 4 run
+// the bodies of 5 and 8 with column keys w; their caller passes K = n and
+// kernel 1 the flag exact_max (its row maximum is not known beforehand).
+// Kernels 1, 4, 5, 7 and 8 take their payload tile dt (16, 32 or 64, see
+// dt_ok).
+#define SS_INSTANTIATE(SUFFIX, T)                                            \
+  SS_EXPORT int ss_fwd_fused_##SUFFIX(                                       \
+      const void* ws, const void* w, const void* x, const void* tau,         \
+      void* y, void* m, void* l, int B, int n, int d, int K, int dt,         \
+      int exact_max, void* stream) {                                         \
+    return launch_fwd_band_dt<T>(ws, w, x, tau, y, m, l, B, n, d, K, dt,     \
+                                 exact_max, stream);                         \
   }                                                                          \
   SS_EXPORT int ss_colsum_##SUFFIX(const void* ws, const void* w,            \
                                    const void* tau, const void* m,           \
@@ -1841,15 +1621,15 @@ int launch_v1_apply(const void* ws, const void* w, const void* x,
       const void* ws, const void* w, const void* x, const void* tau,         \
       const void* m, const void* l, const void* dy, const void* dc,          \
       const void* D, void* dx, void* dwc, void* dtc, int B, int n, int d,    \
-      void* stream) {                                                        \
-    return launch_bwd_dx<T>(ws, w, x, tau, m, l, dy, dc, D, dx, dwc, dtc, B, \
-                            n, d, stream);                                   \
+      int K, int dt, void* stream) {                                         \
+    return launch_band_dcol_dt<T>(ws, w, x, tau, m, l, dy, dc, D, dx, dwc,   \
+                                  dtc, B, n, d, K, dt, stream);              \
   }                                                                          \
   SS_EXPORT int ss_fwd_band_##SUFFIX(const void* ws, const void* x,          \
                                      const void* tau, void* y, void* m,      \
                                      void* l, int B, int n, int d, int K,    \
                                      int dt, void* stream) {                 \
-    return launch_fwd_band_dt<T>(ws, x, tau, y, m, l, B, n, d, K, dt,        \
+    return launch_fwd_band_dt<T>(ws, ws, x, tau, y, m, l, B, n, d, K, dt, 0, \
                                  stream);                                    \
   }                                                                          \
   SS_EXPORT int ss_colsum_band_##SUFFIX(const void* ws, const void* tau,     \
@@ -1870,8 +1650,8 @@ int launch_v1_apply(const void* ws, const void* w, const void* x,
       const void* l, const void* dy, const void* dc, const void* D,          \
       void* dx, void* dwc, void* dtc, int B, int n, int d, int K, int dt,    \
       void* stream) {                                                        \
-    return launch_band_dcol_dt<T>(ws, x, tau, m, l, dy, dc, D, dx, dwc, dtc, \
-                                  B, n, d, K, dt, stream);                   \
+    return launch_band_dcol_dt<T>(ws, ws, x, tau, m, l, dy, dc, D, dx, dwc,  \
+                                  dtc, B, n, d, K, dt, stream);              \
   }
 
 SS_INSTANTIATE(f32, float)

@@ -11,10 +11,12 @@ rows) and keys ``w`` (the columns):
 Four kernels, the counterparts of the dense Pallas kernels of
 ``repro.kernels.softsort_apply``:
 
-* ``fwd_fused``     — one online-softmax sweep per row: running max ``m``,
-                      denominator ``l`` and the un-normalized ``y``
-                      accumulator rescaled by ``exp(m_prev - m_new)``;
-                      ``y = acc / l`` at the end.  Emits y, m, l.
+* ``fwd_fused``     — per row, the exact maximum ``m`` from a sweep of
+                      scores only, then one sweep for the denominator
+                      ``l`` and the un-normalized ``y`` (no rescale);
+                      ``y = acc / l`` at the end.  Emits y, m, l.  (The
+                      twin keeps the online softmax of the Pallas kernel:
+                      the same m bitwise, l and y within rounding.)
 * ``colsum``        — ``colsum_j = sum_i exp(s_ij - m_i) / l_i``.
 * ``bwd_dws_delta`` — row sweep: ``D_i = dy_i.y_i + sum_j P_ij dc_j``,
                       ``A_i = sum_j P dP sgn``, ``S_i = sum_j P sgn`` with
@@ -58,6 +60,12 @@ plain twin (``*_plain``), which computes the same blocked algorithm in
 plain PyTorch; CUDA tensors launch the kernel from
 ``csrc/softsort_apply.cu`` and raise if the launch fails.  Each wrapper
 counts its kernel launches in its ``launches`` attribute.
+
+On the card ``fwd_fused`` and ``bwd_dx`` run the kernel bodies of
+``fwd_band`` and ``bwd_band_dcol`` with the band K = N and column keys
+``w``: their wrappers pass K = N, the payload tile ``band_payload_tile(d)``
+and, for ``fwd_fused``, ``EXACT_MAX`` (the row maximum is not known
+beforehand, so a first sweep takes it).
 """
 from __future__ import annotations
 
@@ -67,12 +75,13 @@ from repro_torch.kernels import clib
 
 NEG_INF = -1e30
 PLAIN_BLOCK = 128      # column / row block of the plain twins
-# The tile sizes of the dense kernels 1-4, constexprs of
-# csrc/softsort_apply.cu: rows and columns of a score tile, payload
-# columns per block, and the row tile of the column sweep (kernel 4).
-# Kernels 5, 7 and 8 take their payload tile from ``band_payload_tile``.
-TILES = {"TR": 64, "TC": 64, "DT": 64, "TR4": 32}
+# The tile sizes of kernels 2, 3, 9a and 9b, constexprs of
+# csrc/softsort_apply.cu: rows and columns of a score tile, and payload
+# columns per block.  Kernels 1, 4, 5, 7 and 8 take their payload tile
+# from ``band_payload_tile``.
+TILES = {"TR": 64, "TC": 64, "DT": 64}
 BAND_PAYLOAD_TILES = (16, 32, 64)
+EXACT_MAX = 1          # fwd_fused's flag: take the row maximum in a sweep
 _F32 = torch.float32
 _DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
@@ -325,8 +334,9 @@ def bwd_band_dcol_plain(ws, xs, tau, m, l, dy, dc, D, band):
 # --------------------------------------------------------------------------
 
 def band_payload_tile(d: int) -> tuple[int, int]:
-    """(DT, tiles) of kernels 5, 7 and 8 at payload width d: the smallest of
-    16, 32 and 64 that holds d, and one tile; above 64, tiles of 64."""
+    """(DT, tiles) of kernels 1, 4, 5, 7 and 8 at payload width d: the
+    smallest of 16, 32 and 64 that holds d, and one tile; above 64, tiles
+    of 64."""
     for dt in BAND_PAYLOAD_TILES:
         if d <= dt:
             return dt, 1
@@ -335,10 +345,10 @@ def band_payload_tile(d: int) -> tuple[int, int]:
 
 _P, _I = clib.P, clib.I
 _SIGNATURES = {
-    "ss_fwd_fused": [_P] * 7 + [_I] * 3,
+    "ss_fwd_fused": [_P] * 7 + [_I] * 6,
     "ss_colsum": [_P] * 6 + [_I] * 2,
     "ss_bwd_dws_delta": [_P] * 11 + [_I] * 3,
-    "ss_bwd_dx": [_P] * 12 + [_I] * 3,
+    "ss_bwd_dx": [_P] * 12 + [_I] * 5,
     "ss_fwd_band": [_P] * 6 + [_I] * 5,
     "ss_colsum_band": [_P] * 5 + [_I] * 3,
     "ss_bwd_band_dws_delta": [_P] * 10 + [_I] * 5,
@@ -411,7 +421,7 @@ def fwd_fused(ws, w, x, tau):
     l = torch.empty_like(w)
     if bsz * n:
         _launch(fwd_fused, "ss_fwd_fused", x.dtype, ws, w, x, tau, y, m, l,
-                bsz, n, d)
+                bsz, n, d, n, band_payload_tile(d)[0], EXACT_MAX)
     return y, m, l
 
 
@@ -453,7 +463,7 @@ def bwd_dx(ws, w, x, tau, m, l, dy, dc, D):
     dtc = torch.empty_like(w)
     if bsz * n:
         _launch(bwd_dx, "ss_bwd_dx", x.dtype, ws, w, x, tau, m, l, dy, dc, D,
-                dx, dwc, dtc, bsz, n, d)
+                dx, dwc, dtc, bsz, n, d, n, band_payload_tile(d)[0])
     return dx, dwc, dtc
 
 

@@ -115,6 +115,66 @@ def test_cuda_kernels_batch_invariant(cuda, cd):
         assert torch.equal(b_out[2], a_out[0])
 
 
+def _dense_operands(bsz, n, d, seed, cuda, cd):
+    """Row keys ws drawn independently of the column keys w (sorted, but
+    not sort(w): the row maximum is not -0), payload, cotangents."""
+    w, _, x, dy, dc, tau = _operands(bsz, n, d, seed)
+    ws = np.sort(_untied_keys(np.random.default_rng(seed + 1), (bsz, n)),
+                 axis=-1)
+    t = lambda a, dtype=torch.float32: torch.tensor(a, device=cuda).to(dtype)  # noqa: E731
+    return (t(ws), t(w), t(x, cd), t(tau).reshape(1), t(dy, cd), t(dc, cd))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1, 3, 14, 30, 50, 64, 65, 130])
+@pytest.mark.parametrize("cd", ["float32", "bfloat16"])
+@pytest.mark.parametrize("tau", [0.05, 0.6])
+def test_cuda_dense_fwd_and_dx_match_plain_twins(cuda, d, cd, tau):
+    """Kernels 1 and 4 (the bodies of 5 and 8 with K = N) at every payload
+    tile (16, 32, 64, 2 x 64, 3 x 64) and ragged widths; N = 1000 is no
+    multiple of any row or column tile, and ws is independent of w, so
+    kernel 1's first sweep finds maxima other than -0.  Its m is the
+    twin's bitwise: the maximum of the same rounded scores."""
+    dt = {"float32": torch.float32, "bfloat16": torch.bfloat16}[cd]
+    rtol = GRAD_RTOL if cd == "float32" else BF16_RTOL
+    ws, w, x, tt, dy, dc = _dense_operands(2, 1000, d, 50 + d, cuda, dt)
+    tt = tt * (tau / 0.6)
+    y, m, l = K.fwd_fused(ws, w, x, tt)
+    y0, m0, l0 = K.fwd_fused_plain(ws, w, x, tt)
+    _close(y.float().cpu(), y0.float().cpu(),
+           FWD_ATOL if cd == "float32" else rtol)
+    assert torch.equal(m, m0)
+    assert bool((m < 0).any())
+    _close(l.cpu(), l0.cpu(), FWD_ATOL)
+    D, _ = K.bwd_dws_delta_plain(ws, w, x, tt, m, l, dy, y, dc)
+    out = K.bwd_dx(ws, w, x, tt, m, l, dy, dc, D)
+    ref = K.bwd_dx_plain(ws, w, x, tt, m, l, dy, dc, D)
+    for g, r in zip(out, ref):
+        _close(g.float().cpu(), r.float().cpu(), rtol)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [14, 50])
+@pytest.mark.parametrize("cd", [torch.float32, torch.bfloat16])
+def test_cuda_dense_fwd_and_dx_batch_invariant(cuda, d, cd):
+    """Kernels 1 and 4 at the Self-Organizing-Gaussians width and the
+    main run's: an instance run alone gives bitwise its row of the batch
+    (kernel 4 on the batch's own m, l and D)."""
+    ws, w, x, tt, dy, dc = _dense_operands(3, 2000, d, 13 + d, cuda, cd)
+    y, m, l = K.fwd_fused(ws, w, x, tt)
+    D, _ = K.bwd_dws_delta(ws, w, x, tt, m, l, dy, y, dc)
+
+    def run(sl):
+        ws_, w_, x_, m_, l_, dy_, dc_, D_ = (t[sl].contiguous() for t in (
+            ws, w, x, m, l, dy, dc, D))
+        return (*K.fwd_fused(ws_, w_, x_, tt),
+                *K.bwd_dx(ws_, w_, x_, tt, m_, l_, dy_, dc_, D_))
+
+    for b_out, a_out in zip(run(slice(0, 3)), run(slice(1, 2))):
+        assert torch.equal(b_out[1], a_out[0])
+
+
 @pytest.mark.cuda
 def test_cuda_softsort_apply_matches_dense_oracle(cuda):
     """Values and gradients of the kernel route against the dense oracle.
