@@ -22,7 +22,9 @@ start):
    in float32 and bfloat16, m bitwise the twin's, and the last instance
    run alone against its row of the batch, bitwise; ``kernel_times``:
    median times of each kernel, its twin, and the dense
-   ``torch.softmax(...) @ x`` yardstick at the main shape.
+   ``torch.softmax(...) @ x`` yardstick at the main shape; each kernel
+   also as ``graph_ms``, a CUDA-graph replay of its wrapper call (device
+   time, without the wrapper's host time that ``ms`` includes).
 3. ``band_kernel_check`` — the same for the four banded kernels (5-8) at
    (B, N, d, K) = (8, 4096, 50, 256) (the main run's shape with
    ``band="auto"``), (2, 65536, 14, 4096) (the SOG run's shape),
@@ -413,6 +415,8 @@ def kernel_phase(torch, K):
                  lambda: K.bwd_dx_plain(ws, w, x, tau, m, l, dy, dc, D)),
             ]
             time_kernels(torch, stats, DENSE, calls, (bsz, n, d))
+            for k, (kern, _) in zip(DENSE, calls):
+                stats[k]["graph_ms"] = graph_ms(torch, kern)
             inv_tau = 1.0 / tau
 
             def library_fwd():   # yardstick only: the port never calls it

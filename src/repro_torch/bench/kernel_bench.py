@@ -33,8 +33,8 @@ Columns:
   * ``bound_ms`` — per kernel tier, the sum of the bounds
     (``kernels/bounds.py``) of the kernels one fwd+grad launches: the
     least time an H100 could take for them.
-  * ``tiles`` — the fixed tile sizes of kernels 2, 3, 9a and 9b (kernels
-    1, 4 and 5-8 size their payload tile from d).
+  * ``tiles`` — the fixed tile sizes of the v1 kernels 9a and 9b (kernels
+    1-8 size their payload tile, where they have one, from d).
 
 Usage:
 

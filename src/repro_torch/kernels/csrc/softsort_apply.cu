@@ -27,11 +27,11 @@
 // [max(0, t0 - K), min(n, t0 + len + K)) and masks the pairs outside the
 // band, so the work is O(N K) instead of O(N^2).
 //
-// The dense kernels 1 and 4 are the bodies of kernels 5 and 8 with
-// K = n and a column-key pointer wc = w (the banded calls pass wc = ws):
-// every pair is then in the band, each span is all N rows or columns, and
-// every tile that lies inside the matrix is interior.  Kernels 2 and 3
-// (and the v1 kernels 9a, 9b) keep the first-cut design described below.
+// The dense kernels 1-4 are the bodies of kernels 5-8 with K = n and a
+// column-key pointer wc = w (the banded calls pass wc = ws): every pair
+// is then in the band, each span is all N rows or columns, and every tile
+// that lies inside the matrix is interior.  Only the v1 kernels 9a and 9b
+// keep the first-cut design described below.
 //
 // They replace the Pallas TPU kernels of src/repro/kernels/softsort_apply.py:
 // _fwd_fused_kernel (:150), _colsum_kernel (:182), _bwd_dws_delta_kernel
@@ -54,17 +54,17 @@
 // N = 4096, d = 50 that is thousands of flops per byte (and with the band,
 // O(K d) per byte).  The products run as float32 FMAs on the CUDA cores
 // (no tensor cores, so no TF32 rounding: the float32 results hold the JAX
-// reference to ~1e-6).  Kernels 2, 3, 9a and 9b stage key (and payload)
-// tiles in shared memory (rows padded by one word), each thread keeps
-// up to 16 accumulators in registers, and the score tile is computed once
-// per block and reused by every payload column; the payload tile of 3 and
-// 9b is 64 wide whatever d is.
+// reference to ~1e-6).  Kernels 9a and 9b stage key (and payload) tiles
+// in shared memory (rows padded by one word), each thread keeps up to 16
+// accumulators in registers, and the score tile is computed once per
+// block and reused by every payload column; the payload tile of 9b is 64
+// wide whatever d is.
 //
 // The banded kernels 5-8, designed for the Self-Organizing-Gaussians
-// shape (N = 65536, d = 14, K = 4096), and the dense kernels 1 and 4,
-// which run the bodies of 5 and 8 (at the main dense shape N = 4096,
-// d = 50: DT = 64, 64 row or column tiles x B blocks):
-// - The payload tile DT of kernels 1, 4, 5, 7 and 8 is a template
+// shape (N = 65536, d = 14, K = 4096), and the dense kernels 1-4, which
+// run their bodies (at the main dense shape N = 4096, d = 50: DT = 64,
+// 64 row or column tiles x B blocks):
+// - The payload tile DT of kernels 1, 3, 4, 5, 7 and 8 is a template
 //   parameter, 16, 32 or 64: the smallest that holds d, or tiles of 64
 //   above that (the wrapper's band_payload_tile picks it).  Only the real
 //   columns are read, 16 bytes at a time when d * sizeof(T) and the base
@@ -105,7 +105,9 @@
 //   and keys are loaded into registers while the current step computes,
 //   then stored into the other half of a double buffer (one or two
 //   barriers per step).  For d > 64 kernels 7 and 8 sum dP over the
-//   payload tiles before a step scores.
+//   payload tiles before a step scores; kernel 7 does so in an
+//   instantiation of its own (MT), whose staging registers made the
+//   d <= 64 kernel spill.
 // - Occupancy: __launch_bounds__ asks for 2-8 blocks per SM (MIN_BLOCKS),
 //   so that more warps hide the latency of expf and of the shared loads;
 //   on the card this was faster than the register counts the compiler
@@ -206,147 +208,6 @@ __device__ __forceinline__ void stage(float (*dst)[DT + 1], const T* src,
     dst[r][c] = (r0 + r < n && c0 + c < d)
                     ? to_f(src[(size_t)(r0 + r) * d + c0 + c])
                     : 0.f;
-  }
-}
-
-// ---------------------------------------------------------------------------
-// Kernel 2: column sums.  Block = (64 columns, instance), 256 threads as
-// 64 columns x 4 row groups; rows are staged 256 at a time.
-// ---------------------------------------------------------------------------
-template <typename T>
-__global__ void __launch_bounds__(NT)
-colsum_kernel(const float* __restrict__ ws, const float* __restrict__ w,
-              const float* __restrict__ tau, const float* __restrict__ m,
-              const float* __restrict__ l, float* __restrict__ c_out,
-              int n) {
-  __shared__ float ws_s[NT], m_s[NT], l_s[NT];
-  __shared__ float part_s[4][TC];
-
-  const int b = blockIdx.y, jt = blockIdx.x * TC;
-  const int j = jt + threadIdx.x % TC, g = threadIdx.x / TC;
-  ws += (size_t)b * n;
-  w += (size_t)b * n;
-  m += (size_t)b * n;
-  l += (size_t)b * n;
-  const float inv_tau = 1.0f / tau[0];
-  const float wj = j < n ? w[j] : 0.f;
-
-  float acc = 0.f;
-  for (int i0 = 0; i0 < n; i0 += NT) {
-    __syncthreads();
-    const int i = i0 + threadIdx.x;
-    ws_s[threadIdx.x] = i < n ? ws[i] : 0.f;
-    m_s[threadIdx.x] = i < n ? m[i] : 0.f;
-    l_s[threadIdx.x] = i < n ? fmaxf(l[i], 1e-30f) : 1.f;
-    __syncthreads();
-    const int cnt = min(NT, n - i0);
-    float part = 0.f;
-    for (int ii = g; ii < cnt; ii += 4) {
-      part += expf(score<T>(ws_s[ii], wj, inv_tau) - m_s[ii]) / l_s[ii];
-    }
-    acc += part;
-  }
-  part_s[g][threadIdx.x % TC] = acc;
-  __syncthreads();
-  if (g == 0 && j < n) {
-    const int jj = threadIdx.x;
-    c_out[(size_t)b * n + j] =
-        (part_s[0][jj] + part_s[1][jj]) + (part_s[2][jj] + part_s[3][jj]);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// Kernel 3: fused delta + dws row sweep.  Block = (row tile, instance);
-// thread t owns row t/4 and, in each column tile, columns t%4 + 4k.
-//   D_i   = dy_i . y_i + sum_j P_ij dc_j
-//   A_i   = sum_j P_ij dP_ij sgn_ij,  S_i = sum_j P_ij sgn_ij
-//   dws_i = -(A_i - D_i S_i) / tau,   dP_ij = dy_i . x_j + dc_j
-// ---------------------------------------------------------------------------
-template <typename T>
-__global__ void __launch_bounds__(NT)
-bwd_dws_delta_kernel(const float* __restrict__ ws,
-                     const float* __restrict__ w, const T* __restrict__ x,
-                     const float* __restrict__ tau,
-                     const float* __restrict__ m, const float* __restrict__ l,
-                     const T* __restrict__ dy, const T* __restrict__ y,
-                     const T* __restrict__ dc, float* __restrict__ D_out,
-                     float* __restrict__ dws_out, int n, int d) {
-  __shared__ float ws_s[TR], m_s[TR], l_s[TR], w_s[TC], dc_s[TC];
-  __shared__ float dy_s[TR][DT + 1];
-  __shared__ float x_s[TC][DT + 1];
-
-  const int b = blockIdx.y, r0 = blockIdx.x * TR;
-  const int tid = threadIdx.x, r = tid / 4, q = tid % 4, i = r0 + r;
-  ws += (size_t)b * n;
-  w += (size_t)b * n;
-  m += (size_t)b * n;
-  l += (size_t)b * n;
-  dc += (size_t)b * n;
-  x += (size_t)b * n * d;
-  dy += (size_t)b * n * d;
-  y += (size_t)b * n * d;
-  const float inv_tau = 1.0f / tau[0];
-  const int nd = (d + DT - 1) / DT;
-  const bool dy_resident = nd == 1;   // dy tile staged once for d <= DT
-
-  if (tid < TR) {
-    const bool ok = r0 + tid < n;
-    ws_s[tid] = ok ? ws[r0 + tid] : 0.f;
-    m_s[tid] = ok ? m[r0 + tid] : 0.f;
-    l_s[tid] = ok ? fmaxf(l[r0 + tid], 1e-30f) : 1.f;
-  }
-  // D_i starts at dy_i . y_i (the delta trick: y was saved).
-  float dyy = 0.f;
-  if (i < n) {
-    const T* dyr = dy + (size_t)i * d;
-    const T* yr = y + (size_t)i * d;
-    for (int c = q; c < d; c += 4) dyy += to_f(dyr[c]) * to_f(yr[c]);
-  }
-  dyy = quad_sum(dyy);
-  if (dy_resident) stage<T, TR>(dy_s, dy, r0, 0, n, d);
-
-  float d_acc = 0.f, a_acc = 0.f, s_acc = 0.f;
-  for (int j0 = 0; j0 < n; j0 += TC) {
-    float dp[16];
-#pragma unroll
-    for (int k = 0; k < 16; ++k) dp[k] = 0.f;
-    for (int cc = 0; cc < nd; ++cc) {
-      __syncthreads();
-      if (cc == 0 && tid < TC) {
-        const bool ok = j0 + tid < n;
-        w_s[tid] = ok ? w[j0 + tid] : 0.f;
-        dc_s[tid] = ok ? to_f(dc[j0 + tid]) : 0.f;
-      }
-      if (!dy_resident) stage<T, TR>(dy_s, dy, r0, cc * DT, n, d);
-      stage<T, TC>(x_s, x, j0, cc * DT, n, d);
-      __syncthreads();
-      const int dn = min(DT, d - cc * DT);
-      for (int c = 0; c < dn; ++c) {
-        const float g = dy_s[r][c];
-#pragma unroll
-        for (int k = 0; k < 16; ++k) dp[k] = fmaf(g, x_s[q + 4 * k][c], dp[k]);
-      }
-    }
-    const float wr = ws_s[r], mr = m_s[r], lr = l_s[r];
-#pragma unroll
-    for (int k = 0; k < 16; ++k) {
-      const int j = q + 4 * k;
-      if (pair_ok<false>(i, j0 + j, n, 0)) {
-        const float p = expf(score<T>(wr, w_s[j], inv_tau) - mr) / lr;
-        const float sg = sgnf(wr - w_s[j]);
-        d_acc += rnd<T>(p) * dc_s[j];
-        a_acc += p * (dp[k] + dc_s[j]) * sg;
-        s_acc += p * sg;
-      }
-    }
-  }
-  d_acc = quad_sum(d_acc);
-  a_acc = quad_sum(a_acc);
-  s_acc = quad_sum(s_acc);
-  if (q == 0 && i < n) {
-    const float D = dyy + d_acc;
-    D_out[(size_t)b * n + i] = D;
-    dws_out[(size_t)b * n + i] = -(a_acc - D * s_acc) * inv_tau;
   }
 }
 
@@ -922,9 +783,11 @@ bwd_band_dcol_kernel(const float* __restrict__ ws,
 }
 
 // ---------------------------------------------------------------------------
-// Kernel 6: banded column sums.  Replaces _colsum_band_kernel
-// (src/repro/kernels/softsort_apply.py:567).  Block = (TC-column tile,
-// instance); steps of BTR rows over the tile's span.
+// Kernel 6: banded column sums, and kernel 2 as the band K = n with
+// column keys wc = w.  Replaces _colsum_band_kernel
+// (src/repro/kernels/softsort_apply.py:567) and _colsum_kernel (:182).
+// Block = (TC-column tile, instance); steps of BTR rows over the tile's
+// span.
 //   c_j = sum_i exp(s_ij - m_i) / l_i  over |i - j| <= K
 // What bounds it on the card: operations.  A pair is a score, an expf and
 // a multiply-add (~12 f32 instructions, one of them on the MUFU) against
@@ -952,6 +815,7 @@ struct ColsumBand {
 template <typename T>
 __global__ void __launch_bounds__(ColsumBand::NT, ColsumBand::MIN_BLOCKS)
 colsum_band_kernel(const float* __restrict__ ws,
+                   const float* __restrict__ wc,
                    const float* __restrict__ tau,
                    const float* __restrict__ m, const float* __restrict__ l,
                    float* __restrict__ c_out, int n, int K) {
@@ -964,17 +828,18 @@ colsum_band_kernel(const float* __restrict__ ws,
   const int b = blockIdx.y, j0 = blockIdx.x * TC;
   const int tid = threadIdx.x, ca = tid % NCA, ra = tid / NCA;
   ws += (size_t)b * n;
+  wc += (size_t)b * n;
   m += (size_t)b * n;
   l += (size_t)b * n;
   const float inv_tau = 1.0f / tau[0];
   const int i_lo = max(0, j0 - K), i_hi = min(n, j0 + TC + K);
   const int nstep = (i_hi - i_lo + BTR - 1) / BTR;
 
-  float wc[CA], acc[CA];
+  float wj[CA], acc[CA];
 #pragma unroll
   for (int v = 0; v < CA; ++v) {
     const int j = j0 + ca + NCA * v;
-    wc[v] = j < n ? ws[j] : 0.f;
+    wj[v] = j < n ? wc[j] : 0.f;
     acc[v] = 0.f;
   }
 
@@ -1000,7 +865,7 @@ colsum_band_kernel(const float* __restrict__ ws,
       const float4 sr = sts[r];
 #pragma unroll
       for (int v = 0; v < CA; ++v) {
-        const float s = score<T>(sr.x, wc[v], inv_tau);
+        const float s = score<T>(sr.x, wj[v], inv_tau);
         bool ok = true;
         if constexpr (decltype(edge)::value)
           ok = pair_ok<true>(i0 + r, j0 + ca + NCA * v, n, K);
@@ -1036,10 +901,11 @@ colsum_band_kernel(const float* __restrict__ ws,
 
 // ---------------------------------------------------------------------------
 // Kernel 7: banded row sweep, the delta and the row part of the key
-// gradient.  Replaces _bwd_band_dws_delta_kernel
-// (src/repro/kernels/softsort_apply.py:657).  Block = (TR-row tile,
-// instance); steps of BTC columns over the tile's span, one stage per
-// payload tile (one for d <= 64).
+// gradient, and kernel 3 as the band K = n with column keys wc = w.
+// Replaces _bwd_band_dws_delta_kernel
+// (src/repro/kernels/softsort_apply.py:657) and _bwd_dws_delta_kernel
+// (:280).  Block = (TR-row tile, instance); steps of BTC columns over the
+// tile's span, one stage per payload tile (one for d <= 64).
 //   D_i   = dy_i . y_i + sum_j rnd(P_ij) dc_j
 //   A_i   = sum_j P_ij dP_ij sgn_ij,  S_i = sum_j P_ij sgn_ij
 //   dws_i = -(A_i - D_i S_i) / tau,    dP_ij = dc_j + dy_i . x_j
@@ -1076,9 +942,13 @@ struct DwsBand {
   }
 };
 
-template <typename T, int DT>
+// MT: the payload spans more than one tile (d > 64, at DT = 64 only).  A
+// separate instantiation keeps the other kernel free of the per-stage dy
+// registers: at DT = 64 they made it spill.
+template <typename T, int DT, bool MT>
 __global__ void __launch_bounds__(DwsBand<DT>::NT, DwsBand<DT>::MIN_BLOCKS)
 bwd_band_dws_delta_kernel(const float* __restrict__ ws,
+                          const float* __restrict__ wc,
                           const T* __restrict__ x,
                           const float* __restrict__ tau,
                           const float* __restrict__ m,
@@ -1092,7 +962,7 @@ bwd_band_dws_delta_kernel(const float* __restrict__ ws,
   constexpr int TR = C::TR, NT = C::NT, NCA = C::NCA, NRA = C::NRA;
   constexpr int RA = C::RA, CA = C::CA, LD = C::LD, RLD = C::RLD;
   const int b = blockIdx.y, r0 = blockIdx.x * TR;
-  const int nd = DT == 64 && d > DT ? (d + DT - 1) / DT : 1;
+  const int nd = MT ? (d + DT - 1) / DT : 1;
   extern __shared__ float4 smem4[];
   float* const dy_s = reinterpret_cast<float*>(smem4);   // [1 or 2][TR][LD]
   float* const x_s = dy_s + (nd > 1 ? 2 : 1) * TR * LD;  // [2][BTC][LD]
@@ -1101,6 +971,7 @@ bwd_band_dws_delta_kernel(const float* __restrict__ ws,
 
   const int tid = threadIdx.x, ca = tid % NCA, ra = tid / NCA;
   ws += (size_t)b * n;
+  wc += (size_t)b * n;
   m += (size_t)b * n;
   l += (size_t)b * n;
   dc += (size_t)b * n;
@@ -1150,7 +1021,7 @@ bwd_band_dws_delta_kernel(const float* __restrict__ ws,
     if (nd > 1) dyr.load(dy, r0, n, d, c0, min(DT, d - c0), vec);
     if (q % nd == 0 && tid < BTC) {
       const int j = j0 + tid;
-      ck = j < n ? ws[j] : 0.f;
+      ck = j < n ? wc[j] : 0.f;
       cdc = j < n ? to_f(dc[j]) : 0.f;
     }
   };
@@ -1174,24 +1045,24 @@ bwd_band_dws_delta_kernel(const float* __restrict__ ws,
   // P and the three row sums of one step; edge tiles test each pair.
   float dp[RA][CA];
   auto score_step = [&](auto edge, int j0, const float* cs) {
-    float wc[CA], dcv[CA];
+    float wj[CA], dcv[CA];
 #pragma unroll
     for (int v = 0; v < CA; ++v) {
-      wc[v] = cs[ca + NCA * v];
+      wj[v] = cs[ca + NCA * v];
       dcv[v] = cs[BTC + ca + NCA * v];
     }
 #pragma unroll
     for (int u = 0; u < RA; ++u) {
 #pragma unroll
       for (int v = 0; v < CA; ++v) {
-        const float s = score<T>(wr[u], wc[v], inv_tau);
+        const float s = score<T>(wr[u], wj[v], inv_tau);
         bool ok = true;
         if constexpr (decltype(edge)::value)
           ok = pair_ok<true>(r0 + ra + NRA * u, j0 + ca + NCA * v, n, K);
         // Explicitly 0 when masked (the finite NEG_INF convention).
         const float p = ok ? expf(s - mr[u]) * rl[u] : 0.f;
-        // p sgn(ws_i - ws_j): p >= 0 takes the sign, tied keys give 0.
-        const float df = wr[u] - wc[v];
+        // p sgn(ws_i - wc_j): p >= 0 takes the sign, tied keys give 0.
+        const float df = wr[u] - wj[v];
         const float ps = df != 0.f ? copysignf(p, df) : 0.f;
         dacc[u] = fmaf(rnd<T>(p), dcv[v], dacc[u]);
         aacc[u] = fmaf(ps, dp[u][v], aacc[u]);
@@ -1278,8 +1149,8 @@ bwd_band_dws_delta_kernel(const float* __restrict__ ws,
 // kernels are.  Separate kernels with their own symbols, not a flag on
 // kernel 1: their design is what the kernel bench measures the fused tier
 // against, the scores computed in each of three passes (9a, 9b and
-// colsum_kernel<float>) and m, l written to device memory by 9a and
-// read back by 9b and colsum.
+// ss_colsum_f32, kernel 6's body) and m, l written to device memory by
+// 9a and read back by 9b and colsum.
 //   v1_stats  m_i = max_j s_ij, l_i = sum_j exp(s_ij - m_i)
 //   v1_apply  y_i = sum_j exp(s_ij - m_i) / max(l_i, 1e-30) x_j
 // What bounds them on the card: operations.  v1_stats does a score, a
@@ -1388,31 +1259,6 @@ v1_apply_kernel(const float* __restrict__ ws, const float* __restrict__ w,
 
 inline int n_dtiles(int d) { return d > 0 ? (d + DT - 1) / DT : 1; }
 
-template <typename T>
-int launch_colsum(const void* ws, const void* w, const void* tau,
-                  const void* m, const void* l, void* c, int B, int n,
-                  void* stream) {
-  dim3 grid((n + TC - 1) / TC, B);
-  colsum_kernel<T><<<grid, NT, 0, (cudaStream_t)stream>>>(
-      (const float*)ws, (const float*)w, (const float*)tau, (const float*)m,
-      (const float*)l, (float*)c, n);
-  return (int)cudaGetLastError();
-}
-
-template <typename T>
-int launch_bwd_dws_delta(const void* ws, const void* w, const void* x,
-                         const void* tau, const void* m, const void* l,
-                         const void* dy, const void* y, const void* dc,
-                         void* D, void* dws, int B, int n, int d,
-                         void* stream) {
-  dim3 grid((n + TR - 1) / TR, B);
-  bwd_dws_delta_kernel<T><<<grid, NT, 0, (cudaStream_t)stream>>>(
-      (const float*)ws, (const float*)w, (const T*)x, (const float*)tau,
-      (const float*)m, (const float*)l, (const T*)dy, (const T*)y,
-      (const T*)dc, (float*)D, (float*)dws, n, d);
-  return (int)cudaGetLastError();
-}
-
 // 16-byte staging: d a whole number of 16-byte chunks, bases aligned.
 template <typename T>
 int vec_ok(int d, const void* a, const void* b) {
@@ -1470,43 +1316,53 @@ int launch_band_dcol(const void* ws, const void* wc, const void* x,
 }
 
 template <typename T>
-int launch_colsum_band(const void* ws, const void* tau, const void* m,
-                       const void* l, void* c, int B, int n, int K,
-                       void* stream) {
+int launch_colsum_band(const void* ws, const void* wc, const void* tau,
+                       const void* m, const void* l, void* c, int B, int n,
+                       int K, void* stream) {
   using C = ColsumBand;
   dim3 grid((n + C::TC - 1) / C::TC, B);
   colsum_band_kernel<T><<<grid, C::NT, 0, (cudaStream_t)stream>>>(
-      (const float*)ws, (const float*)tau, (const float*)m, (const float*)l,
-      (float*)c, n, K);
+      (const float*)ws, (const float*)wc, (const float*)tau,
+      (const float*)m, (const float*)l, (float*)c, n, K);
   return (int)cudaGetLastError();
 }
 
 template <typename T, int DT>
-int launch_band_dws(const void* ws, const void* x, const void* tau,
-                    const void* m, const void* l, const void* dy,
-                    const void* y, const void* dc, void* D, void* dws, int B,
-                    int n, int d, int K, cudaStream_t stream) {
+int launch_band_dws(const void* ws, const void* wc, const void* x,
+                    const void* tau, const void* m, const void* l,
+                    const void* dy, const void* y, const void* dc, void* D,
+                    void* dws, int B, int n, int d, int K,
+                    cudaStream_t stream) {
   using C = DwsBand<DT>;
   const int nd = DT == 64 && d > DT ? (d + DT - 1) / DT : 1;
   const int bytes = C::floats(nd) * (int)sizeof(float);
   static bool limit_set = false;
-  if (!limit_set) {   // the larger of the two sizes, once
-    const cudaError_t e = cudaFuncSetAttribute(
-        bwd_band_dws_delta_kernel<T, DT>,
+  if (!limit_set) {   // each instantiation's size, once
+    cudaError_t e = cudaFuncSetAttribute(
+        bwd_band_dws_delta_kernel<T, DT, false>,
         cudaFuncAttributeMaxDynamicSharedMemorySize,
-        C::floats(2) * (int)sizeof(float));
+        C::floats(1) * (int)sizeof(float));
     if (e != cudaSuccess) return (int)e;
+    if constexpr (DT == 64) {
+      e = cudaFuncSetAttribute(bwd_band_dws_delta_kernel<T, DT, true>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               C::floats(2) * (int)sizeof(float));
+      if (e != cudaSuccess) return (int)e;
+    }
     limit_set = true;
   }
   dim3 grid((n + C::TR - 1) / C::TR, B);
-  bwd_band_dws_delta_kernel<T, DT><<<grid, C::NT, bytes, stream>>>(
-      (const float*)ws, (const T*)x, (const float*)tau, (const float*)m,
-      (const float*)l, (const T*)dy, (const T*)y, (const T*)dc, (float*)D,
-      (float*)dws, n, d, K, vec_ok<T>(d, x, dy));
+  auto kernel = bwd_band_dws_delta_kernel<T, DT, false>;
+  if constexpr (DT == 64)
+    if (nd > 1) kernel = bwd_band_dws_delta_kernel<T, DT, true>;
+  kernel<<<grid, C::NT, bytes, stream>>>(
+      (const float*)ws, (const float*)wc, (const T*)x, (const float*)tau,
+      (const float*)m, (const float*)l, (const T*)dy, (const T*)y,
+      (const T*)dc, (float*)D, (float*)dws, n, d, K, vec_ok<T>(d, x, dy));
   return (int)cudaGetLastError();
 }
 
-// Kernels 5, 7 and 8 (and 1 and 4 through 5's and 8's bodies) at the
+// Kernels 5, 7 and 8 (and 1, 3 and 4 through their bodies) at the
 // payload tile dt the caller chose (the wrapper's band_payload_tile): 16,
 // 32 or 64, and 64 if it does not hold d, as kernels 7 and 8 loop over
 // payload tiles only at DT = 64.
@@ -1550,20 +1406,21 @@ int launch_band_dcol_dt(const void* ws, const void* wc, const void* x,
 }
 
 template <typename T>
-int launch_band_dws_dt(const void* ws, const void* x, const void* tau,
-                       const void* m, const void* l, const void* dy,
-                       const void* y, const void* dc, void* D, void* dws,
-                       int B, int n, int d, int K, int dt, void* stream) {
+int launch_band_dws_dt(const void* ws, const void* wc, const void* x,
+                       const void* tau, const void* m, const void* l,
+                       const void* dy, const void* y, const void* dc, void* D,
+                       void* dws, int B, int n, int d, int K, int dt,
+                       void* stream) {
   if (!dt_ok(dt, d)) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   if (dt == 16)
-    return launch_band_dws<T, 16>(ws, x, tau, m, l, dy, y, dc, D, dws, B, n,
-                                  d, K, st);
+    return launch_band_dws<T, 16>(ws, wc, x, tau, m, l, dy, y, dc, D, dws, B,
+                                  n, d, K, st);
   if (dt == 32)
-    return launch_band_dws<T, 32>(ws, x, tau, m, l, dy, y, dc, D, dws, B, n,
-                                  d, K, st);
-  return launch_band_dws<T, 64>(ws, x, tau, m, l, dy, y, dc, D, dws, B, n, d,
-                                K, st);
+    return launch_band_dws<T, 32>(ws, wc, x, tau, m, l, dy, y, dc, D, dws, B,
+                                  n, d, K, st);
+  return launch_band_dws<T, 64>(ws, wc, x, tau, m, l, dy, y, dc, D, dws, B,
+                                n, d, K, st);
 }
 
 int launch_v1_stats(const void* ws, const void* w, const void* tau, void* m,
@@ -1590,10 +1447,10 @@ int launch_v1_apply(const void* ws, const void* w, const void* x,
 #define SS_EXPORT extern "C" __attribute__((visibility("default")))
 
 // Dense (kernels 1-4): rows ws, columns w.  Banded (kernels 5-8): both
-// axes ws, the payload in rank order, half-width K.  Kernels 1 and 4 run
-// the bodies of 5 and 8 with column keys w; their caller passes K = n and
-// kernel 1 the flag exact_max (its row maximum is not known beforehand).
-// Kernels 1, 4, 5, 7 and 8 take their payload tile dt (16, 32 or 64, see
+// axes ws, the payload in rank order, half-width K.  Kernels 1-4 run the
+// bodies of 5-8 with column keys w; their caller passes K = n and kernel 1
+// the flag exact_max (its row maximum is not known beforehand).  Kernels
+// 1, 3, 4, 5, 7 and 8 take their payload tile dt (16, 32 or 64, see
 // dt_ok).
 #define SS_INSTANTIATE(SUFFIX, T)                                            \
   SS_EXPORT int ss_fwd_fused_##SUFFIX(                                       \
@@ -1606,16 +1463,16 @@ int launch_v1_apply(const void* ws, const void* w, const void* x,
   SS_EXPORT int ss_colsum_##SUFFIX(const void* ws, const void* w,            \
                                    const void* tau, const void* m,           \
                                    const void* l, void* c, int B, int n,     \
-                                   void* stream) {                           \
-    return launch_colsum<T>(ws, w, tau, m, l, c, B, n, stream);              \
+                                   int K, void* stream) {                    \
+    return launch_colsum_band<T>(ws, w, tau, m, l, c, B, n, K, stream);      \
   }                                                                          \
   SS_EXPORT int ss_bwd_dws_delta_##SUFFIX(                                   \
       const void* ws, const void* w, const void* x, const void* tau,         \
       const void* m, const void* l, const void* dy, const void* y,           \
-      const void* dc, void* D, void* dws, int B, int n, int d,               \
-      void* stream) {                                                        \
-    return launch_bwd_dws_delta<T>(ws, w, x, tau, m, l, dy, y, dc, D, dws,   \
-                                   B, n, d, stream);                         \
+      const void* dc, void* D, void* dws, int B, int n, int d, int K,        \
+      int dt, void* stream) {                                                \
+    return launch_band_dws_dt<T>(ws, w, x, tau, m, l, dy, y, dc, D, dws, B,  \
+                                 n, d, K, dt, stream);                       \
   }                                                                          \
   SS_EXPORT int ss_bwd_dx_##SUFFIX(                                          \
       const void* ws, const void* w, const void* x, const void* tau,         \
@@ -1636,14 +1493,14 @@ int launch_v1_apply(const void* ws, const void* w, const void* x,
                                         const void* m, const void* l,        \
                                         void* c, int B, int n, int K,        \
                                         void* stream) {                      \
-    return launch_colsum_band<T>(ws, tau, m, l, c, B, n, K, stream);         \
+    return launch_colsum_band<T>(ws, ws, tau, m, l, c, B, n, K, stream);     \
   }                                                                          \
   SS_EXPORT int ss_bwd_band_dws_delta_##SUFFIX(                              \
       const void* ws, const void* x, const void* tau, const void* m,         \
       const void* l, const void* dy, const void* y, const void* dc, void* D, \
       void* dws, int B, int n, int d, int K, int dt, void* stream) {         \
-    return launch_band_dws_dt<T>(ws, x, tau, m, l, dy, y, dc, D, dws, B, n,  \
-                                 d, K, dt, stream);                          \
+    return launch_band_dws_dt<T>(ws, ws, x, tau, m, l, dy, y, dc, D, dws, B, \
+                                 n, d, K, dt, stream);                       \
   }                                                                          \
   SS_EXPORT int ss_bwd_band_dcol_##SUFFIX(                                   \
       const void* ws, const void* x, const void* tau, const void* m,         \

@@ -61,11 +61,13 @@ plain PyTorch; CUDA tensors launch the kernel from
 ``csrc/softsort_apply.cu`` and raise if the launch fails.  Each wrapper
 counts its kernel launches in its ``launches`` attribute.
 
-On the card ``fwd_fused`` and ``bwd_dx`` run the kernel bodies of
-``fwd_band`` and ``bwd_band_dcol`` with the band K = N and column keys
-``w``: their wrappers pass K = N, the payload tile ``band_payload_tile(d)``
-and, for ``fwd_fused``, ``EXACT_MAX`` (the row maximum is not known
-beforehand, so a first sweep takes it).
+On the card the four dense kernels run the kernel bodies of the banded
+ones (``fwd_fused`` that of ``fwd_band``, ``colsum`` of ``colsum_band``,
+``bwd_dws_delta`` of ``bwd_band_dws_delta``, ``bwd_dx`` of
+``bwd_band_dcol``) with the band K = N and column keys ``w``: their
+wrappers pass K = N, the payload tile ``band_payload_tile(d)`` (all but
+``colsum``, which has no payload) and, for ``fwd_fused``, ``EXACT_MAX``
+(the row maximum is not known beforehand, so a first sweep takes it).
 """
 from __future__ import annotations
 
@@ -75,10 +77,10 @@ from repro_torch.kernels import clib
 
 NEG_INF = -1e30
 PLAIN_BLOCK = 128      # column / row block of the plain twins
-# The tile sizes of kernels 2, 3, 9a and 9b, constexprs of
+# The tile sizes of the v1 kernels 9a and 9b, constexprs of
 # csrc/softsort_apply.cu: rows and columns of a score tile, and payload
-# columns per block.  Kernels 1, 4, 5, 7 and 8 take their payload tile
-# from ``band_payload_tile``.
+# columns per block.  Kernels 1, 3, 4, 5, 7 and 8 take their payload tile
+# from ``band_payload_tile``; kernels 2 and 6 have none.
 TILES = {"TR": 64, "TC": 64, "DT": 64}
 BAND_PAYLOAD_TILES = (16, 32, 64)
 EXACT_MAX = 1          # fwd_fused's flag: take the row maximum in a sweep
@@ -334,7 +336,7 @@ def bwd_band_dcol_plain(ws, xs, tau, m, l, dy, dc, D, band):
 # --------------------------------------------------------------------------
 
 def band_payload_tile(d: int) -> tuple[int, int]:
-    """(DT, tiles) of kernels 1, 4, 5, 7 and 8 at payload width d: the
+    """(DT, tiles) of kernels 1, 3, 4, 5, 7 and 8 at payload width d: the
     smallest of 16, 32 and 64 that holds d, and one tile; above 64, tiles
     of 64."""
     for dt in BAND_PAYLOAD_TILES:
@@ -346,8 +348,8 @@ def band_payload_tile(d: int) -> tuple[int, int]:
 _P, _I = clib.P, clib.I
 _SIGNATURES = {
     "ss_fwd_fused": [_P] * 7 + [_I] * 6,
-    "ss_colsum": [_P] * 6 + [_I] * 2,
-    "ss_bwd_dws_delta": [_P] * 11 + [_I] * 3,
+    "ss_colsum": [_P] * 6 + [_I] * 3,
+    "ss_bwd_dws_delta": [_P] * 11 + [_I] * 5,
     "ss_bwd_dx": [_P] * 12 + [_I] * 5,
     "ss_fwd_band": [_P] * 6 + [_I] * 5,
     "ss_colsum_band": [_P] * 5 + [_I] * 3,
@@ -433,7 +435,7 @@ def colsum(ws, w, tau, m, l, cd=_F32):
     bsz, n, _ = _check(ws, w, None, tau, m, l)
     c = torch.empty_like(w)
     if bsz * n:
-        _launch(colsum, "ss_colsum", cd, ws, w, tau, m, l, c, bsz, n)
+        _launch(colsum, "ss_colsum", cd, ws, w, tau, m, l, c, bsz, n, n)
     return c
 
 
@@ -447,7 +449,8 @@ def bwd_dws_delta(ws, w, x, tau, m, l, dy, y, dc):
     dws = torch.empty_like(w)
     if bsz * n:
         _launch(bwd_dws_delta, "ss_bwd_dws_delta", x.dtype, ws, w, x, tau,
-                m, l, dy, y, dc, D, dws, bsz, n, d)
+                m, l, dy, y, dc, D, dws, bsz, n, d, n,
+                band_payload_tile(d)[0])
     return D, dws
 
 

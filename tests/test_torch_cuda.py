@@ -176,6 +176,54 @@ def test_cuda_dense_fwd_and_dx_batch_invariant(cuda, d, cd):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d", [1, 3, 14, 30, 50, 64, 65, 130])
+@pytest.mark.parametrize("cd", ["float32", "bfloat16"])
+@pytest.mark.parametrize("tau", [0.05, 0.6])
+@pytest.mark.parametrize("keys", ["independent", "sorted"])
+def test_cuda_dense_colsum_and_dws_match_plain_twins(cuda, d, cd, tau, keys):
+    """Kernels 2 and 3 (the bodies of 6 and 7 with K = N and column keys
+    w) at every payload tile of kernel 3 (16, 32, 64, 2 x 64, 3 x 64) and
+    ragged widths; N = 1000 is no multiple of any row, column or step
+    tile.  Row keys drawn apart from w, or sort(w) (one tied column per
+    row, sgn 0).  Both take kernel 1's own y, m and l."""
+    dt = {"float32": torch.float32, "bfloat16": torch.bfloat16}[cd]
+    rtol = GRAD_RTOL if cd == "float32" else BF16_RTOL
+    ws, w, x, tt, dy, dc = _dense_operands(2, 1000, d, 70 + d, cuda, dt)
+    if keys == "sorted":
+        ws = torch.sort(w, dim=-1, stable=True).values
+    tt = tt * (tau / 0.6)
+    y, m, l = K.fwd_fused(ws, w, x, tt)
+    _close(K.colsum(ws, w, tt, m, l, dt).cpu(),
+           K.colsum_plain(ws, w, tt, m, l, dt).cpu(),
+           FWD_ATOL if cd == "float32" else rtol)
+    D, dws = K.bwd_dws_delta(ws, w, x, tt, m, l, dy, y, dc)
+    D0, dws0 = K.bwd_dws_delta_plain(ws, w, x, tt, m, l, dy, y, dc)
+    _close(D.cpu(), D0.cpu(), rtol)
+    _close(dws.cpu(), dws0.cpu(), rtol)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [14, 50])
+@pytest.mark.parametrize("cd", [torch.float32, torch.bfloat16])
+def test_cuda_dense_colsum_and_dws_batch_invariant(cuda, d, cd):
+    """Kernels 2 and 3 at the Self-Organizing-Gaussians width and the
+    main run's: an instance run alone, on the batch's own y, m and l,
+    gives bitwise its row of the batch."""
+    ws, w, x, tt, dy, dc = _dense_operands(3, 2000, d, 17 + d, cuda, cd)
+    y, m, l = K.fwd_fused(ws, w, x, tt)
+
+    def run(sl):
+        ws_, w_, x_, m_, l_, dy_, y_, dc_ = (t[sl].contiguous() for t in (
+            ws, w, x, m, l, dy, y, dc))
+        return (K.colsum(ws_, w_, tt, m_, l_, cd),
+                *K.bwd_dws_delta(ws_, w_, x_, tt, m_, l_, dy_, y_, dc_))
+
+    for b_out, a_out in zip(run(slice(0, 3)), run(slice(1, 2))):
+        assert torch.equal(b_out[1], a_out[0])
+
+
+@pytest.mark.cuda
 def test_cuda_softsort_apply_matches_dense_oracle(cuda):
     """Values and gradients of the kernel route against the dense oracle.
 
