@@ -32,8 +32,8 @@ start):
    (2, 1000, 130, 150), so that kernels 5, 7 and 8 run at each of their
    payload tiles (64, 16, 16, 16, 32, and three tiles of 64; kernel 6 has
    no payload); ``band_kernel_times`` at the first two shapes in float32,
-   with the dense yardstick at N = 4096 and the ``band_tail_bound`` it is
-   within.
+   also as ``graph_ms``, with the dense yardstick at N = 4096 and the
+   ``band_tail_bound`` it is within.
 4. ``function_check`` / ``band_function_check`` — the dense
    autograd.Function against the O(N^2) oracle, and the banded one
    against the windowed oracle ``core.softsort_apply_banded``: values
@@ -57,7 +57,11 @@ start):
 
 9. ``v1_kernel_check`` / ``v1_kernel_times`` — the v1 split forward
    (``v1_stats``, ``v1_apply``, float32) against its twins at the shapes
-   of phase 2, the last instance alone bitwise; times at (8, 4096, 50).
+   of phase 2 (the row keys drawn apart from the column keys at the last),
+   m bitwise the twin's, the last instance alone bitwise; times at
+   (8, 4096, 50), events and ``graph_ms``; ``v1_vs_fused``: the v1 forward
+   (9a, 9b, ``colsum``) and the fused forward (``fwd_fused``, ``colsum``),
+   each one CUDA graph, in graph ms at that shape.
 10. ``kernel_bench`` — the port's kernel bench
     (``repro_torch.bench.kernel_bench``), its full sweep in both dtypes
     with ``--check``, in this process: one line per cell, the gate must
@@ -472,6 +476,8 @@ def band_kernel_phase(torch, K, core):
                                                k)),
             ]
             time_kernels(torch, stats, BAND, calls, (bsz, n, d, k))
+            for kk, (kern, _) in zip(BAND, calls):
+                stats[kk]["graph_ms"] = graph_ms(torch, kern)
             extra = {}
             if n <= 4096:
                 inv_tau = 1.0 / tau
@@ -661,33 +667,43 @@ def v1_pipeline(K, ws, w, x, tau):
 
 
 def v1_kernel_phase(torch, K):
-    """Phase 9: v1_stats and v1_apply against their twins at SHAPES,
-    float32; times at the main shape."""
+    """Phase 9: v1_stats and v1_apply against their twins at the shapes of
+    phase 2, float32; times at the main shape, and the v1 forward against
+    the fused one."""
     stats = {}
-    for bsz, n, d in SHAPES:
-        ws, w, x, tau, _, _ = kernel_operands(torch, bsz, n, d,
-                                              torch.float32, seed=n + d + 1)
+    cases = [(s, False) for s in DENSE_SHAPES] + [(INDEPENDENT_SHAPE, True)]
+    for (bsz, n, d), independent in cases:
+        ws, w, x, tau, _, _ = kernel_operands(
+            torch, bsz, n, d, torch.float32, seed=n + d + 1,
+            independent=independent)
         outs = v1_pipeline(K, ws, w, x, tau)
         m, l, y = outs
         m0, l0 = K.v1_stats_plain(ws, w, tau)
         y0 = K.v1_apply_plain(ws, w, x, tau, m, l)
         torch.cuda.synchronize()
+        # 9a's first sweep takes the maximum of the same scores as the
+        # twin's running maximum: equal bitwise.
+        require(torch.equal(m, m0), "v1 m differs from the twin's")
+        require(independent == bool((m < 0).any()),
+                "v1 row maxima: -0 exactly when ws is sort(w)")
         require_batch_invariant(torch, lambda *a: v1_pipeline(K, *a),
                                 (ws, w, x, tau), outs)
         errs = {"v1_stats": max(check("m", m, m0, atol=FWD_ATOL),
                                 check("l", l, l0, rtol=FWD_ATOL)),
                 "v1_apply": check("y", y, y0, atol=FWD_ATOL)}
         emit("v1_kernel_check", shape=[bsz, n, d], dtype="torch.float32",
-             max_abs_err=errs, batch_invariant=True)
-        if (bsz, n, d) != MAIN_SHAPE:
+             independent_keys=independent, max_abs_err=errs,
+             batch_invariant=True)
+        if independent or (bsz, n, d) != MAIN_SHAPE:
             continue
         stats = {k: {"max_abs_err": v} for k, v in errs.items()}
-        time_kernels(torch, stats, V1, [
-            (lambda: K.v1_stats(ws, w, tau),
-             lambda: K.v1_stats_plain(ws, w, tau)),
-            (lambda: K.v1_apply(ws, w, x, tau, m, l),
-             lambda: K.v1_apply_plain(ws, w, x, tau, m, l)),
-        ], (bsz, n, d))
+        calls = [(lambda: K.v1_stats(ws, w, tau),
+                  lambda: K.v1_stats_plain(ws, w, tau)),
+                 (lambda: K.v1_apply(ws, w, x, tau, m, l),
+                  lambda: K.v1_apply_plain(ws, w, x, tau, m, l))]
+        time_kernels(torch, stats, V1, calls, (bsz, n, d))
+        for k, (kern, _) in zip(V1, calls):
+            stats[k]["graph_ms"] = graph_ms(torch, kern)
         inv_tau = 1.0 / tau
 
         def library_fwd():   # yardstick only: the port never calls it
@@ -698,6 +714,22 @@ def v1_kernel_phase(torch, K):
                                                   reps=5)
         emit("v1_kernel_times", shape=[bsz, n, d], dtype="torch.float32",
              times=stats)
+
+        # The two forwards the kernel bench compares, each one graph: v1
+        # (m and l through device memory between three passes) and fused.
+        def v1_fwd():
+            m_, l_ = K.v1_stats(ws, w, tau)
+            return K.v1_apply(ws, w, x, tau, m_, l_), K.colsum(ws, w, tau,
+                                                                m_, l_)
+
+        def fused_fwd():
+            y_, m_, l_ = K.fwd_fused(ws, w, x, tau)
+            return y_, K.colsum(ws, w, tau, m_, l_)
+
+        v1_ms, fused_ms = graph_ms(torch, v1_fwd), graph_ms(torch, fused_fwd)
+        emit("v1_vs_fused", shape=[bsz, n, d], dtype="torch.float32",
+             v1_forward_graph_ms=v1_ms, fused_forward_graph_ms=fused_ms,
+             v1_over_fused=v1_ms / fused_ms)
     return stats
 
 
@@ -951,7 +983,6 @@ def main():
              if "registers" in ln or "spill" in ln or "entry function" in ln]
     emit("build", seconds=time.perf_counter() - t0, sources=sorted(logs),
          flags=build.NVCC_FLAGS, ptxas=ptxas)
-
     stats = kernel_phase(torch, K)
     band_stats = band_kernel_phase(torch, K, core)
     stats.update(band_stats[SOG_SHAPE])

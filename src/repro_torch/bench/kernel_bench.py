@@ -33,8 +33,9 @@ Columns:
   * ``bound_ms`` — per kernel tier, the sum of the bounds
     (``kernels/bounds.py``) of the kernels one fwd+grad launches: the
     least time an H100 could take for them.
-  * ``tiles`` — the fixed tile sizes of the v1 kernels 9a and 9b (kernels
-    1-8 size their payload tile, where they have one, from d).
+  * ``tiles`` — the fixed tiles of the v1 kernels: 9a's rows and threads
+    per block, and 9b's column step (kernel 1's).  Kernels 1-8 and 9b size
+    their payload tile, where they have one, from d.
 
 Usage:
 

@@ -51,13 +51,18 @@ def bound_ms(kernel: str, bsz: int, n: int, d: int, k: int | None = None,
         "colsum_band": (6, 3 * bn + 4 + bn),
         "bwd_band_dws_delta": (2 * d + 14, 4 * bn + 3 * bnd + 4 + 2 * bn),
         "bwd_band_dcol": (4 * d + 13, 5 * bn + 2 * bnd + 4 + bnd + 2 * bn),
-        # score, max, exp, add; ws, w and tau in, m and l out
+        # score (sub, abs, mul), max, subtract m, exp, add; ws, w and tau
+        # in, m and l out
         "v1_stats": (7, 2 * bn + 4 + 2 * bn),
-        # score, exp, divide, 2d of P x; ws, w, m, l, x and tau in, y out
-        "v1_apply": (2 * d + 6, 4 * bn + bnd + 4 + bnd),
+        # score (sub, abs, mul), subtract m, exp, d FMAs of P x; ws, w, m,
+        # l, x and tau in, y out
+        "v1_apply": (2 * d + 5, 4 * bn + bnd + 4 + bnd),
     }
     flops_per_pair, nbytes = work[kernel]
-    return _roofline(pairs * flops_per_pair, nbytes)
+    flops = pairs * flops_per_pair
+    if kernel == "v1_apply":   # per row: 1 / l, then d multiplies
+        flops += bsz * n * (d + 1)
+    return _roofline(flops, nbytes)
 
 
 def tier_bound_ms(tier: str, bsz: int, n: int, d: int, k: int,

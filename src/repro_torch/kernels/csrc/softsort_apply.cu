@@ -15,9 +15,10 @@
 //   ss_bwd_dx         dx = P^T dy, dw_cols, dtau_cols        (kernel 4)
 //
 // The v1 split forward (kernels 9a and 9b: ss_v1_stats, ss_v1_apply,
-// float32 only) is the baseline the kernel bench holds kernel 1 against:
-// one pass for m and l, one for y = P x that reads them back, then
-// ss_colsum as its third pass.
+// float32 only) is the baseline the kernel bench holds kernels 1 and 2
+// against: one pass for m and l, one for y = P x that reads them back,
+// then ss_colsum as its third pass.  9b is kernel 1's body with m and l
+// given (the template flag GIVEN_ML); 9a is a row kernel of its own.
 //
 // The banded tier (kernels 5-8: ss_fwd_band, ss_colsum_band,
 // ss_bwd_band_dws_delta, ss_bwd_band_dcol) runs the same four sweeps with
@@ -30,8 +31,7 @@
 // The dense kernels 1-4 are the bodies of kernels 5-8 with K = n and a
 // column-key pointer wc = w (the banded calls pass wc = ws): every pair
 // is then in the band, each span is all N rows or columns, and every tile
-// that lies inside the matrix is interior.  Only the v1 kernels 9a and 9b
-// keep the first-cut design described below.
+// that lies inside the matrix is interior.
 //
 // They replace the Pallas TPU kernels of src/repro/kernels/softsort_apply.py:
 // _fwd_fused_kernel (:150), _colsum_kernel (:182), _bwd_dws_delta_kernel
@@ -49,16 +49,13 @@
 // payload stays row-major (N, d), and a block loops over its exact span.
 //
 // What bounds them on the card: operations.  Per (row, column) pair
-// kernels 1, 3 and 4 do 2d to 4d flops of payload products beside an
+// kernels 1, 3, 4 and 9b do 2d to 4d flops of payload products beside an
 // exp and a few flops of score, while they read only O(N d) bytes: at
 // N = 4096, d = 50 that is thousands of flops per byte (and with the band,
 // O(K d) per byte).  The products run as float32 FMAs on the CUDA cores
 // (no tensor cores, so no TF32 rounding: the float32 results hold the JAX
-// reference to ~1e-6).  Kernels 9a and 9b stage key (and payload) tiles
-// in shared memory (rows padded by one word), each thread keeps up to 16
-// accumulators in registers, and the score tile is computed once per
-// block and reused by every payload column; the payload tile of 9b is 64
-// wide whatever d is.
+// reference to ~1e-6).  Kernel 9a has no payload: a score, a max, an
+// expf and an add per pair against O(N) bytes of keys.
 //
 // The banded kernels 5-8, designed for the Self-Organizing-Gaussians
 // shape (N = 65536, d = 14, K = 4096), and the dense kernels 1-4, which
@@ -98,8 +95,8 @@
 //   Kernel 5 takes the same first sweep for any tau outside
 //   0 < 1 / tau < inf (no caller passes one): the branch is on the
 //   launch flag and the device scalar tau, uniform across the block.
-// - Kernels 6-8 read the saved m and multiply by a per-row 1 / l: no
-//   division per pair.  Kernel 8 steps 64 rows at a time over a tile of
+// - Kernels 6-8 and 9b read the saved m and multiply by a per-row 1 / l:
+//   no division per pair.  Kernel 8 steps 64 rows at a time over a tile of
 //   64 columns (129 steps at the SOG shape), kernel 6 the same, kernel 7
 //   64 columns at a time over a tile of 64 rows.  The next step's tiles
 //   and keys are loaded into registers while the current step computes,
@@ -139,10 +136,6 @@
 namespace {
 
 constexpr float NEG_INF = -1e30f;
-constexpr int NT = 256;   // threads per block
-constexpr int TR = 64;    // row tile
-constexpr int TC = 64;    // column tile
-constexpr int DT = 64;    // payload-width tile
 constexpr unsigned FULL = 0xffffffffu;
 
 __device__ __forceinline__ float to_f(float v) { return v; }
@@ -173,42 +166,10 @@ __device__ __forceinline__ float sgnf(float v) {
   return v > 0.f ? 1.f : (v < 0.f ? -1.f : 0.f);
 }
 
-// Whether the pair (row i, column j) is scored: dense, the column is real
-// (rows >= n are masked where they meet a column reduction); banded, both
-// are real and within K ranks of each other.
-template <bool BAND>
+// Whether the pair (row i, column j) is scored: both are real and within
+// K ranks of each other (the dense calls pass K = n).
 __device__ __forceinline__ bool pair_ok(int i, int j, int n, int K) {
-  if constexpr (BAND) {
-    return i < n && j < n && abs(i - j) <= K;
-  } else {
-    return j < n;
-  }
-}
-
-// Sum over the 4 adjacent lanes that share a row (or a column).
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(FULL, v, 1);
-  v += __shfl_xor_sync(FULL, v, 2);
-  return v;
-}
-
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(FULL, v, 1));
-  v = fmaxf(v, __shfl_xor_sync(FULL, v, 2));
-  return v;
-}
-
-// Stage rows [r0, r0 + R) x payload columns [c0, c0 + DT) of a (n, d)
-// matrix into a float tile, zero outside the matrix.
-template <typename T, int R>
-__device__ __forceinline__ void stage(float (*dst)[DT + 1], const T* src,
-                                      int r0, int c0, int n, int d) {
-  for (int idx = threadIdx.x; idx < R * DT; idx += NT) {
-    const int r = idx / DT, c = idx % DT;
-    dst[r][c] = (r0 + r < n && c0 + c < d)
-                    ? to_f(src[(size_t)(r0 + r) * d + c0 + c])
-                    : 0.f;
-  }
+  return i < n && j < n && abs(i - j) <= K;
 }
 
 // ---------------------------------------------------------------------------
@@ -323,8 +284,13 @@ template <bool V> using Edge = std::integral_constant<bool, V>;
 //   4 pc + v, pc = t % NCG: per column j one float4 of P and one of x.
 // Every payload-tile block recomputes the scores; blockIdx.y == 0 writes
 // m and l.
+// Kernel 9b, the v1 apply, is this body under GIVEN_ML (K = n, wc = w,
+// float32): m and l are inputs.  mr comes from m, there is no first sweep
+// and no sum of l, nothing is written but y, and each row of y is
+// acc * (1 / max(l, 1e-30)).  A template flag, so that kernels 1 and 5
+// compile as they do without it.
 // ---------------------------------------------------------------------------
-constexpr int BTC = 64;   // kernels 5 and 7: keys per column step
+constexpr int BTC = 64;   // kernels 5, 7 and 9b: keys per column step
 
 template <int DT>
 struct FwdBand {
@@ -340,12 +306,13 @@ struct FwdBand {
   static constexpr int MIN_BLOCKS = DT == 64 ? 2 : (DT == 32 ? 3 : 4);
 };
 
-template <typename T, int DT>
+// m_io and l_io are written, or under GIVEN_ML read.
+template <typename T, int DT, bool GIVEN_ML>
 __global__ void __launch_bounds__(FwdBand<DT>::NT, FwdBand<DT>::MIN_BLOCKS)
 fwd_band_kernel(const float* __restrict__ ws, const float* __restrict__ wc,
                 const T* __restrict__ x, const float* __restrict__ tau,
-                T* __restrict__ y, float* __restrict__ m_out,
-                float* __restrict__ l_out, int n, int d, int K, int exact_max,
+                T* __restrict__ y, float* __restrict__ m_io,
+                float* __restrict__ l_io, int n, int d, int K, int exact_max,
                 int vec) {
   using C = FwdBand<DT>;
   constexpr int TR = C::TR, NT = C::NT, NRG = C::NRG, NCG = C::NCG;
@@ -371,7 +338,10 @@ fwd_band_kernel(const float* __restrict__ ws, const float* __restrict__ wc,
   for (int u = 0; u < 4; ++u) {
     const int i = r0 + 4 * sr + u;
     wr[u] = i < n ? ws[i] : 0.f;
-    mr[u] = -0.0f;   // the diagonal's score: the row maximum for tau > 0
+    if constexpr (GIVEN_ML)
+      mr[u] = i < n ? m_io[(size_t)b * n + i] : 0.f;
+    else
+      mr[u] = -0.0f;   // the diagonal's score: the row maximum for tau > 0
     lsum[u] = 0.f;
   }
 
@@ -379,7 +349,8 @@ fwd_band_kernel(const float* __restrict__ ws, const float* __restrict__ wc,
   // keys) and any other tau: a first sweep of scores only, no exp and no
   // payload, for the exact row maximum.  Where every real pair is scored
   // (K >= n - 1) no pair is tested; rows >= n are masked below.
-  if (exact_max || !(inv_tau > 0.f && inv_tau <= 3.4028235e38f)) {
+  if (!GIVEN_ML &&
+      (exact_max || !(inv_tau > 0.f && inv_tau <= 3.4028235e38f))) {
     float mx[4] = {NEG_INF, NEG_INF, NEG_INF, NEG_INF};
     auto sweep = [&](auto edge) {
 #pragma unroll 4
@@ -388,7 +359,7 @@ fwd_band_kernel(const float* __restrict__ ws, const float* __restrict__ wc,
 #pragma unroll
         for (int u = 0; u < 4; ++u) {
           if constexpr (decltype(edge)::value)
-            if (!pair_ok<true>(r0 + 4 * sr + u, j, n, K)) continue;
+            if (!pair_ok(r0 + 4 * sr + u, j, n, K)) continue;
           mx[u] = fmaxf(mx[u], score<T>(wr[u], wj, inv_tau));
         }
       }
@@ -435,10 +406,10 @@ fwd_band_kernel(const float* __restrict__ ws, const float* __restrict__ wc,
         const float s = score<T>(wr[u], wj, inv_tau);
         bool ok = true;
         if constexpr (decltype(edge)::value)
-          ok = pair_ok<true>(r0 + 4 * sr + u, j0 + jl, n, K);
+          ok = pair_ok(r0 + 4 * sr + u, j0 + jl, n, K);
         // Explicitly 0 when masked (the finite NEG_INF convention).
         const float e = ok ? expf(s - mr[u]) : 0.f;
-        lsum[u] += e;
+        if constexpr (!GIVEN_ML) lsum[u] += e;
         p[u] = rnd<T>(e);
       }
       *reinterpret_cast<float4*>(p_s + jl * TR + 4 * sr) =
@@ -480,6 +451,22 @@ fwd_band_kernel(const float* __restrict__ ws, const float* __restrict__ wc,
     __syncthreads();   // before the next tile's P and x overwrite these
   }
 
+  T* const yb = y + (size_t)b * n * d;
+  if constexpr (GIVEN_ML) {
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int i = r0 + 4 * pr + u;
+      if (i >= n) continue;
+      const float rl = 1.0f / fmaxf(l_io[(size_t)b * n + i], 1e-30f);
+#pragma unroll
+      for (int v = 0; v < 4; ++v) {
+        const int c = c0 + 4 * pc + v;
+        if (c < d) yb[(size_t)i * d + c] = from_f<T>(acc[u][v] * rl);
+      }
+    }
+    return;
+  }
+
   // l of each row: the SCOLS partial sums, added in a fixed order.
 #pragma unroll
   for (int u = 0; u < 4; ++u) p_s[sc * TR + 4 * sr + u] = lsum[u];
@@ -490,7 +477,6 @@ fwd_band_kernel(const float* __restrict__ ws, const float* __restrict__ wc,
     return v;
   };
 
-  T* const yb = y + (size_t)b * n * d;
 #pragma unroll
   for (int u = 0; u < 4; ++u) {
     const int i = r0 + 4 * pr + u;
@@ -507,8 +493,8 @@ fwd_band_kernel(const float* __restrict__ ws, const float* __restrict__ wc,
     for (int u = 0; u < 4; ++u) {
       const int i = r0 + 4 * sr + u;
       if (i < n) {
-        m_out[(size_t)b * n + i] = mr[u];
-        l_out[(size_t)b * n + i] = row_l(4 * sr + u);
+        m_io[(size_t)b * n + i] = mr[u];
+        l_io[(size_t)b * n + i] = row_l(4 * sr + u);
       }
     }
   }
@@ -649,7 +635,7 @@ bwd_band_dcol_kernel(const float* __restrict__ ws,
         const float s = score<T>(wsi, wj[v], inv_tau);
         bool ok = true;
         if constexpr (decltype(edge)::value)
-          ok = pair_ok<true>(i0 + rl, j0 + ca + NCA * v, n, K);
+          ok = pair_ok(i0 + rl, j0 + ca + NCA * v, n, K);
         float p = 0.f;
         if (ok) {
           p = expf(s - mi) * rli;
@@ -868,7 +854,7 @@ colsum_band_kernel(const float* __restrict__ ws,
         const float s = score<T>(sr.x, wj[v], inv_tau);
         bool ok = true;
         if constexpr (decltype(edge)::value)
-          ok = pair_ok<true>(i0 + r, j0 + ca + NCA * v, n, K);
+          ok = pair_ok(i0 + r, j0 + ca + NCA * v, n, K);
         // Explicitly 0 when masked (the finite NEG_INF convention).
         const float e = ok ? expf(s - sr.y) : 0.f;
         acc[v] = fmaf(e, sr.z, acc[v]);
@@ -1058,7 +1044,7 @@ bwd_band_dws_delta_kernel(const float* __restrict__ ws,
         const float s = score<T>(wr[u], wj[v], inv_tau);
         bool ok = true;
         if constexpr (decltype(edge)::value)
-          ok = pair_ok<true>(r0 + ra + NRA * u, j0 + ca + NCA * v, n, K);
+          ok = pair_ok(r0 + ra + NRA * u, j0 + ca + NCA * v, n, K);
         // Explicitly 0 when masked (the finite NEG_INF convention).
         const float p = ok ? expf(s - mr[u]) * rl[u] : 0.f;
         // p sgn(ws_i - wc_j): p >= 0 takes the sign, tied keys give 0.
@@ -1145,119 +1131,100 @@ bwd_band_dws_delta_kernel(const float* __restrict__ ws,
 }
 
 // ---------------------------------------------------------------------------
-// Kernels 9a and 9b: the v1 split forward, float32 only, as the TPU
-// kernels are.  Separate kernels with their own symbols, not a flag on
-// kernel 1: their design is what the kernel bench measures the fused tier
-// against, the scores computed in each of three passes (9a, 9b and
-// ss_colsum_f32, kernel 6's body) and m, l written to device memory by
-// 9a and read back by 9b and colsum.
-//   v1_stats  m_i = max_j s_ij, l_i = sum_j exp(s_ij - m_i)
-//   v1_apply  y_i = sum_j exp(s_ij - m_i) / max(l_i, 1e-30) x_j
-// What bounds them on the card: operations.  v1_stats does a score, a
-// max, an expf and an add per pair against O(N) bytes of keys; v1_apply
-// does kernel 1's 2d FMA flops per pair with no rescaling (m and l are
-// final), against O(N d) bytes.  Same tiles and thread layout as kernel 1:
-// thread t owns row t/4 and columns t%4 + 4k; every payload-tile block of
-// v1_apply recomputes its scores.
+// Kernel 9a: the v1 stats pass, float32 only, as the TPU kernel is.
+// Replaces _stats_kernel (src/repro/kernels/softsort_apply.py:843).
+//   m_i = max_j s_ij,  l_i = sum_j exp(s_ij - m_i)
+// Kernel 9b (the apply pass, y = exp(s - m) x / max(l, 1e-30), replacing
+// _apply_kernel, :862) is kernel 1's body under GIVEN_ML, and ss_colsum
+// is the third pass: the v1 design the kernel bench measures keeps three
+// launches, scores computed in each, and m and l in device memory between
+// them.
+// What bounds 9a on the card: operations.  A pair is a score and a max,
+// then a score, an expf and an add (~16 f32 instructions, one on the
+// MUFU) against O(N) bytes of keys.  The design is kernel 1's first
+// sweep, twice, with no payload: block = (TR-row tile, instance), thread
+// t holds the keys of rows 4 sr + u (u < 4), sr = t % NRG, in registers
+// and walks columns sc, sc + SCOLS, ... read through the read-only cache
+// (the SCOLS columns of a step are adjacent; a warp reads at most two).
+// Sweep 1 takes the exact row maximum with fmaxf: the rounding is
+// monotone, so it is bitwise the running maximum of the twin and of the
+// Pallas kernel.  Sweep 2 sums exp(s - m) with no rescale.  The SCOLS
+// partials of a row meet in shared memory and are added in lane order:
+// no shuffles, no atomics, and no barrier inside a sweep.
 // ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(NT)
+// Kernel 9a's tile: 32 rows x 256 threads, so 32 column lanes.  On an
+// H100 at (B, N) = (8, 4096) eight tiles (32-128 rows, 128-1024 threads)
+// ran within 16% of one another, those with 32 lanes the fastest
+// (PERF.md, section 6); 32 rows keep more blocks busy at small N.
+constexpr int V1_TR = 32;    // kernel 9a: rows per block
+constexpr int V1_NT = 256;   // kernel 9a: threads per block
+
+__global__ void __launch_bounds__(V1_NT)
 v1_stats_kernel(const float* __restrict__ ws, const float* __restrict__ w,
                 const float* __restrict__ tau, float* __restrict__ m_out,
                 float* __restrict__ l_out, int n) {
-  __shared__ float w_s[TC];
+  constexpr int TR = V1_TR, NT = V1_NT;
+  constexpr int NRG = TR / 4;        // 4-row groups
+  constexpr int SCOLS = NT / NRG;    // column lanes
+  static_assert(NT % NRG == 0 && TR <= NT, "a thread per row reduces");
+  __shared__ float4 red_s[SCOLS][NRG];   // a lane's partials, 4 rows each
+  __shared__ float4 m_s[NRG];            // the row maxima
 
   const int b = blockIdx.y, r0 = blockIdx.x * TR;
-  const int tid = threadIdx.x, r = tid / 4, q = tid % 4, i = r0 + r;
+  const int tid = threadIdx.x, sr = tid % NRG, sc = tid / NRG;
   ws += (size_t)b * n;
   w += (size_t)b * n;
   const float inv_tau = 1.0f / tau[0];
-  const float wr = i < n ? ws[i] : 0.f;
 
-  // The four lanes of a row hold the same m and l (quad reductions).
-  float m = NEG_INF, l = 0.f;
-  for (int j0 = 0; j0 < n; j0 += TC) {
-    __syncthreads();
-    if (tid < TC) w_s[tid] = j0 + tid < n ? w[j0 + tid] : 0.f;
-    __syncthreads();
-    float s[16], mx = NEG_INF;
+  float wr[4], acc[4];
 #pragma unroll
-    for (int k = 0; k < 16; ++k) {
-      const int j = q + 4 * k;
-      s[k] = pair_ok<false>(i, j0 + j, n, 0)
-                 ? score<float>(wr, w_s[j], inv_tau) : NEG_INF;
-      mx = fmaxf(mx, s[k]);
-    }
-    const float m_new = fmaxf(m, quad_max(mx));
-    float sum = 0.f;
-#pragma unroll
-    for (int k = 0; k < 16; ++k)
-      sum += pair_ok<false>(i, j0 + q + 4 * k, n, 0) ? expf(s[k] - m_new)
-                                                      : 0.f;
-    l = l * expf(m - m_new) + quad_sum(sum);
-    m = m_new;
+  for (int u = 0; u < 4; ++u) {
+    const int i = r0 + 4 * sr + u;
+    wr[u] = i < n ? ws[i] : 0.f;   // rows >= n are computed, not written
+    acc[u] = NEG_INF;
   }
-  if (q == 0 && i < n) {
-    m_out[(size_t)b * n + i] = m;
-    l_out[(size_t)b * n + i] = l;
-  }
-}
 
-__global__ void __launch_bounds__(NT)
-v1_apply_kernel(const float* __restrict__ ws, const float* __restrict__ w,
-                const float* __restrict__ x, const float* __restrict__ tau,
-                const float* __restrict__ m, const float* __restrict__ l,
-                float* __restrict__ y, int n, int d) {
-  __shared__ float w_s[TC];
-  __shared__ float p_s[TR][TC + 1];
-  __shared__ float x_s[TC][DT + 1];
-
-  const int b = blockIdx.z, r0 = blockIdx.x * TR, c0 = blockIdx.y * DT;
-  const int tid = threadIdx.x, r = tid / 4, q = tid % 4, i = r0 + r;
-  ws += (size_t)b * n;
-  w += (size_t)b * n;
-  x += (size_t)b * n * d;
-  const float inv_tau = 1.0f / tau[0];
-  const bool row_ok = i < n;
-  const float wr = row_ok ? ws[i] : 0.f;
-  const float mr = row_ok ? m[(size_t)b * n + i] : 0.f;
-  const float lr = row_ok ? fmaxf(l[(size_t)b * n + i], 1e-30f) : 1.f;
-
-  float acc[16];
-#pragma unroll
-  for (int k = 0; k < 16; ++k) acc[k] = 0.f;
-
-  for (int j0 = 0; j0 < n; j0 += TC) {
+  // The partials of row tid (< TR), reduced over the lanes in order.
+  auto reduce = [&](auto op) {
+    red_s[sc][sr] = make_float4(acc[0], acc[1], acc[2], acc[3]);
     __syncthreads();
-    if (tid < TC) w_s[tid] = j0 + tid < n ? w[j0 + tid] : 0.f;
-    stage<float, TC>(x_s, x, j0, c0, n, d);
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < 16; ++k) {
-      const int j = q + 4 * k;
-      p_s[r][j] = pair_ok<false>(i, j0 + j, n, 0)
-                      ? expf(score<float>(wr, w_s[j], inv_tau) - mr) / lr
-                      : 0.f;
+    float v = 0.f;
+    if (tid < TR) {
+      v = reinterpret_cast<const float*>(red_s[0])[tid];
+      for (int k = 1; k < SCOLS; ++k)
+        v = op(v, reinterpret_cast<const float*>(red_s[k])[tid]);
     }
-    __syncthreads();
+    return v;
+  };
+
 #pragma unroll 4
-    for (int j = 0; j < TC; ++j) {
-      const float p = p_s[r][j];
+  for (int j = sc; j < n; j += SCOLS) {
+    const float wj = __ldg(w + j);
 #pragma unroll
-      for (int k = 0; k < 16; ++k) acc[k] = fmaf(p, x_s[j][q + 4 * k], acc[k]);
-    }
+    for (int u = 0; u < 4; ++u)
+      acc[u] = fmaxf(acc[u], score<float>(wr[u], wj, inv_tau));
   }
+  const float m = reduce([](float a, float c) { return fmaxf(a, c); });
+  if (tid < TR) reinterpret_cast<float*>(m_s)[tid] = m;
+  __syncthreads();   // m_s written; red_s read
 
-  if (row_ok) {
-    float* yr = y + (size_t)b * n * d + (size_t)i * d;
+  const float4 m4 = m_s[sr];
+  const float mr[4] = {m4.x, m4.y, m4.z, m4.w};
 #pragma unroll
-    for (int k = 0; k < 16; ++k) {
-      const int c = c0 + q + 4 * k;
-      if (c < d) yr[c] = acc[k];
-    }
+  for (int u = 0; u < 4; ++u) acc[u] = 0.f;
+#pragma unroll 4
+  for (int j = sc; j < n; j += SCOLS) {
+    const float wj = __ldg(w + j);
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+      acc[u] += expf(score<float>(wr[u], wj, inv_tau) - mr[u]);
+  }
+  const float l = reduce([](float a, float c) { return a + c; });
+  if (tid < TR && r0 + tid < n) {
+    m_out[(size_t)b * n + r0 + tid] = m;
+    l_out[(size_t)b * n + r0 + tid] = l;
   }
 }
-
-inline int n_dtiles(int d) { return d > 0 ? (d + DT - 1) / DT : 1; }
 
 // 16-byte staging: d a whole number of 16-byte chunks, bases aligned.
 template <typename T>
@@ -1266,22 +1233,22 @@ int vec_ok(int d, const void* a, const void* b) {
          (uintptr_t)b % 16 == 0;
 }
 
-template <typename T, int DT>
+template <typename T, int DT, bool GIVEN_ML>
 int launch_fwd_band(const void* ws, const void* wc, const void* x,
                     const void* tau, void* y, void* m, void* l, int B, int n,
                     int d, int K, int exact_max, cudaStream_t stream) {
   using C = FwdBand<DT>;
   constexpr int bytes = C::FLOATS * (int)sizeof(float);
-  static bool limit_set = false;
+  static bool limit_set = false;   // once per instantiation
   if (!limit_set) {
     const cudaError_t e = cudaFuncSetAttribute(
-        fwd_band_kernel<T, DT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        bytes);
+        fwd_band_kernel<T, DT, GIVEN_ML>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (e != cudaSuccess) return (int)e;
     limit_set = true;
   }
   dim3 grid((n + C::TR - 1) / C::TR, d > DT ? (d + DT - 1) / DT : 1, B);
-  fwd_band_kernel<T, DT><<<grid, C::NT, bytes, stream>>>(
+  fwd_band_kernel<T, DT, GIVEN_ML><<<grid, C::NT, bytes, stream>>>(
       (const float*)ws, (const float*)wc, (const T*)x, (const float*)tau,
       (T*)y, (float*)m, (float*)l, n, d, K, exact_max, vec_ok<T>(d, x, x));
   return (int)cudaGetLastError();
@@ -1370,7 +1337,7 @@ inline bool dt_ok(int dt, int d) {
   return dt == 64 || ((dt == 16 || dt == 32) && d <= dt);
 }
 
-template <typename T>
+template <typename T, bool GIVEN_ML = false>
 int launch_fwd_band_dt(const void* ws, const void* wc, const void* x,
                        const void* tau, void* y, void* m, void* l, int B,
                        int n, int d, int K, int dt, int exact_max,
@@ -1378,13 +1345,13 @@ int launch_fwd_band_dt(const void* ws, const void* wc, const void* x,
   if (!dt_ok(dt, d)) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   if (dt == 16)
-    return launch_fwd_band<T, 16>(ws, wc, x, tau, y, m, l, B, n, d, K,
-                                  exact_max, st);
+    return launch_fwd_band<T, 16, GIVEN_ML>(ws, wc, x, tau, y, m, l, B, n, d,
+                                            K, exact_max, st);
   if (dt == 32)
-    return launch_fwd_band<T, 32>(ws, wc, x, tau, y, m, l, B, n, d, K,
-                                  exact_max, st);
-  return launch_fwd_band<T, 64>(ws, wc, x, tau, y, m, l, B, n, d, K,
-                                exact_max, st);
+    return launch_fwd_band<T, 32, GIVEN_ML>(ws, wc, x, tau, y, m, l, B, n, d,
+                                            K, exact_max, st);
+  return launch_fwd_band<T, 64, GIVEN_ML>(ws, wc, x, tau, y, m, l, B, n, d,
+                                          K, exact_max, st);
 }
 
 template <typename T>
@@ -1425,20 +1392,10 @@ int launch_band_dws_dt(const void* ws, const void* wc, const void* x,
 
 int launch_v1_stats(const void* ws, const void* w, const void* tau, void* m,
                     void* l, int B, int n, void* stream) {
-  dim3 grid((n + TR - 1) / TR, B);
-  v1_stats_kernel<<<grid, NT, 0, (cudaStream_t)stream>>>(
+  dim3 grid((n + V1_TR - 1) / V1_TR, B);
+  v1_stats_kernel<<<grid, V1_NT, 0, (cudaStream_t)stream>>>(
       (const float*)ws, (const float*)w, (const float*)tau, (float*)m,
       (float*)l, n);
-  return (int)cudaGetLastError();
-}
-
-int launch_v1_apply(const void* ws, const void* w, const void* x,
-                    const void* tau, const void* m, const void* l, void* y,
-                    int B, int n, int d, void* stream) {
-  dim3 grid((n + TR - 1) / TR, n_dtiles(d), B);
-  v1_apply_kernel<<<grid, NT, 0, (cudaStream_t)stream>>>(
-      (const float*)ws, (const float*)w, (const float*)x, (const float*)tau,
-      (const float*)m, (const float*)l, (float*)y, n, d);
   return (int)cudaGetLastError();
 }
 
@@ -1515,7 +1472,8 @@ SS_INSTANTIATE(f32, float)
 SS_INSTANTIATE(bf16, __nv_bfloat16)
 
 // The v1 split forward (kernels 9a, 9b), float32 only; its third pass is
-// ss_colsum_f32.
+// ss_colsum_f32.  9b runs kernel 1's body with m and l given: its caller
+// passes K = n and the payload tile dt, as ss_fwd_fused's does.
 SS_EXPORT int ss_v1_stats_f32(const void* ws, const void* w, const void* tau,
                               void* m, void* l, int B, int n, void* stream) {
   return launch_v1_stats(ws, w, tau, m, l, B, n, stream);
@@ -1523,8 +1481,12 @@ SS_EXPORT int ss_v1_stats_f32(const void* ws, const void* w, const void* tau,
 
 SS_EXPORT int ss_v1_apply_f32(const void* ws, const void* w, const void* x,
                               const void* tau, const void* m, const void* l,
-                              void* y, int B, int n, int d, void* stream) {
-  return launch_v1_apply(ws, w, x, tau, m, l, y, B, n, d, stream);
+                              void* y, int B, int n, int d, int K, int dt,
+                              void* stream) {
+  return launch_fwd_band_dt<float, true>(ws, w, x, tau, y,
+                                         const_cast<void*>(m),
+                                         const_cast<void*>(l), B, n, d, K, dt,
+                                         0, stream);
 }
 
 SS_EXPORT const char* ss_error_string(int code) {

@@ -44,10 +44,13 @@ are scored; out-of-band entries of P are exactly 0.
 Two more, the v1 split forward (counterparts of the Pallas
 ``_stats_kernel`` and ``_apply_kernel`` of the v1 baseline), float32 only:
 
-* ``v1_stats``  — one sweep per row for the row max ``m`` and the
-                  denominator ``l``, no payload.
-* ``v1_apply``  — ``y_i = sum_j exp(s_ij - m_i) / l_i x_j`` with m and l
-                  read back, no rescaling.  ``colsum`` is the third pass.
+* ``v1_stats``  — per row, a sweep of scores for the exact maximum ``m``,
+                  then one for the denominator ``l`` (no rescale), no
+                  payload.  (The twin keeps the running maximum of the
+                  Pallas kernel: the same m bitwise, l within rounding.)
+* ``v1_apply``  — ``y_i = sum_j exp(s_ij - m_i) x_j * (1 / l_i)`` with m
+                  and l read back, no rescaling.  ``colsum`` is the third
+                  pass.
 
 Operands are unpadded: ``ws``/``w`` (B, N) float32, ``x`` (B, N, d) in the
 compute dtype (float32 or bfloat16), ``tau`` a one-element float32
@@ -68,6 +71,8 @@ ones (``fwd_fused`` that of ``fwd_band``, ``colsum`` of ``colsum_band``,
 wrappers pass K = N, the payload tile ``band_payload_tile(d)`` (all but
 ``colsum``, which has no payload) and, for ``fwd_fused``, ``EXACT_MAX``
 (the row maximum is not known beforehand, so a first sweep takes it).
+``v1_apply`` runs ``fwd_fused``'s body with m and l given, and passes K = N
+and the payload tile as ``fwd_fused`` does.
 """
 from __future__ import annotations
 
@@ -77,11 +82,11 @@ from repro_torch.kernels import clib
 
 NEG_INF = -1e30
 PLAIN_BLOCK = 128      # column / row block of the plain twins
-# The tile sizes of the v1 kernels 9a and 9b, constexprs of
-# csrc/softsort_apply.cu: rows and columns of a score tile, and payload
-# columns per block.  Kernels 1, 3, 4, 5, 7 and 8 take their payload tile
-# from ``band_payload_tile``; kernels 2 and 6 have none.
-TILES = {"TR": 64, "TC": 64, "DT": 64}
+# The fixed tiles of the v1 kernels, constexprs of csrc/softsort_apply.cu:
+# kernel 9a's rows and threads per block, and the column step of kernel
+# 9b (kernel 1's).  Kernels 1, 3, 4, 5, 7, 8 and 9b take their payload
+# tile from ``band_payload_tile``; kernels 2, 6 and 9a have none.
+TILES = {"V1_TR": 32, "V1_NT": 256, "BTC": 64}
 BAND_PAYLOAD_TILES = (16, 32, 64)
 EXACT_MAX = 1          # fwd_fused's flag: take the row maximum in a sweep
 _F32 = torch.float32
@@ -158,7 +163,8 @@ def v1_stats_plain(ws, w, tau):
 
 def v1_apply_plain(ws, w, x, tau, m, l):
     """Twin of kernel 9b: ``y = P x`` over column blocks, P from the
-    given m and l.  (B, N, d) float32."""
+    given m and l (``/ l`` per pair, as the Pallas kernel).  (B, N, d)
+    float32."""
     inv_tau = 1.0 / tau.reshape(())
     mc = m[..., None]
     lc = torch.clamp_min(l, 1e-30)[..., None]
@@ -356,7 +362,7 @@ _SIGNATURES = {
     "ss_bwd_band_dws_delta": [_P] * 10 + [_I] * 5,
     "ss_bwd_band_dcol": [_P] * 11 + [_I] * 5,
     "ss_v1_stats": [_P] * 5 + [_I] * 2,
-    "ss_v1_apply": [_P] * 7 + [_I] * 3,
+    "ss_v1_apply": [_P] * 7 + [_I] * 5,
 }
 
 
@@ -551,7 +557,8 @@ def v1_stats(ws, w, tau):
 
 
 def v1_apply(ws, w, x, tau, m, l):
-    """Kernel 9b.  y (B, N, d) float32."""
+    """Kernel 9b: kernel 1's body with m and l given.  y (B, N, d)
+    float32."""
     if clib.route(ws, w, x, tau, m, l) == "cpu":
         return v1_apply_plain(ws, w, x, tau, m, l)
     bsz, n, d = _check(ws, w, x, tau, m, l)
@@ -559,7 +566,7 @@ def v1_apply(ws, w, x, tau, m, l):
     y = torch.empty_like(x)
     if bsz * n:
         _launch(v1_apply, "ss_v1_apply", _F32, ws, w, x, tau, m, l, y, bsz,
-                n, d)
+                n, d, n, band_payload_tile(d)[0])
     return y
 
 

@@ -499,11 +499,12 @@ def _v1_operands(bsz, n, d, seed, cuda):
                                      (2, 300, 130)])
 def test_cuda_v1_kernels_match_plain_twins(cuda, bsz, n, d):
     """v1_stats and v1_apply (float32 only) against their twins; the
-    apply twin takes the kernel's own m and l."""
+    apply twin takes the kernel's own m and l.  m is the twin's bitwise:
+    the maximum of the same scores."""
     ws, w, x, tt = _v1_operands(bsz, n, d, n + d, cuda)
     m, l = K.v1_stats(ws, w, tt)
     m0, l0 = K.v1_stats_plain(ws, w, tt)
-    _close(m.cpu(), m0.cpu(), FWD_ATOL)
+    assert torch.equal(m, m0)
     np.testing.assert_allclose(l.cpu(), l0.cpu(), rtol=FWD_ATOL)
     y = K.v1_apply(ws, w, x, tt, m, l)
     np.testing.assert_allclose(y.cpu(), K.v1_apply_plain(ws, w, x, tt, m,
@@ -513,15 +514,45 @@ def test_cuda_v1_kernels_match_plain_twins(cuda, bsz, n, d):
 
 
 @pytest.mark.cuda
-def test_cuda_v1_kernels_batch_invariant(cuda):
-    """v1: an instance run alone gives bitwise its row of the batch."""
-    ops_ = _v1_operands(4, 700, 70, 5, cuda)
+@pytest.mark.parametrize("d", [1, 3, 8, 14, 30, 50, 64, 65, 130])
+@pytest.mark.parametrize("independent", [False, True])
+@pytest.mark.parametrize("tau", [0.05, 0.6])
+def test_cuda_v1_kernels_at_every_payload_tile(cuda, d, independent, tau):
+    """9b, kernel 1's body with m and l given, at every payload tile (16,
+    32, 64, 2 x 64, 3 x 64) and ragged widths; N = 1000 is no multiple of
+    a row tile.  Row keys sort(w) (m = -0) or drawn apart from w (9a finds
+    maxima below 0): m the twin's bitwise, l and y within FWD_ATOL."""
+    ws, w, x, tt, _, _ = _dense_operands(2, 1000, d, 90 + d, cuda,
+                                         torch.float32)
+    if not independent:
+        ws = torch.sort(w, dim=-1, stable=True).values
+    tt = torch.full_like(tt, tau)
+    m, l = K.v1_stats(ws, w, tt)
+    m0, l0 = K.v1_stats_plain(ws, w, tt)
+    assert torch.equal(m, m0)
+    assert bool((m < 0).any()) == independent
+    np.testing.assert_allclose(l.cpu(), l0.cpu(), rtol=FWD_ATOL)
+    y = K.v1_apply(ws, w, x, tt, m, l)
+    y0 = K.v1_apply_plain(ws, w, x, tt, m, l)
+    np.testing.assert_allclose(y.cpu(), y0.cpu(), atol=FWD_ATOL)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [3, 8, 50, 70, 130])
+@pytest.mark.parametrize("independent", [False, True])
+def test_cuda_v1_kernels_batch_invariant(cuda, d, independent):
+    """v1 at each payload tile, row keys sort(w) or drawn apart from w:
+    an instance run alone gives bitwise its row of the batch."""
+    ws, w, x, tt, _, _ = _dense_operands(4, 700, d, 5 + d, cuda,
+                                         torch.float32)
+    if not independent:
+        ws = torch.sort(w, dim=-1, stable=True).values
 
     def run(sl):
-        ws, w, x, tt = [t[sl].contiguous() if t.dim() > 1 else t
-                        for t in ops_]
-        m, l = K.v1_stats(ws, w, tt)
-        return m, l, K.v1_apply(ws, w, x, tt, m, l)
+        wss, wsl = ws[sl].contiguous(), w[sl].contiguous()
+        m, l = K.v1_stats(wss, wsl, tt)
+        return m, l, K.v1_apply(wss, wsl, x[sl].contiguous(), tt, m, l)
 
     for b_out, a_out in zip(run(slice(0, 4)), run(slice(2, 3))):
         assert torch.equal(b_out[2], a_out[0])

@@ -84,6 +84,8 @@ def test_run_cell_matches_the_reference_bench(dtype):
 PINNED = {
     ("fwd_fused", (8, 4096, 50)): 0.2123,
     ("colsum", (8, 4096, 50)): 0.01202,
+    ("v1_stats", (8, 4096, 50)): 0.01402,
+    ("v1_apply", (8, 4096, 50)): 0.2104,
     ("bwd_dws_delta", (8, 4096, 50)): 0.2284,
     ("bwd_dx", (8, 4096, 50)): 0.4267,
     ("fwd_band", (8, 4096, 50, 256)): 0.02576,
@@ -114,7 +116,11 @@ def test_tier_bound_sums_its_kernels():
 
 
 def test_tiles_are_the_cuda_constants():
+    """The bench's ``tiles`` are the v1 kernels' fixed tiles as
+    csrc/softsort_apply.cu declares them at namespace scope: kernel 9a's
+    rows and threads per block, and kernel 9b's column step."""
     src = (Path(tbench.__file__).parents[1] / "kernels" / "csrc"
            / "softsort_apply.cu").read_text()
-    found = dict(re.findall(r"constexpr int (\w+) = (\d+);", src))
+    found = dict(re.findall(r"^constexpr int (\w+) = (\d+);", src, re.M))
+    assert set(TILES) == {"V1_TR", "V1_NT", "BTC"}
     assert {k: int(found[k]) for k in TILES} == TILES
