@@ -20,19 +20,26 @@ start):
    64), and at (2, 2000, 50) with row keys drawn apart from the column
    keys (``ws`` not ``sort(w)``, so kernel 1's row maximum is not -0);
    in float32 and bfloat16, m bitwise the twin's, and the last instance
-   run alone against its row of the batch, bitwise; ``kernel_times``:
-   median times of each kernel, its twin, and the dense
-   ``torch.softmax(...) @ x`` yardstick at the main shape; each kernel
-   also as ``graph_ms``, a CUDA-graph replay of its wrapper call (device
-   time, without the wrapper's host time that ``ms`` includes).
+   run alone against its row of the batch, bitwise; then the
+   per-instance temperature case: B = 4 instances at tau = (0.05, 0.2,
+   0.6, 1.0), (4, 1000, 50), each kernel against its twin at that (B,)
+   tau, every row bitwise the B = 1 launch at its own tau, and one
+   shared tau bitwise its expansion to B; ``kernel_times``: median times
+   of each kernel, its twin, and the dense ``torch.softmax(...) @ x``
+   yardstick at the main shape, with the (B,) tau the autograd Function
+   hands the kernels; each kernel also as ``graph_ms``, a CUDA-graph
+   replay of its wrapper call (device time, without the wrapper's host
+   time that ``ms`` includes), and as ``graph_ms_shared_tau``, the call
+   with one tau, its expansion to B included.
 3. ``band_kernel_check`` — the same for the four banded kernels (5-8) at
    (B, N, d, K) = (8, 4096, 50, 256) (the main run's shape with
    ``band="auto"``), (2, 65536, 14, 4096) (the SOG run's shape),
    (3, 1000, 3, 40), (1, 17, 1, 3), (2, 3000, 30, 500) and
    (2, 1000, 130, 150), so that kernels 5, 7 and 8 run at each of their
    payload tiles (64, 16, 16, 16, 32, and three tiles of 64; kernel 6 has
-   no payload); ``band_kernel_times`` at the first two shapes in float32,
-   also as ``graph_ms``, with the dense yardstick at N = 4096 and the
+   no payload), and the per-instance temperature case at K = 150;
+   ``band_kernel_times`` at the first two shapes in float32, also as
+   ``graph_ms``, with the dense yardstick at N = 4096 and the
    ``band_tail_bound`` it is within.
 4. ``function_check`` / ``band_function_check`` — the dense
    autograd.Function against the O(N^2) oracle, and the banded one
@@ -49,17 +56,37 @@ start):
 7. ``band_switch_run`` — 2 problems x 1 restart of the same data with
    ``band=24``, 16 rounds: dense rounds 0-5, banded 6-15; exactly 48
    launches of each dense and 80 of each banded kernel.
+   ``adaptive_run`` — ``band_main_run``'s configuration with
+   ``schedule="adaptive"``, ``adapt_every=4`` and the controller's
+   defaults, and ``adaptive_claim_run`` — the settings of the reference's
+   adaptive rows in BENCH_scaling.json (80 rounds), beside its fixed twin
+   ``adaptive_claim_run_fixed``: every instance starts dense and goes
+   banded on its measured tail bound; ms per rung and per executed
+   instance-round, rounds executed and saved, the controller's fired,
+   stopped and switched counts per rung, the dense and banded launches
+   equal to each group's rounds x inner steps, and the last-executed
+   losses beside the fixed schedule's; falling losses and a better
+   neighbour distance than a random layout.  ``adaptive_claim_run_pairs``
+   times the claim's two schedules in alternating pairs, with no
+   per-round callback, for the seconds saved.
 8. ``sog_run`` — the slice at full width: Self-Organizing Gaussians (paper
    section IV-B), 1 scene x 2 restarts of 65536 splats with 14 attributes
    on a 256 x 256 grid, ``band="auto"`` (K = 4096), 32 rounds x 8 inner
    steps; neighbour distance and the zlib codec proxy against a random
-   order, and 256 launches of each banded kernel.
+   order, and 256 launches of each banded kernel.  The scene and the
+   proxy are ``synthetic_scene`` and ``plane_bytes`` of
+   ``repro_torch.examples.self_organizing_gaussians``.
+   ``sog_codec`` — ``repro_torch.runtime.sog_compress.compress_checkpoint``
+   on two blocks of a (1024, 4096) and a (4096, 1024) weight with
+   correlated columns: seconds, sog, baseline and raw bytes, and an exact
+   round trip.
 
 9. ``v1_kernel_check`` / ``v1_kernel_times`` — the v1 split forward
    (``v1_stats``, ``v1_apply``, float32) against its twins at the shapes
    of phase 2 (the row keys drawn apart from the column keys at the last),
-   m bitwise the twin's, the last instance alone bitwise; times at
-   (8, 4096, 50), events and ``graph_ms``; ``v1_vs_fused``: the v1 forward
+   m bitwise the twin's, the last instance alone bitwise, and the
+   per-instance temperature case; times at (8, 4096, 50), events and
+   ``graph_ms``; ``v1_vs_fused``: the v1 forward
    (9a, 9b, ``colsum``) and the fused forward (``fwd_fused``, ``colsum``),
    each one CUDA graph, in graph ms at that shape.
 10. ``kernel_bench`` — the port's kernel bench
@@ -100,7 +127,6 @@ import statistics
 import subprocess
 import sys
 import time
-import zlib
 
 import numpy as np
 
@@ -140,6 +166,10 @@ BAND_SHAPES = [(8, 4096, 50, 256), (2, 65536, 14, 4096), (3, 1000, 3, 40),
 BAND_TIMED = BAND_SHAPES[:2]
 SOG_SHAPE = BAND_SHAPES[1]       # the shape of the slice's main path
 TAU = 0.5
+# The per-instance temperature case: B = 4 instances, each at its own tau.
+TAUS4 = (0.05, 0.2, 0.6, 1.0)
+TAU_SHAPE = (4, 1000, 50)
+TAU_BAND = 150
 # (B, Tq, S, H, Hkv, Dh, causal, q_offset): the cases of
 # tests/test_flash_attention.py, a negative offset and ragged Dh, then one
 # Mistral-NeMo-12B attention layer (src/repro/configs/mistral_nemo_12b.py)
@@ -170,45 +200,6 @@ def synthetic_catalog(n=1024, d=50, clusters=24, seed=0):
     labels = rng.randint(0, clusters, n)
     x = centers[labels] + 0.4 * rng.randn(n, d)
     return x.astype(np.float32), labels
-
-
-def synthetic_scene(n, seed=0, noise=0.01):
-    """Synthetic splat set with realistic attribute structure: all
-    attributes are smooth functions of the surface parameterization (real
-    3DGS scenes are spatially coherent — nearby splats share scale,
-    orientation and color), plus a small jitter.  A copy of the generator
-    of examples/self_organizing_gaussians.py."""
-    rng = np.random.RandomState(seed)
-    t = rng.rand(n, 2) * 2 * np.pi
-    pos = np.stack([np.cos(t[:, 0]), np.sin(t[:, 0]) * np.cos(t[:, 1]),
-                    np.sin(t[:, 1])], -1)
-    scale = 0.2 + 0.1 * np.abs(np.sin(3 * t))                # (n, 2) -> 3
-    scale = np.concatenate([scale, scale[:, :1]], -1)
-    rot = np.stack([np.cos(t[:, 0] / 2), np.sin(t[:, 0] / 2),
-                    np.cos(t[:, 1] / 2), np.sin(t[:, 1] / 2)], -1)
-    opacity = (0.5 + 0.5 * np.cos(t[:, :1]))
-    color = 0.5 + 0.5 * np.stack(
-        [np.cos(t[:, 0]), np.sin(t[:, 1]), np.cos(t.sum(1))], -1)
-    attrs = np.concatenate([pos, scale, rot, opacity, color], -1)
-    attrs += noise * rng.randn(*attrs.shape)
-    return attrs.astype(np.float32)                          # (n, 14)
-
-
-def plane_bytes(attrs, order, hw):
-    """Compress each attribute as an (h, w) int8 plane (per-plane scale),
-    zlib-deflated — the codec proxy of
-    examples/self_organizing_gaussians.py."""
-    h, w = hw
-    total = 0
-    for j in range(attrs.shape[1]):
-        plane = attrs[order, j].reshape(h, w)
-        scale = np.max(np.abs(plane)) / 127.0 + 1e-12
-        q = np.clip(np.round(plane / scale), -127, 127).astype(np.int8)
-        # 2-D delta (horizontal) mimics intra-frame prediction
-        delta = np.diff(q.astype(np.int16), axis=1,
-                        prepend=np.zeros((h, 1), np.int16)).astype(np.int8)
-        total += len(zlib.compress(delta.tobytes(), 6))
-    return total
 
 
 def neighbor_distance(grid_vectors, hw):
@@ -329,6 +320,93 @@ def band_pipeline(K, ws, xs, tau, dy, dc, k):
     return y, m, l, c, D, dws, dxs, dwc, dtc
 
 
+def dense_twins(K, outs, ws, w, x, tau, dy, dc):
+    """The four dense twins, fed the kernels' own y, m, l and D."""
+    y, m, l, _, D = outs[:5]
+    return (*K.fwd_fused_plain(ws, w, x, tau),
+            K.colsum_plain(ws, w, tau, m, l, x.dtype),
+            *K.bwd_dws_delta_plain(ws, w, x, tau, m, l, dy, y, dc),
+            *K.bwd_dx_plain(ws, w, x, tau, m, l, dy, dc, D))
+
+
+def band_twins(K, outs, ws, xs, tau, dy, dc, k):
+    """The four banded twins, fed the kernels' own y, m, l and D."""
+    y, m, l, _, D = outs[:5]
+    return (*K.fwd_band_plain(ws, xs, tau, k),
+            K.colsum_band_plain(ws, tau, m, l, k, xs.dtype),
+            *K.bwd_band_dws_delta_plain(ws, xs, tau, m, l, dy, y, dc, k),
+            *K.bwd_band_dcol_plain(ws, xs, tau, m, l, dy, dc, D, k))
+
+
+def per_instance_tau_case(torch, K, kind):
+    """The per-instance temperature case of ``kernel_check`` (``kind``
+    "dense"), ``band_kernel_check`` ("banded", K = TAU_BAND) and
+    ``v1_kernel_check`` ("v1", float32): B = 4 instances at TAUS4, every
+    kernel reading its instance's tau[b].  Each kernel against its twin
+    at the same (B,) tau; row b bitwise the B = 1 launch at tau_b; one
+    shared tau bitwise its expansion to B."""
+    bsz, n, d = TAU_SHAPE
+    phase = {"dense": "kernel_check", "banded": "band_kernel_check",
+             "v1": "v1_kernel_check"}[kind]
+    dtypes = ((torch.float32,) if kind == "v1"
+              else (torch.float32, torch.bfloat16))
+    for cd in dtypes:
+        ws, w, x, _, dy, dc = kernel_operands(torch, bsz, n, d, cd, seed=91)
+        taus = torch.tensor(TAUS4, device="cuda")
+        if kind == "dense":
+            ops = (ws, w, x, dy, dc)
+
+            def run(o, t):
+                return kernel_pipeline(K, o[0], o[1], o[2], t, o[3], o[4])
+
+            def twins(outs):
+                return dense_twins(K, outs, ws, w, x, taus, dy, dc)
+        elif kind == "banded":
+            ops = (ws, x, dy, dc)
+
+            def run(o, t):
+                return band_pipeline(K, o[0], o[1], t, o[2], o[3], TAU_BAND)
+
+            def twins(outs):
+                return band_twins(K, outs, ws, x, taus, dy, dc, TAU_BAND)
+        else:
+            ops = (ws, w, x)
+
+            def run(o, t):
+                return v1_pipeline(K, o[0], o[1], o[2], t)
+
+            def twins(outs):
+                return (*K.v1_stats_plain(ws, w, taus),
+                        K.v1_apply_plain(ws, w, x, taus, outs[0], outs[1]))
+        outs = run(ops, taus)
+        want = twins(outs)
+        torch.cuda.synchronize()
+        if kind == "v1":
+            errs = {"v1_stats": max(check("m", outs[0], want[0],
+                                          atol=FWD_ATOL),
+                                    check("l", outs[1], want[1],
+                                          rtol=FWD_ATOL)),
+                    "v1_apply": check("y", outs[2], want[2], atol=FWD_ATOL)}
+        else:
+            names = DENSE if kind == "dense" else BAND
+            errs = {k: max(v) for k, v in zip(names, kernel_errors(
+                outs, want, cd == torch.float32))}
+        for b in range(bsz):
+            alone = run([t[b:b + 1].contiguous() for t in ops],
+                        taus[b:b + 1])
+            for got, row in zip(alone, outs):
+                require(torch.equal(got[0], row[b]),
+                        f"{kind}: instance {b} alone at its tau != its row")
+        shared = run(ops, taus[2:3])
+        expanded = run(ops, taus[2:3].expand(bsz).contiguous())
+        for a, e in zip(shared, expanded):
+            require(torch.equal(a, e), f"{kind}: one tau != its expansion")
+        emit(phase, shape=[bsz, n, d] + ([TAU_BAND] if kind == "banded"
+                                         else []),
+             dtype=str(cd), tau=list(TAUS4), max_abs_err=errs,
+             batch_invariant=True, shared_tau_equals_expanded=True)
+
+
 def require_batch_invariant(torch, pipeline, operands, outs):
     """The last instance run alone gives bitwise the batch's last row:
     blocks of one instance never touch another's, and no atomics."""
@@ -375,7 +453,7 @@ def time_kernels(torch, stats, names, calls, shape):
 
 def kernel_phase(torch, K):
     """Phase 2: every dense kernel against its twin; times at the main
-    shape."""
+    shape; then the per-instance temperature case."""
     stats = {k: {"max_abs_err": 0.0} for k in DENSE}
     cases = [(s, False) for s in DENSE_SHAPES] + [(INDEPENDENT_SHAPE, True)]
     for (bsz, n, d), independent in cases:
@@ -385,10 +463,7 @@ def kernel_phase(torch, K):
                 torch, bsz, n, d, cd, seed=n + d, independent=independent)
             outs = kernel_pipeline(K, ws, w, x, tau, dy, dc)
             y, m, l, c, D, dws, dx, dwc, dtc = outs
-            twins = (*K.fwd_fused_plain(ws, w, x, tau),
-                     K.colsum_plain(ws, w, tau, m, l, cd),
-                     *K.bwd_dws_delta_plain(ws, w, x, tau, m, l, dy, y, dc),
-                     *K.bwd_dx_plain(ws, w, x, tau, m, l, dy, dc, D))
+            twins = dense_twins(K, outs, ws, w, x, tau, dy, dc)
             torch.cuda.synchronize()
             # Kernel 1's first sweep takes the maximum of the same rounded
             # scores as the twin's running maximum: equal bitwise.
@@ -407,20 +482,29 @@ def kernel_phase(torch, K):
                 continue
             for k, v in errs.items():
                 stats[k]["max_abs_err"] = max(v)
-            calls = [
-                (lambda: K.fwd_fused(ws, w, x, tau),
-                 lambda: K.fwd_fused_plain(ws, w, x, tau)),
-                (lambda: K.colsum(ws, w, tau, m, l),
-                 lambda: K.colsum_plain(ws, w, tau, m, l)),
-                (lambda: K.bwd_dws_delta(ws, w, x, tau, m, l, dy, y, dc),
-                 lambda: K.bwd_dws_delta_plain(ws, w, x, tau, m, l, dy, y,
-                                               dc)),
-                (lambda: K.bwd_dx(ws, w, x, tau, m, l, dy, dc, D),
-                 lambda: K.bwd_dx_plain(ws, w, x, tau, m, l, dy, dc, D)),
-            ]
+
+            def calls_at(t):
+                return [
+                    (lambda: K.fwd_fused(ws, w, x, t),
+                     lambda: K.fwd_fused_plain(ws, w, x, t)),
+                    (lambda: K.colsum(ws, w, t, m, l),
+                     lambda: K.colsum_plain(ws, w, t, m, l)),
+                    (lambda: K.bwd_dws_delta(ws, w, x, t, m, l, dy, y, dc),
+                     lambda: K.bwd_dws_delta_plain(ws, w, x, t, m, l, dy, y,
+                                                   dc)),
+                    (lambda: K.bwd_dx(ws, w, x, t, m, l, dy, dc, D),
+                     lambda: K.bwd_dx_plain(ws, w, x, t, m, l, dy, dc, D)),
+                ]
+
+            # Timed with the (B,) tau the autograd Function hands the
+            # kernels; graph_ms_shared_tau captures the (1,) tau call,
+            # its expansion to B included.
+            calls = calls_at(tau.expand(bsz).contiguous())
             time_kernels(torch, stats, DENSE, calls, (bsz, n, d))
             for k, (kern, _) in zip(DENSE, calls):
                 stats[k]["graph_ms"] = graph_ms(torch, kern)
+            for k, (kern, _) in zip(DENSE, calls_at(tau)):
+                stats[k]["graph_ms_shared_tau"] = graph_ms(torch, kern)
             inv_tau = 1.0 / tau
 
             def library_fwd():   # yardstick only: the port never calls it
@@ -431,12 +515,14 @@ def kernel_phase(torch, K):
                                                        reps=5)
             emit("kernel_times", shape=[bsz, n, d], dtype=str(cd),
                  times=stats)
+    per_instance_tau_case(torch, K, "dense")
     return stats
 
 
 def band_kernel_phase(torch, K, core):
-    """Phase 3: every banded kernel against its twin at the four shapes;
-    times at the first two.  Returns the stats of each timed shape."""
+    """Phase 3: every banded kernel against its twin at the six shapes;
+    times at the first two; then the per-instance temperature case.
+    Returns the stats of each timed shape."""
     timed = {}
     for bsz, n, d, k in BAND_SHAPES:
         for cd in (torch.float32, torch.bfloat16):
@@ -445,11 +531,7 @@ def band_kernel_phase(torch, K, core):
                                                      seed=n + d + k)
             outs = band_pipeline(K, ws, xs, tau, dy, dc, k)
             y, m, l, c, D, dws, dxs, dwc, dtc = outs
-            twins = (*K.fwd_band_plain(ws, xs, tau, k),
-                     K.colsum_band_plain(ws, tau, m, l, k, cd),
-                     *K.bwd_band_dws_delta_plain(ws, xs, tau, m, l, dy, y,
-                                                 dc, k),
-                     *K.bwd_band_dcol_plain(ws, xs, tau, m, l, dy, dc, D, k))
+            twins = band_twins(K, outs, ws, xs, tau, dy, dc, k)
             torch.cuda.synchronize()
             require_batch_invariant(
                 torch, lambda *a: band_pipeline(K, *a),
@@ -462,22 +544,29 @@ def band_kernel_phase(torch, K, core):
             if not (f32 and (bsz, n, d, k) in BAND_TIMED):
                 continue
             stats = {kk: {"max_abs_err": max(v)} for kk, v in errs.items()}
-            calls = [
-                (lambda: K.fwd_band(ws, xs, tau, k),
-                 lambda: K.fwd_band_plain(ws, xs, tau, k)),
-                (lambda: K.colsum_band(ws, tau, m, l, k),
-                 lambda: K.colsum_band_plain(ws, tau, m, l, k)),
-                (lambda: K.bwd_band_dws_delta(ws, xs, tau, m, l, dy, y, dc,
-                                              k),
-                 lambda: K.bwd_band_dws_delta_plain(ws, xs, tau, m, l, dy, y,
-                                                    dc, k)),
-                (lambda: K.bwd_band_dcol(ws, xs, tau, m, l, dy, dc, D, k),
-                 lambda: K.bwd_band_dcol_plain(ws, xs, tau, m, l, dy, dc, D,
-                                               k)),
-            ]
+
+            def calls_at(t):
+                return [
+                    (lambda: K.fwd_band(ws, xs, t, k),
+                     lambda: K.fwd_band_plain(ws, xs, t, k)),
+                    (lambda: K.colsum_band(ws, t, m, l, k),
+                     lambda: K.colsum_band_plain(ws, t, m, l, k)),
+                    (lambda: K.bwd_band_dws_delta(ws, xs, t, m, l, dy, y, dc,
+                                                  k),
+                     lambda: K.bwd_band_dws_delta_plain(ws, xs, t, m, l, dy,
+                                                        y, dc, k)),
+                    (lambda: K.bwd_band_dcol(ws, xs, t, m, l, dy, dc, D, k),
+                     lambda: K.bwd_band_dcol_plain(ws, xs, t, m, l, dy, dc,
+                                                   D, k)),
+                ]
+
+            # The (B,) tau of the autograd Function, as in kernel_phase.
+            calls = calls_at(tau.expand(bsz).contiguous())
             time_kernels(torch, stats, BAND, calls, (bsz, n, d, k))
             for kk, (kern, _) in zip(BAND, calls):
                 stats[kk]["graph_ms"] = graph_ms(torch, kern)
+            for kk, (kern, _) in zip(BAND, calls_at(tau)):
+                stats[kk]["graph_ms_shared_tau"] = graph_ms(torch, kern)
             extra = {}
             if n <= 4096:
                 inv_tau = 1.0 / tau
@@ -496,6 +585,7 @@ def band_kernel_phase(torch, K, core):
             emit("band_kernel_times", shape=[bsz, n, d, k], dtype=str(cd),
                  times=stats, **extra)
             timed[(bsz, n, d, k)] = stats
+    per_instance_tau_case(torch, K, "banded")
     return timed
 
 
@@ -572,7 +662,9 @@ def require_counts(counts, want):
 def catalog_runs(torch, core, K):
     """Phases 5-7 on the clustered 4096-item catalog (d = 50): the dense
     main run, the all-banded main run, the run across the band switch.
-    Returns the launch counts of the dense main run."""
+    Returns the catalog, the launch counts of the dense main run, and the
+    all-banded run's result and timing (the fixed schedule that
+    ``adaptive_run`` is held against)."""
     from repro_torch.core.shufflesoftsort import _band_switch_round
 
     b, s, hw, d = 4, 2, (64, 64), 50
@@ -582,7 +674,7 @@ def catalog_runs(torch, core, K):
                    for i in range(b)])
     nbr_before = [core.mean_neighbor_distance(xs[i], hw) for i in range(b)]
     per_step = rounds * inner
-    dense_counts = None
+    dense_counts = fixed = None
     for phase, band in (("main_run", None), ("band_main_run", "auto")):
         cfg = core.ShuffleSoftSortConfig(rounds=rounds, inner_steps=inner,
                                          use_kernel=True, band=band)
@@ -606,6 +698,8 @@ def catalog_runs(torch, core, K):
              mean_neighbor_distance_sorted=nbr_after)
         if band is None:
             dense_counts = counts
+        else:
+            fixed = res, timing
 
     # Across the switch: 2 problems x 1 restart, band 24, 16 rounds.
     cfg = core.ShuffleSoftSortConfig(rounds=16, inner_steps=inner,
@@ -617,13 +711,138 @@ def catalog_runs(torch, core, K):
                             **{k: (16 - switch) * inner for k in BAND}})
     emit("band_switch_run", problems=2, restarts=1, n=n, d=d, band=24,
          rounds=16, inner_steps=inner, switch_round=switch, **timing)
-    return dense_counts
+    return xs, dense_counts, fixed
+
+
+# The adaptive runs on the catalog of phases 5-7 (4 problems x 2 restarts,
+# N = 4096, d = 50, 64 x 64, band="auto", 8 inner steps, float32):
+# "adaptive_run" is band_main_run's configuration (32 rounds) with
+# adapt_every=4 and the controller's defaults; "adaptive_claim_run" has
+# the settings of the reference's adaptive rows in BENCH_scaling.json
+# (80 rounds, tau_end 0.02, adapt_every 5, patience 1, plateau_rtol 0.02,
+# decay_rungs 2), whose claim (about 30% of the rounds saved at under 1%
+# final-loss gap, on the CPU at N = 64 and 256) it checks at N = 4096.
+ADAPTIVE_RUNS = {
+    "adaptive_run": dict(rounds=32, adapt_every=4),
+    "adaptive_claim_run": dict(rounds=80, tau_end=0.02, adapt_every=5,
+                               patience=1, plateau_rtol=0.02,
+                               decay_rungs=2),
+}
+
+
+def adaptive_run(torch, core, K, xs, fixed, phase, hw=(64, 64)):
+    """Phase 6b: one of ADAPTIVE_RUNS through
+    ``shuffle_soft_sort_batched``, against ``fixed``, the result and
+    timing of the same configuration on the fixed schedule.  The
+    controller's rung decisions and the ragged dispatches (which group,
+    how many instances and rounds) are read through two spies on the
+    engine; the kernels count their own launches.  Checks: every dense
+    and banded launch accounted for by the groups' rounds x inner steps,
+    valid permutations, every instance's last-executed loss below its
+    round-0 loss, and each winner's neighbour distance below a random
+    layout's.  Reports ms per rung and per executed instance-round,
+    rounds executed and saved, and the last-executed losses beside the
+    fixed schedule's."""
+    import importlib
+
+    eng = importlib.import_module("repro_torch.core.shufflesoftsort")
+    b, s = xs.shape[0], 2
+    n = hw[0] * hw[1]
+    cfg = adaptive_config(core, phase)
+    rounds, inner = cfg.rounds, cfg.inner_steps
+    made, groups, stamps = [], [], []
+    make, ragged = eng.make_adaptive_controller, eng._run_rounds_ragged
+
+    def make_spy(*args, **kw):
+        ctrl = make(*args, **kw)
+        observe = ctrl.observe
+
+        def stamped(*a, **k):
+            stamps.append(time.perf_counter())   # after the rung's sync
+            return observe(*a, **k)
+
+        ctrl.observe = stamped
+        made.append(ctrl)
+        return ctrl
+
+    def ragged_spy(xs_, orders, source, rows, tau_rows, norms, **kw):
+        groups.append({"rung": len(made[0].decisions) + 1,
+                       "banded": kw["apply_fn"].func.__name__
+                       == "softsort_apply_banded",
+                       "instances": len(rows), "rounds": len(tau_rows)})
+        return ragged(xs_, orders, source, rows, tau_rows, norms, **kw)
+
+    emit(phase + "_config", problems=b, restarts=s, n=n, d=xs.shape[2],
+         grid=hw, rounds=rounds, inner_steps=inner, band="auto",
+         band_k=core.resolve_band(cfg, n), tau_end=cfg.tau_end,
+         adapt_every=cfg.adapt_every, patience=cfg.patience,
+         plateau_rtol=cfg.plateau_rtol, decay_rungs=cfg.decay_rungs,
+         ewma_alpha=cfg.ewma_alpha, compute_dtype=cfg.compute_dtype)
+    eng.make_adaptive_controller, eng._run_rounds_ragged = make_spy, \
+        ragged_spy
+    try:
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = core.shuffle_soft_sort_batched(xs, hw, cfg, n_restarts=s,
+                                             seed=0, device="cuda")
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+        counts = K.launch_counts()
+    finally:
+        eng.make_adaptive_controller, eng._run_rounds_ragged = make, ragged
+    (ctrl,) = made
+    want = {k: 0 for k in DENSE + BAND}
+    for g in groups:
+        for k in (BAND if g["banded"] else DENSE):
+            want[k] += g["rounds"] * inner
+    require_counts(counts, want)
+    for row in res.all_orders.reshape(-1, n):
+        require(core.is_valid_permutation(row), "invalid permutation")
+    executed = res.rounds_executed.reshape(-1)
+    losses = res.all_losses.reshape(b * s, rounds)
+    first = losses[:, 0]
+    last = losses[np.arange(b * s), executed - 1]
+    require(np.isfinite(last).all() and (last < first).all(),
+            f"loss did not fall: {first} -> {last}")
+    require(int((~np.isnan(losses)).sum()) == int(executed.sum()),
+            "losses past an early stop are not NaN")
+    rng = np.random.RandomState(1)
+    nbr_random = [neighbor_distance(xs[i][rng.permutation(n)], hw)
+                  for i in range(b)]
+    nbr_sorted = [neighbor_distance(res.sorted[i], hw) for i in range(b)]
+    require(all(a < r for a, r in zip(nbr_sorted, nbr_random)),
+            f"neighbour distance: {nbr_random} -> {nbr_sorted}")
+    fixed_res, fixed_timing = fixed
+    fixed_last = fixed_res.all_losses.reshape(b * s, rounds)[:, -1]
+    rung_ms = np.diff([t0] + stamps) * 1e3
+    emit(phase, seconds=total,
+         ms_per_rung=rung_ms.tolist(),
+         ms_per_instance_round=total * 1e3 / int(executed.sum()),
+         rounds_executed=executed.tolist(),
+         rounds_saved=ctrl.rounds_saved(),
+         rounds_saved_fraction=ctrl.rounds_saved() / (b * s * rounds),
+         rungs=[dict(step=d.step, boundary=d.boundary, live=d.n_live,
+                     fired=d.fired, stopped=d.stopped, switched=d.switched)
+                for d in ctrl.decisions],
+         groups=groups, launches=counts,
+         loss_last_executed=last.tolist(), loss_fixed=fixed_last.tolist(),
+         loss_gap_vs_fixed=((last - fixed_last) / fixed_last).tolist(),
+         fixed_seconds=fixed_timing["seconds"],
+         fixed_ms_per_round=fixed_timing["ms_per_round"],
+         best_restart=res.best_restart.tolist(),
+         neighbor_distance_random=nbr_random,
+         neighbor_distance_sorted=nbr_sorted)
 
 
 def sog_run(torch, core, K):
     """Phase 8: the slice at full width, the paper's section IV-B
     workload.  Returns the launch counts."""
     from repro_torch.core.shufflesoftsort import _band_switch_round
+    from repro_torch.examples.self_organizing_gaussians import (
+        plane_bytes,
+        synthetic_scene,
+    )
 
     hw, restarts, rounds, inner = (256, 256), 2, 32, 8
     n = hw[0] * hw[1]
@@ -660,6 +879,112 @@ def sog_run(torch, core, K):
     return counts
 
 
+# Alternating fixed / adaptive pairs timed for adaptive_claim_run's
+# seconds saved.
+CLAIM_PAIRS = 4
+
+
+def run_seconds(torch, core, xs, hw, cfg):
+    """Host seconds of one ``shuffle_soft_sort_batched`` run (2 restarts,
+    no per-round callback) on the card."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    core.shuffle_soft_sort_batched(xs, hw, cfg, n_restarts=2, seed=0,
+                                   device="cuda")
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def adaptive_config(core, phase):
+    """The config of one of ADAPTIVE_RUNS (``schedule="adaptive"``)."""
+    return core.ShuffleSoftSortConfig(inner_steps=8, use_kernel=True,
+                                      band="auto", schedule="adaptive",
+                                      **ADAPTIVE_RUNS[phase])
+
+
+def adaptive_phases(torch, core, K, xs, band_fixed, hw=(64, 64)):
+    """Phase 6b: both ADAPTIVE_RUNS.  ``adaptive_run`` is held against
+    ``band_main_run`` (its configuration on the fixed schedule);
+    ``adaptive_claim_run`` against a fixed run of its own configuration,
+    made here, and then timed against it in CLAIM_PAIRS alternating
+    pairs."""
+    import dataclasses
+
+    adaptive_run(torch, core, K, xs, band_fixed, "adaptive_run", hw)
+    phase = "adaptive_claim_run"
+    cfg = dataclasses.replace(adaptive_config(core, phase),
+                              schedule="fixed")
+    res, counts, timing = anneal(torch, core, K, xs, hw, cfg, 2)
+    emit(phase + "_fixed", **timing)
+    adaptive_run(torch, core, K, xs, (res, timing), phase, hw)
+    # Seconds saved from alternating pairs, neither run with a per-round
+    # callback: one run of each differs from the next by about as much
+    # as the saving (host-bound rounds).
+    adapt = adaptive_config(core, phase)
+    fixed_s, adapt_s = [], []
+    for _ in range(CLAIM_PAIRS):
+        fixed_s.append(run_seconds(torch, core, xs, hw, cfg))
+        adapt_s.append(run_seconds(torch, core, xs, hw, adapt))
+    saved = [1 - a / f for f, a in zip(fixed_s, adapt_s)]
+    emit(phase + "_pairs", fixed_seconds=fixed_s, adaptive_seconds=adapt_s,
+         seconds_saved_fraction=saved,
+         median_seconds_saved_fraction=float(np.median(saved)))
+
+
+def correlated_weight(rng, d, f, rank=16):
+    """A (d, f) float32 weight with correlated columns: a rank-``rank``
+    product plus small noise, a quarter of its columns duplicated (with
+    a little noise) into other places."""
+    w = (rng.standard_normal((d, rank)) @ rng.standard_normal((rank, f))
+         / np.sqrt(rank) + 0.05 * rng.standard_normal((d, f)))
+    dst = rng.permutation(f)[:f // 4]
+    src = rng.permutation(f)[:f // 4]
+    w[:, dst] = w[:, src] + 0.01 * rng.standard_normal((d, f // 4))
+    return w.astype(np.float32)
+
+
+def sog_codec(torch):
+    """Phase 8b: the SOG checkpoint codec (``repro_torch.runtime
+    .sog_compress.compress_checkpoint``) on the card: two blocks of a
+    (1024, 4096) and a (4096, 1024) weight with correlated columns, made
+    from a seed.  Each weight's 4096 or 1024 columns are sorted by
+    ``shuffle_soft_sort`` (the reference codec's config: 80 rounds x 4
+    inner steps), then quantized, delta-coded and deflated.  Reports the
+    seconds and the sog, baseline and raw bytes; requires valid
+    permutations and an exact round trip of every weight."""
+    from repro_torch.runtime import sog_compress as sog
+
+    rng = np.random.default_rng(0)
+    params = {"blocks": [{"w_in": correlated_weight(rng, 1024, 4096),
+                          "w_out": correlated_weight(rng, 4096, 1024)}
+                         for _ in range(2)]}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = sog.compress_checkpoint(params, device="cuda")
+    seconds = time.perf_counter() - t0
+    leaves = [params["blocks"][i][k] for i in range(2)
+              for k in ("w_in", "w_out")]
+    require(len(out["blobs"]) == 4 and all(out["blobs"]), "blob count")
+    per_leaf = []
+    for path, leaf, blob in zip(out["paths"], leaves, out["blobs"]):
+        require(np.array_equal(np.sort(blob["perm"]),
+                               np.arange(leaf.shape[1])),
+                f"{path}: the order is not a permutation")
+        q, scale = sog._quantize(leaf)
+        require(blob["scale"] == scale and np.array_equal(
+            sog.sog_decompress_tensor(blob), q.astype(np.float32) * scale),
+            f"{path}: the round trip is not exact")
+        per_leaf.append({"path": list(path), "shape": list(leaf.shape),
+                         "bytes": blob["bytes"],
+                         "baseline_bytes": blob["baseline_bytes"]})
+    emit("sog_codec", seconds=seconds, leaves=per_leaf,
+         sog_bytes=out["stats"]["sog_bytes"],
+         baseline_bytes=out["stats"]["baseline_bytes"],
+         raw_bytes=out["stats"]["raw_bytes"],
+         gain_vs_baseline=out["stats"]["gain_vs_baseline"],
+         ratio_vs_raw=out["stats"]["ratio_vs_raw"], round_trip="exact")
+
+
 def v1_pipeline(K, ws, w, x, tau):
     """The v1 split forward's two kernels in order; returns m, l, y."""
     m, l = K.v1_stats(ws, w, tau)
@@ -669,7 +994,7 @@ def v1_pipeline(K, ws, w, x, tau):
 def v1_kernel_phase(torch, K):
     """Phase 9: v1_stats and v1_apply against their twins at the shapes of
     phase 2, float32; times at the main shape, and the v1 forward against
-    the fused one."""
+    the fused one; then the per-instance temperature case."""
     stats = {}
     cases = [(s, False) for s in DENSE_SHAPES] + [(INDEPENDENT_SHAPE, True)]
     for (bsz, n, d), independent in cases:
@@ -697,13 +1022,21 @@ def v1_kernel_phase(torch, K):
         if independent or (bsz, n, d) != MAIN_SHAPE:
             continue
         stats = {k: {"max_abs_err": v} for k, v in errs.items()}
-        calls = [(lambda: K.v1_stats(ws, w, tau),
-                  lambda: K.v1_stats_plain(ws, w, tau)),
-                 (lambda: K.v1_apply(ws, w, x, tau, m, l),
-                  lambda: K.v1_apply_plain(ws, w, x, tau, m, l))]
+
+        def calls_at(t):
+            return [(lambda: K.v1_stats(ws, w, t),
+                     lambda: K.v1_stats_plain(ws, w, t)),
+                    (lambda: K.v1_apply(ws, w, x, t, m, l),
+                     lambda: K.v1_apply_plain(ws, w, x, t, m, l))]
+
+        # The (B,) tau of the autograd Function, as in kernel_phase.
+        tau_b = tau.expand(bsz).contiguous()
+        calls = calls_at(tau_b)
         time_kernels(torch, stats, V1, calls, (bsz, n, d))
         for k, (kern, _) in zip(V1, calls):
             stats[k]["graph_ms"] = graph_ms(torch, kern)
+        for k, (kern, _) in zip(V1, calls_at(tau)):
+            stats[k]["graph_ms_shared_tau"] = graph_ms(torch, kern)
         inv_tau = 1.0 / tau
 
         def library_fwd():   # yardstick only: the port never calls it
@@ -718,18 +1051,19 @@ def v1_kernel_phase(torch, K):
         # The two forwards the kernel bench compares, each one graph: v1
         # (m and l through device memory between three passes) and fused.
         def v1_fwd():
-            m_, l_ = K.v1_stats(ws, w, tau)
-            return K.v1_apply(ws, w, x, tau, m_, l_), K.colsum(ws, w, tau,
-                                                                m_, l_)
+            m_, l_ = K.v1_stats(ws, w, tau_b)
+            return K.v1_apply(ws, w, x, tau_b, m_, l_), K.colsum(
+                ws, w, tau_b, m_, l_)
 
         def fused_fwd():
-            y_, m_, l_ = K.fwd_fused(ws, w, x, tau)
-            return y_, K.colsum(ws, w, tau, m_, l_)
+            y_, m_, l_ = K.fwd_fused(ws, w, x, tau_b)
+            return y_, K.colsum(ws, w, tau_b, m_, l_)
 
         v1_ms, fused_ms = graph_ms(torch, v1_fwd), graph_ms(torch, fused_fwd)
         emit("v1_vs_fused", shape=[bsz, n, d], dtype="torch.float32",
              v1_forward_graph_ms=v1_ms, fused_forward_graph_ms=fused_ms,
              v1_over_fused=v1_ms / fused_ms)
+    per_instance_tau_case(torch, K, "v1")
     return stats
 
 
@@ -989,9 +1323,11 @@ def main():
     stats.update(v1_kernel_phase(torch, K))
     stats.update(flash_kernel_phase(torch, F, flash_ops))
     function_phase(torch, ops, ref, core)
-    launches = catalog_runs(torch, core, K)
+    xs, launches, fixed = catalog_runs(torch, core, K)
+    adaptive_phases(torch, core, K, xs, fixed)
     launches.update({k: v for k, v in sog_run(torch, core, K).items()
                      if k in BAND})
+    sog_codec(torch)
     launches.update({k: v for k, v in kernel_bench_phase(
         torch, kernels).items() if k in V1})
     launches.update({k: v for k, v in flash_main_run(

@@ -1,6 +1,6 @@
-# ShuffleSoftSort in PyTorch: softsort, the Algorithm 1 driver (fixed
-# schedule, dense and banded apply), losses eq. 2-4, metrics, and the
-# shuffle sources.
+# ShuffleSoftSort in PyTorch: softsort, the Algorithm 1 driver (fixed and
+# adaptive schedules, dense and banded apply), the adaptive controller,
+# losses eq. 2-4, metrics, and the shuffle sources.
 from repro_torch.core.softsort import (  # noqa: F401
     softsort_matrix,
     softsort_apply_chunked,
@@ -17,6 +17,11 @@ from repro_torch.core.losses import (  # noqa: F401
     grid_sorting_loss,
     mean_pairwise_distance,
 )
+from repro_torch.core.annealing import (  # noqa: F401
+    AdaptiveController,
+    RungDecision,
+    adaptive_seg_len,
+)
 from repro_torch.core.metrics import dpq, mean_neighbor_distance  # noqa: F401
 from repro_torch.core.prng import (  # noqa: F401
     ReplayShuffleSource,
@@ -28,6 +33,7 @@ from repro_torch.core.shufflesoftsort import (  # noqa: F401
     BatchedSortResult,
     NumericalDivergence,
     ShuffleSoftSortConfig,
+    make_adaptive_controller,
     resolve_band,
     resolve_device,
     shuffle_soft_sort,

@@ -8,6 +8,13 @@ reference hands out — ``dataclasses.asdict`` of its config, and the
 (batched) arrays its anneal checkpointer stores — so the port can
 continue the run from that boundary.  The shuffles of the remaining
 rounds come from a replay source (``repro_torch.core.prng``).
+
+The adaptive schedule's controller state needs nothing here: the port's
+``AdaptiveController`` (``repro_torch.core.annealing``) keeps the same
+fields in the same dtypes as the reference's, so a reference
+controller's ``state_dict()`` (or the ``ctrl_*`` arrays its anneal
+checkpointer stores) loads into it with ``load_state_dict`` unchanged,
+and both go on to the same decisions on the same observations.
 """
 from __future__ import annotations
 

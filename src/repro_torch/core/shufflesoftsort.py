@@ -14,9 +14,9 @@ Learns a permutation of N items with only N parameters by iterating:
           w    <- Adam step
       order <- commit argsort(w) through the shuffle
 
-Counterpart of ``repro.core.shufflesoftsort`` on its fixed-schedule,
-single-device path.  The engine runs B problems x S restarts as one
-(BS, N) batch; ``shuffle_soft_sort`` is the BS = 1 case of the same
+Counterpart of ``repro.core.shufflesoftsort`` on its single-device path,
+fixed and adaptive schedules.  The engine runs B problems x S restarts as
+one (BS, N) batch; ``shuffle_soft_sort`` is the BS = 1 case of the same
 code.  Each round's shuffles come from a shuffle source
 (``repro_torch.core.prng``): per-instance ``torch.Generator`` streams by
 default, or a replayed array.  ``cfg.use_kernel`` routes the SoftSort
@@ -25,12 +25,23 @@ apply, forward and backward, through the kernel tier
 O(N^2) apply for the O(N K) banded one from the round
 ``_band_switch_round`` names on, in both engines alike.
 
+``cfg.schedule="adaptive"`` runs the same nominal schedule under the
+plateau controller of ``repro_torch.core.annealing``: at every rung
+boundary (``adapt_every`` rounds) an instance may jump ahead in the
+schedule, stop early, or switch to the banded apply on its measured tail
+bound.  Instances then sit at different temperatures, so the ragged
+engine ``_run_rounds_ragged`` gives each its own row of inner
+temperatures and the kernels read one tau per instance; the live
+instances run as at most two groups per rung (dense and banded), each
+one batch.
+
 Entry points run on CUDA unless ``device`` says otherwise; without a CUDA
 device they raise rather than fall back to the CPU.
 
 Return contract: ``order`` is the (N,) int32 permutation mapping grid
 cell -> input row, ``sorted`` is ``x[order]``, and ``losses`` is the
-per-round loss trace (the last inner step's loss of each round).
+per-round loss trace (the last inner step's loss of each round; with
+the adaptive schedule, NaN past an instance's early stop).
 """
 from __future__ import annotations
 
@@ -41,6 +52,7 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch.core.annealing import AdaptiveController, adaptive_seg_len
 from repro_torch.core.losses import grid_sorting_loss, mean_pairwise_distance
 from repro_torch.core.prng import (
     ShuffleSource,
@@ -73,7 +85,7 @@ class ShuffleSoftSortConfig:
                                     # once the anneal is cold enough
     band_eps: float = 1e-6
     compute_dtype: str = "float32"  # kernel tier: "float32" or "bfloat16"
-    schedule: str = "fixed"     # "adaptive": not ported yet
+    schedule: str = "fixed"     # "fixed" | "adaptive" (core.annealing)
     adapt_every: int = 0
     patience: int = 2
     plateau_rtol: float = 1e-3
@@ -100,19 +112,27 @@ class NumericalDivergence(RuntimeError):
 
 
 def _check_finite(losses_seg, start: int, cfg: ShuffleSoftSortConfig,
-                  context: str) -> None:
+                  context: str, ws=None) -> None:
     """Raise ``NumericalDivergence`` at the first non-finite round of
-    ``losses_seg`` ((T, ...) round-major, global rounds [start, start+T))."""
+    ``losses_seg`` ((T, ...) round-major, global rounds [start, start+T)),
+    or, given ``ws`` (the end-of-rung keys), at the segment's last round
+    if a key is not finite."""
     losses_seg = np.asarray(losses_seg)
     bad = ~np.isfinite(losses_seg)
     if bad.any():
         per_round = bad.reshape(losses_seg.shape[0], -1).any(axis=1)
         rnd = start + int(np.argmax(per_round))
-        tau = float(_tau_schedule(cfg)[min(rnd, cfg.rounds - 1)])
-        raise NumericalDivergence(
-            f"non-finite loss at round {rnd} (tau~{tau:.4g}, "
-            f"compute_dtype={cfg.compute_dtype}, engine={context})",
-            round=rnd, tau=tau, dtype=cfg.compute_dtype, context=context)
+        what = "loss"
+    elif ws is not None and not np.isfinite(np.asarray(ws)).all():
+        rnd = start + losses_seg.shape[0] - 1
+        what = "trained keys"
+    else:
+        return
+    tau = float(_tau_schedule(cfg)[min(rnd, cfg.rounds - 1)])
+    raise NumericalDivergence(
+        f"non-finite {what} at round {rnd} (tau~{tau:.4g}, "
+        f"compute_dtype={cfg.compute_dtype}, engine={context})",
+        round=rnd, tau=tau, dtype=cfg.compute_dtype, context=context)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -127,14 +147,16 @@ def resolve_device(device=None) -> torch.device:
     return torch.device(device)
 
 
-def _check_ported(cfg: ShuffleSoftSortConfig, **features) -> None:
-    """Refuse every setting whose code is not ported yet."""
+def _check_schedule(cfg: ShuffleSoftSortConfig) -> None:
     if cfg.schedule not in ("fixed", "adaptive"):
         raise ValueError(
             f"cfg.schedule={cfg.schedule!r} must be 'fixed' or 'adaptive'")
+
+
+def _check_ported(cfg: ShuffleSoftSortConfig, **features) -> None:
+    """Refuse every setting whose code is not ported yet."""
+    _check_schedule(cfg)
     todo = {
-        "schedule='adaptive'": (cfg.schedule == "adaptive",
-                                "adaptive annealing (ROADMAP.md Queue A8)"),
         "mesh": (features.get("mesh") is not None,
                  "multi-GPU instance sharding (ROADMAP.md Queue A11)"),
         "checkpoint_dir": (features.get("checkpoint_dir") is not None,
@@ -162,24 +184,35 @@ def _loss_fn(w, x_shuf, inv_shuf, tau, hw, norm, cfg: ShuffleSoftSortConfig,
                              lambda_sigma=cfg.lambda_sigma)
 
 
-def _inner_taus(cfg: ShuffleSoftSortConfig) -> np.ndarray:
-    """(R, I) float32 inner-step temperatures ``tau_r * (ramp + (1 - ramp)
-    * frac_i)``, every operation in float32 as the reference does it."""
+def _inner_ramp(cfg: ShuffleSoftSortConfig) -> np.ndarray:
+    """(I,) float32 factors ``ramp + (1 - ramp) * frac_i`` of the inner
+    temperatures, every operation in float32 as the reference does it."""
     f32 = np.float32
     frac = (np.arange(cfg.inner_steps, dtype=f32)
             / f32(max(cfg.inner_steps - 1, 1)))
-    ramp = f32(cfg.inner_tau_ramp) + f32(1.0 - cfg.inner_tau_ramp) * frac
-    return _tau_schedule(cfg)[:, None] * ramp[None, :]
+    return f32(cfg.inner_tau_ramp) + f32(1.0 - cfg.inner_tau_ramp) * frac
+
+
+def _inner_taus(cfg: ShuffleSoftSortConfig) -> np.ndarray:
+    """(R, I) float32 inner-step temperatures ``tau_r * ramp_i``."""
+    return _tau_schedule(cfg)[:, None] * _inner_ramp(cfg)[None, :]
+
+
+def _adam_bias(cfg: ShuffleSoftSortConfig, device):
+    """(I,) Adam bias corrections ``1 - b1 ** t`` and ``1 - b2 ** t``."""
+    t = torch.arange(1, cfg.inner_steps + 1, dtype=_F32, device=device)
+    return 1 - cfg.b1 ** t, 1 - cfg.b2 ** t
 
 
 def _outer_round(xs, orders, shuf, tau_inner, norms, bias1, bias2, *,
                  hw, cfg: ShuffleSoftSortConfig, apply_fn):
     """One outer round for a (BS, N) batch of instances.
 
-    ``shuf`` (BS, N) is the round's shuffles, ``tau_inner`` (I,) the
-    device-resident inner temperatures, ``bias1``/``bias2`` (I,) the Adam
-    bias corrections ``1 - b ** t``.  Returns the committed orders and
-    the last inner step's losses (BS,).
+    ``shuf`` (BS, N) is the round's shuffles, ``tau_inner`` the
+    device-resident inner temperatures, (BS, I) with a row per instance or
+    (1, I) shared by the batch, ``bias1``/``bias2`` (I,) the Adam bias
+    corrections ``1 - b ** t``.  Returns the committed orders, the last
+    inner step's losses (BS,) and its trained keys ``w`` (BS, N).
     """
     bs, n = orders.shape
     d = xs.shape[-1]
@@ -190,12 +223,13 @@ def _outer_round(xs, orders, shuf, tau_inner, norms, bias1, bias2, *,
     w = torch.arange(n, dtype=_F32, device=xs.device).repeat(bs, 1)
     mu = torch.zeros_like(w)
     nu = torch.zeros_like(w)
+    taus = tau_inner.t().contiguous()       # row i: step i's temperatures
     loss = None
     for i in range(cfg.inner_steps):
         wv = w.detach().requires_grad_(True)
         with torch.enable_grad():
-            loss = _loss_fn(wv, x_shuf, inv_shuf, tau_inner[i:i + 1], hw,
-                            norms, cfg, apply_fn)
+            loss = _loss_fn(wv, x_shuf, inv_shuf, taus[i], hw, norms, cfg,
+                            apply_fn)
             (g,) = torch.autograd.grad(loss.sum(), wv)
         mu = cfg.b1 * mu + (1 - cfg.b1) * g
         nu = cfg.b2 * nu + (1 - cfg.b2) * torch.square(g)
@@ -208,7 +242,7 @@ def _outer_round(xs, orders, shuf, tau_inner, norms, bias1, bias2, *,
     sort_idx = torch.argsort(w, dim=-1, stable=True)
     g = torch.empty_like(shuf).scatter_(1, shuf, torch.gather(shuf, 1,
                                                               sort_idx))
-    return torch.gather(orders, 1, g), loss.detach()
+    return torch.gather(orders, 1, g), loss.detach(), w
 
 
 def _tau_schedule(cfg: ShuffleSoftSortConfig) -> np.ndarray:
@@ -299,14 +333,12 @@ def _run_rounds(xs_t, orders, source: ShuffleSource, norms_t, start: int, *,
     band_fn = dense_fn if band is None else _select_apply_fn(cfg, band)
     switch = _band_switch_round(cfg, n)
     tau_inner = torch.as_tensor(_inner_taus(cfg), device=dev)
-    t = torch.arange(1, cfg.inner_steps + 1, dtype=_F32, device=dev)
-    bias1 = 1 - cfg.b1 ** t
-    bias2 = 1 - cfg.b2 ** t
+    bias1, bias2 = _adam_bias(cfg, dev)
     losses = []
     for r in range(start, cfg.rounds):
         shuf = source.next_round()
-        orders, loss = _outer_round(
-            xs_t, orders, shuf, tau_inner[r], norms_t, bias1, bias2,
+        orders, loss, _ = _outer_round(
+            xs_t, orders, shuf, tau_inner[r:r + 1], norms_t, bias1, bias2,
             hw=hw, cfg=cfg, apply_fn=band_fn if r >= switch else dense_fn)
         losses.append(loss)
         if on_round is not None:
@@ -315,6 +347,103 @@ def _run_rounds(xs_t, orders, source: ShuffleSource, norms_t, start: int, *,
         return orders, torch.zeros((0, orders.shape[0]), dtype=_F32,
                                    device=dev)
     return orders, torch.stack(losses)
+
+
+def _run_rounds_ragged(xs, orders, source: ShuffleSource, rows, tau_rows,
+                       norms, *, hw, cfg: ShuffleSoftSortConfig, apply_fn):
+    """T rounds of a group of k instances, each at its own temperatures.
+
+    ``xs`` (k, N, d), ``orders`` (k, N) and ``norms`` (k,) are the group's
+    rows, gathered on the device; ``rows`` (k,) are their instance
+    indices, whose shuffle streams alone advance (one draw per round);
+    ``tau_rows`` (T, k) float32 holds column j's outer temperatures, so
+    instances at different points of the schedule share every launch.
+    The inner temperatures are ``tau_rows[t, j] * ramp_i`` in float32, the
+    fixed schedule's values wherever the temperatures are its own.
+
+    Returns orders (k, N), losses (T, k) and the last round's trained
+    keys ws (k, N), all on the device.
+    """
+    dev = xs.device
+    tau_rows = np.asarray(tau_rows, np.float32)
+    tau_inner = torch.as_tensor(tau_rows[:, :, None] * _inner_ramp(cfg),
+                                device=dev)               # (T, k, I)
+    bias1, bias2 = _adam_bias(cfg, dev)
+    losses, w = [], None
+    for t in range(tau_rows.shape[0]):
+        orders, loss, w = _outer_round(
+            xs, orders, source.next_round(rows), tau_inner[t], norms, bias1,
+            bias2, hw=hw, cfg=cfg, apply_fn=apply_fn)
+        losses.append(loss)
+    return orders, torch.stack(losses), w
+
+
+def make_adaptive_controller(cfg: ShuffleSoftSortConfig, n_instances: int,
+                             n: int, seg_len: int | None = None
+                             ) -> AdaptiveController:
+    """An ``AdaptiveController`` on this config's tau schedule and band
+    half-width for problem size ``n``; ``seg_len`` (a divisor of
+    ``cfg.rounds``) overrides the decision quantum."""
+    return AdaptiveController(
+        cfg, n_instances, taus=_tau_schedule(cfg),
+        band=resolve_band(cfg, n),
+        seg_len=adaptive_seg_len(cfg) if seg_len is None else int(seg_len))
+
+
+def _run_adaptive(xs_t, orders, source: ShuffleSource, norms_t, *, hw,
+                  cfg: ShuffleSoftSortConfig, controller: AdaptiveController):
+    """The adaptive schedule: rung by rung until no instance is live.
+
+    Each rung advances every live instance by ``seg_len`` rounds.  The
+    live instances split by the controller's measured regime into a dense
+    and a banded group; each group runs as one ragged dispatch at its
+    instances' own temperatures (one launch per kernel per inner step per
+    group).  Rows are gathered and scattered on the device; only the
+    rung's losses and last keys go to the host, where the controller
+    observes them and decides jumps, stops and switches for the next
+    rung.  Stopped instances leave the groups and draw no more shuffles.
+
+    Returns orders (BS, N) on the device and losses (BS, R) float32, NaN
+    at the rounds an instance never ran (``controller.executed`` counts
+    the rounds each ran).
+    """
+    ctrl = controller
+    seg = ctrl.seg_len
+    dev = xs_t.device
+    bs, n = orders.shape
+    dense_fn = _select_apply_fn(cfg)
+    band_fn = (dense_fn if ctrl.band is None
+               else _select_apply_fn(cfg, ctrl.band))
+    losses_mat = np.full((bs, cfg.rounds), np.nan, np.float32)
+    step = 0
+    while True:
+        live = ctrl.live_indices()
+        if live.size == 0:
+            break
+        # Stopped instances never rejoin, so every live instance has run
+        # exactly step * seg rounds.
+        exec0 = step * seg
+        seg_losses = np.empty((live.size, seg), np.float32)
+        ws_live = np.empty((live.size, n), np.float32)
+        banded_mask = ctrl.banded[live]
+        for is_banded in (False, True):
+            sel = np.flatnonzero(banded_mask == is_banded)
+            if sel.size == 0:
+                continue
+            gidx = live[sel]
+            rows = torch.as_tensor(gidx, device=dev)
+            o, l, w = _run_rounds_ragged(
+                xs_t[rows], orders[rows], source, gidx, ctrl.tau_rows(gidx),
+                norms_t[rows], hw=hw, cfg=cfg,
+                apply_fn=band_fn if is_banded else dense_fn)
+            orders = orders.index_copy(0, rows, o)
+            seg_losses[sel] = l.cpu().numpy().T
+            ws_live[sel] = w.cpu().numpy()
+        _check_finite(seg_losses.T, exec0, cfg, "adaptive", ws=ws_live)
+        losses_mat[live, exec0:exec0 + seg] = seg_losses
+        ctrl.observe(live, seg_losses, ws_live)
+        step += 1
+    return orders, losses_mat
 
 
 def _prep_instances(xs, hw, n_restarts, seed, seeds, source, norms, state,
@@ -383,8 +512,21 @@ def shuffle_soft_sort(
     (see ``repro_torch.core.reference``).  ``callback(r, order, loss)``
     is called after every round.  ``losses`` is the per-round list, one
     host sync per round, with a ``NumericalDivergence`` check on each.
+
+    ``cfg.schedule="adaptive"`` runs the plateau controller
+    (``repro_torch.core.annealing``): the run may stop at a rung boundary,
+    so ``losses`` holds the executed rounds only.  It decides at rung
+    boundaries, so it takes no per-round ``callback`` and no ``state``.
     """
     _check_ported(cfg, checkpoint_dir=checkpoint_dir, guardrail=guardrail)
+    if cfg.schedule == "adaptive":
+        _check_adaptive(callback, state)
+        res = shuffle_soft_sort_batched(
+            x[None], hw, cfg, 1, seeds=[seed], device=device, source=source,
+            norms=None if norm is None else [norm])
+        executed = int(res.rounds_executed[0, 0])
+        return (res.order[0], res.sorted[0],
+                [float(v) for v in res.losses[0][:executed]])
     device = resolve_device(device)
     x_t = torch.as_tensor(np.asarray(x) if not isinstance(x, torch.Tensor)
                           else x, dtype=_F32, device=device)
@@ -408,12 +550,24 @@ def shuffle_soft_sort(
     return order, xs[0].cpu().numpy()[order], losses
 
 
+def _check_adaptive(callback, state) -> None:
+    if callback is not None:
+        raise ValueError(
+            "callback streaming is not supported with schedule='adaptive' "
+            "(decisions happen at rung boundaries, not per round)")
+    if state is not None:
+        raise ValueError("state= continues a fixed-schedule run; "
+                         "schedule='adaptive' starts from round 0")
+
+
 @dataclasses.dataclass(frozen=True)
 class BatchedSortResult:
     """Result of ``shuffle_soft_sort_batched`` over B problems x S restarts.
 
     The per-problem fields report the winning restart, the one whose
-    final-round loss is lowest; the ``all_*`` fields keep every restart.
+    final-round loss is lowest (with the adaptive schedule: whose
+    last-executed loss is lowest); the ``all_*`` fields keep every
+    restart.
     """
     order: np.ndarray          # (B, N) int32 — best restart's permutation
     sorted: np.ndarray         # (B, N, d) — xs gathered by ``order``
@@ -421,6 +575,9 @@ class BatchedSortResult:
     best_restart: np.ndarray   # (B,) int — argmin_s all_losses[:, s, -1]
     all_orders: np.ndarray     # (B, S, N) int32 — every restart's permutation
     all_losses: np.ndarray     # (B, S, R) — every restart's loss trace
+    # schedule="adaptive" only (None on the fixed schedule): the rounds
+    # each restart ran; its loss trace is NaN past them.
+    rounds_executed: np.ndarray | None = None   # (B, S) int64
 
 
 def shuffle_soft_sort_batched(
@@ -452,12 +609,22 @@ def shuffle_soft_sort_batched(
     continues a run after round R0.  ``callback(r, orders (B*S, N),
     losses (B*S,))`` is called after every round (a host sync); without
     it the losses stay on the device until the end.
+
+    ``cfg.schedule="adaptive"`` runs every instance under the plateau
+    controller; the result then carries ``rounds_executed`` (B, S), loss
+    traces NaN past each early stop, and winners chosen by their
+    last-executed loss.  It takes no ``callback`` and no ``state``.
     """
     _check_ported(cfg, mesh=mesh, checkpoint_dir=checkpoint_dir,
                   guardrail=guardrail)
+    if cfg.schedule == "adaptive":
+        _check_adaptive(callback, state)
     device = resolve_device(device)
     xs, b, s, n, source, xs_t, norms_t, orders, prior = _prep_instances(
         xs, hw, n_restarts, seed, seeds, source, norms, state, device)
+    if cfg.schedule == "adaptive":
+        return _batched_adaptive(xs, b, s, n, source, xs_t, norms_t, orders,
+                                 hw=hw, cfg=cfg)
     start = prior.shape[1]
 
     on_round = None
@@ -486,4 +653,29 @@ def shuffle_soft_sort_batched(
         best_restart=best,
         all_orders=all_orders,
         all_losses=all_losses,
+    )
+
+
+def _batched_adaptive(xs, b, s, n, source, xs_t, norms_t, orders, *, hw,
+                      cfg: ShuffleSoftSortConfig) -> BatchedSortResult:
+    """``shuffle_soft_sort_batched`` on the adaptive schedule."""
+    bs = b * s
+    ctrl = make_adaptive_controller(cfg, bs, n)
+    orders, losses_bs = _run_adaptive(xs_t, orders, source, norms_t, hw=hw,
+                                      cfg=cfg, controller=ctrl)
+    all_losses = losses_bs.reshape(b, s, cfg.rounds)
+    all_orders = orders.to(torch.int32).cpu().numpy().reshape(b, s, n)
+    final = losses_bs[np.arange(bs), ctrl.executed - 1].reshape(b, s)
+    best = np.argmin(final, axis=1)
+    order = all_orders[np.arange(b), best]
+    xs_np = xs.cpu().numpy()
+    return BatchedSortResult(
+        order=order,
+        sorted=np.take_along_axis(xs_np, order[:, :, None].astype(np.int64),
+                                  axis=1),
+        losses=all_losses[np.arange(b), best],
+        best_restart=best,
+        all_orders=all_orders,
+        all_losses=all_losses,
+        rounds_executed=ctrl.executed.reshape(b, s),
     )

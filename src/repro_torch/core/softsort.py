@@ -32,6 +32,15 @@ def _sort_diff(w: torch.Tensor) -> torch.Tensor:
     return torch.gather(w, -1, perm)
 
 
+def _per_instance(tau):
+    """A tensor of several temperatures, one per instance of (B, N) keys,
+    as (B, 1, 1) to divide (B, rows, cols) scores; any other tau as it
+    is."""
+    if isinstance(tau, torch.Tensor) and tau.numel() > 1:
+        return tau.reshape(-1, 1, 1)
+    return tau
+
+
 def softsort_matrix(w: torch.Tensor, tau, descending: bool = False
                     ) -> torch.Tensor:
     """Full (N, N) SoftSort matrix ((..., N, N) for leading batch axes).
@@ -40,7 +49,7 @@ def softsort_matrix(w: torch.Tensor, tau, descending: bool = False
     if descending:
         ws = torch.flip(ws, dims=(-1,))
     d = torch.abs(ws.unsqueeze(-1) - w.unsqueeze(-2))
-    return torch.softmax(-d / tau, dim=-1)
+    return torch.softmax(-d / _per_instance(tau), dim=-1)
 
 
 def softsort_apply_chunked(
@@ -54,9 +63,10 @@ def softsort_apply_chunked(
     array.
 
     Args:
-      w: (N,) sort keys, or (B, N) for B instances sharing one ``tau``.
+      w: (N,) sort keys, or (B, N) for B instances.
       x: (N, d) payload ((B, N, d) batched).
-      tau: temperature (float or 0-d tensor).
+      tau: temperature (float or one-element tensor), or a (B,) tensor of
+        one per instance of (B, N) keys.
       chunk: rows of P per block; the tail block is padded with the last
         sorted key and masked out of the colsum.
       descending: row i targets rank N-1-i — a flip of y; colsum is
@@ -73,6 +83,7 @@ def softsort_apply_chunked(
         return y[0], colsum[0]
     assert x.dim() == 3 and x.shape[:2] == w.shape, (w.shape, x.shape)
     n = w.shape[-1]
+    tau = _per_instance(tau)
     if n <= chunk:
         p = softsort_matrix(w, tau)
         return p @ x, p.sum(dim=-2)
@@ -111,9 +122,10 @@ def softsort_apply_banded(
     (``repro_torch.kernels.ops.softsort_apply_banded``).
 
     Args:
-      w: (N,) sort keys, or (B, N) for B instances sharing one ``tau``.
+      w: (N,) sort keys, or (B, N) for B instances.
       x: (N, d) payload ((B, N, d) batched).
-      tau: temperature (float or one-element tensor).
+      tau: temperature (float or one-element tensor), or a (B,) tensor of
+        one per instance of (B, N) keys.
       band: K, the band half-width in rank space; ``band >= N - 1`` gives
         the dense result.
       descending: a flip of y; colsum is row-order invariant.
@@ -142,7 +154,7 @@ def softsort_apply_banded(
            + torch.arange(-k, k + 1, device=w.device)[None, :])
     valid = (idx >= 0) & (idx < n)
     idxc = idx.clamp(0, n - 1)
-    s = -torch.abs(ws[:, :, None] - ws[:, idxc]) / tau
+    s = -torch.abs(ws[:, :, None] - ws[:, idxc]) / _per_instance(tau)
     # Finite mask value: exp(-1e30 - m) is exactly 0 in float32.
     s = torch.where(valid, s, torch.full_like(s, -1e30))
     p = torch.softmax(s, dim=-1)                       # (B, N, 2K+1)

@@ -3,10 +3,12 @@
 // (the banded tier).
 //
 // For each instance b of a batch, with sorted keys ws (rows) and keys w
-// (columns), all float32, and a payload x (N, d) in the compute type T
-// (float or __nv_bfloat16):
+// (columns), all float32, a payload x (N, d) in the compute type T
+// (float or __nv_bfloat16) and the instance's own temperature tau[b]
+// (tau is a (B,) float32 array; a block owns one instance and reads one
+// element of it):
 //
-//   s_ij = -|ws_i - w_j| * (1 / tau)        (rounded through T)
+//   s_ij = -|ws_i - w_j| * (1 / tau[b])     (rounded through T)
 //   P_ij = exp(s_ij - m_i) / l_i            (row softmax)
 //
 //   ss_fwd_fused      y = P x, with the row stats m, l       (kernel 1)
@@ -94,7 +96,7 @@
 //   bitwise the running maximum of the twin and of the Pallas kernel.
 //   Kernel 5 takes the same first sweep for any tau outside
 //   0 < 1 / tau < inf (no caller passes one): the branch is on the
-//   launch flag and the device scalar tau, uniform across the block.
+//   launch flag and the block's own tau[b], uniform across the block.
 // - Kernels 6-8 and 9b read the saved m and multiply by a per-row 1 / l:
 //   no division per pair.  Kernel 8 steps 64 rows at a time over a tile of
 //   64 columns (129 steps at the SOG shape), kernel 6 the same, kernel 7
@@ -329,7 +331,6 @@ fwd_band_kernel(const float* __restrict__ ws, const float* __restrict__ wc,
   ws += (size_t)b * n;
   wc += (size_t)b * n;
   x += (size_t)b * n * d;
-  const float inv_tau = 1.0f / tau[0];
   const int j_lo = max(0, r0 - K), j_hi = min(n, r0 + TR + K);
   const int dn = min(DT, d - c0);
 
@@ -344,6 +345,9 @@ fwd_band_kernel(const float* __restrict__ ws, const float* __restrict__ wc,
       mr[u] = -0.0f;   // the diagonal's score: the row maximum for tau > 0
     lsum[u] = 0.f;
   }
+  // Read after the row keys (here and in kernel 9a): so placed, ptxas
+  // gives every instantiation the registers it had with one shared tau.
+  const float inv_tau = 1.0f / tau[b];
 
   // The dense call (exact_max: its row keys are not tied to its column
   // keys) and any other tau: a first sweep of scores only, no exp and no
@@ -572,7 +576,7 @@ bwd_band_dcol_kernel(const float* __restrict__ ws,
   Dv += (size_t)b * n;
   x += (size_t)b * n * d;
   dy += (size_t)b * n * d;
-  const float inv_tau = 1.0f / tau[0];
+  const float inv_tau = 1.0f / tau[b];
   const int i_lo = max(0, j0 - K), i_hi = min(n, j0 + TC + K);
   const int nstage = (i_hi - i_lo + BTRS - 1) / BTRS * nd;
 
@@ -817,7 +821,7 @@ colsum_band_kernel(const float* __restrict__ ws,
   wc += (size_t)b * n;
   m += (size_t)b * n;
   l += (size_t)b * n;
-  const float inv_tau = 1.0f / tau[0];
+  const float inv_tau = 1.0f / tau[b];
   const int i_lo = max(0, j0 - K), i_hi = min(n, j0 + TC + K);
   const int nstep = (i_hi - i_lo + BTR - 1) / BTR;
 
@@ -964,7 +968,7 @@ bwd_band_dws_delta_kernel(const float* __restrict__ ws,
   x += (size_t)b * n * d;
   dy += (size_t)b * n * d;
   y += (size_t)b * n * d;
-  const float inv_tau = 1.0f / tau[0];
+  const float inv_tau = 1.0f / tau[b];
   const int j_lo = max(0, r0 - K), j_hi = min(n, r0 + TR + K);
   const int nstage = (j_hi - j_lo + BTC - 1) / BTC * nd;
 
@@ -1174,7 +1178,6 @@ v1_stats_kernel(const float* __restrict__ ws, const float* __restrict__ w,
   const int tid = threadIdx.x, sr = tid % NRG, sc = tid / NRG;
   ws += (size_t)b * n;
   w += (size_t)b * n;
-  const float inv_tau = 1.0f / tau[0];
 
   float wr[4], acc[4];
 #pragma unroll
@@ -1183,6 +1186,7 @@ v1_stats_kernel(const float* __restrict__ ws, const float* __restrict__ w,
     wr[u] = i < n ? ws[i] : 0.f;   // rows >= n are computed, not written
     acc[u] = NEG_INF;
   }
+  const float inv_tau = 1.0f / tau[b];   // after the row keys, as kernel 1
 
   // The partials of row tid (< TR), reduced over the lanes in order.
   auto reduce = [&](auto op) {

@@ -11,7 +11,7 @@ in ``repro.kernels.ops``):
 * backward — re-gather the sorted keys through the saved ``perm`` (no
   re-sort), launch ``bwd_dws_delta`` and ``bwd_dx``, scatter ``dws``
   through ``perm`` (a permutation: no collisions, deterministic), and
-  return ``dw``, ``dx`` and ``dtau = sum(dtau_cols)``.
+  return ``dw``, ``dx`` and ``dtau``, summed from ``dtau_cols``.
 
 ``softsort_apply_banded(w, x, tau, band)`` is the O(N K) tier, a second
 Function over the four banded kernels: keys and payload are gathered into
@@ -26,6 +26,10 @@ float32 forward (``v1_stats``, ``v1_apply``, ``colsum``) that saves only
 ``(w, x, tau)``, and a plain-torch backward that re-sorts and re-forms
 the dense softmax chunk by chunk, with ``(B, chunk, N)`` temporaries.
 
+``tau`` is one temperature for the batch (a float or a one-element
+tensor) or, for (B, N) keys, a (B,) tensor of one per instance; dtau
+comes back in the shape tau was given: the total over the batch for one
+temperature (summed as a whole), per instance for B of them.
 ``descending`` is a flip of y outside the Function.  ``compute_dtype``
 ("float32" or "bfloat16") is the payload and score precision of the
 kernels; keys, stats, accumulators and every returned gradient stay
@@ -37,6 +41,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.softsort_apply import (
+    _tau_rows,
     bwd_band_dcol,
     bwd_band_dws_delta,
     bwd_dws_delta,
@@ -61,12 +66,25 @@ def _cd(compute_dtype) -> torch.dtype:
     return cd
 
 
-def _tau_tensor(tau, device) -> torch.Tensor:
-    """tau as a one-element float32 tensor on ``device`` (a device tensor
-    stays on the device: the kernels read it through its pointer)."""
-    if isinstance(tau, torch.Tensor):
-        return tau.to(device=device, dtype=_F32).reshape(1)
-    return torch.full((1,), float(tau), dtype=_F32, device=device)
+def _tau_tensor(tau, device, bsz: int) -> torch.Tensor:
+    """tau as a float32 tensor on ``device``: (1,) for one temperature,
+    (B,) for one per instance (a device tensor stays on the device: the
+    kernels read it through its pointer)."""
+    if not isinstance(tau, torch.Tensor):
+        return torch.full((1,), float(tau), dtype=_F32, device=device)
+    t = tau.to(device=device, dtype=_F32)
+    if t.numel() not in (1, bsz):
+        raise ValueError(f"tau must have 1 or B = {bsz} elements, got "
+                         f"{tuple(tau.shape)}")
+    return t.reshape(t.numel()).contiguous()
+
+
+def _dtau(dtau_cols, shared: bool):
+    """dtau in the shape tau was given: (1,), the total over the batch, for
+    one shared temperature; (B,), per instance, for one per instance."""
+    if shared:
+        return dtau_cols.sum().reshape(1)
+    return dtau_cols.sum(dim=1)
 
 
 class _SoftSortApply(torch.autograd.Function):
@@ -77,9 +95,11 @@ class _SoftSortApply(torch.autograd.Function):
         perm = torch.argsort(w32, dim=-1, stable=True)
         ws = torch.gather(w32, -1, perm)
         xc = x.detach().to(cd).contiguous()
-        y, m, l = fwd_fused(ws, w32, xc, tau)
-        c = colsum(ws, w32, tau, m, l, cd)
-        ctx.save_for_backward(w32, xc, tau, perm, m, l, y)
+        taus = _tau_rows(tau.detach(), w32.shape[0])
+        y, m, l = fwd_fused(ws, w32, xc, taus)
+        c = colsum(ws, w32, taus, m, l, cd)
+        ctx.save_for_backward(w32, xc, taus, perm, m, l, y)
+        ctx.shared_tau = tau.numel() == 1
         ctx.dtypes = (w.dtype, x.dtype)
         return y.to(_F32), c
 
@@ -93,7 +113,7 @@ class _SoftSortApply(torch.autograd.Function):
         D, dws = bwd_dws_delta(ws, w32, xc, tau, m, l, dy_c, y, dc_c)
         dx, dw_cols, dtau_cols = bwd_dx(ws, w32, xc, tau, m, l, dy_c, dc_c, D)
         dw = dw_cols + torch.zeros_like(dws).scatter_(-1, perm, dws)
-        dtau = dtau_cols.sum().reshape(1) if ctx.needs_input_grad[2] else None
+        dtau = _dtau(dtau_cols, ctx.shared_tau) if ctx.needs_input_grad[2] else None
         return dw.to(ctx.dtypes[0]), dx.to(ctx.dtypes[1]), dtau, None
 
 
@@ -102,7 +122,8 @@ def softsort_apply(w, x, tau, descending: bool = False,
     """Kernel-tier ``(P_soft @ x, colsum(P_soft))``.
 
     w: (N,) or (B, N) keys; x: (N, d) or (B, N, d) payload; tau a float or
-    a tensor with one element, shared by the batch.
+    a tensor with one element, shared by the batch, or a (B,) tensor, one
+    per instance.
     Returns y (float32, x's batch shape) and colsum (w's shape).
     """
     batched = w.dim() == 2
@@ -111,7 +132,8 @@ def softsort_apply(w, x, tau, descending: bool = False,
     if xb.dim() != 3 or xb.shape[:2] != wb.shape:
         raise ValueError(f"shapes w {tuple(w.shape)} and x {tuple(x.shape)} "
                          "do not match")
-    y, c = _SoftSortApply.apply(wb, xb, _tau_tensor(tau, w.device),
+    y, c = _SoftSortApply.apply(wb, xb, _tau_tensor(tau, w.device,
+                                                    wb.shape[0]),
                                 _cd(compute_dtype))
     if not batched:
         y, c = y[0], c[0]
@@ -128,10 +150,12 @@ class _SoftSortApplyBanded(torch.autograd.Function):
         xc = x.detach().to(cd).contiguous()
         perm = torch.argsort(w32, dim=-1, stable=True)
         ws, xs = _rank_order(w32, xc, perm)
-        y, m, l = fwd_band(ws, xs, tau, band)
-        c_sorted = colsum_band(ws, tau, m, l, band, cd)
+        taus = _tau_rows(tau.detach(), w32.shape[0])
+        y, m, l = fwd_band(ws, xs, taus, band)
+        c_sorted = colsum_band(ws, taus, m, l, band, cd)
         c = torch.empty_like(c_sorted).scatter_(-1, perm, c_sorted)
-        ctx.save_for_backward(w32, xc, tau, perm, m, l, y)
+        ctx.save_for_backward(w32, xc, taus, perm, m, l, y)
+        ctx.shared_tau = tau.numel() == 1
         ctx.band = band
         ctx.dtypes = (w.dtype, x.dtype)
         return y.to(_F32), c
@@ -153,7 +177,7 @@ class _SoftSortApplyBanded(torch.autograd.Function):
         idx = perm[..., None].expand(-1, -1, dxs.shape[-1])
         dx = torch.empty(dxs.shape, dtype=_F32, device=dxs.device).scatter_(
             1, idx, dxs.to(_F32))
-        dtau = dtau_cols.sum().reshape(1) if ctx.needs_input_grad[2] else None
+        dtau = _dtau(dtau_cols, ctx.shared_tau) if ctx.needs_input_grad[2] else None
         return dw.to(ctx.dtypes[0]), dx.to(ctx.dtypes[1]), dtau, None, None
 
 
@@ -187,8 +211,9 @@ def softsort_apply_banded(w, x, tau, band: int, descending: bool = False,
     if xb.dim() != 3 or xb.shape[:2] != wb.shape:
         raise ValueError(f"shapes w {tuple(w.shape)} and x {tuple(x.shape)} "
                          "do not match")
-    y, c = _SoftSortApplyBanded.apply(wb, xb, _tau_tensor(tau, w.device),
-                                      band, _cd(compute_dtype))
+    y, c = _SoftSortApplyBanded.apply(
+        wb, xb, _tau_tensor(tau, w.device, wb.shape[0]), band,
+        _cd(compute_dtype))
     if not batched:
         y, c = y[0], c[0]
     if descending:
@@ -204,9 +229,10 @@ class _SoftSortApplyV1(torch.autograd.Function):
         xf = x.detach().to(_F32).contiguous()
         perm = torch.argsort(w32, dim=-1, stable=True)
         ws = torch.gather(w32, -1, perm)
-        m, l = v1_stats(ws, w32, tau)
-        y = v1_apply(ws, w32, xf, tau, m, l)
-        c = colsum(ws, w32, tau, m, l)
+        taus = _tau_rows(tau.detach(), w32.shape[0])
+        m, l = v1_stats(ws, w32, taus)
+        y = v1_apply(ws, w32, xf, taus, m, l)
+        c = colsum(ws, w32, taus, m, l)
         ctx.save_for_backward(w32, xf, tau)    # v1 keeps no residuals
         ctx.bwd_chunk = bwd_chunk
         ctx.dtypes = (w.dtype, x.dtype)
@@ -249,8 +275,8 @@ def softsort_apply_v1(w, x, tau, bwd_chunk: int = 256):
     benchmark baseline, not the engine's path.
 
     Same arguments and returns as ``softsort_apply`` (no ``descending``
-    or ``compute_dtype``); ``bwd_chunk`` is the rows of P the backward
-    forms at a time.
+    or ``compute_dtype``), with one tau for the batch; ``bwd_chunk`` is
+    the rows of P the backward forms at a time.
     """
     if int(bwd_chunk) < 1:
         raise ValueError(f"bwd_chunk must be >= 1, got {bwd_chunk}")
@@ -260,6 +286,6 @@ def softsort_apply_v1(w, x, tau, bwd_chunk: int = 256):
     if xb.dim() != 3 or xb.shape[:2] != wb.shape:
         raise ValueError(f"shapes w {tuple(w.shape)} and x {tuple(x.shape)} "
                          "do not match")
-    y, c = _SoftSortApplyV1.apply(wb, xb, _tau_tensor(tau, w.device),
+    y, c = _SoftSortApplyV1.apply(wb, xb, _tau_tensor(tau, w.device, 1),
                                   int(bwd_chunk))
     return (y, c) if batched else (y[0], c[0])

@@ -53,8 +53,11 @@ Two more, the v1 split forward (counterparts of the Pallas
                   pass.
 
 Operands are unpadded: ``ws``/``w`` (B, N) float32, ``x`` (B, N, d) in the
-compute dtype (float32 or bfloat16), ``tau`` a one-element float32
-tensor shared by the batch, read by the kernels through its pointer.
+compute dtype (float32 or bfloat16), ``tau`` a float32 tensor of B
+elements (instance b's temperature ``tau[b]``) or of one element shared by
+the batch.  The kernels read ``tau[b]`` through a device pointer; a
+wrapper given one element expands it to B on the device, with no host
+sync, so a CUDA graph can capture the call.
 Keys, scores, softmax stats and accumulators are float32; at bfloat16 the
 score is rounded to bfloat16 and back, as is P where it meets the payload.
 
@@ -93,6 +96,13 @@ _F32 = torch.float32
 _DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 
+def _inv_tau(tau):
+    """1 / tau per instance, (B, 1, 1) (or (1, 1, 1) for a shared tau): it
+    broadcasts over the rows and columns of a (B, rows, cols) block; its
+    ``[..., 0]`` over the (B, N) per-row or per-column results."""
+    return 1.0 / tau.reshape(-1, 1, 1)
+
+
 def _score(ws, w, inv_tau, cd):
     """L1 scores from float32 keys, rounded to the compute dtype and back."""
     s = -torch.abs(ws - w) * inv_tau
@@ -118,7 +128,7 @@ def fwd_fused_plain(ws, w, x, tau):
     Returns y (B, N, d) in x's dtype, m and l (B, N) float32."""
     cd = x.dtype
     bsz, n, d = x.shape
-    inv_tau = 1.0 / tau.reshape(())
+    inv_tau = _inv_tau(tau)
     m = torch.full((bsz, n), NEG_INF, dtype=_F32, device=x.device)
     l = torch.zeros((bsz, n), dtype=_F32, device=x.device)
     acc = torch.zeros((bsz, n, d), dtype=_F32, device=x.device)
@@ -136,7 +146,7 @@ def fwd_fused_plain(ws, w, x, tau):
 
 def colsum_plain(ws, w, tau, m, l, cd=_F32):
     """Twin of kernel 2: column sums of P over row blocks.  (B, N) f32."""
-    inv_tau = 1.0 / tau.reshape(())
+    inv_tau = _inv_tau(tau)
     c = torch.zeros_like(w, dtype=_F32)
     for i in _blocks(w.shape[-1]):
         s = _score(ws[:, i, None], w[:, None, :], inv_tau, cd)
@@ -149,7 +159,7 @@ def colsum_plain(ws, w, tau, m, l, cd=_F32):
 def v1_stats_plain(ws, w, tau):
     """Twin of kernel 9a: running max and denominator over column
     blocks.  m and l (B, N) float32."""
-    inv_tau = 1.0 / tau.reshape(())
+    inv_tau = _inv_tau(tau)
     bsz, n = w.shape
     m = torch.full((bsz, n), NEG_INF, dtype=_F32, device=w.device)
     l = torch.zeros((bsz, n), dtype=_F32, device=w.device)
@@ -165,7 +175,7 @@ def v1_apply_plain(ws, w, x, tau, m, l):
     """Twin of kernel 9b: ``y = P x`` over column blocks, P from the
     given m and l (``/ l`` per pair, as the Pallas kernel).  (B, N, d)
     float32."""
-    inv_tau = 1.0 / tau.reshape(())
+    inv_tau = _inv_tau(tau)
     mc = m[..., None]
     lc = torch.clamp_min(l, 1e-30)[..., None]
     y = torch.zeros(x.shape, dtype=_F32, device=x.device)
@@ -179,7 +189,7 @@ def bwd_dws_delta_plain(ws, w, x, tau, m, l, dy, y, dc):
     """Twin of kernel 3: the fused delta + dws row sweep over column
     blocks.  Returns D and dws, (B, N) float32."""
     cd = x.dtype
-    inv_tau = 1.0 / tau.reshape(())
+    inv_tau = _inv_tau(tau)
     dyf = dy.to(_F32)
     D = (dyf * y.to(_F32)).sum(dim=-1)
     A = torch.zeros_like(D)
@@ -195,7 +205,7 @@ def bwd_dws_delta_plain(ws, w, x, tau, m, l, dy, y, dc):
         D = D + (_as_cd(p, cd) @ dcj[..., None])[..., 0]
         A = A + (p * dp * sgn).sum(dim=-1)
         S = S + (p * sgn).sum(dim=-1)
-    dws = -(A - D * S) * inv_tau
+    dws = -(A - D * S) * inv_tau[..., 0]
     return D, dws
 
 
@@ -203,7 +213,7 @@ def bwd_dx_plain(ws, w, x, tau, m, l, dy, dc, D):
     """Twin of kernel 4: the column pass over row blocks.  Returns dx
     (B, N, d) in x's dtype, dw_cols and dtau_cols (B, N) float32."""
     cd = x.dtype
-    inv_tau = 1.0 / tau.reshape(())
+    inv_tau = _inv_tau(tau)
     xf = x.to(_F32).transpose(1, 2)
     dcf = dc.to(_F32)[:, None]
     acc = torch.zeros(x.shape, dtype=_F32, device=x.device)
@@ -218,8 +228,8 @@ def bwd_dx_plain(ws, w, x, tau, m, l, dy, dc, D):
         ds = p * (dyi @ xf + dcf - D[:, i, None])
         sgn = torch.sign(wsi - w[:, None, :])
         acc = acc + _as_cd(p, cd).transpose(1, 2) @ dyi
-        dwc = dwc + (ds * sgn).sum(dim=1) * inv_tau
-        dtc = dtc + (ds * (-s)).sum(dim=1) * inv_tau
+        dwc = dwc + (ds * sgn).sum(dim=1) * inv_tau[..., 0]
+        dtc = dtc + (ds * (-s)).sum(dim=1) * inv_tau[..., 0]
     return acc.to(cd), dwc, dtc
 
 
@@ -261,7 +271,7 @@ def fwd_band_plain(ws, xs, tau, band):
     float32."""
     cd = xs.dtype
     bsz, n, d = xs.shape
-    inv_tau = 1.0 / tau.reshape(())
+    inv_tau = _inv_tau(tau)
     y = torch.empty_like(xs)
     m = torch.empty((bsz, n), dtype=_F32, device=xs.device)
     l = torch.empty_like(m)
@@ -281,7 +291,7 @@ def fwd_band_plain(ws, xs, tau, band):
 def colsum_band_plain(ws, tau, m, l, band, cd=_F32):
     """Twin of kernel 6: column sums of the band, in rank order.  (B, N)
     float32."""
-    inv_tau = 1.0 / tau.reshape(())
+    inv_tau = _inv_tau(tau)
     c = torch.empty_like(ws, dtype=_F32)
     for j, i in _band_windows(ws.shape[-1], band):
         mask = _band_mask(i, j, band, ws.device)
@@ -295,7 +305,7 @@ def bwd_band_dws_delta_plain(ws, xs, tau, m, l, dy, y, dc, band):
     Returns D and the row part of the key gradient ``dws_row``, (B, N)
     float32, rank order.  ``dc`` is the colsum cotangent in rank order."""
     cd = xs.dtype
-    inv_tau = 1.0 / tau.reshape(())
+    inv_tau = _inv_tau(tau)
     dyf = dy.to(_F32)
     D0 = (dyf * y.to(_F32)).sum(dim=-1)
     D = torch.empty_like(D0)
@@ -310,7 +320,7 @@ def bwd_band_dws_delta_plain(ws, xs, tau, m, l, dy, y, dc, band):
         A = (p * dp * sgn).sum(dim=-1)
         S = (p * sgn).sum(dim=-1)
         D[:, i] = Di
-        dws[:, i] = -(A - Di * S) * inv_tau
+        dws[:, i] = -(A - Di * S) * inv_tau[..., 0]
     return D, dws
 
 
@@ -319,7 +329,7 @@ def bwd_band_dcol_plain(ws, xs, tau, m, l, dy, dc, D, band):
     (B, N, d) in xs's dtype, the column part of the key gradient
     ``dws_col`` and the dtau partials (B, N) float32, all in rank order."""
     cd = xs.dtype
-    inv_tau = 1.0 / tau.reshape(())
+    inv_tau = _inv_tau(tau)
     dcf = dc.to(_F32)
     dxs = torch.empty_like(xs)
     dwc = torch.empty_like(ws, dtype=_F32)
@@ -332,8 +342,8 @@ def bwd_band_dcol_plain(ws, xs, tau, m, l, dy, dc, D, band):
         ds = p * (dp - D[:, i, None])
         sgn = torch.sign(ws[:, i, None] - ws[:, None, j])
         dxs[:, j] = (_as_cd(p, cd).transpose(1, 2) @ dyi).to(cd)
-        dwc[:, j] = (ds * sgn).sum(dim=1) * inv_tau
-        dtc[:, j] = (ds * (-s)).sum(dim=1) * inv_tau
+        dwc[:, j] = (ds * sgn).sum(dim=1) * inv_tau[..., 0]
+        dtc[:, j] = (ds * (-s)).sum(dim=1) * inv_tau[..., 0]
     return dxs, dwc, dtc
 
 
@@ -381,14 +391,23 @@ def _check(ws, w, x, tau, *extra_rows):
         if t.dtype != _F32 or t.shape != (bsz, n):
             raise ValueError(f"expected (B, N) float32, got "
                              f"{tuple(t.shape)} {t.dtype}")
-    if tau.numel() != 1 or tau.dtype != _F32:
-        raise ValueError("tau must be a one-element float32 tensor")
+    if tau.numel() not in (1, bsz) or tau.dtype != _F32:
+        raise ValueError(f"tau must be a float32 tensor of 1 or B = {bsz} "
+                         f"elements, got {tuple(tau.shape)} {tau.dtype}")
     if bsz > 65535:
         raise ValueError(f"batch {bsz} exceeds the grid limit 65535")
     for t in (ws, w, x, tau, *extra_rows):
         if t is not None and not t.is_contiguous():
             raise ValueError("kernel operands must be contiguous")
     return bsz, n, d
+
+
+def _tau_rows(tau, bsz: int):
+    """The kernels' (B,) temperatures: a B-element tau as it is, one
+    element expanded on the device (a copy kernel, no host sync)."""
+    if tau.numel() == bsz:
+        return tau.reshape(bsz)
+    return tau.reshape(1).expand(bsz).contiguous()
 
 
 def _check_cotangents(x, dc, *payloads):
@@ -424,6 +443,7 @@ def fwd_fused(ws, w, x, tau):
     if clib.route(ws, w, x, tau) == "cpu":
         return fwd_fused_plain(ws, w, x, tau)
     bsz, n, d = _check(ws, w, x, tau)
+    tau = _tau_rows(tau, bsz)
     y = torch.empty_like(x)
     m = torch.empty_like(w)
     l = torch.empty_like(w)
@@ -439,6 +459,7 @@ def colsum(ws, w, tau, m, l, cd=_F32):
     if clib.route(ws, w, tau, m, l) == "cpu":
         return colsum_plain(ws, w, tau, m, l, cd)
     bsz, n, _ = _check(ws, w, None, tau, m, l)
+    tau = _tau_rows(tau, bsz)
     c = torch.empty_like(w)
     if bsz * n:
         _launch(colsum, "ss_colsum", cd, ws, w, tau, m, l, c, bsz, n, n)
@@ -450,6 +471,7 @@ def bwd_dws_delta(ws, w, x, tau, m, l, dy, y, dc):
     if clib.route(ws, w, x, tau, m, l, dy, y, dc) == "cpu":
         return bwd_dws_delta_plain(ws, w, x, tau, m, l, dy, y, dc)
     bsz, n, d = _check(ws, w, x, tau, m, l)
+    tau = _tau_rows(tau, bsz)
     _check_cotangents(x, dc, dy, y)
     D = torch.empty_like(w)
     dws = torch.empty_like(w)
@@ -466,6 +488,7 @@ def bwd_dx(ws, w, x, tau, m, l, dy, dc, D):
     if clib.route(ws, w, x, tau, m, l, dy, dc, D) == "cpu":
         return bwd_dx_plain(ws, w, x, tau, m, l, dy, dc, D)
     bsz, n, d = _check(ws, w, x, tau, m, l, D)
+    tau = _tau_rows(tau, bsz)
     _check_cotangents(x, dc, dy)
     dx = torch.empty_like(x)
     dwc = torch.empty_like(w)
@@ -481,6 +504,7 @@ def fwd_band(ws, xs, tau, band):
     if clib.route(ws, xs, tau) == "cpu":
         return fwd_band_plain(ws, xs, tau, band)
     bsz, n, d = _check(ws, ws, xs, tau)
+    tau = _tau_rows(tau, bsz)
     k = _check_band(band, n)
     y = torch.empty_like(xs)
     m = torch.empty_like(ws)
@@ -496,6 +520,7 @@ def colsum_band(ws, tau, m, l, band, cd=_F32):
     if clib.route(ws, tau, m, l) == "cpu":
         return colsum_band_plain(ws, tau, m, l, band, cd)
     bsz, n, _ = _check(ws, ws, None, tau, m, l)
+    tau = _tau_rows(tau, bsz)
     k = _check_band(band, n)
     c = torch.empty_like(ws)
     if bsz * n:
@@ -509,6 +534,7 @@ def bwd_band_dws_delta(ws, xs, tau, m, l, dy, y, dc, band):
     if clib.route(ws, xs, tau, m, l, dy, y, dc) == "cpu":
         return bwd_band_dws_delta_plain(ws, xs, tau, m, l, dy, y, dc, band)
     bsz, n, d = _check(ws, ws, xs, tau, m, l)
+    tau = _tau_rows(tau, bsz)
     k = _check_band(band, n)
     _check_cotangents(xs, dc, dy, y)
     D = torch.empty_like(ws)
@@ -526,6 +552,7 @@ def bwd_band_dcol(ws, xs, tau, m, l, dy, dc, D, band):
     if clib.route(ws, xs, tau, m, l, dy, dc, D) == "cpu":
         return bwd_band_dcol_plain(ws, xs, tau, m, l, dy, dc, D, band)
     bsz, n, d = _check(ws, ws, xs, tau, m, l, D)
+    tau = _tau_rows(tau, bsz)
     k = _check_band(band, n)
     _check_cotangents(xs, dc, dy)
     dxs = torch.empty_like(xs)
@@ -549,6 +576,7 @@ def v1_stats(ws, w, tau):
     if clib.route(ws, w, tau) == "cpu":
         return v1_stats_plain(ws, w, tau)
     bsz, n, _ = _check(ws, w, None, tau)
+    tau = _tau_rows(tau, bsz)
     m = torch.empty_like(w)
     l = torch.empty_like(w)
     if bsz * n:
@@ -562,6 +590,7 @@ def v1_apply(ws, w, x, tau, m, l):
     if clib.route(ws, w, x, tau, m, l) == "cpu":
         return v1_apply_plain(ws, w, x, tau, m, l)
     bsz, n, d = _check(ws, w, x, tau, m, l)
+    tau = _tau_rows(tau, bsz)
     _check_f32(x)
     y = torch.empty_like(x)
     if bsz * n:

@@ -465,3 +465,97 @@ def test_band_auto_anneals_banded_from_round_zero():
         assert np.array_equal(np.sort(row), np.arange(256))
     assert np.isfinite(res.all_losses).all()
     assert (res.all_losses[..., -1] < res.all_losses[..., 0]).all()
+
+
+# ------------------------------------------------ one temperature per instance
+
+TAUS = (0.3, 0.7, 1.5, 0.05)
+
+
+@pytest.mark.parametrize("bsz,n,d,k", [(3, 64, 3, 8), (4, 100, 50, 16)])
+def test_banded_per_instance_tau_matches_jax_vmap(bsz, n, d, k):
+    """A (B,) tau through the banded Function against ``jax.vmap`` of the
+    reference's banded custom_vjp over instances and their temperatures:
+    y, colsum, dw, dx and dtau per instance."""
+    w, x, a, b = _grad_inputs(n + k, (bsz,), n, d)
+    tau = np.asarray(TAUS[:bsz], np.float32)
+
+    def loss_fn(w, x, tau, a, b):
+        y, c = jops.softsort_apply_banded(w, x, tau, k)
+        return jnp.sum(y * a) + jnp.sum(jnp.square(c) * b), (y, c)
+
+    (_, (yj, cj)), gj = jax.vmap(jax.value_and_grad(
+        loss_fn, argnums=(0, 1, 2), has_aux=True))(
+        *[jnp.asarray(v) for v in (w, x, tau, a, b)])
+    want = (np.asarray(yj), np.asarray(cj), *[np.asarray(g) for g in gj])
+    got = _torch_value_and_grads(
+        lambda w_, x_, t_: tops.softsort_apply_banded(w_, x_, t_, k),
+        w, x, a, b, tau)
+    assert got[4].shape == (bsz,)
+    _assert_values_and_grads(got, want)
+    for i in range(bsz):
+        _close(got[4][i], want[4][i], GRAD_RTOL)
+    for g, r in zip(got[:4], want[:4]):   # at most 3.1e-7 (Queue C5)
+        _close(g, r, 1e-6)
+
+
+@pytest.mark.parametrize("cd", [torch.float32, torch.bfloat16])
+def test_band_twins_per_instance_tau_batch_invariant(cd):
+    """The banded twins with a (B,) tau: tau_b goes with instance b.
+    Permuting the instances with their temperatures permutes every output
+    bitwise; row b of the forward (y, m, l, colsum) is bitwise the B = 1
+    call at tau_b, and of the backward within rounding (the twins' batched
+    products are not batch-invariant bitwise on the CPU, with one tau as
+    with B; the card's kernels are, ``tests/test_torch_cuda.py``); one
+    shared tau is bitwise its expansion to B."""
+    rng = np.random.default_rng(21)
+    n, d, k = 150, 7, 20
+    ws = torch.tensor(np.sort(_untied_keys(rng, (4, n)), axis=-1))
+    xs, dy = (torch.tensor(rng.normal(size=(4, n, d)).astype(np.float32)
+                           ).to(cd) for _ in range(2))
+    dc = torch.tensor(rng.normal(size=(4, n)).astype(np.float32)).to(cd)
+    taus = torch.tensor(TAUS)
+
+    def run(rows, tau):
+        a = [v[rows] for v in (ws, xs, dy, dc)]
+        y, m, l = K.fwd_band(a[0], a[1], tau, k)
+        c = K.colsum_band(a[0], tau, m, l, k, cd)
+        D, dws = K.bwd_band_dws_delta(a[0], a[1], tau, m, l, a[2], y, a[3],
+                                      k)
+        return (y, m, l, c, D, dws,
+                *K.bwd_band_dcol(a[0], a[1], tau, m, l, a[2], a[3], D, k))
+
+    batched = run(slice(0, 4), taus)
+    perm = torch.tensor([2, 0, 3, 1])
+    for got, want in zip(run(perm, taus[perm]), batched):
+        assert torch.equal(got, want[perm])
+    for i in range(4):
+        alone = run(slice(i, i + 1), taus[i:i + 1])
+        for j, (got, want) in enumerate(zip(alone, batched)):
+            if j < 4:
+                assert torch.equal(got[0], want[i]), (i, j)
+            else:
+                _close(got[0].float(), want[i].float(), 1e-6)
+    shared = run(slice(0, 4), taus[2:3])
+    for got, want in zip(shared, run(slice(0, 4), taus[2:3].expand(4))):
+        assert torch.equal(got, want)
+
+
+def test_banded_oracle_per_instance_tau():
+    """``core.softsort_apply_banded`` and ``softsort_apply_chunked`` with a
+    (B,) tau: each row is the B = 1 call at its own tau."""
+    rng = np.random.default_rng(2)
+    w = torch.tensor(_untied_keys(rng, (3, 60)))
+    x = torch.tensor(rng.normal(size=(3, 60, 4)).astype(np.float32))
+    taus = torch.tensor(TAUS[:3])
+    for fn in (lambda w_, x_, t_: tss.softsort_apply_banded(w_, x_, t_, 9),
+               lambda w_, x_, t_: tss.softsort_apply_chunked(w_, x_, t_, 16),
+               lambda w_, x_, t_: tss.softsort_apply_chunked(w_, x_, t_,
+                                                             64)):
+        y, c = fn(w, x, taus)
+        for i in range(3):
+            yi, ci = fn(w[i:i + 1], x[i:i + 1], taus[i:i + 1])
+            np.testing.assert_allclose(y[i].numpy(), yi[0].numpy(),
+                                       atol=1e-6)
+            np.testing.assert_allclose(c[i].numpy(), ci[0].numpy(),
+                                       atol=1e-6)

@@ -694,3 +694,165 @@ def test_cuda_flash_attention_matches_oracle(cuda, shape):
                 1, int(split))
     for g, r in zip(*results):
         _close(g.detach().cpu(), r.detach().cpu(), GRAD_RTOL)
+
+
+# ------------------------------------------------ one temperature per instance
+
+TAUS4 = (0.05, 0.2, 0.6, 1.0)
+
+
+def _tau_pipeline(kind, ops, tau, cd, plain=False):
+    """Every kernel of one tier (or its twins) on ``ops`` with ``tau``; all
+    their outputs, in launch order."""
+    f = lambda name: getattr(K, name + ("_plain" if plain else ""))  # noqa: E731
+    if kind == "banded":
+        ws, xs, dy, dc, k = ops
+        return _band_pipeline(ws, xs, tau, dy, dc, k, plain=plain)
+    ws, w, x, dy, dc = ops
+    if kind == "v1":
+        m, l = f("v1_stats")(ws, w, tau)
+        return m, l, f("v1_apply")(ws, w, x, tau, m, l)
+    y, m, l = f("fwd_fused")(ws, w, x, tau)
+    c = f("colsum")(ws, w, tau, m, l, cd)
+    D, dws = f("bwd_dws_delta")(ws, w, x, tau, m, l, dy, y, dc)
+    return (y, m, l, c, D, dws, *f("bwd_dx")(ws, w, x, tau, m, l, dy, dc, D))
+
+
+def _tau_operands(kind, cuda, cd):
+    bsz, n, d = 4, 1000, 50
+    ws, w, x, _, dy, dc = _dense_operands(bsz, n, d, 77, cuda, cd)
+    if kind == "banded":
+        return (torch.sort(w, dim=-1).values, x, dy, dc, 150)
+    return ws, w, x, dy, dc
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,cd", [("dense", torch.float32),
+                                     ("dense", torch.bfloat16),
+                                     ("banded", torch.float32),
+                                     ("banded", torch.bfloat16),
+                                     ("v1", torch.float32)])
+def test_cuda_kernels_per_instance_tau(cuda, kind, cd):
+    """B = 4 instances at tau = (0.05, 0.2, 0.6, 1.0), each kernel reading
+    its instance's tau[b]: every output against the twins at the same
+    (B,) tau; row b bitwise the B = 1 launch at tau_b; and one shared tau
+    bitwise its B-fold expansion."""
+    rtol = GRAD_RTOL if cd == torch.float32 else BF16_RTOL
+    ops = _tau_operands(kind, cuda, cd)
+    taus = torch.tensor(TAUS4, device=cuda)
+    outs = _tau_pipeline(kind, ops, taus, cd)
+    twins = _tau_pipeline(kind, ops, taus, cd, plain=True)
+    for got, want in zip(outs, twins):
+        _close(got.float().cpu(), want.float().cpu(), rtol)
+    for b in range(4):
+        row = [t[b:b + 1].contiguous() if isinstance(t, torch.Tensor)
+               else t for t in ops]
+        alone = _tau_pipeline(kind, row, taus[b:b + 1], cd)
+        for got, want in zip(alone, outs):
+            assert torch.equal(got[0], want[b]), (kind, b)
+    shared = _tau_pipeline(kind, ops, taus[2:3], cd)
+    expanded = _tau_pipeline(kind, ops, taus[2:3].expand(4).contiguous(), cd)
+    for a, e in zip(shared, expanded):
+        assert torch.equal(a, e)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("band", [None, "auto"])
+def test_cuda_adaptive_run_matches_cpu_engine(cuda, band):
+    """The adaptive schedule on the card against the same run through the
+    plain twins on the CPU, with forced firing (patience 1, plateau_rtol
+    1), the std term off (warm, ROADMAP.md Queue C1), replayed shuffles
+    and the same normalization: the same rung decisions, rounds executed
+    and orders, losses within rtol 1e-5."""
+    from repro_torch.core import (ReplayShuffleSource, ShuffleSoftSortConfig,
+                                  make_adaptive_controller)
+    from repro_torch.core.shufflesoftsort import _run_adaptive
+
+    n, hw, bs, rounds = 256, (16, 16), 3, 8
+    rng = np.random.default_rng(6)
+    xs = rng.normal(size=(bs, n, 8)).astype(np.float32)
+    shuffles = np.stack([[rng.permutation(n) for _ in range(bs)]
+                         for _ in range(rounds)])
+    cfg = ShuffleSoftSortConfig(
+        use_kernel=True, rounds=rounds, inner_steps=4, lambda_sigma=0.0,
+        band=band, band_eps=1e3, schedule="adaptive", patience=1,
+        plateau_rtol=1.0, adapt_every=2)
+    runs = {}
+    for dev in ("cpu", cuda):
+        ctrl = make_adaptive_controller(cfg, bs, n)
+        orders, losses = _run_adaptive(
+            torch.tensor(xs, device=dev),
+            torch.arange(n, device=dev).repeat(bs, 1),
+            ReplayShuffleSource(shuffles, dev), torch.ones(bs, device=dev),
+            hw=hw, cfg=cfg, controller=ctrl)
+        runs[str(dev)] = (orders.cpu().numpy(), losses, ctrl)
+    (o_cpu, l_cpu, c_cpu), (o_gpu, l_gpu, c_gpu) = runs["cpu"], runs["cuda"]
+    assert c_gpu.decisions == c_cpu.decisions
+    assert any(d.fired for d in c_cpu.decisions)
+    assert (band is None) == (not any(d.switched for d in c_cpu.decisions))
+    np.testing.assert_array_equal(c_gpu.executed, c_cpu.executed)
+    np.testing.assert_array_equal(o_gpu, o_cpu)
+    np.testing.assert_array_equal(np.isnan(l_gpu), np.isnan(l_cpu))
+    np.testing.assert_allclose(l_gpu, l_cpu, rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_adaptive_parting_instances_match_cpu_engine(cuda):
+    """The instances that part ways of ``tests/test_torch_adaptive.py``
+    (``PART``, ``_parting_xs``), on the card against the CPU engine: on a
+    rising temperature schedule the random problem's loss falls and the
+    sorted field's rises, so only the field's instances fire at the second
+    boundary; at band 4 one field instance goes banded at the first and
+    the rest stay dense.  The third rung runs a dense dispatch at
+    positions (4, 4, 6) beside a banded one.  The same decisions,
+    positions, regimes, rounds executed and orders; losses within rtol
+    1e-5.  (The field is smooth: on a near-constant ramp the losses are
+    too ill-conditioned to compare at 1e-5.)"""
+    from repro_torch.core import (ReplayShuffleSource, ShuffleSoftSortConfig,
+                                  make_adaptive_controller)
+    from repro_torch.core.shufflesoftsort import _run_adaptive
+
+    n, hw, d, bs, rounds = 64, (8, 8), 3, 4, 8
+    rng = np.random.default_rng(31)
+    r, c = np.divmod(np.arange(n), hw[1])
+    field = np.stack([r / hw[0], c / hw[1], np.sin(r / 2.0)], 1)
+    xs = np.stack([rng.normal(size=(n, d)),
+                   field + 1e-2 * rng.normal(size=(n, d))]).astype(np.float32)
+    xs = np.repeat(xs, 2, axis=0)
+    shuffles = np.stack([[rng.permutation(n) for _ in range(bs)]
+                         for _ in range(rounds)])
+    cfg = ShuffleSoftSortConfig(
+        use_kernel=True, rounds=rounds, inner_steps=3, chunk=n,
+        lambda_sigma=0.0, band=4, band_eps=0.05, schedule="adaptive",
+        patience=1, plateau_rtol=0.02, adapt_every=2, tau_start=0.2,
+        tau_end=1.0)
+    runs, seen = {}, []
+    for dev in ("cpu", cuda):
+        ctrl = make_adaptive_controller(cfg, bs, n)
+        observe = ctrl.observe
+
+        def spy(idx, losses, ws=None, ctrl=ctrl, observe=observe):
+            seen.append((str(dev), ctrl.pos[idx].copy(),
+                         ctrl.banded[idx].copy()))
+            return observe(idx, losses, ws)
+
+        ctrl.observe = spy
+        orders, losses = _run_adaptive(
+            torch.tensor(xs, device=dev),
+            torch.arange(n, device=dev).repeat(bs, 1),
+            ReplayShuffleSource(shuffles, dev), torch.ones(bs, device=dev),
+            hw=hw, cfg=cfg, controller=ctrl)
+        runs[str(dev)] = (orders.cpu().numpy(), losses, ctrl)
+    (o_cpu, l_cpu, c_cpu), (o_gpu, l_gpu, c_gpu) = runs["cpu"], runs["cuda"]
+    # The run parted: a rung whose dense group holds several positions,
+    # and a rung with a dense and a banded group.
+    assert any(len(set(pos[~banded])) > 1 and banded.any() and
+               not banded.all() for dev, pos, banded in seen if dev == "cpu")
+    assert (c_cpu.executed < rounds).any() and (c_cpu.executed == rounds).any()
+    assert c_gpu.decisions == c_cpu.decisions
+    for f in ("pos", "executed", "done", "banded", "plateau", "fired"):
+        np.testing.assert_array_equal(getattr(c_gpu, f), getattr(c_cpu, f))
+    np.testing.assert_array_equal(o_gpu, o_cpu)
+    np.testing.assert_array_equal(np.isnan(l_gpu), np.isnan(l_cpu))
+    np.testing.assert_allclose(l_gpu, l_cpu, rtol=1e-5)

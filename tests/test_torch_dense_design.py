@@ -27,6 +27,7 @@ The row-maximum comparisons are exact: the invariant is an identity, not
 a rounding bound.
 """
 import contextlib
+import ctypes
 import functools
 import importlib
 import types
@@ -156,13 +157,15 @@ def test_dense_wrappers_pass_k_n_the_payload_tile_and_the_flag(recorded, d,
                                                                cd):
     """fwd_fused and bwd_dx launch once each, through the real
     ``clib.launch``, with K = N, DT = band_payload_tile(d)[0] and (kernel
-    1) the exact-maximum flag, and count one launch each."""
+    1) the exact-maximum flag, and count one launch each.  A (B,) tau,
+    one per instance, is passed as it is."""
     n = 37
     rng = np.random.default_rng(d)
     t = lambda *shape: torch.tensor(  # noqa: E731
         rng.normal(size=shape).astype(np.float32))
     ws, w, x, dy = t(BSZ, n), t(BSZ, n), t(BSZ, n, d).to(cd), t(BSZ, n, d)
-    dy, dc, tau = dy.to(cd), t(BSZ, n).to(cd), torch.tensor([0.6])
+    dy, dc = dy.to(cd), t(BSZ, n).to(cd)
+    tau = torch.linspace(0.3, 0.9, BSZ)
     m, l, D = t(BSZ, n), t(BSZ, n), t(BSZ, n)
     dt = K.band_payload_tile(d)[0]
     suffix = {torch.float32: "f32", torch.bfloat16: "bf16"}[cd]
@@ -183,6 +186,65 @@ def test_dense_wrappers_pass_k_n_the_payload_tile_and_the_flag(recorded, d,
     assert len(args4) == len(types4)
     assert args4[:12] == ptr(ws, w, x, tau, m, l, dy, dc, D, dx, dwc, dtc)
     assert args4[12:] == (BSZ, n, d, n, dt, 0)
+
+
+def test_wrappers_expand_one_tau_to_the_batch(monkeypatch):
+    """Given one tau, every kernel wrapper hands its kernel a contiguous
+    (B,) copy of it (the kernels read tau[b]); given B, the tensor
+    itself."""
+    seen = []
+    tau_arg = {"ss_fwd_fused": 3, "ss_colsum": 2, "ss_bwd_dws_delta": 3,
+               "ss_bwd_dx": 3, "ss_fwd_band": 2, "ss_colsum_band": 1,
+               "ss_bwd_band_dws_delta": 2, "ss_bwd_band_dcol": 2,
+               "ss_v1_stats": 2, "ss_v1_apply": 3}
+
+    def symbol(stem, name, argtypes, restype):
+        def fn(*args):
+            at = tau_arg[name.rsplit("_", 1)[0]]
+            vals = (ctypes.c_float * BSZ).from_address(args[at])
+            seen.append((name, args[at], list(vals)))
+            return 0
+        return fn
+
+    monkeypatch.setattr(clib, "route", lambda *tensors: "cuda")
+    monkeypatch.setattr(clib, "_symbol", symbol)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev: types.SimpleNamespace(cuda_stream=0))
+    n, d, k = 37, 5, 4
+    rng = np.random.default_rng(0)
+    t = lambda *shape: torch.tensor(  # noqa: E731
+        rng.normal(size=shape).astype(np.float32))
+    ws, w, x, dy, y, dc = (t(BSZ, n), t(BSZ, n), t(BSZ, n, d), t(BSZ, n, d),
+                           t(BSZ, n, d), t(BSZ, n))
+    m, l, D = t(BSZ, n), t(BSZ, n), t(BSZ, n)
+
+    def launch_all(tau):
+        K.fwd_fused(ws, w, x, tau)
+        K.colsum(ws, w, tau, m, l)
+        K.bwd_dws_delta(ws, w, x, tau, m, l, dy, y, dc)
+        K.bwd_dx(ws, w, x, tau, m, l, dy, dc, D)
+        K.fwd_band(ws, x, tau, k)
+        K.colsum_band(ws, tau, m, l, k)
+        K.bwd_band_dws_delta(ws, x, tau, m, l, dy, y, dc, k)
+        K.bwd_band_dcol(ws, x, tau, m, l, dy, dc, D, k)
+        K.v1_stats(ws, w, tau)
+        K.v1_apply(ws, w, x, tau, m, l)
+
+    one = torch.tensor([0.6])
+    launch_all(one)
+    assert len(seen) == len(K.KERNELS)
+    for name, ptr, vals in seen:
+        assert ptr != one.data_ptr(), name
+        assert vals == [np.float32(0.6)] * BSZ, name
+    seen.clear()
+    per = torch.linspace(0.3, 0.9, BSZ)
+    launch_all(per)
+    for name, ptr, vals in seen:
+        assert ptr == per.data_ptr(), name
+    with pytest.raises(ValueError, match="tau"):
+        K.fwd_fused(ws, w, x, torch.ones(BSZ + 1))
 
 
 @pytest.mark.parametrize("band", [5, 1000])
@@ -339,15 +401,16 @@ def test_kernel_6_and_7_arithmetic_with_column_keys_matches_the_jax_kernels(
 def test_dense_colsum_and_dws_pass_k_n_and_the_payload_tile(recorded, d, cd):
     """colsum and bwd_dws_delta launch once each, through the real
     ``clib.launch``, with the column keys w, K = N and (kernel 3)
-    DT = band_payload_tile(d)[0], and count one launch each."""
+    DT = band_payload_tile(d)[0], and count one launch each.  A (B,)
+    tau is passed as it is."""
     n = 37
     rng = np.random.default_rng(100 + d)
     t = lambda *shape: torch.tensor(  # noqa: E731
         rng.normal(size=shape).astype(np.float32))
     ws, w, x, dy, y = t(BSZ, n), t(BSZ, n), t(BSZ, n, d), t(BSZ, n, d), \
         t(BSZ, n, d)
-    x, dy, y, dc, tau = x.to(cd), dy.to(cd), y.to(cd), t(BSZ, n).to(cd), \
-        torch.tensor([0.6])
+    x, dy, y, dc = x.to(cd), dy.to(cd), y.to(cd), t(BSZ, n).to(cd)
+    tau = torch.linspace(0.3, 0.9, BSZ)
     m, l = t(BSZ, n), t(BSZ, n)
     dt = K.band_payload_tile(d)[0]
     suffix = {torch.float32: "f32", torch.bfloat16: "bf16"}[cd]

@@ -146,9 +146,9 @@ def test_one_outer_round_matches_jax():
 
     tcfg = _port_cfg(cfg)
     shuf = torch.tensor(np.asarray(jax.random.permutation(key, N)))[None]
-    tau_inner = torch.tensor(teng._inner_taus(tcfg)[0])
+    tau_inner = torch.tensor(teng._inner_taus(tcfg)[:1])     # (1, I)
     t = torch.arange(1, tcfg.inner_steps + 1, dtype=torch.float32)
-    o_t, l_t = teng._outer_round(
+    o_t, l_t, _ = teng._outer_round(
         torch.tensor(x)[None], torch.tensor(order, dtype=torch.int64)[None],
         shuf, tau_inner, torch.tensor([float(norm)]), 1 - tcfg.b1 ** t,
         1 - tcfg.b2 ** t, hw=HW, cfg=tcfg,
@@ -294,7 +294,6 @@ def test_entry_points_never_fall_back_to_cpu(monkeypatch):
 
 
 @pytest.mark.parametrize("kw,feature", [
-    ({"cfg": {"schedule": "adaptive"}}, "adaptive"),
     ({"mesh": object()}, "mesh"),
     ({"checkpoint_dir": "ckpt"}, "checkpoint_dir"),
     ({"guardrail": object()}, "guardrail"),

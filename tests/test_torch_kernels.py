@@ -215,3 +215,119 @@ def test_wrappers_reject_mixed_and_unknown_devices():
     w = torch.zeros(1, 4)
     with pytest.raises(ValueError):
         K.fwd_fused(w, w.to("meta"), torch.zeros(1, 4, 2), torch.ones(1))
+
+
+# ------------------------------------------------ one temperature per instance
+
+TAUS = (0.3, 0.7, 1.5, 0.05)
+# Port against ``jax.vmap`` of the reference over tau, relative to each
+# quantity's largest magnitude: at most 4.4e-7 for y, colsum, dw and dx at
+# these shapes (ROADMAP.md Queue C5).
+VMAP_RTOL = 1e-6
+
+
+def _per_instance_inputs(bsz, n, d, seed):
+    rng = np.random.default_rng(seed)
+    w = _untied_keys(rng, (bsz, n))
+    x = rng.normal(size=(bsz, n, d)).astype(np.float32)
+    a = rng.normal(size=(bsz, n, d)).astype(np.float32)
+    b = rng.normal(size=(bsz, n)).astype(np.float32)
+    return w, x, a, b, np.asarray(TAUS[:bsz], np.float32)
+
+
+def _jax_vmap_over_tau(fn, w, x, a, b, tau):
+    """Values and per-instance (dw, dx, dtau) of the reference op, vmapped
+    over instances, each at its own tau."""
+    def loss_fn(w, x, tau, a, b):
+        y, c = fn(w, x, tau)
+        return jnp.sum(y * a) + jnp.sum(jnp.square(c) * b), (y, c)
+
+    (_, (y, c)), grads = jax.vmap(jax.value_and_grad(
+        loss_fn, argnums=(0, 1, 2), has_aux=True))(
+        *[jnp.asarray(v) for v in (w, x, tau, a, b)])
+    return (np.asarray(y), np.asarray(c), *[np.asarray(g) for g in grads])
+
+
+def _torch_per_instance(fn, w, x, a, b, tau):
+    wt = torch.tensor(w, requires_grad=True)
+    xt = torch.tensor(x, requires_grad=True)
+    tt = torch.tensor(tau, requires_grad=True)
+    y, c = fn(wt, xt, tt)
+    loss = (y * torch.tensor(a)).sum() + (c.square() * torch.tensor(b)).sum()
+    grads = torch.autograd.grad(loss, (wt, xt, tt))
+    return (y.detach().numpy(), c.detach().numpy(),
+            *[g.numpy() for g in grads])
+
+
+@pytest.mark.parametrize("bsz,n,d", [(3, 16, 1), (3, 64, 3), (4, 64, 50)])
+def test_per_instance_tau_matches_jax_vmap(bsz, n, d):
+    """A (B,) tau through the dense Function against ``jax.vmap`` of the
+    reference's custom_vjp over instances and their temperatures: y,
+    colsum, dw, dx and dtau per instance (shape (B,))."""
+    w, x, a, b, tau = _per_instance_inputs(bsz, n, d, seed=n + d)
+    got = _torch_per_instance(tops.softsort_apply, w, x, a, b, tau)
+    want = _jax_vmap_over_tau(jops.softsort_apply, w, x, a, b, tau)
+    assert got[4].shape == (bsz,)
+    np.testing.assert_allclose(got[0], want[0], atol=FWD_ATOL)
+    np.testing.assert_allclose(got[1], want[1], atol=FWD_ATOL)
+    for g, r in zip(got[2:], want[2:]):
+        _close(g, r, GRAD_RTOL)
+    for i in range(bsz):
+        _close(got[4][i], want[4][i], GRAD_RTOL)
+    for g, r in zip(got[:4], want[:4]):
+        _close(g, r, VMAP_RTOL)
+
+
+@pytest.mark.parametrize("cd", [torch.float32, torch.bfloat16])
+def test_per_instance_tau_twins_batch_invariant(cd):
+    """The dense twins with a (B,) tau: tau_b goes with instance b.
+    Permuting the instances with their temperatures permutes every output
+    bitwise; row b of the forward (y, m, l, colsum) is bitwise the B = 1
+    call at tau_b, and of the backward within rounding (the twins' batched
+    products are not batch-invariant bitwise on the CPU, with one tau as
+    with B; the card's kernels are, ``tests/test_torch_cuda.py``); one
+    shared tau is bitwise its expansion to B."""
+    w, ws, x, dy, dc, _ = _operands(4, 100, 3, seed=12)
+    t = torch.tensor
+    wt, wst, xt, dyt, dct = t(w), t(ws), t(x).to(cd), t(dy).to(cd), \
+        t(dc).to(cd)
+    taus = t(TAUS)
+
+    def run(rows, tau):
+        a = [v[rows] for v in (wst, wt, xt, dyt, dct)]
+        y, m, l = K.fwd_fused(a[0], a[1], a[2], tau)
+        c = K.colsum(a[0], a[1], tau, m, l, cd)
+        D, dws = K.bwd_dws_delta(a[0], a[1], a[2], tau, m, l, a[3], y, a[4])
+        return (y, m, l, c, D, dws,
+                *K.bwd_dx(a[0], a[1], a[2], tau, m, l, a[3], a[4], D))
+
+    batched = run(slice(0, 4), taus)
+    perm = torch.tensor([2, 0, 3, 1])
+    for got, want in zip(run(perm, taus[perm]), batched):
+        assert torch.equal(got, want[perm])
+    for i in range(4):
+        alone = run(slice(i, i + 1), taus[i:i + 1])
+        for j, (got, want) in enumerate(zip(alone, batched)):
+            if j < 4:
+                assert torch.equal(got[0], want[i]), (i, j)
+            else:
+                _close(got[0].float(), want[i].float(), 1e-6)
+    shared = run(slice(0, 4), taus[1:2])
+    for got, want in zip(shared, run(slice(0, 4), taus[1:2].expand(4))):
+        assert torch.equal(got, want)
+
+
+def test_one_tau_keeps_the_total_dtau():
+    """A one-element tau gets back dtau of shape (1,), the total over the
+    batch; a (B,) tau gets B per-instance partials that sum to it."""
+    w, x, a, b, tau = _per_instance_inputs(3, 40, 4, seed=5)
+    one = np.full(3, tau[1], np.float32)
+    per = _torch_per_instance(tops.softsort_apply, w, x, a, b, one)
+    tot = _torch_per_instance(tops.softsort_apply, w, x, a, b, tau[1:2])
+    assert tot[4].shape == (1,) and per[4].shape == (3,)
+    for g, r in zip(per[:4], tot[:4]):
+        np.testing.assert_array_equal(g, r)
+    np.testing.assert_allclose(per[4].sum(), tot[4][0], rtol=1e-5)
+    with pytest.raises(ValueError, match="tau"):
+        tops.softsort_apply(torch.tensor(w), torch.tensor(x),
+                            torch.ones(2))

@@ -187,12 +187,14 @@ def recorded(monkeypatch):
 def test_v1_wrappers_pass_k_n_and_the_payload_tile(recorded, d):
     """v1_stats launches with (B, N) and no payload tile; v1_apply with
     K = N and DT = band_payload_tile(d)[0], as fwd_fused; one launch
-    counted each, through the real ``clib.launch``."""
+    counted each, through the real ``clib.launch``.  A (B,) tau is passed
+    as it is."""
     n = 37
     rng = np.random.default_rng(d)
     t = lambda *shape: torch.tensor(  # noqa: E731
         rng.normal(size=shape).astype(np.float32))
-    ws, w, x, tau = t(BSZ, n), t(BSZ, n), t(BSZ, n, d), torch.tensor([0.6])
+    ws, w, x = t(BSZ, n), t(BSZ, n), t(BSZ, n, d)
+    tau = torch.linspace(0.3, 0.9, BSZ)
     m, l = t(BSZ, n), t(BSZ, n)
     K.reset_launch_counts()
 
