@@ -69,6 +69,20 @@ start):
    neighbour distance than a random layout.  ``adaptive_claim_run_pairs``
    times the claim's two schedules in alternating pairs, with no
    per-round callback, for the seconds saved.
+   ``loss_block_check`` — the engine's loss in blocks of 8 instances
+   bitwise the same rows of 32 at every batch size, beside the sizes at
+   which one batch is not.  ``tournament_run`` — ``restart_tournament``
+   on the same catalog, 4
+   problems x 8 restarts, 3 rungs of 11 / 10 / 11 rounds, cull 0.5 (8 / 4
+   / 2 live restarts per problem: 600 of 1024 instance-rounds), dense and
+   with ``band="auto"``, beside its no-cull twin: 256 launches of each
+   kernel of the tier, each winner's order and loss trace bitwise its
+   twin row, the loss gaps, and the seconds of 2 alternating pairs beside
+   the rounds fraction.  ``tournament_adaptive_run`` — the same at 4 x 4
+   on ``adaptive_claim_run``'s schedule.  ``segment_run`` —
+   ``run_round_segment`` on 8 instances: 4 chained segments bitwise one
+   32-round run, and a batch at rounds 8 and 16 bitwise the chain and,
+   row by row, each instance alone; dense and banded.
 8. ``sog_run`` — the slice at full width: Self-Organizing Gaussians (paper
    section IV-B), 1 scene x 2 restarts of 65536 splats with 14 attributes
    on a 256 x 256 grid, ``band="auto"`` (K = 4096), 32 rounds x 8 inner
@@ -192,16 +206,6 @@ def emit(phase, **fields):
                       **fields}), flush=True)
 
 
-def synthetic_catalog(n=1024, d=50, clusters=24, seed=0):
-    """Clustered features mimicking product categories (the generator of
-    examples/image_grid_sorting.py)."""
-    rng = np.random.RandomState(seed)
-    centers = rng.randn(clusters, d) * 2.0
-    labels = rng.randint(0, clusters, n)
-    x = centers[labels] + 0.4 * rng.randn(n, d)
-    return x.astype(np.float32), labels
-
-
 def neighbor_distance(grid_vectors, hw):
     """Mean feature distance of 4-neighbour grid cells: the numerator of
     ``mean_neighbor_distance``.  Its denominator, the mean over all pairs,
@@ -242,6 +246,15 @@ def time_ms(torch, fn, reps=15, warmup=3, flush=None):
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def timed(torch, fn):
+    """(host seconds, result) of ``fn()`` on the card, ended by a sync."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, out
 
 
 def graph_ms(torch, fn, reps=15, flush=None):
@@ -666,6 +679,7 @@ def catalog_runs(torch, core, K):
     all-banded run's result and timing (the fixed schedule that
     ``adaptive_run`` is held against)."""
     from repro_torch.core.shufflesoftsort import _band_switch_round
+    from repro_torch.examples.image_grid_sorting import synthetic_catalog
 
     b, s, hw, d = 4, 2, (64, 64), 50
     n = hw[0] * hw[1]
@@ -887,12 +901,8 @@ CLAIM_PAIRS = 4
 def run_seconds(torch, core, xs, hw, cfg):
     """Host seconds of one ``shuffle_soft_sort_batched`` run (2 restarts,
     no per-round callback) on the card."""
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    core.shuffle_soft_sort_batched(xs, hw, cfg, n_restarts=2, seed=0,
-                                   device="cuda")
-    torch.cuda.synchronize()
-    return time.perf_counter() - t0
+    return timed(torch, lambda: core.shuffle_soft_sort_batched(
+        xs, hw, cfg, n_restarts=2, seed=0, device="cuda"))[0]
 
 
 def adaptive_config(core, phase):
@@ -929,6 +939,351 @@ def adaptive_phases(torch, core, K, xs, band_fixed, hw=(64, 64)):
     emit(phase + "_pairs", fixed_seconds=fixed_s, adaptive_seconds=adapt_s,
          seconds_saved_fraction=saved,
          median_seconds_saved_fraction=float(np.median(saved)))
+
+
+# The tournament phases on the catalog of phases 5-7 (4 problems, N =
+# 4096, d = 50, 64 x 64, float32, the kernel tier).  tournament_run: the
+# reference's tournament sweep settings (EXPERIMENTS.md section Scaling:
+# 8 restarts, 3 rungs, cull 0.5) at main_run's 32 rounds x 8 inner steps:
+# rungs of 11 / 10 / 11 rounds with 8 / 4 / 2 live restarts per problem,
+# 600 of the no-cull twin's 1024 instance-rounds.  tournament_adaptive_run:
+# adaptive_claim_run's settings at 4 restarts, 3 rungs of controller
+# steps, cull 0.5.
+TOURNAMENT = dict(restarts=8, n_rungs=3, cull_fraction=0.5)
+ADAPTIVE_TOURNAMENT = dict(restarts=4, n_rungs=3, cull_fraction=0.5)
+# Alternating tournament / twin pairs timed for the seconds fraction.
+TOURNAMENT_PAIRS = 2
+
+
+def last_executed(row):
+    """The last non-NaN loss of a loss trace."""
+    return float(row[~np.isnan(row)][-1])
+
+
+def require_winners(core, res, twin):
+    """Each winner is a valid permutation, ends below its round-0 loss,
+    is in the last survivor set, and its order and loss trace are bitwise
+    its row of the no-cull twin.  Returns each problem's loss gap against
+    the twin's best restart."""
+    gaps = []
+    for p in range(res.order.shape[0]):
+        w = int(res.best_restart[p])
+        trace = res.all_losses[p, w]
+        require(core.is_valid_permutation(res.order[p]),
+                f"problem {p}: invalid permutation")
+        require(res.final_loss[p] < trace[0],
+                f"problem {p}: loss did not fall: {trace[0]} -> "
+                f"{res.final_loss[p]}")
+        require(w in res.survivors[-1][p],
+                f"problem {p}: winner {w} not in {res.survivors[-1][p]}")
+        require(np.array_equal(res.order[p], twin.all_orders[p, w]),
+                f"problem {p}: the winner's order is not its twin row's")
+        require(np.array_equal(trace, twin.all_losses[p, w], equal_nan=True),
+                f"problem {p}: the winner's loss trace is not its twin "
+                f"row's")
+        best = last_executed(twin.losses[p])
+        gaps.append((float(res.final_loss[p]) - best) / best)
+    return gaps
+
+
+def timed_pairs(torch, tournament, twin):
+    """TOURNAMENT_PAIRS alternating (tournament, twin) timings, neither
+    with a per-round callback; returns both lists of seconds."""
+    tour_s, twin_s = [], []
+    for i in range(TOURNAMENT_PAIRS):
+        runs = [(tournament, tour_s), (twin, twin_s)]
+        for fn, out in (runs if i % 2 == 0 else runs[::-1]):
+            out.append(timed(torch, fn)[0])
+    return tour_s, twin_s
+
+
+def loss_block_check(torch, hw=(64, 64), d=50, full=32):
+    """Phase 7a: why the engine evaluates the loss in blocks of 8
+    instances.  ``full`` random instances at the catalog's shape; for each
+    batch of the first B of them, the loss values and their gradients
+    against y and colsum, computed as one batch (``grid_sorting_loss``)
+    and as the engine's padded blocks (``_loss_fn`` with ``pad_rows``),
+    each row against its row of the full batch computed the same way.
+    Reports the batch sizes at which one batch differs (PyTorch's CUDA
+    reductions choose their split from the number of rows); requires the
+    blocks bitwise at every size."""
+    import importlib
+
+    from repro_torch.core.losses import grid_sorting_loss
+
+    eng = importlib.import_module("repro_torch.core.shufflesoftsort")
+    n = hw[0] * hw[1]
+    g = torch.Generator().manual_seed(17)
+    y = torch.randn(full, n, d, generator=g).to("cuda")
+    x = torch.randn(full, n, d, generator=g).to("cuda")
+    c = (1 + 0.1 * torch.randn(full, n, generator=g)).to("cuda")
+    norm = (1 + torch.rand(full, generator=g)).to("cuda")
+    cfg = eng.ShuffleSoftSortConfig()
+    ident = torch.arange(n, device="cuda").expand(full, n)
+
+    def run(b, blocked):
+        yv = y[:b].clone().requires_grad_(True)
+        cv = c[:b].clone().requires_grad_(True)
+        if blocked:
+            loss = eng._loss_fn(None, x[:b], ident[:b], None, hw, norm[:b],
+                                cfg, lambda w, xs_, t: (yv, cv),
+                                pad_rows=True)
+        else:
+            loss = grid_sorting_loss(yv, cv, x[:b], hw, norm[:b])
+        return (loss.detach(), *torch.autograd.grad(loss.sum(), (yv, cv)))
+
+    sizes = (1, 2, 4, 8, 12, 16, 24)
+    differs = {}
+    for blocked in (False, True):
+        ref = run(full, blocked)
+        out = {k: [] for k in ("value", "grad_y", "grad_colsum")}
+        for b in sizes:
+            for k, got, want in zip(out, run(b, blocked), ref):
+                if not torch.equal(got, want[:b]):
+                    out[k].append(b)
+        differs["blocks" if blocked else "one_batch"] = out
+    require(not any(differs["blocks"].values()),
+            f"the loss blocks are not batch-invariant: {differs['blocks']}")
+    emit("loss_block_check", shape=[full, n, d], sizes=list(sizes),
+         differs_from_full_batch_at=differs)
+
+
+def tournament_run(torch, core, K, xs, hw=(64, 64)):
+    """Phase 7b: ``restart_tournament`` on the fixed schedule, dense
+    (kernels 1-4) and with ``band="auto"`` (K = 256, kernels 5-8), each
+    beside its no-cull twin, ``shuffle_soft_sort_batched`` on the same 32
+    instances with the same seeds.  Counts set to 0 just before the
+    tournament and read just after: every kernel of the tier launches
+    once per inner step of every round (the batch shrinks, the launches
+    do not).  Checks the rounds fraction, the survivor counts and the
+    winners (``require_winners``); reports the loss gaps, the host ms per
+    round of each rung, and the seconds of TOURNAMENT_PAIRS alternating
+    pairs beside the rounds fraction."""
+    t = TOURNAMENT
+    b, s, n = xs.shape[0], t["restarts"], hw[0] * hw[1]
+    rounds, inner = 32, 8
+    rung_rounds, live = (11, 10, 11), (8, 4, 2)
+    want_run = sum(r * b * k for r, k in zip(rung_rounds, live))   # 600
+    for band in (None, "auto"):
+        cfg = core.ShuffleSoftSortConfig(rounds=rounds, inner_steps=inner,
+                                         use_kernel=True, band=band)
+        emit("tournament_run_config", problems=b, n=n,
+             d=xs.shape[2], grid=hw, rounds=rounds, inner_steps=inner,
+             band=band, band_k=core.resolve_band(cfg, n),
+             compute_dtype=cfg.compute_dtype, rung_rounds=rung_rounds,
+             live_restarts=live, **t,
+             source="EXPERIMENTS.md section Scaling, the reference's "
+                    "tournament sweep (S = 8, 3 rungs, cull 0.5), at "
+                    "N = 4096")
+
+        def tournament(hook=None):
+            return core.restart_tournament(
+                xs, hw, cfg, n_restarts=s, seed=0, device="cuda",
+                cull_fraction=t["cull_fraction"], n_rungs=t["n_rungs"],
+                rung_hook=hook)
+
+        def twin():
+            return core.shuffle_soft_sort_batched(xs, hw, cfg, n_restarts=s,
+                                                  seed=0, device="cuda")
+
+        stamps = []
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        seconds, res = timed(torch, lambda: tournament(
+            lambda start: stamps.append(time.perf_counter())))
+        end = time.perf_counter()
+        counts = K.launch_counts()
+        on, off = (DENSE, BAND) if band is None else (BAND, DENSE)
+        require_counts(counts, {**{k: rounds * inner for k in on},
+                                **{k: 0 for k in off}})
+        require(res.rounds_run == want_run
+                and res.rounds_full == b * s * rounds,
+                f"rounds_run {res.rounds_run} / {res.rounds_full}")
+        require([sv.shape for sv in res.survivors]
+                == [(b, k) for k in live[1:] + live[-1:]],
+                "survivor counts after each rung")
+        twin_seconds, twin_res = timed(torch, twin)
+        gaps = require_winners(core, res, twin_res)
+        rung_ms = np.diff(stamps + [end]) * 1e3
+        tour_s, twin_s = timed_pairs(torch, tournament, twin)
+        fractions = [a / w for a, w in zip(tour_s, twin_s)]
+        emit("tournament_run", band=band, rounds_run=res.rounds_run,
+             rounds_full=res.rounds_full,
+             rounds_fraction=res.rounds_run / res.rounds_full,
+             seconds_first=seconds, twin_seconds_first=twin_seconds,
+             ms_per_round_by_rung=(rung_ms / rung_rounds).tolist(),
+             tournament_seconds=tour_s, twin_seconds=twin_s,
+             seconds_fraction=fractions,
+             median_seconds_fraction=float(np.median(fractions)),
+             survivors=[sv.tolist() for sv in res.survivors],
+             best_restart=res.best_restart.tolist(),
+             final_loss=res.final_loss.tolist(),
+             twin_best_loss=[last_executed(r) for r in twin_res.losses],
+             loss_gap_vs_twin_best=gaps, winners_bitwise_twin=True,
+             launches=counts)
+
+
+def tournament_adaptive_run(torch, core, K, xs, hw=(64, 64)):
+    """Phase 7c: ``restart_tournament`` with adaptive_claim_run's
+    configuration at 4 problems x 4 restarts, 3 rungs of controller steps,
+    cull 0.5, beside its no-cull adaptive twin.  The ragged dispatches are
+    read through a spy on the engine, and every dense and banded launch
+    must be accounted for by the groups' rounds x inner steps; the winners
+    as in ``require_winners``.  Reports the instance-rounds run against
+    the twin's and against ``rounds_full``, the culls per edge, and the
+    seconds of TOURNAMENT_PAIRS alternating pairs."""
+    import importlib
+
+    eng = importlib.import_module("repro_torch.core.shufflesoftsort")
+    t = ADAPTIVE_TOURNAMENT
+    b, s, n = xs.shape[0], t["restarts"], hw[0] * hw[1]
+    cfg = adaptive_config(core, "adaptive_claim_run")
+    emit("tournament_adaptive_run_config", problems=b, n=n,
+         d=xs.shape[2], grid=hw, rounds=cfg.rounds,
+         inner_steps=cfg.inner_steps, band="auto",
+         band_k=core.resolve_band(cfg, n), tau_end=cfg.tau_end,
+         adapt_every=cfg.adapt_every, patience=cfg.patience,
+         plateau_rtol=cfg.plateau_rtol, decay_rungs=cfg.decay_rungs,
+         compute_dtype=cfg.compute_dtype, **t)
+
+    def tournament():
+        return core.restart_tournament(
+            xs, hw, cfg, n_restarts=s, seed=0, device="cuda",
+            cull_fraction=t["cull_fraction"], n_rungs=t["n_rungs"])
+
+    def twin():
+        return core.shuffle_soft_sort_batched(xs, hw, cfg, n_restarts=s,
+                                              seed=0, device="cuda")
+
+    groups, ragged = [], eng._run_rounds_ragged
+
+    def ragged_spy(xs_, orders, source, rows, tau_rows, norms, **kw):
+        groups.append((kw["apply_fn"].func.__name__
+                       == "softsort_apply_banded", len(rows), len(tau_rows)))
+        return ragged(xs_, orders, source, rows, tau_rows, norms, **kw)
+
+    eng._run_rounds_ragged = ragged_spy
+    try:
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        seconds, res = timed(torch, tournament)
+        counts = K.launch_counts()
+    finally:
+        eng._run_rounds_ragged = ragged
+    want = {k: 0 for k in DENSE + BAND}
+    for banded, _, rounds in groups:
+        for k in (BAND if banded else DENSE):
+            want[k] += rounds * cfg.inner_steps
+    require_counts(counts, want)
+    require(res.rounds_run == sum(k * r for _, k, r in groups)
+            == int((~np.isnan(res.all_losses)).sum()),
+            f"rounds_run {res.rounds_run} is not the rounds executed")
+    twin_seconds, twin_res = timed(torch, twin)
+    gaps = require_winners(core, res, twin_res)
+    twin_rounds = int(twin_res.rounds_executed.sum())
+    widths = [s] + [sv.shape[1] for sv in res.survivors]
+    tour_s, twin_s = timed_pairs(torch, tournament, twin)
+    fractions = [a / w for a, w in zip(tour_s, twin_s)]
+    emit("tournament_adaptive_run", rounds_run=res.rounds_run,
+         twin_rounds_executed=twin_rounds, rounds_full=res.rounds_full,
+         rounds_vs_twin=res.rounds_run / twin_rounds,
+         rounds_fraction=res.rounds_run / res.rounds_full,
+         culls_per_edge=[b * (w0 - w1) for w0, w1 in
+                         zip(widths[:-1], widths[1:])],
+         seconds_first=seconds, twin_seconds_first=twin_seconds,
+         tournament_seconds=tour_s, twin_seconds=twin_s,
+         seconds_fraction=fractions,
+         median_seconds_fraction=float(np.median(fractions)),
+         dispatches=len(groups),
+         survivors=[sv.tolist() for sv in res.survivors],
+         best_restart=res.best_restart.tolist(),
+         final_loss=res.final_loss.tolist(),
+         twin_best_loss=[last_executed(r) for r in twin_res.losses],
+         loss_gap_vs_twin_best=gaps, winners_bitwise_twin=True,
+         launches=counts)
+
+
+def segment_run(torch, core, K, xs, hw=(64, 64)):
+    """Phase 7d: ``run_round_segment`` on 8 catalog instances (each
+    problem twice), dense and with ``band="auto"``, segments of 8 of 32
+    rounds.  Checks, bitwise: 4 chained segments against one 32-round
+    ``_run_rounds`` of the same instances and streams; a batch whose
+    progress is spread over two rung multiples (rounds 8 and 16) against
+    the chain's segments at those rounds, and row by row against each
+    instance run alone.  Counts set to 0 just before the chain and read
+    just after: every kernel of the tier once per inner step."""
+    from repro_torch.core.prng import (ReplayShuffleSource,
+                                       TorchShuffleSource, instance_seeds)
+    from repro_torch.core.shufflesoftsort import _run_rounds
+
+    seg, rounds, inner, bs = 8, 32, 8, 8
+    n = hw[0] * hw[1]
+    x8 = torch.as_tensor(np.repeat(xs, 2, axis=0), device="cuda")
+    norms = torch.stack([core.mean_pairwise_distance(x) for x in x8])
+    seeds = instance_seeds(0, bs)
+    start = torch.arange(n, device="cuda").repeat(bs, 1)
+    progress = np.array([8] * 4 + [16] * 4)
+    for band in (None, "auto"):
+        cfg = core.ShuffleSoftSortConfig(rounds=rounds, inner_steps=inner,
+                                         use_kernel=True, band=band)
+
+        def segment(x, orders, nrm, prog, source):
+            return core.run_round_segment(x, orders, nrm, prog, seg,
+                                          source=source, hw=hw, cfg=cfg,
+                                          device="cuda")
+
+        one_orders, one_losses = _run_rounds(
+            x8, start, TorchShuffleSource(seeds, n, "cuda"), norms, 0,
+            hw=hw, cfg=cfg)
+        source = TorchShuffleSource(seeds, n, "cuda")
+        states, parts = [start], []
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+
+        def chain():
+            for p0 in range(0, rounds, seg):
+                o, ls = segment(x8, states[-1], norms, [p0] * bs, source)
+                states.append(o)
+                parts.append(ls)
+
+        seconds, _ = timed(torch, chain)
+        counts = K.launch_counts()
+        on, off = (DENSE, BAND) if band is None else (BAND, DENSE)
+        require_counts(counts, {**{k: rounds * inner for k in on},
+                                **{k: 0 for k in off}})
+        require(torch.equal(states[-1], one_orders)
+                and torch.equal(torch.cat(parts), one_losses),
+                "chained segments differ from one uninterrupted run")
+
+        gen = TorchShuffleSource(seeds, n, "cuda")
+        shuffles = torch.stack([gen.next_round() for _ in range(rounds)]
+                               ).cpu().numpy()           # (R, BS, N)
+
+        def replay(cols):
+            src = ReplayShuffleSource(shuffles[:, cols], "cuda")
+            src.pos[:] = progress[cols]
+            return src
+
+        mixed = torch.cat([states[1][:4], states[2][4:]])
+        o_m, l_m = segment(x8, mixed, norms, progress,
+                           replay(np.arange(bs)))
+        require(torch.equal(o_m[:4], states[2][:4])
+                and torch.equal(o_m[4:], states[3][4:])
+                and torch.equal(l_m[:, :4], parts[1][:, :4])
+                and torch.equal(l_m[:, 4:], parts[2][:, 4:]),
+                "mixed progress differs from the chain's segments")
+        for i in range(bs):
+            o_i, l_i = segment(x8[i:i + 1], mixed[i:i + 1], norms[i:i + 1],
+                               progress[i:i + 1], replay([i]))
+            require(torch.equal(o_i[0], o_m[i])
+                    and torch.equal(l_i[:, 0], l_m[:, i]),
+                    f"instance {i} alone differs from its row of the batch")
+        emit("segment_run", band=band, band_k=core.resolve_band(cfg, n),
+             instances=bs, seg_len=seg, rounds=rounds, inner_steps=inner,
+             progress=progress.tolist(), chain_seconds=seconds,
+             chained_equals_one_run=True, mixed_equals_chain=True,
+             alone_equals_batch_rows=True, launches=counts,
+             loss_last=one_losses[-1].tolist())
 
 
 def correlated_weight(rng, d, f, rank=16):
@@ -1325,6 +1680,10 @@ def main():
     function_phase(torch, ops, ref, core)
     xs, launches, fixed = catalog_runs(torch, core, K)
     adaptive_phases(torch, core, K, xs, fixed)
+    loss_block_check(torch)
+    tournament_run(torch, core, K, xs)
+    tournament_adaptive_run(torch, core, K, xs)
+    segment_run(torch, core, K, xs)
     launches.update({k: v for k, v in sog_run(torch, core, K).items()
                      if k in BAND})
     sog_codec(torch)

@@ -1,5 +1,6 @@
 # ShuffleSoftSort in PyTorch: softsort, the Algorithm 1 driver (fixed and
-# adaptive schedules, dense and banded apply), the adaptive controller,
+# adaptive schedules, dense and banded apply, the restart tournament and
+# round segments), the adaptive controller,
 # losses eq. 2-4, metrics, and the shuffle sources.
 from repro_torch.core.softsort import (  # noqa: F401
     softsort_matrix,
@@ -33,9 +34,13 @@ from repro_torch.core.shufflesoftsort import (  # noqa: F401
     BatchedSortResult,
     NumericalDivergence,
     ShuffleSoftSortConfig,
+    TournamentResult,
     make_adaptive_controller,
     resolve_band,
     resolve_device,
+    restart_tournament,
+    run_round_segment,
+    rung_aligned_switch,
     shuffle_soft_sort,
     shuffle_soft_sort_batched,
 )

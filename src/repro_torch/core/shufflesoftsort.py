@@ -159,8 +159,12 @@ def _check_ported(cfg: ShuffleSoftSortConfig, **features) -> None:
     todo = {
         "mesh": (features.get("mesh") is not None,
                  "multi-GPU instance sharding (ROADMAP.md Queue A11)"),
+        "mesh_hook": (features.get("mesh_hook") is not None,
+                      "elastic re-sharding (ROADMAP.md Queue A11)"),
         "checkpoint_dir": (features.get("checkpoint_dir") is not None,
                            "checkpoint and resume (ROADMAP.md Queue A10)"),
+        "resume": (bool(features.get("resume")),
+                   "checkpoint and resume (ROADMAP.md Queue A10)"),
         "guardrail": (features.get("guardrail") is not None,
                       "guardrails (ROADMAP.md Queue A12)"),
     }
@@ -173,15 +177,42 @@ def _check_ported(cfg: ShuffleSoftSortConfig, **features) -> None:
                          f"{cfg.compute_dtype}")
 
 
+# Rows of one loss evaluation.  PyTorch's CUDA reductions choose how they
+# split each row's sum from the number of rows they reduce, so an
+# instance's loss can change in its last bits with the batch around it (on
+# an H100 at N = 4096, d = 50, against 32 instances: the loss values at 4,
+# 8 and 12, the std term's gradient at one; ``chip_smoke.py``'s
+# ``loss_block_check``).  A batch of more than _LOSS_ROWS instances,
+# and with ``pad_rows`` any batch, is therefore evaluated in blocks of
+# exactly _LOSS_ROWS rows, a short block padded: every instance then sees
+# one reduction however many instances share its dispatch.  A fixed-engine
+# batch of at most _LOSS_ROWS is evaluated whole, as it always was.
+_LOSS_ROWS = 8
+
+
 def _loss_fn(w, x_shuf, inv_shuf, tau, hw, norm, cfg: ShuffleSoftSortConfig,
-             apply_fn) -> torch.Tensor:
-    """(BS,) losses of a (BS, N) key batch."""
+             apply_fn, pad_rows: bool = False) -> torch.Tensor:
+    """(BS,) losses of a (BS, N) key batch; ``norm`` is (BS,)."""
     y_shuf, colsum = apply_fn(w, x_shuf, tau)
     d = y_shuf.shape[-1]
     y = torch.gather(y_shuf, 1, inv_shuf[..., None].expand(-1, -1, d))
-    return grid_sorting_loss(y, colsum, x_shuf, hw, norm,
+    loss = functools.partial(grid_sorting_loss, hw=hw,
                              lambda_s=cfg.lambda_s,
                              lambda_sigma=cfg.lambda_sigma)
+    bs = y.shape[0]
+    if bs == _LOSS_ROWS or (bs < _LOSS_ROWS and not pad_rows):
+        return loss(y, colsum, x_shuf, norm=norm)
+    out = []
+    for b0 in range(0, bs, _LOSS_ROWS):
+        block = [t[b0:b0 + _LOSS_ROWS] for t in (y, colsum, x_shuf, norm)]
+        k = block[0].shape[0]
+        if k < _LOSS_ROWS:
+            # Copies of the block's first row, cut off from autograd: they
+            # only fill the block and are dropped with their losses.
+            block = [torch.cat([t, t[:1].detach().expand(
+                _LOSS_ROWS - k, *t.shape[1:])]) for t in block]
+        out.append(loss(block[0], block[1], block[2], norm=block[3])[:k])
+    return torch.cat(out)
 
 
 def _inner_ramp(cfg: ShuffleSoftSortConfig) -> np.ndarray:
@@ -205,14 +236,16 @@ def _adam_bias(cfg: ShuffleSoftSortConfig, device):
 
 
 def _outer_round(xs, orders, shuf, tau_inner, norms, bias1, bias2, *,
-                 hw, cfg: ShuffleSoftSortConfig, apply_fn):
+                 hw, cfg: ShuffleSoftSortConfig, apply_fn,
+                 pad_rows: bool = False):
     """One outer round for a (BS, N) batch of instances.
 
     ``shuf`` (BS, N) is the round's shuffles, ``tau_inner`` the
     device-resident inner temperatures, (BS, I) with a row per instance or
     (1, I) shared by the batch, ``bias1``/``bias2`` (I,) the Adam bias
-    corrections ``1 - b ** t``.  Returns the committed orders, the last
-    inner step's losses (BS,) and its trained keys ``w`` (BS, N).
+    corrections ``1 - b ** t``, ``pad_rows`` as in ``_loss_fn``.  Returns
+    the committed orders, the last inner step's losses (BS,) and its
+    trained keys ``w`` (BS, N).
     """
     bs, n = orders.shape
     d = xs.shape[-1]
@@ -229,7 +262,7 @@ def _outer_round(xs, orders, shuf, tau_inner, norms, bias1, bias2, *,
         wv = w.detach().requires_grad_(True)
         with torch.enable_grad():
             loss = _loss_fn(wv, x_shuf, inv_shuf, taus[i], hw, norms, cfg,
-                            apply_fn)
+                            apply_fn, pad_rows)
             (g,) = torch.autograd.grad(loss.sum(), wv)
         mu = cfg.b1 * mu + (1 - cfg.b1) * g
         nu = cfg.b2 * nu + (1 - cfg.b2) * torch.square(g)
@@ -320,12 +353,18 @@ def _band_switch_round(cfg: ShuffleSoftSortConfig, n: int) -> int:
     return int(idx[0]) if idx.size else cfg.rounds
 
 
-def _run_rounds(xs_t, orders, source: ShuffleSource, norms_t, start: int, *,
-                hw, cfg: ShuffleSoftSortConfig,
-                on_round: Optional[Callable] = None):
-    """Rounds ``start .. R-1`` over a (BS, N) batch: dense before the
-    switch round, banded from it on.  Returns the orders and the
-    (R - start, BS) losses, both on the device."""
+def _run_rounds(xs_t, orders, source: ShuffleSource, norms_t, start: int,
+                end: int | None = None, *, rows=None, hw,
+                cfg: ShuffleSoftSortConfig,
+                on_round: Optional[Callable] = None,
+                pad_rows: bool = False):
+    """Rounds ``start .. end - 1`` (``end`` None: to R) over a (BS, N)
+    batch, each round dense before the GLOBAL switch round and banded from
+    it on, so a run cut into segments runs every round on the apply an
+    uninterrupted run gives it.  ``rows`` (BS,) are the batch's instance
+    indices in ``source`` (None: all of them, in order); only their
+    streams advance.  ``pad_rows`` as in ``_loss_fn``.  Returns the orders
+    and the (end - start, BS) losses, both on the device."""
     dev = xs_t.device
     n = orders.shape[1]
     dense_fn = _select_apply_fn(cfg)
@@ -335,11 +374,12 @@ def _run_rounds(xs_t, orders, source: ShuffleSource, norms_t, start: int, *,
     tau_inner = torch.as_tensor(_inner_taus(cfg), device=dev)
     bias1, bias2 = _adam_bias(cfg, dev)
     losses = []
-    for r in range(start, cfg.rounds):
-        shuf = source.next_round()
+    for r in range(start, cfg.rounds if end is None else end):
+        shuf = source.next_round(rows)
         orders, loss, _ = _outer_round(
             xs_t, orders, shuf, tau_inner[r:r + 1], norms_t, bias1, bias2,
-            hw=hw, cfg=cfg, apply_fn=band_fn if r >= switch else dense_fn)
+            hw=hw, cfg=cfg, apply_fn=band_fn if r >= switch else dense_fn,
+            pad_rows=pad_rows)
         losses.append(loss)
         if on_round is not None:
             on_round(r, orders, loss)
@@ -359,7 +399,9 @@ def _run_rounds_ragged(xs, orders, source: ShuffleSource, rows, tau_rows,
     ``tau_rows`` (T, k) float32 holds column j's outer temperatures, so
     instances at different points of the schedule share every launch.
     The inner temperatures are ``tau_rows[t, j] * ramp_i`` in float32, the
-    fixed schedule's values wherever the temperatures are its own.
+    fixed schedule's values wherever the temperatures are its own.  The
+    loss runs on padded blocks (``_loss_fn``): a group's size changes from
+    rung to rung.
 
     Returns orders (k, N), losses (T, k) and the last round's trained
     keys ws (k, N), all on the device.
@@ -373,7 +415,7 @@ def _run_rounds_ragged(xs, orders, source: ShuffleSource, rows, tau_rows,
     for t in range(tau_rows.shape[0]):
         orders, loss, w = _outer_round(
             xs, orders, source.next_round(rows), tau_inner[t], norms, bias1,
-            bias2, hw=hw, cfg=cfg, apply_fn=apply_fn)
+            bias2, hw=hw, cfg=cfg, apply_fn=apply_fn, pad_rows=True)
         losses.append(loss)
     return orders, torch.stack(losses), w
 
@@ -391,7 +433,10 @@ def make_adaptive_controller(cfg: ShuffleSoftSortConfig, n_instances: int,
 
 
 def _run_adaptive(xs_t, orders, source: ShuffleSource, norms_t, *, hw,
-                  cfg: ShuffleSoftSortConfig, controller: AdaptiveController):
+                  cfg: ShuffleSoftSortConfig, controller: AdaptiveController,
+                  boundary_hook: Optional[Callable] = None,
+                  rung_hook: Optional[Callable[[int], None]] = None,
+                  check_finite: bool = True):
     """The adaptive schedule: rung by rung until no instance is live.
 
     Each rung advances every live instance by ``seg_len`` rounds.  The
@@ -401,11 +446,17 @@ def _run_adaptive(xs_t, orders, source: ShuffleSource, norms_t, *, hw,
     group).  Rows are gathered and scattered on the device; only the
     rung's losses and last keys go to the host, where the controller
     observes them and decides jumps, stops and switches for the next
-    rung.  Stopped instances leave the groups and draw no more shuffles.
+    rung.  Stopped (or culled) instances leave the groups and draw no more
+    shuffles.
 
-    Returns orders (BS, N) on the device and losses (BS, R) float32, NaN
-    at the rounds an instance never ran (``controller.executed`` counts
-    the rounds each ran).
+    ``rung_hook(executed_rounds)`` runs at the top of each rung, before
+    any work; ``boundary_hook(step, controller, losses)`` after each
+    boundary's observe (the tournament culls from it).
+
+    Returns orders (BS, N) on the device, losses (BS, R) float32, NaN at
+    the rounds an instance never ran (``controller.executed`` counts the
+    rounds each ran), and the instance-rounds run on the device, the sum
+    over dispatches of rounds x group size.
     """
     ctrl = controller
     seg = ctrl.seg_len
@@ -415,11 +466,14 @@ def _run_adaptive(xs_t, orders, source: ShuffleSource, norms_t, *, hw,
     band_fn = (dense_fn if ctrl.band is None
                else _select_apply_fn(cfg, ctrl.band))
     losses_mat = np.full((bs, cfg.rounds), np.nan, np.float32)
+    device_rounds = 0
     step = 0
     while True:
         live = ctrl.live_indices()
         if live.size == 0:
             break
+        if rung_hook is not None:
+            rung_hook(step * seg)
         # Stopped instances never rejoin, so every live instance has run
         # exactly step * seg rounds.
         exec0 = step * seg
@@ -439,11 +493,122 @@ def _run_adaptive(xs_t, orders, source: ShuffleSource, norms_t, *, hw,
             orders = orders.index_copy(0, rows, o)
             seg_losses[sel] = l.cpu().numpy().T
             ws_live[sel] = w.cpu().numpy()
-        _check_finite(seg_losses.T, exec0, cfg, "adaptive", ws=ws_live)
+            device_rounds += seg * gidx.size
+        if check_finite:
+            _check_finite(seg_losses.T, exec0, cfg, "adaptive", ws=ws_live)
         losses_mat[live, exec0:exec0 + seg] = seg_losses
         ctrl.observe(live, seg_losses, ws_live)
+        if boundary_hook is not None:
+            boundary_hook(step + 1, ctrl, losses_mat)
         step += 1
-    return orders, losses_mat
+    return orders, losses_mat, device_rounds
+
+
+def rung_aligned_switch(cfg: ShuffleSoftSortConfig, n: int,
+                        seg_len: int) -> int:
+    """The dense->banded switch round snapped UP to the next multiple of
+    ``seg_len`` (capped at ``cfg.rounds``).
+
+    A scheduler that preempts only at rung boundaries (multiples of its
+    segment length) cannot split a segment at a mid-rung switch the way
+    ``_run_rounds`` does; the switch is deferred to the next boundary
+    instead (a few more rounds run dense: exact, only costlier), so that
+    no segment straddles regimes.  ``run_round_segment`` requires of its
+    callers that every instance of a segment is in one regime relative to
+    this round.
+    """
+    switch = _band_switch_round(cfg, n)
+    if switch >= cfg.rounds:
+        return cfg.rounds
+    return min(-(-switch // seg_len) * seg_len, cfg.rounds)
+
+
+def run_round_segment(xs, orders, norms, progress, seg_len: int, *,
+                      source: ShuffleSource, rows=None, hw,
+                      cfg: ShuffleSoftSortConfig, device=None, mesh=None,
+                      regime: str | None = None, with_w: bool = False,
+                      guardrail=None):
+    """Round-boundary join/leave hook for continuous-batching servers.
+
+    Runs ``seg_len`` outer rounds on BS instances where instance i takes
+    ITS OWN slice ``[progress[i], progress[i] + seg_len)`` of the tau
+    schedule, so one batch can mix instances that joined the anneal at
+    different times, and an instance leaves at any boundary without
+    perturbing the others.  Each instance draws its shuffles from its own
+    stream in ``source`` (``rows``), which carries the stream state from
+    call to call: chaining the returned orders through successive calls
+    reproduces an uninterrupted run bitwise.
+
+    All instances of one call must be in the same apply regime relative to
+    ``rung_aligned_switch``; a batch that mixes regimes or straddles the
+    switch raises ``ValueError``.  ``regime="dense"`` / ``"banded"``
+    selects the apply explicitly instead (an adaptive scheduler that
+    decides regimes on the measured tail bound owns the grouping), and
+    ``with_w=True`` also returns each instance's end-of-segment trained
+    keys, the observation ``AdaptiveController`` consumes.
+
+    Args:
+      xs: (BS, N, d) instances.
+      orders: (BS, N) current permutations.
+      norms: (BS,) per-instance loss normalizations.
+      progress: (BS,) int, each instance's current global round.
+      seg_len: rounds to run (the scheduler's preemption quantum).
+      source: the shuffle source (``repro_torch.core.prng``).
+      rows: (BS,) the instances' indices in ``source`` (None: 0..BS-1).
+      device: where to run (None: CUDA, and an error without it).
+      regime: None infers the apply from ``rung_aligned_switch`` and
+        checks the batch against it; "dense" / "banded" selects it.
+      with_w: also return the end-of-segment trained keys.
+
+    Returns:
+      (orders (BS, N), losses (seg_len, BS)) on the device, plus
+      ``ws (BS, N)`` with ``with_w=True``.
+    """
+    _check_ported(cfg, mesh=mesh, guardrail=guardrail)
+    device = resolve_device(device)
+    xs = torch.as_tensor(xs, dtype=_F32, device=device)
+    orders = torch.as_tensor(orders, device=device).to(torch.int64)
+    if not isinstance(norms, torch.Tensor):
+        norms = np.array(norms, np.float32)
+    norms = torch.as_tensor(norms, dtype=_F32, device=device)
+    seg_len = int(seg_len)
+    bs, n = xs.shape[0], xs.shape[1]
+    p = np.asarray(progress, np.int64)
+    rows = np.arange(bs) if rows is None else np.asarray(rows, np.int64)
+    if seg_len < 1 or p.shape != (bs,) or rows.shape != (bs,):
+        raise ValueError(f"need seg_len >= 1 and progress and rows of shape "
+                         f"({bs},), got seg_len={seg_len}, progress "
+                         f"{p.shape}, rows {rows.shape}")
+    if (p < 0).any() or (p + seg_len > cfg.rounds).any():
+        raise ValueError(
+            f"segment [{p.min()}, {p.max() + seg_len}) escapes the "
+            f"{cfg.rounds}-round schedule")
+    band = resolve_band(cfg, n)
+    if regime is not None:
+        if regime not in ("dense", "banded"):
+            raise ValueError(f"regime={regime!r} must be 'dense' or "
+                             "'banded'")
+        if regime == "banded" and band is None:
+            raise ValueError("regime='banded' requires a resolvable "
+                             "cfg.band for this problem size")
+        banded = regime == "banded"
+    else:
+        switch = rung_aligned_switch(cfg, n, seg_len)
+        if band is None or (p + seg_len <= switch).all():
+            banded = False
+        elif (p >= switch).all():
+            banded = True
+        else:
+            raise ValueError(
+                f"instances at rounds {sorted(set(p.tolist()))} mix apply "
+                f"regimes across the rung-aligned dense->banded switch "
+                f"{switch}; group instances by regime "
+                f"(rung_aligned_switch)")
+    tau_rows = _tau_schedule(cfg)[p[:, None] + np.arange(seg_len)].T
+    orders, losses, ws = _run_rounds_ragged(
+        xs, orders, source, rows, tau_rows, norms, hw=hw, cfg=cfg,
+        apply_fn=_select_apply_fn(cfg, band if banded else None))
+    return (orders, losses, ws) if with_w else (orders, losses)
 
 
 def _prep_instances(xs, hw, n_restarts, seed, seeds, source, norms, state,
@@ -661,8 +826,8 @@ def _batched_adaptive(xs, b, s, n, source, xs_t, norms_t, orders, *, hw,
     """``shuffle_soft_sort_batched`` on the adaptive schedule."""
     bs = b * s
     ctrl = make_adaptive_controller(cfg, bs, n)
-    orders, losses_bs = _run_adaptive(xs_t, orders, source, norms_t, hw=hw,
-                                      cfg=cfg, controller=ctrl)
+    orders, losses_bs, _ = _run_adaptive(xs_t, orders, source, norms_t,
+                                         hw=hw, cfg=cfg, controller=ctrl)
     all_losses = losses_bs.reshape(b, s, cfg.rounds)
     all_orders = orders.to(torch.int32).cpu().numpy().reshape(b, s, n)
     final = losses_bs[np.arange(bs), ctrl.executed - 1].reshape(b, s)
@@ -679,3 +844,252 @@ def _batched_adaptive(xs, b, s, n, source, xs_t, norms_t, orders, *, hw,
         all_losses=all_losses,
         rounds_executed=ctrl.executed.reshape(b, s),
     )
+
+
+# --------------------------------------------------------------------------
+# Restart tournament: successive halving over the restart axis.
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class TournamentResult:
+    """Result of ``restart_tournament``: successive-halving restarts.
+
+    ``rounds_run / rounds_full`` is the compute fraction the tournament
+    spent against running every restart to the end; culling can drop a
+    late-blooming restart, which is the quality it risks for it.
+    """
+    order: np.ndarray          # (B, N) int32: winning restart's permutation
+    sorted: np.ndarray         # (B, N, d): xs gathered by ``order``
+    final_loss: np.ndarray     # (B,): winner's last-round loss
+    best_restart: np.ndarray   # (B,): winner's ORIGINAL restart index
+    survivors: tuple           # per rung: (B, S_k) original restart indices
+    all_losses: np.ndarray     # (B, S, R): NaN after a restart is culled
+    rounds_run: int            # instance-rounds executed on the device
+    rounds_full: int           # B * S * R: the no-culling engine's cost
+
+
+def _rung_boundaries(rounds: int, n_rungs: int) -> list[int]:
+    """Split the R-round anneal into ``n_rungs`` contiguous segments;
+    returns the (strictly increasing) end round of each rung, last == R."""
+    if n_rungs < 1:
+        raise ValueError(f"n_rungs must be >= 1, got {n_rungs}")
+    edges, prev = [], 0
+    for k in range(n_rungs):
+        end = round(rounds * (k + 1) / n_rungs)
+        if end > prev:
+            edges.append(end)
+            prev = end
+    return edges
+
+
+def _tournament_cull(final_losses: np.ndarray, keep: int) -> np.ndarray:
+    """The ``keep`` best restart slots per problem of (B, S_k) rung-end
+    losses: (B, keep) int64 slots of the CURRENT live set, ascending per
+    problem (a stable sort: ties keep the lower slot)."""
+    s_k = final_losses.shape[1]
+    if not 1 <= keep <= s_k:
+        raise ValueError(f"keep={keep} outside 1..{s_k}")
+    sel = np.argsort(final_losses, axis=1, kind="stable")[:, :keep]
+    sel.sort(axis=1)
+    return sel
+
+
+def _survivor_count(s_k: int, cull_fraction: float) -> int:
+    return max(1, int(np.ceil(s_k * (1.0 - cull_fraction))))
+
+
+def restart_tournament(
+    xs,
+    hw: tuple[int, int],
+    cfg: ShuffleSoftSortConfig = ShuffleSoftSortConfig(),
+    n_restarts: int = 8,
+    seed: int = 0,
+    seeds: Sequence[int] | None = None,
+    cull_fraction: float = 0.5,
+    n_rungs: int = 3,
+    mesh=None,
+    *,
+    device=None,
+    source=None,
+    norms=None,
+    checkpoint_dir: str | None = None,
+    resume: bool = False,
+    rung_hook: Optional[Callable[[int], None]] = None,
+    check_finite: bool = True,
+    guardrail=None,
+    mesh_hook=None,
+) -> TournamentResult:
+    """Successive-halving restart scheduler over the batched engine.
+
+    Runs S restarts per problem for the first ``1/n_rungs`` of the anneal,
+    then at each rung boundary culls the worst ``cull_fraction`` of the
+    live restarts (per problem, by rung-end loss) and anneals only the
+    survivors, so the batch shrinks and later rounds launch on fewer
+    instances.  The survivors' rows are gathered on the device; only each
+    culled rung's (B * S_k,) last losses cross to the host for the
+    decision.  Each restart draws its own shuffle stream, so a culled
+    restart's stream simply stops, and a restart that survives every cull
+    finishes bitwise the same (b, s) instance of
+    ``shuffle_soft_sort_batched``.
+
+    Args:
+      xs, hw, cfg, n_restarts, seed, seeds, device, source, norms: as in
+        ``shuffle_soft_sort_batched``.
+      cull_fraction: fraction of live restarts dropped at each rung
+        boundary (0 disables culling; 0.5 halves).
+      n_rungs: number of anneal segments; culls happen at the
+        ``n_rungs - 1`` interior boundaries.  With
+        ``schedule="adaptive"`` the rungs are counted in controller steps
+        (``adapt_every`` rounds), and a restart ranks by its
+        last-executed loss.
+      rung_hook: ``f(start_round)``, called before each rung.
+      check_finite: raise ``NumericalDivergence`` on a non-finite loss.
+      mesh, mesh_hook, checkpoint_dir, resume, guardrail: not ported yet
+        (``NotImplementedError``).
+
+    Returns:
+      ``TournamentResult``, see its field docs.
+    """
+    if not 0.0 <= cull_fraction < 1.0:
+        raise ValueError(f"cull_fraction must be in [0, 1), got "
+                         f"{cull_fraction}")
+    _check_ported(cfg, mesh=mesh, mesh_hook=mesh_hook,
+                  checkpoint_dir=checkpoint_dir, resume=resume,
+                  guardrail=guardrail)
+    device = resolve_device(device)
+    xs, b, s, n, source, xs_t, norms_t, orders, _ = _prep_instances(
+        xs, hw, n_restarts, seed, seeds, source, norms, None, device)
+    if cfg.schedule == "adaptive":
+        return _restart_tournament_adaptive(
+            xs, b, s, n, source, xs_t, norms_t, orders, hw=hw, cfg=cfg,
+            cull_fraction=cull_fraction, n_rungs=n_rungs,
+            rung_hook=rung_hook, check_finite=check_finite)
+    edges = _rung_boundaries(cfg.rounds, n_rungs)
+
+    # The live set is problem-major: live slot j of problem p at row
+    # p * S_k + j; ``alive`` maps live slots to original restart indices.
+    alive = np.tile(np.arange(s), (b, 1))                 # (B, S_k)
+    rungs = []              # (start, end, alive, losses (T, B * S_k))
+    survivors_log = []
+    rounds_run = start = 0
+    for k, end in enumerate(edges):
+        if rung_hook is not None:
+            rung_hook(start)
+        s_k = alive.shape[1]
+        rows = (np.arange(b)[:, None] * s + alive).reshape(-1)
+        orders, losses = _run_rounds(xs_t, orders, source, norms_t, start,
+                                     end, rows=rows, hw=hw, cfg=cfg,
+                                     pad_rows=True)
+        rounds_run += (end - start) * b * s_k
+        rungs.append((start, end, alive, losses))
+        keep = _survivor_count(s_k, cull_fraction)
+        if k < len(edges) - 1 and keep < s_k:
+            last = losses[-1].cpu().numpy().reshape(b, s_k)
+            sel = _tournament_cull(last, keep)            # (B, keep)
+            alive = np.take_along_axis(alive, sel, axis=1)
+            idx = torch.as_tensor(
+                (np.arange(b)[:, None] * s_k + sel).reshape(-1),
+                device=device)
+            xs_t = torch.repeat_interleave(xs, keep, dim=0)
+            orders = orders.index_select(0, idx)
+            norms_t = norms_t.index_select(0, idx)
+        survivors_log.append(alive.copy())
+        start = end
+
+    all_losses = np.full((b, s, cfg.rounds), np.nan, np.float32)
+    for s0, s1, alive_k, losses in rungs:
+        seg = losses.cpu().numpy()                        # (T, B * S_k)
+        if check_finite:
+            _check_finite(seg, s0, cfg, "tournament")
+        all_losses[np.arange(b)[:, None], alive_k, s0:s1] = (
+            seg.T.reshape(b, alive_k.shape[1], s1 - s0))
+    final = all_losses[np.arange(b)[:, None], alive, -1]  # (B, S_fin)
+    win = np.argmin(final, axis=1)                        # live slot
+    order = orders.to(torch.int32).cpu().numpy().reshape(
+        b, alive.shape[1], n)[np.arange(b), win]
+    return _tournament_result(xs, order, final[np.arange(b), win],
+                              alive[np.arange(b), win], survivors_log,
+                              all_losses, rounds_run, b * s * cfg.rounds)
+
+
+def _tournament_result(xs, order, final_loss, best_restart, survivors_log,
+                       all_losses, rounds_run, rounds_full
+                       ) -> TournamentResult:
+    xs_np = xs.cpu().numpy()
+    return TournamentResult(
+        order=order,
+        sorted=np.take_along_axis(xs_np, order[:, :, None].astype(np.int64),
+                                  axis=1),
+        final_loss=final_loss,
+        best_restart=best_restart,
+        survivors=tuple(survivors_log),
+        all_losses=all_losses,
+        rounds_run=int(rounds_run),
+        rounds_full=int(rounds_full),
+    )
+
+
+def _restart_tournament_adaptive(xs, b, s, n, source, xs_t, norms_t, orders,
+                                 *, hw, cfg: ShuffleSoftSortConfig,
+                                 cull_fraction: float, n_rungs: int,
+                                 rung_hook=None, check_finite: bool = True
+                                 ) -> TournamentResult:
+    """The tournament on the adaptive schedule: ``_run_adaptive`` with a
+    cull hook at the rung edges.
+
+    Edges are counted in controller steps (``_rung_boundaries`` over the
+    R / seg_len decision points), so culls land on the boundaries the
+    controller observes at.  A cull ranks every restart still in the
+    tournament by its LAST-EXECUTED loss: an early-stopped restart keeps
+    competing with its final loss, and a culled one leaves through
+    ``AdaptiveController.mark_culled``; the survivors' streams never see
+    a perturbation.  The cross-rung cull state (the alive set and the
+    survivors log) lives in one dict, ``hstate``, for a checkpoint to
+    carry.
+    """
+    ctrl = make_adaptive_controller(cfg, b * s, n)
+    n_steps = cfg.rounds // ctrl.seg_len
+    edges = _rung_boundaries(n_steps, min(n_rungs, n_steps))
+    interior, edge_set = set(edges[:-1]), set(edges)
+    # "alive": the live (B, S_k) map; "surv_<i>": the survivors log, one
+    # entry per edge (numbered keys: the widths shrink).
+    hstate: dict[str, np.ndarray] = {"alive": np.tile(np.arange(s), (b, 1))}
+
+    def hook(step, ctrl_, losses_mat):
+        if step not in edge_set:
+            return
+        alive = hstate["alive"]
+        s_k = alive.shape[1]
+        keep = _survivor_count(s_k, cull_fraction)
+        if step in interior and keep < s_k:
+            rows = np.arange(b)[:, None] * s + alive      # flattened rows
+            last = losses_mat[rows, ctrl_.executed[rows] - 1]
+            sel = _tournament_cull(last, keep)           # (B, keep)
+            kept = np.zeros((b, s_k), bool)
+            np.put_along_axis(kept, sel, True, axis=1)
+            ctrl_.mark_culled(rows[~kept])
+            alive = np.take_along_axis(alive, sel, axis=1)
+            hstate["alive"] = alive
+        n_logged = sum(1 for kk in hstate if kk.startswith("surv_"))
+        hstate[f"surv_{n_logged:03d}"] = alive.copy()
+
+    orders, losses_mat, device_rounds = _run_adaptive(
+        xs_t, orders, source, norms_t, hw=hw, cfg=cfg, controller=ctrl,
+        boundary_hook=hook, rung_hook=rung_hook, check_finite=check_finite)
+    # If every restart stopped before a late edge, its hook never fired;
+    # the live set was already final, so it stands for those rungs too.
+    alive = hstate["alive"]
+    survivors_log = [hstate[kk] for kk in
+                     sorted(kk for kk in hstate if kk.startswith("surv_"))]
+    while len(survivors_log) < len(edges):
+        survivors_log.append(alive.copy())
+    rows = np.arange(b)[:, None] * s + alive              # (B, S_fin)
+    final = losses_mat[rows, ctrl.executed[rows] - 1]
+    win = np.argmin(final, axis=1)
+    best_restart = alive[np.arange(b), win]
+    order = orders.to(torch.int32).cpu().numpy().reshape(b, s, n)[
+        np.arange(b), best_restart]
+    return _tournament_result(xs, order, final[np.arange(b), win],
+                              best_restart, survivors_log,
+                              losses_mat.reshape(b, s, cfg.rounds),
+                              device_rounds, b * s * cfg.rounds)

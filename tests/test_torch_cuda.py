@@ -781,7 +781,7 @@ def test_cuda_adaptive_run_matches_cpu_engine(cuda, band):
     runs = {}
     for dev in ("cpu", cuda):
         ctrl = make_adaptive_controller(cfg, bs, n)
-        orders, losses = _run_adaptive(
+        orders, losses, _ = _run_adaptive(
             torch.tensor(xs, device=dev),
             torch.arange(n, device=dev).repeat(bs, 1),
             ReplayShuffleSource(shuffles, dev), torch.ones(bs, device=dev),
@@ -838,7 +838,7 @@ def test_cuda_adaptive_parting_instances_match_cpu_engine(cuda):
             return observe(idx, losses, ws)
 
         ctrl.observe = spy
-        orders, losses = _run_adaptive(
+        orders, losses, _ = _run_adaptive(
             torch.tensor(xs, device=dev),
             torch.arange(n, device=dev).repeat(bs, 1),
             ReplayShuffleSource(shuffles, dev), torch.ones(bs, device=dev),
@@ -856,3 +856,129 @@ def test_cuda_adaptive_parting_instances_match_cpu_engine(cuda):
     np.testing.assert_array_equal(o_gpu, o_cpu)
     np.testing.assert_array_equal(np.isnan(l_gpu), np.isnan(l_cpu))
     np.testing.assert_allclose(l_gpu, l_cpu, rtol=1e-5)
+
+
+def _tournament_problem(b, s, n, rounds, seed):
+    rng = np.random.default_rng(seed)
+    xs = rng.normal(size=(b, n, 8)).astype(np.float32)
+    shuffles = np.stack([[rng.permutation(n) for _ in range(b * s)]
+                         for _ in range(rounds)])
+    return xs, shuffles
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("schedule", ["fixed", "adaptive"])
+def test_cuda_tournament_matches_cpu_engine(cuda, schedule):
+    """``restart_tournament`` through the CUDA kernels against the same
+    tournament through the plain twins on the CPU (replayed shuffles, the
+    same normalization, the std term off: ROADMAP.md Queue C1): the same
+    survivors, rounds run and orders, losses within rtol 1e-5, NaN where
+    a restart was culled or stopped.  Each cull's margin between the last
+    kept and the first culled loss exceeds that tolerance."""
+    from repro_torch.core import (ReplayShuffleSource, ShuffleSoftSortConfig,
+                                  restart_tournament)
+
+    n, hw, b, s = 256, (16, 16), 2, 4
+    extra = (dict(rounds=6) if schedule == "fixed" else
+             dict(rounds=8, schedule="adaptive", patience=1,
+                  plateau_rtol=1.0, adapt_every=2))
+    cfg = ShuffleSoftSortConfig(use_kernel=True, inner_steps=4,
+                                lambda_sigma=0.0, band="auto", **extra)
+    xs, shuffles = _tournament_problem(b, s, n, cfg.rounds, seed=8)
+    runs = {}
+    for dev in ("cpu", cuda):
+        runs[str(dev)] = restart_tournament(
+            xs, hw, cfg, n_restarts=s, device=dev,
+            norms=np.ones(b, np.float32), cull_fraction=0.5, n_rungs=3,
+            source=ReplayShuffleSource(shuffles, dev))
+    cpu, gpu = runs["cpu"], runs["cuda"]
+    live = np.tile(np.arange(s), (b, 1))
+    for end, sv in zip(_ends(cfg), cpu.survivors[:-1]):
+        for p in range(b):
+            heads = [cpu.all_losses[p, r, :end] for r in live[p]]
+            ranked = np.sort([h[~np.isnan(h)][-1] for h in heads])
+            keep = sv.shape[1]
+            assert ranked[keep] - ranked[keep - 1] > 1e-5 * ranked[keep]
+        live = sv
+    for a, c in zip(gpu.survivors, cpu.survivors):
+        np.testing.assert_array_equal(a, c)
+    assert gpu.rounds_run == cpu.rounds_run < gpu.rounds_full
+    np.testing.assert_array_equal(gpu.order, cpu.order)
+    np.testing.assert_array_equal(gpu.best_restart, cpu.best_restart)
+    np.testing.assert_array_equal(np.isnan(gpu.all_losses),
+                                  np.isnan(cpu.all_losses))
+    np.testing.assert_allclose(gpu.all_losses, cpu.all_losses, rtol=1e-5)
+
+
+def _ends(cfg):
+    """The executed rounds at each tournament edge of a 3-rung run."""
+    from repro_torch.core.shufflesoftsort import _rung_boundaries
+
+    if cfg.schedule == "fixed":
+        return _rung_boundaries(cfg.rounds, 3)
+    seg = cfg.adapt_every
+    return [e * seg for e in _rung_boundaries(cfg.rounds // seg, 3)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("band", [None, "auto"])
+def test_cuda_tournament_survivors_bitwise_their_batched_rows(cuda, band):
+    """On the card, with the std term on: every restart alive at the end
+    of a tournament of 2 problems x 8 restarts (16, then 8, then 4 live
+    instances) has the loss trace of its row of the no-cull batched run
+    bitwise, and each winner its order.  The kernels are bitwise
+    batch-invariant; the loss runs in blocks of 8 instances, so the
+    PyTorch reductions around them are too."""
+    from repro_torch.core import (ShuffleSoftSortConfig, restart_tournament,
+                                  shuffle_soft_sort_batched)
+
+    n, hw, b, s = 256, (16, 16), 2, 8
+    cfg = ShuffleSoftSortConfig(use_kernel=True, rounds=6, inner_steps=4,
+                                band=band)
+    xs, _ = _tournament_problem(b, s, n, 1, seed=9)
+    res = restart_tournament(xs, hw, cfg, n_restarts=s, seed=3, device=cuda,
+                             cull_fraction=0.5, n_rungs=3)
+    twin = shuffle_soft_sort_batched(xs, hw, cfg, n_restarts=s, seed=3,
+                                     device=cuda)
+    assert [sv.shape[1] for sv in res.survivors] == [4, 2, 2]
+    for p in range(b):
+        for r in res.survivors[-1][p]:
+            np.testing.assert_array_equal(res.all_losses[p, r],
+                                          twin.all_losses[p, r])
+        w = res.best_restart[p]
+        np.testing.assert_array_equal(res.order[p], twin.all_orders[p, w])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("band", [None, "auto"])
+def test_cuda_segment_matches_cpu_engine_and_each_instance_alone(cuda, band):
+    """``run_round_segment`` on the card over 4 instances at rounds 0 and
+    2: the CPU engine's orders and losses (rtol 1e-5, std term off), and
+    on the card each row bitwise the instance run alone."""
+    from repro_torch.core import (ReplayShuffleSource, ShuffleSoftSortConfig,
+                                  run_round_segment)
+
+    n, hw, rounds = 256, (16, 16), 6
+    cfg = ShuffleSoftSortConfig(use_kernel=True, rounds=rounds,
+                                inner_steps=4, lambda_sigma=0.0, band=band)
+    xs, shuffles = _tournament_problem(4, 1, n, rounds, seed=10)
+    progress = np.array([0, 0, 2, 2])
+    orders = np.stack([np.random.default_rng(i).permutation(n)
+                       for i in range(4)])
+
+    def segment(dev, rows):
+        src = ReplayShuffleSource(shuffles[:, rows], dev)
+        src.pos[:] = progress[rows]
+        o, l = run_round_segment(xs[rows], orders[rows], np.ones(len(rows)),
+                                 progress[rows], 2, source=src, hw=hw,
+                                 cfg=cfg, device=dev)
+        return o.cpu().numpy(), l.cpu().numpy()
+
+    o_cpu, l_cpu = segment("cpu", np.arange(4))
+    o_gpu, l_gpu = segment(cuda, np.arange(4))
+    np.testing.assert_array_equal(o_gpu, o_cpu)
+    np.testing.assert_allclose(l_gpu, l_cpu, rtol=1e-5)
+    for i in range(4):
+        o_i, l_i = segment(cuda, np.array([i]))
+        np.testing.assert_array_equal(o_i[0], o_gpu[i])
+        np.testing.assert_array_equal(l_i[:, 0], l_gpu[:, i])

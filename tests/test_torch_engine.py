@@ -40,7 +40,10 @@ import jax.numpy as jnp  # noqa: E402
 from repro.core import shufflesoftsort as jeng  # noqa: E402
 from repro.core.losses import mean_pairwise_distance as jmpd  # noqa: E402
 from repro_torch.core import shufflesoftsort as teng  # noqa: E402
-from repro_torch.core.prng import ReplayShuffleSource  # noqa: E402
+from repro_torch.core.prng import (  # noqa: E402
+    ReplayShuffleSource,
+    TorchShuffleSource,
+)
 from repro_torch.core.reference import (  # noqa: E402
     config_from_reference,
     state_from_reference,
@@ -291,6 +294,12 @@ def test_entry_points_never_fall_back_to_cpu(monkeypatch):
         teng.shuffle_soft_sort(_x(0), HW, cfg)
     with pytest.raises(RuntimeError, match='device="cpu"'):
         teng.shuffle_soft_sort_batched(_x(0, 2), HW, cfg)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        teng.restart_tournament(_x(0, 2), HW, cfg, n_restarts=2)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        teng.run_round_segment(
+            _x(0, 2), np.tile(np.arange(N), (2, 1)), np.ones(2), [0, 0], 1,
+            source=TorchShuffleSource([1, 2], N, "cpu"), hw=HW, cfg=cfg)
 
 
 @pytest.mark.parametrize("kw,feature", [
@@ -303,6 +312,8 @@ def test_unported_features_raise(kw, feature):
                                      **kw.pop("cfg", {}))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         teng.shuffle_soft_sort_batched(_x(0, 1), HW, cfg, device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        teng.restart_tournament(_x(0, 1), HW, cfg, device="cpu", **kw)
 
 
 def _imported_modules(path: pathlib.Path):
