@@ -83,6 +83,25 @@ start):
    ``run_round_segment`` on 8 instances: 4 chained segments bitwise one
    32-round run, and a batch at rounds 8 and 16 bitwise the chain and,
    row by row, each instance alone; dense and banded.
+   ``checkpoint_run`` — ``band_main_run``'s configuration with a
+   checkpoint every 4 rounds (8 rungs): bitwise ``band_main_run``'s
+   result; an ``AnnealSupervisor`` with a ``FaultInjector`` as
+   ``rung_hook`` kills it at every rung and each resumed result is
+   bitwise; the same for the dense configuration at one rung,
+   ``adaptive_run``'s at every rung and ``tournament_run``'s banded one
+   at every rung; a child process that dies with ``os._exit`` at rung 3
+   and a fresh one that resumes from its directory, bitwise; ms per round
+   with checkpoints against none in alternating pairs, and the bytes of a
+   snapshot.  ``guardrail_run`` — the same configuration unguarded (a
+   no-op ``rung_hook``) and with the invariants, each bitwise the
+   unguarded run, the overhead the minimum over interleaved repetitions;
+   the shadow at 1/32 and at rate 1 are refused on the kernel tier
+   (ROADMAP.md Queue C8), and an audit of every clean rung at rate 1
+   (kernel tier against the plain tier) counts the clean shadow
+   incidents and times the rate-1 shadow.  Chaos through the rung seam: a sign-flipped
+   loss at one dispatch is repaired by one verified replay, bitwise; a
+   corruption that persists on the kernel tier retires it, and the
+   launch counters show the kernels stop at that rung.
 8. ``sog_run`` — the slice at full width: Self-Organizing Gaussians (paper
    section IV-B), 1 scene x 2 restarts of 65536 splats with 14 attributes
    on a 256 x 256 grid, ``band="auto"`` (K = 4096), 32 rounds x 8 inner
@@ -1286,6 +1305,469 @@ def segment_run(torch, core, K, xs, hw=(64, 64)):
              loss_last=one_losses[-1].tolist())
 
 
+# Phases 7e and 7f on band_main_run's configuration (4 problems x 2
+# restarts, N = 4096, d = 50, band="auto", K = 256, 32 rounds x 8 inner
+# steps, float32), in rungs of CKPT_EVERY rounds: 8 rungs.
+CKPT_EVERY = 4
+CKPT_PAIRS = 5
+GUARD_REPS = 5
+# The child process of the real preemption: it runs band_main_run's
+# configuration with checkpoints and either dies with os._exit(17) at the
+# top of rung KILL_RUNG ("kill") or resumes from the directory ("resume")
+# and saves the result beside it.
+KILL_RUNG = 3
+CHILD = r"""
+import os, sys
+import numpy as np
+root, ckpt, mode = sys.argv[1:4]
+sys.path.insert(0, os.path.join(root, "src"))
+from repro_torch import core
+xs = np.load(os.path.join(os.path.dirname(ckpt), "xs.npy"))
+cfg = core.ShuffleSoftSortConfig(rounds=32, inner_steps=8, use_kernel=True,
+                                 band="auto")
+calls = []
+def hook(start):
+    calls.append(start)
+    if mode == "kill" and len(calls) == int(sys.argv[4]) + 1:
+        os._exit(17)
+res = core.shuffle_soft_sort_batched(
+    xs, (64, 64), cfg, n_restarts=2, seed=0, device="cuda",
+    checkpoint_dir=ckpt, checkpoint_every=int(sys.argv[5]),
+    resume=mode == "resume", rung_hook=hook)
+np.savez(os.path.join(os.path.dirname(ckpt), "result.npz"),
+         all_orders=res.all_orders,
+         all_losses=res.all_losses, best_restart=res.best_restart,
+         rung_starts=np.array(calls))
+"""
+
+
+def batched_fields(res):
+    return {"all_orders": res.all_orders, "all_losses": res.all_losses,
+            "best_restart": res.best_restart}
+
+
+def tournament_fields(res):
+    out = {"order": res.order, "all_losses": res.all_losses,
+           "best_restart": res.best_restart,
+           "rounds_run": np.asarray(res.rounds_run)}
+    for i, sv in enumerate(res.survivors):
+        out[f"survivors_{i}"] = sv
+    return out
+
+
+def require_fields(want, got, what):
+    for name, a in want.items():
+        require(np.array_equal(a, got[name], equal_nan=True),
+                f"{what}: field {name} differs")
+
+
+def kill_sweep(run, fields, want, root, kills):
+    """A ``FaultInjector`` as ``rung_hook`` raises ``WorkerFailure`` at the
+    top of rung k, for each k of ``kills``; an ``AnnealSupervisor`` over a
+    fresh directory resumes from the newest checkpoint, and every field of
+    the result must be bitwise ``want``'s."""
+    from repro_torch.runtime.fault_tolerance import (AnnealSupervisor,
+                                                     FaultInjector,
+                                                     RetryPolicy)
+    for k in kills:
+        hook = FaultInjector(lambda start: None, fail_calls={k})
+        sup = AnnealSupervisor(
+            lambda xs_, hw_, cfg_, **kw: run(**kw),
+            checkpoint_dir=os.path.join(root, f"kill{k}"),
+            retry=RetryPolicy(max_retries=1, backoff_base_s=0.0))
+        got = fields(sup.run(None, None, None, rung_hook=hook))
+        require(hook.faults == 1 and sup.stats["restarts"] == 1,
+                f"kill at rung {k}: faults {hook.faults}, stats {sup.stats}")
+        require_fields(want, got, f"kill at rung {k}")
+    return list(kills)
+
+
+def rung_count(run):
+    """(result, rung starts) of an uninterrupted run with a counting
+    ``rung_hook``."""
+    starts = []
+    return run(rung_hook=starts.append), starts
+
+
+def checkpoint_run(torch, core, K, xs, fixed, hw=(64, 64)):
+    """Phase 7e: rung-boundary checkpoints and resume on the card.
+
+    band_main_run's configuration with ``checkpoint_every=4`` (8 rungs):
+    the checkpointed run, counts set to 0 just before it, is bitwise
+    band_main_run's result (``fixed``) with 256 launches of each banded
+    kernel; an ``AnnealSupervisor`` with a ``FaultInjector`` as
+    ``rung_hook`` kills it at every rung, and each resumed result is
+    bitwise; the same for main_run's dense configuration at one rung, for
+    adaptive_run's configuration at every rung and for tournament_run's
+    banded configuration at every rung; one real preemption, a child
+    process that dies with ``os._exit`` at the top of rung 3 and a fresh
+    process that resumes from its directory, bitwise.  Reports ms per
+    round with checkpoints against none in CKPT_PAIRS rotating triples
+    (neither with a per-round callback), the third the same rungs with no
+    checkpoint, and the checkpoint's cost split into the per-rung sync
+    and loss copy, the copy of the orders and stream state, and the
+    publish (the time inside ``AnnealCheckpointer.save``); and the bytes
+    of one snapshot."""
+    import dataclasses
+    import tempfile
+
+    from repro_torch.runtime.anneal_checkpoint import AnnealCheckpointer
+
+    b, s = xs.shape[0], 2
+    rounds = 32
+    cfg = core.ShuffleSoftSortConfig(rounds=rounds, inner_steps=8,
+                                     use_kernel=True, band="auto")
+    want = batched_fields(fixed[0])
+
+    def band_run(cfg_=cfg, **kw):
+        return core.shuffle_soft_sort_batched(
+            xs, hw, cfg_, n_restarts=s, seed=0, device="cuda",
+            checkpoint_every=CKPT_EVERY, **kw)
+
+    with tempfile.TemporaryDirectory() as root:
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        res = band_run(checkpoint_dir=os.path.join(root, "plain"))
+        counts = K.launch_counts()
+        require_counts(counts, {**{k: rounds * 8 for k in BAND},
+                                **{k: 0 for k in DENSE}})
+        require_fields(want, batched_fields(res),
+                       "checkpointed band_main_run")
+        ck = AnnealCheckpointer(os.path.join(root, "plain"))
+        latest = ck.latest_round()
+        step_dir = os.path.join(root, "plain", f"step-{latest:09d}")
+        snapshot_bytes = {f: os.path.getsize(os.path.join(step_dir, f))
+                          for f in os.listdir(step_dir)}
+        state, _, meta = ck.restore_latest()
+        n_rungs = rounds // CKPT_EVERY
+        band_kills = kill_sweep(band_run, batched_fields, want, root,
+                                range(n_rungs))
+
+        dense = dataclasses.replace(cfg, band=None)
+        dense_ref, starts = rung_count(lambda **kw: band_run(dense, **kw))
+        dense_kills = kill_sweep(lambda **kw: band_run(dense, **kw),
+                                 batched_fields, batched_fields(dense_ref),
+                                 os.path.join(root, "dense"), [len(starts) // 2])
+
+        acfg = adaptive_config(core, "adaptive_run")
+
+        def adaptive(**kw):
+            return core.shuffle_soft_sort_batched(
+                xs, hw, acfg, n_restarts=s, seed=0, device="cuda", **kw)
+
+        a_ref, a_starts = rung_count(adaptive)
+        a_fields = lambda r: {**batched_fields(r),  # noqa: E731
+                              "rounds_executed": r.rounds_executed}
+        adaptive_kills = kill_sweep(adaptive, a_fields, a_fields(a_ref),
+                                    os.path.join(root, "adaptive"),
+                                    range(len(a_starts)))
+
+        t = TOURNAMENT
+
+        def tournament(**kw):
+            return core.restart_tournament(
+                xs, hw, cfg, n_restarts=t["restarts"], seed=0,
+                device="cuda", cull_fraction=t["cull_fraction"],
+                n_rungs=t["n_rungs"], **kw)
+
+        t_ref, t_starts = rung_count(tournament)
+        tournament_kills = kill_sweep(
+            tournament, tournament_fields, tournament_fields(t_ref),
+            os.path.join(root, "tournament"), range(len(t_starts)))
+
+        # One real preemption, across processes.
+        np.save(os.path.join(root, "xs.npy"), xs)
+        ckdir = os.path.join(root, "child")
+        codes = []
+        for mode in ("kill", "resume"):
+            proc = subprocess.run(
+                [sys.executable, "-c", CHILD, ROOT, ckdir, mode,
+                 str(KILL_RUNG), str(CKPT_EVERY)], timeout=600)
+            codes.append(proc.returncode)
+            if mode == "kill":
+                require(proc.returncode == 17,
+                        f"the child did not die at rung {KILL_RUNG}: exit "
+                        f"{proc.returncode}")
+                require(AnnealCheckpointer(ckdir).latest_round()
+                        == KILL_RUNG * CKPT_EVERY,
+                        "the killed child's newest checkpoint")
+        require(codes[1] == 0, f"the resuming child exited {codes[1]}")
+        with np.load(os.path.join(root, "result.npz")) as got:
+            require_fields(want, dict(got), "resumed in a fresh process")
+            resumed_starts = got["rung_starts"].tolist()
+
+        # ms per round, checkpoints every 4 rounds against none, and the
+        # split of their cost: "rungs" runs the same rungs with a no-op
+        # rung_hook (a sync and a copy of the rung's losses per rung);
+        # the checkpoint adds the copy of the orders and the stream state
+        # and the publish, timed inside AnnealCheckpointer.save.
+        plain_s, rungs_s, ckpt_s, save_s = [], [], [], []
+        save = AnnealCheckpointer.save
+
+        def timed_save(self, *a, **kw):
+            t = time.perf_counter()
+            save(self, *a, **kw)
+            save_s[-1] += time.perf_counter() - t
+
+        AnnealCheckpointer.save = timed_save
+        try:
+            for i in range(CKPT_PAIRS):
+                trio = [(lambda: core.shuffle_soft_sort_batched(
+                            xs, hw, cfg, n_restarts=s, seed=0,
+                            device="cuda"), plain_s),
+                        (lambda: band_run(rung_hook=lambda start: None),
+                         rungs_s),
+                        (lambda: band_run(checkpoint_dir=os.path.join(
+                            root, f"pair{i}")), ckpt_s)]
+                for fn, out in (trio if i % 2 == 0 else trio[::-1]):
+                    if out is ckpt_s:
+                        save_s.append(0.0)
+                    out.append(timed(torch, fn)[0])
+        finally:
+            AnnealCheckpointer.save = save
+    ms = lambda v: [x * 1e3 / rounds for x in v]  # noqa: E731
+    emit("checkpoint_run", checkpoint_every=CKPT_EVERY, rungs=n_rungs,
+         checkpointed_equals_band_main_run=True, launches=counts,
+         snapshot_fields={k: [list(np.shape(v)), str(np.asarray(v).dtype)]
+                          for k, v in state.items()},
+         snapshot_bytes=snapshot_bytes, meta_fingerprint={
+             k: v for k, v in meta.items() if k != "cfg"},
+         band_kills=band_kills, dense_kills=dense_kills,
+         adaptive_kills=adaptive_kills, adaptive_rung_starts=a_starts,
+         tournament_kills=tournament_kills, tournament_rung_starts=t_starts,
+         all_kills_bitwise=True, process_kill_rung=KILL_RUNG,
+         process_exit_codes=codes, resumed_rung_starts=resumed_starts,
+         process_resume_bitwise=True,
+         ms_per_round_plain=ms(plain_s), ms_per_round_rungs=ms(rungs_s),
+         ms_per_round_checkpointed=ms(ckpt_s),
+         ms_per_round_in_save=ms(save_s),
+         overhead=[c / p - 1 for p, c in zip(plain_s, ckpt_s)],
+         median_overhead=float(np.median(
+             [c / p - 1 for p, c in zip(plain_s, ckpt_s)])),
+         median_split_ms_per_round={
+             "rungs_sync_and_loss_copy": float(np.median(
+                 ms([r - p for p, r in zip(plain_s, rungs_s)]))),
+             "save_publish": float(np.median(ms(save_s))),
+             "orders_and_state_copy": float(np.median(
+                 ms([c - r - v for r, c, v in
+                     zip(rungs_s, ckpt_s, save_s)])))})
+
+
+class SegmentCorruptor:
+    """Wraps the engine's rung seam ``_run_segment``: sign-flips the first
+    loss of the calls in ``corrupt_calls``, and, with ``kernel_from``, of
+    every call from that index on while the kernel tier is on.  Records
+    each call's tier and the kernel launches it made."""
+
+    def __init__(self, inner, K, corrupt_calls=(), kernel_from=None):
+        self.inner, self.K = inner, K
+        self.corrupt_calls = set(corrupt_calls)
+        self.kernel_from = kernel_from
+        self.calls = []
+
+    def __call__(self, *args, **kwargs):
+        i = len(self.calls)
+        before = sum(self.K.launch_counts().values())
+        orders, losses = self.inner(*args, **kwargs)
+        use_kernel = kwargs["cfg"].use_kernel
+        corrupt = i in self.corrupt_calls or (
+            self.kernel_from is not None and i >= self.kernel_from
+            and use_kernel)
+        if corrupt:
+            losses = losses.clone()
+            losses.view(-1)[0] *= -1.0
+        self.calls.append(dict(
+            start=args[4], use_kernel=use_kernel, corrupted=corrupt,
+            launches=sum(self.K.launch_counts().values()) - before))
+        return orders, losses
+
+
+def guardrail_audit(torch, core, xs_t, norms_t, cfg, rounds, policy, hw):
+    """Every rung of a clean run, primary on the kernel tier and shadow on
+    the plain tier from the same input orders and stream state, held to
+    ``policy``'s probes by a fresh monitor each rung (so the run goes on
+    past a rung that fires).  Returns the rungs whose probes fired, with
+    the probe's name and detail, and the largest loss gap and the count of
+    instances whose orders differ at each rung."""
+    import dataclasses
+
+    from repro_torch.core import shufflesoftsort as eng
+    from repro_torch.core.prng import TorchShuffleSource, instance_seeds
+    from repro_torch.runtime.guardrails import (GuardrailMonitor,
+                                                IntegrityViolation)
+
+    bs, n = xs_t.shape[0], xs_t.shape[1]
+    src = TorchShuffleSource(instance_seeds(0, bs), n, "cuda")
+    orders = torch.arange(n, device="cuda").repeat(bs, 1)
+    plain = dataclasses.replace(cfg, use_kernel=False)
+    taus = eng._tau_schedule(cfg)
+    fired, rungs = [], []
+    for start in range(0, rounds, CKPT_EVERY):
+        end = start + CKPT_EVERY
+        s_in = src.state_dict()
+        o, l = eng._run_segment(xs_t, orders, src, norms_t, start, end,
+                                hw=hw, cfg=cfg)
+        o_sh, l_sh = eng._run_segment(xs_t, orders, src.fork(s_in), norms_t,
+                                      start, end, hw=hw, cfg=plain)
+        ln, lsh = l.cpu().numpy(), l_sh.cpu().numpy()
+        rungs.append(dict(start=start, rel_loss_gap=float(np.max(
+            np.abs(ln - lsh) / np.maximum(np.abs(lsh), 1e-6))),
+            instances_orders_differ=int((o != o_sh).any(1).sum())))
+        mon = GuardrailMonitor(policy, context="audit")
+        try:
+            mon.check_rung(start=start, losses=ln, orders=o.cpu().numpy(),
+                           source=src, stream_in=s_in,
+                           stream_out=src.state_dict(), seg_len=CKPT_EVERY,
+                           tau=float(taus[start]), oracle_losses=lsh,
+                           oracle_orders=o_sh.cpu().numpy())
+        except IntegrityViolation as e:   # a measured clean incident
+            fired.append(e.incident())
+        orders = o
+    return fired, rungs
+
+
+def guardrail_run(torch, core, K, xs, fixed, hw=(64, 64)):
+    """Phase 7f: the integrity probes on band_main_run's configuration, in
+    rungs of 4 rounds.
+
+    Modes: unguarded (a no-op ``rung_hook``, so it runs on the same rung
+    seam) and ``invariants``, timed in GUARD_REPS interleaved repetitions
+    (the overhead is the minimum over them), each bitwise band_main_run's
+    result.  ``shadow`` at the default rate 1/32 and at rate 1 must be
+    refused on the kernel tier (a ``ValueError`` naming ROADMAP.md Queue
+    C8).  An audit of the clean run at rate 1 (``guardrail_audit``) counts
+    the rungs where the plain tier's shadow disagrees with the kernel
+    tier; its time is the rate-1 shadow's.  Chaos through the rung seam:
+    one sign-flipped loss is repaired by one verified replay, bitwise
+    clean; a corruption that persists while the kernel tier is on retires
+    it, and the launch counters show that the kernels stopped at that
+    rung."""
+    import dataclasses
+    import tempfile
+
+    from repro_torch.core import shufflesoftsort as eng
+    from repro_torch.runtime.fault_tolerance import (AnnealSupervisor,
+                                                     DivergencePolicy)
+    from repro_torch.runtime.guardrails import (GuardrailMonitor,
+                                                GuardrailPolicy,
+                                                shadow_sampled)
+
+    b, s, rounds = xs.shape[0], 2, 32
+    cfg = core.ShuffleSoftSortConfig(rounds=rounds, inner_steps=8,
+                                     use_kernel=True, band="auto")
+    want = batched_fields(fixed[0])
+    modes = {"unguarded": None,
+             "invariants": GuardrailPolicy(mode="invariants")}
+    shadows = {"shadow_default": GuardrailPolicy(mode="shadow"),
+               "shadow_full": GuardrailPolicy(mode="shadow", shadow_rate=1.0)}
+    starts = list(range(0, rounds, CKPT_EVERY))
+    sampled = {m: [st for st in starts if shadow_sampled(
+        p.seed, st, p.shadow_rate)] for m, p in shadows.items()}
+
+    xs_t = torch.repeat_interleave(torch.as_tensor(xs, device="cuda"), s, 0)
+    norms_t = torch.repeat_interleave(torch.stack(
+        [core.mean_pairwise_distance(x) for x in
+         torch.as_tensor(xs, device="cuda")]), s, 0)
+    audit_s, (fired, audit_rungs) = timed(torch, lambda: guardrail_audit(
+        torch, core, xs_t, norms_t, cfg, rounds, shadows["shadow_full"], hw))
+
+    def run(policy):
+        mon = None if policy is None else GuardrailMonitor(policy)
+        kw = ({"rung_hook": lambda start: None} if mon is None
+              else {"guardrail": mon})
+        res = core.shuffle_soft_sort_batched(
+            xs, hw, cfg, n_restarts=s, seed=0, device="cuda",
+            checkpoint_every=CKPT_EVERY, **kw)
+        return res, mon
+
+    refused = {}
+    for m, policy in shadows.items():
+        try:
+            run(policy)
+        except ValueError as e:
+            refused[m] = str(e)
+        require("Queue C8" in refused.get(m, ""),
+                f"{m}: the shadow on the kernel tier was not refused")
+    seconds = {m: [] for m in modes}
+    summaries = {}
+    for rep in range(GUARD_REPS):
+        for m in (list(modes) if rep % 2 == 0 else list(modes)[::-1]):
+            torch.cuda.synchronize()
+            K.reset_launch_counts()
+            sec, (res, mon) = timed(torch, lambda: run(modes[m]))
+            counts = K.launch_counts()
+            require_counts(counts, {**{k: rounds * 8 for k in BAND},
+                                    **{k: 0 for k in DENSE}})
+            require_fields(want, batched_fields(res), f"guarded run {m}")
+            seconds[m].append(sec)
+            if mon is not None:
+                summaries[m] = mon.summary()
+                require(not mon.incidents, f"{m}: incidents {mon.incidents}")
+    base = min(seconds["unguarded"])
+    overhead = {"invariants": min(seconds["invariants"]) / base - 1,
+                "shadow_full_from_audit": audit_s / base - 1}
+
+    # Chaos through the rung seam.
+    inner = eng._run_segment
+    with tempfile.TemporaryDirectory() as root:
+        chaos = SegmentCorruptor(inner, K, corrupt_calls={1})
+        eng._run_segment = chaos
+        try:
+            sup = AnnealSupervisor(
+                checkpoint_dir=os.path.join(root, "transient"),
+                degrade=DivergencePolicy(integrity_retries=2))
+            out = sup.run(xs, hw, cfg, n_restarts=s, seed=0, device="cuda",
+                          checkpoint_every=CKPT_EVERY,
+                          guardrail=modes["invariants"])
+        finally:
+            eng._run_segment = inner
+        require(sup.stats["verified_replays"] == 1
+                and not sup.stats["fallbacks"]
+                and [r["probe"] for r in sup.stats["integrity_incidents"]]
+                == ["loss_sign"], f"transient repair: {sup.stats}")
+        require_fields(want, batched_fields(out), "repaired transient")
+        transient = dict(stats=sup.stats, calls=chaos.calls)
+
+        strike = 2                       # the rung the corruption starts at
+        chaos = SegmentCorruptor(inner, K, kernel_from=strike)
+        eng._run_segment = chaos
+        try:
+            sup = AnnealSupervisor(
+                checkpoint_dir=os.path.join(root, "persistent"),
+                degrade=DivergencePolicy(integrity_retries=1))
+            out = sup.run(xs, hw, cfg, n_restarts=s, seed=0, device="cuda",
+                          checkpoint_every=CKPT_EVERY,
+                          guardrail=modes["invariants"])
+        finally:
+            eng._run_segment = inner
+    calls = chaos.calls
+    require(sup.stats["verified_replays"] == 1
+            and sup.stats["fallbacks"] == [
+                "retired kernel tier -> plain PyTorch apply "
+                "(use_kernel=False)"], f"persistent repair: {sup.stats}")
+    require([c["use_kernel"] for c in calls]
+            == [True] * (strike + 2) + [False] * (len(starts) - strike)
+            and all(c["launches"] > 0 for c in calls[:strike + 2])
+            and all(c["launches"] == 0 for c in calls[strike + 2:])
+            and [c["start"] for c in calls[strike + 2:]] == starts[strike:],
+            f"the kernels did not stop at rung {strike}: {calls}")
+    cut = strike * CKPT_EVERY
+    require(np.array_equal(out.all_losses[:, :, :cut],
+                           want["all_losses"][:, :, :cut]),
+            "persistent: the rungs before the strike differ")
+    for row in out.all_orders.reshape(-1, xs.shape[1]):
+        require(core.is_valid_permutation(row), "invalid permutation")
+    emit("guardrail_run", checkpoint_every=CKPT_EVERY, rungs=len(starts),
+         seconds=seconds, overhead_min_over_reps=overhead,
+         audit_seconds=audit_s, clean_incidents_at_rate_1=len(fired),
+         clean_incident_rungs=[f["round"] for f in fired],
+         clean_incidents=fired, audit_rungs=audit_rungs,
+         sampled_rungs=sampled, shadow_refused=refused,
+         summaries=summaries, guarded_equals_unguarded=True,
+         transient=transient, persistent=dict(stats=sup.stats, calls=calls,
+                                              strike_rung=strike))
+
+
 def correlated_weight(rng, d, f, rank=16):
     """A (d, f) float32 weight with correlated columns: a rank-``rank``
     product plus small noise, a quarter of its columns duplicated (with
@@ -1684,6 +2166,8 @@ def main():
     tournament_run(torch, core, K, xs)
     tournament_adaptive_run(torch, core, K, xs)
     segment_run(torch, core, K, xs)
+    checkpoint_run(torch, core, K, xs, fixed)
+    guardrail_run(torch, core, K, xs, fixed)
     launches.update({k: v for k, v in sog_run(torch, core, K).items()
                      if k in BAND})
     sog_codec(torch)

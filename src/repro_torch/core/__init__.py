@@ -45,6 +45,9 @@ from repro_torch.core.shufflesoftsort import (  # noqa: F401
     shuffle_soft_sort_batched,
 )
 from repro_torch.core.reference import (  # noqa: F401
+    carry_reference_checkpoint,
     config_from_reference,
+    controller_state_from_reference,
+    read_reference_checkpoint,
     state_from_reference,
 )

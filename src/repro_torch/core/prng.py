@@ -29,11 +29,21 @@ import torch
 
 
 class ShuffleSource(Protocol):
+    kind: str
+
     def next_round(self, rows=None) -> torch.Tensor:
         """The next round's shuffles of the instances ``rows`` (a sequence
         of instance indices; None: every instance), (len(rows), N) int64 on
         the run's device.  Only those instances' streams advance."""
         ...
+
+    def state_dict(self) -> np.ndarray: ...
+
+    def load_state_dict(self, state) -> None: ...
+
+    def fork(self, state=None) -> "ShuffleSource": ...
+
+    def advanced(self, state, rows, draws: int) -> np.ndarray: ...
 
 
 def _rows(rows, count: int) -> np.ndarray:
@@ -53,6 +63,7 @@ class TorchShuffleSource:
     def __init__(self, seeds: Sequence[int], n: int, device):
         self.n = int(n)
         self.device = torch.device(device)
+        self.kind = f"torch:{self.device.type}"
         self.generators = [torch.Generator(device=self.device).manual_seed(
             int(s)) for s in seeds]
 
@@ -62,11 +73,48 @@ class TorchShuffleSource:
                            device=self.device)
             for i in _rows(rows, len(self.generators))])
 
+    def state_dict(self) -> np.ndarray:
+        """(BS, L) uint8: row i is generator i's ``get_state()``, read on
+        the host without a device sync (on the card, a seed and an
+        offset)."""
+        return np.stack([g.get_state().numpy() for g in self.generators])
+
+    def load_state_dict(self, state) -> None:
+        state = np.asarray(state)
+        want = self.generators[0].get_state().numel() if self.generators \
+            else 0
+        if (state.dtype != np.uint8 or state.ndim != 2
+                or state.shape[0] != len(self.generators)
+                or state.shape[1] != want):
+            raise ValueError(
+                f"a {self.kind} source of {len(self.generators)} streams "
+                f"takes a ({len(self.generators)}, {want}) uint8 state, got "
+                f"{state.dtype} {state.shape} (a state taken on another "
+                f"device type?)")
+        for g, row in zip(self.generators, state):
+            g.set_state(torch.from_numpy(np.ascontiguousarray(row)))
+
+    def fork(self, state=None) -> "TorchShuffleSource":
+        out = TorchShuffleSource([0] * len(self.generators), self.n,
+                                 self.device)
+        out.load_state_dict(self.state_dict() if state is None else state)
+        return out
+
+    def advanced(self, state, rows, draws: int) -> np.ndarray:
+        """The state after ``draws`` more rounds of instances ``rows``,
+        replayed on scratch generators."""
+        scratch = self.fork(state)
+        for _ in range(int(draws)):
+            scratch.next_round(rows)
+        return scratch.state_dict()
+
 
 class ReplayShuffleSource:
     """Replays ``shuffles[t, i]`` as instance ``i``'s ``t``-th shuffle;
     ``shuffles`` is (R, BS, N), and ``pos`` (BS,) counts the rounds each
     instance has drawn."""
+
+    kind = "replay"
 
     def __init__(self, shuffles, device):
         self.shuffles = torch.as_tensor(np.asarray(shuffles), dtype=torch.int64,
@@ -85,3 +133,27 @@ class ReplayShuffleSource:
                             torch.as_tensor(rows, device=dev)]
         self.pos[rows] += 1
         return out
+
+    def state_dict(self) -> np.ndarray:
+        return self.pos.copy()
+
+    def load_state_dict(self, state) -> None:
+        state = np.asarray(state)
+        if state.shape != self.pos.shape or state.dtype.kind not in "iu":
+            raise ValueError(f"a replay source of {self.pos.size} streams "
+                             f"takes ({self.pos.size},) integer positions, "
+                             f"got {state.dtype} {state.shape}")
+        self.pos = state.astype(np.int64)
+
+    def fork(self, state=None) -> "ReplayShuffleSource":
+        out = ReplayShuffleSource.__new__(ReplayShuffleSource)
+        out.shuffles = self.shuffles
+        out.pos = self.pos.copy()
+        if state is not None:
+            out.load_state_dict(state)
+        return out
+
+    def advanced(self, state, rows, draws: int) -> np.ndarray:
+        pos = np.asarray(state, np.int64).copy()
+        pos[_rows(rows, pos.size)] += int(draws)
+        return pos

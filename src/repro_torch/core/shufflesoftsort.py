@@ -35,6 +35,25 @@ temperatures and the kernels read one tau per instance; the live
 instances run as at most two groups per rung (dense and banded), each
 one batch.
 
+Preemption safety and integrity probes, as in the reference: every
+engine takes ``checkpoint_dir=``, ``resume=``, ``rung_hook=``,
+``check_finite=`` and ``guardrail=`` (``run_round_segment`` takes
+``guardrail=`` only), the fixed batched engine and ``shuffle_soft_sort``
+also ``checkpoint_every=``.  At each rung boundary the engine publishes
+its carry through ``repro_torch.runtime.anneal_checkpoint`` after the
+finite sentinel and the probes of ``repro_torch.runtime.guardrails``, so
+the newest checkpoint is always the last verified rung; a resumed run
+finishes bitwise the uninterrupted one.  The snapshots are the
+reference's field for field (orders, losses, the adaptive controller's
+``ctrl_*`` and the hook's ``hs_*`` state, the tournament's ``norms``,
+``alive``, ``all_losses`` and ``surv_%03d``) but one: the reference's
+(BS, 2) uint32 ``keys`` (``key`` in the sequential engine) is the
+shuffle source's state here, ``source`` (``ShuffleSource.state_dict``),
+and the fingerprint names the source's kind.  With none of these knobs
+set, the fixed batched engine runs one segment and brings nothing to the
+host before the run's end.  The shadow is refused on the kernel tier of
+a CUDA device (``_open_guardrails``).
+
 Entry points run on CUDA unless ``device`` says otherwise; without a CUDA
 device they raise rather than fall back to the CPU.
 
@@ -63,6 +82,7 @@ from repro_torch.core.softsort import (
     softsort_apply_banded,
     softsort_apply_chunked,
 )
+from repro_torch.runtime.checkpoint import _host
 
 _F32 = torch.float32
 
@@ -161,12 +181,6 @@ def _check_ported(cfg: ShuffleSoftSortConfig, **features) -> None:
                  "multi-GPU instance sharding (ROADMAP.md Queue A11)"),
         "mesh_hook": (features.get("mesh_hook") is not None,
                       "elastic re-sharding (ROADMAP.md Queue A11)"),
-        "checkpoint_dir": (features.get("checkpoint_dir") is not None,
-                           "checkpoint and resume (ROADMAP.md Queue A10)"),
-        "resume": (bool(features.get("resume")),
-                   "checkpoint and resume (ROADMAP.md Queue A10)"),
-        "guardrail": (features.get("guardrail") is not None,
-                      "guardrails (ROADMAP.md Queue A12)"),
     }
     for name, (is_set, item) in todo.items():
         if is_set:
@@ -389,6 +403,200 @@ def _run_rounds(xs_t, orders, source: ShuffleSource, norms_t, start: int,
     return orders, torch.stack(losses)
 
 
+# --------------------------------------------------------------------------
+# Rung-boundary checkpoints and guardrails.
+# --------------------------------------------------------------------------
+
+def _open_checkpointer(checkpoint_dir, resume):
+    """The ``checkpoint_dir=`` / ``resume=`` knobs as an
+    ``AnnealCheckpointer`` (or None)."""
+    if checkpoint_dir is None:
+        if resume:
+            raise ValueError("resume=True requires checkpoint_dir=")
+        return None
+    from repro_torch.runtime.anneal_checkpoint import AnnealCheckpointer
+    return AnnealCheckpointer(str(checkpoint_dir))
+
+
+def _open_guardrails(guardrail, cfg: ShuffleSoftSortConfig, context: str,
+                     device: torch.device):
+    """The ``guardrail=`` knob as a ``GuardrailMonitor`` (or None): a
+    ``GuardrailPolicy`` gets a fresh monitor, a monitor is used as it is
+    (a caller that reads its incidents afterwards).
+
+    The shadow on the kernel tier of a CUDA device is refused: there the
+    kernels and the plain tier commit other orders on clean rungs, so the
+    probe's exact order compare fires on runs that are right (ROADMAP.md
+    Queue C8), and under ``AnnealSupervisor`` it would retire the kernel
+    tier.
+    """
+    if guardrail is None:
+        return None
+    from repro_torch.runtime.guardrails import (GuardrailMonitor,
+                                                GuardrailPolicy)
+    if isinstance(guardrail, GuardrailMonitor):
+        mon = guardrail
+    elif isinstance(guardrail, GuardrailPolicy):
+        mon = GuardrailMonitor(guardrail, context=context,
+                               dtype=cfg.compute_dtype)
+    else:
+        raise TypeError(
+            "guardrail= must be a GuardrailPolicy or GuardrailMonitor, "
+            f"got {guardrail!r}")
+    if (mon.policy.mode == "shadow" and cfg.use_kernel
+            and device.type == "cuda"):
+        raise ValueError(
+            "guardrail mode 'shadow' is refused on the kernel tier of a "
+            "CUDA device: its exact order compare fires on clean rungs "
+            "there (ROADMAP.md Queue C8); use mode='invariants', or the "
+            "shadow with use_kernel=False")
+    return mon if mon.active else None
+
+
+def _checkpoint_edges(rounds: int, every: int) -> list[int]:
+    """The rounds at which the fixed engines checkpoint: every ``every``
+    rounds, and a last edge at ``rounds``."""
+    every = max(1, int(every))
+    edges = list(range(every, rounds, every))
+    if not edges or edges[-1] != rounds:
+        edges.append(rounds)
+    return edges
+
+
+def _engine_meta(kind: str, cfg: ShuffleSoftSortConfig, n: int, bs: int,
+                 hw, source: ShuffleSource) -> dict:
+    """A checkpoint's meta record: the fingerprint a resume must match
+    (the reference's, and the shuffle source's kind: a generator state
+    taken on the card does not load into a CPU generator) and the config's
+    repr for audit (not matched: the repair ladder changes it mid-run)."""
+    return {"engine": kind, "rounds": int(cfg.rounds), "n": int(n),
+            "instances": int(bs), "hw": list(hw),
+            "schedule": cfg.schedule, "source": source.kind,
+            "cfg": repr(cfg)}
+
+
+def _meta_expect(meta: dict) -> dict:
+    return {k: v for k, v in meta.items() if k != "cfg"}
+
+
+def _orders_np(orders) -> np.ndarray:
+    """Orders as the checkpoint stores them: int32, as the reference."""
+    return _host(orders).astype(np.int32)
+
+
+def _orders_t(orders, device) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(orders), device=device).to(torch.int64)
+
+
+def _verify_rung(mon, cfg: ShuffleSoftSortConfig, source: ShuffleSource,
+                 s_in, start: int, seg_len: int, rerun, *, losses, orders,
+                 **probe_kw) -> None:
+    """The probes on one rung, after the finite sentinel and before the
+    save.  ``s_in`` is the source's state at the rung's start and
+    ``rerun(cfg, source)`` the engine's own call of the rung from its
+    input orders, returning (orders, losses); a shadow-sampled rung runs
+    it again on the plain PyTorch tier with a fork of the source at
+    ``s_in``.  ``losses`` and ``orders`` are the rung's host copies;
+    ``probe_kw`` goes on to ``GuardrailMonitor.check_rung``."""
+    oracle_l = oracle_o = None
+    if mon.wants_shadow(start):
+        o_sh, l_sh = rerun(_plain_cfg(cfg), source.fork(s_in))
+        oracle_l = _host(l_sh)
+        if mon.compare_orders():
+            oracle_o = _host(o_sh)
+    mon.check_rung(start=start, losses=losses, orders=orders, source=source,
+                   stream_in=s_in, stream_out=source.state_dict(),
+                   seg_len=seg_len, oracle_losses=oracle_l,
+                   oracle_orders=oracle_o, **probe_kw)
+
+
+def _plain_cfg(cfg: ShuffleSoftSortConfig) -> ShuffleSoftSortConfig:
+    """The shadow recompute's config: the plain PyTorch tier."""
+    return dataclasses.replace(cfg, use_kernel=False)
+
+
+def _run_segment(xs_t, orders, source: ShuffleSource, norms_t, start: int,
+                 end: int, *, rows=None, hw, cfg: ShuffleSoftSortConfig,
+                 on_round: Optional[Callable] = None,
+                 pad_rows: bool = False):
+    """One rung of the fixed schedule, rounds ``[start, end)``: the seam
+    the fixed engines (and the shadow recompute) go through, the
+    counterpart of the reference's ``_run_segments``.  ``_run_rounds``
+    splits it at the global switch round, so chained rungs are bitwise one
+    uninterrupted run.  Returns the orders and the (end - start, BS)
+    losses."""
+    return _run_rounds(xs_t, orders, source, norms_t, start, end, rows=rows,
+                       hw=hw, cfg=cfg, on_round=on_round, pad_rows=pad_rows)
+
+
+def _run_fixed_checkpointed(xs_t, orders, source: ShuffleSource, norms_t, *,
+                            hw, cfg: ShuffleSoftSortConfig, ckpt,
+                            resume: bool, every: int, rung_hook, meta: dict,
+                            check_finite: bool = True, monitor=None,
+                            prior=None, on_round: Optional[Callable] = None):
+    """The fixed schedule of the batched engine in rung segments.
+
+    Chains ``_run_segment`` across the checkpoint edges, bitwise one
+    uninterrupted ``_run_rounds``; with ``every >= rounds`` that is one
+    segment and one host copy of its losses at the end.  After each rung
+    the whole carry (orders, the source's state, the losses so far) is
+    published to ``ckpt``; with ``resume`` the run starts from the newest
+    checkpoint (a bare directory from the beginning, or from ``prior``,
+    the (BS, R0) losses of a ``state=`` carry).  ``rung_hook(start_round)``
+    fires before each rung, where a preemption lands; ``on_round`` after
+    each round, as in ``_run_rounds``.
+
+    With a ``monitor`` the probes (``_verify_rung``) run on each rung after
+    the finite sentinel and before ``ckpt.save``, so the newest checkpoint
+    is always the last verified rung.
+
+    Returns the orders (BS, N) on the device and the losses (R, BS) float32
+    on the host.
+    """
+    rounds = int(cfg.rounds)
+    dev = xs_t.device
+    parts: list[np.ndarray] = []
+    start = 0
+    if prior is not None and prior.shape[1]:
+        parts.append(_host(prior).T.astype(np.float32))
+        start = prior.shape[1]
+    mon = monitor if (monitor is not None and monitor.active) else None
+    taus = _tau_schedule(cfg)
+    if resume and ckpt is not None:
+        got = ckpt.restore_latest(_meta_expect(meta))
+        if got is not None:
+            state, start, _ = got
+            orders = _orders_t(state["orders"], dev)
+            source.load_state_dict(state["source"])
+            parts = [np.asarray(state["losses"], np.float32)] if start else []
+    for end in _checkpoint_edges(rounds, every):
+        if end <= start:
+            continue
+        if rung_hook is not None:
+            rung_hook(start)
+        s_in = source.state_dict() if mon is not None else None
+        o_in = orders
+        orders, seg = _run_segment(xs_t, orders, source, norms_t, start, end,
+                                   hw=hw, cfg=cfg, on_round=on_round)
+        seg_np = _host(seg).astype(np.float32)
+        if check_finite:
+            _check_finite(seg_np, start, cfg, meta["engine"])
+        if mon is not None:
+            _verify_rung(
+                mon, cfg, source, s_in, start, end - start,
+                lambda cfg_, src: _run_segment(xs_t, o_in, src, norms_t,
+                                               start, end, hw=hw, cfg=cfg_),
+                losses=seg_np, orders=_host(orders), tau=float(taus[start]))
+        parts.append(seg_np)
+        if ckpt is not None:
+            ckpt.save(end, {"orders": _orders_np(orders),
+                            "source": source.state_dict(),
+                            "losses": np.concatenate(parts, axis=0)},
+                      meta=dict(meta, round=end))
+        start = end
+    return orders, np.concatenate(parts, axis=0)
+
+
 def _run_rounds_ragged(xs, orders, source: ShuffleSource, rows, tau_rows,
                        norms, *, hw, cfg: ShuffleSoftSortConfig, apply_fn):
     """T rounds of a group of k instances, each at its own temperatures.
@@ -436,7 +644,9 @@ def _run_adaptive(xs_t, orders, source: ShuffleSource, norms_t, *, hw,
                   cfg: ShuffleSoftSortConfig, controller: AdaptiveController,
                   boundary_hook: Optional[Callable] = None,
                   rung_hook: Optional[Callable[[int], None]] = None,
-                  check_finite: bool = True):
+                  check_finite: bool = True, ckpt=None, resume: bool = False,
+                  meta: dict | None = None,
+                  hook_state: dict | None = None, monitor=None):
     """The adaptive schedule: rung by rung until no instance is live.
 
     Each rung advances every live instance by ``seg_len`` rounds.  The
@@ -453,6 +663,16 @@ def _run_adaptive(xs_t, orders, source: ShuffleSource, norms_t, *, hw,
     any work; ``boundary_hook(step, controller, losses)`` after each
     boundary's observe (the tournament culls from it).
 
+    With ``ckpt`` every committed rung publishes the orders, the source's
+    state, the losses, the controller's ``ctrl_*`` state and the entries
+    of ``hook_state`` as ``hs_*`` (a dict the caller owns, restored in
+    place on resume, so its hook sees the resumed values).  A kill at the
+    top of a rung loses that rung only; the resumed run replays it from
+    the last boundary bitwise.  With a ``monitor`` the probes run after
+    the finite sentinel and before the save; a shadow-sampled rung runs
+    each group again through the plain tier from the group's input orders
+    and a fork of the source at the rung's input state.
+
     Returns orders (BS, N) on the device, losses (BS, R) float32, NaN at
     the rounds an instance never ran (``controller.executed`` counts the
     rounds each ran), and the instance-rounds run on the device, the sum
@@ -462,12 +682,26 @@ def _run_adaptive(xs_t, orders, source: ShuffleSource, norms_t, *, hw,
     seg = ctrl.seg_len
     dev = xs_t.device
     bs, n = orders.shape
-    dense_fn = _select_apply_fn(cfg)
-    band_fn = (dense_fn if ctrl.band is None
-               else _select_apply_fn(cfg, ctrl.band))
+    mon = monitor if (monitor is not None and monitor.active) else None
     losses_mat = np.full((bs, cfg.rounds), np.nan, np.float32)
     device_rounds = 0
     step = 0
+    if resume and ckpt is not None:
+        got = ckpt.restore_latest(_meta_expect(meta or {}))
+        if got is not None:
+            state, _, m = got
+            orders = _orders_t(state["orders"], dev)
+            source.load_state_dict(state["source"])
+            losses_mat = np.asarray(state["losses"], np.float32).copy()
+            ctrl.load_state_dict(
+                {f: state["ctrl_" + f] for f in ctrl._STATE_FIELDS})
+            if hook_state is not None:
+                hook_state.clear()
+                hook_state.update({k[3:]: np.asarray(v)
+                                   for k, v in state.items()
+                                   if k.startswith("hs_")})
+            step = int(m["step"])
+            device_rounds = int(m["device_rounds"])
     while True:
         live = ctrl.live_indices()
         if live.size == 0:
@@ -477,30 +711,61 @@ def _run_adaptive(xs_t, orders, source: ShuffleSource, norms_t, *, hw,
         # Stopped instances never rejoin, so every live instance has run
         # exactly step * seg rounds.
         exec0 = step * seg
-        seg_losses = np.empty((live.size, seg), np.float32)
-        ws_live = np.empty((live.size, n), np.float32)
         banded_mask = ctrl.banded[live]
+        s_in = source.state_dict() if mon is not None else None
+        groups = []                  # (sel, rows, tau rows, input orders, K)
         for is_banded in (False, True):
             sel = np.flatnonzero(banded_mask == is_banded)
-            if sel.size == 0:
-                continue
-            gidx = live[sel]
-            rows = torch.as_tensor(gidx, device=dev)
-            o, l, w = _run_rounds_ragged(
-                xs_t[rows], orders[rows], source, gidx, ctrl.tau_rows(gidx),
-                norms_t[rows], hw=hw, cfg=cfg,
-                apply_fn=band_fn if is_banded else dense_fn)
-            orders = orders.index_copy(0, rows, o)
-            seg_losses[sel] = l.cpu().numpy().T
-            ws_live[sel] = w.cpu().numpy()
-            device_rounds += seg * gidx.size
+            if sel.size:
+                rows = torch.as_tensor(live[sel], device=dev)
+                groups.append((sel, rows, ctrl.tau_rows(live[sel]),
+                               orders[rows], ctrl.band if is_banded else None))
+
+        def run_groups(cfg_, src):
+            """The rung's groups in order, each from its input orders:
+            orders (live, N) on the device, losses (seg, live) and last
+            keys (live, N) on the host."""
+            o_live = torch.empty((live.size, n), dtype=torch.int64,
+                                 device=dev)
+            l_live = np.empty((seg, live.size), np.float32)
+            w_live = np.empty((live.size, n), np.float32)
+            for sel, rows, tau_g, o_in, band in groups:
+                o, l, w = _run_rounds_ragged(
+                    xs_t[rows], o_in, src, live[sel], tau_g, norms_t[rows],
+                    hw=hw, cfg=cfg_, apply_fn=_select_apply_fn(cfg_, band))
+                o_live[torch.as_tensor(sel, device=dev)] = o
+                l_live[:, sel], w_live[sel] = _host(l), _host(w)
+            return o_live, l_live, w_live
+
+        o_live, seg_t, ws_live = run_groups(cfg, source)
+        orders = orders.index_copy(0, torch.as_tensor(live, device=dev),
+                                   o_live)
+        seg_losses = np.ascontiguousarray(seg_t.T)          # (live, seg)
+        device_rounds += seg * live.size
         if check_finite:
-            _check_finite(seg_losses.T, exec0, cfg, "adaptive", ws=ws_live)
+            _check_finite(seg_t, exec0, cfg, "adaptive", ws=ws_live)
+        if mon is not None:
+            _verify_rung(
+                mon, cfg, source, s_in, exec0, seg,
+                lambda cfg_, src: run_groups(cfg_, src)[:2],
+                losses=seg_t, orders=_host(o_live), rows=live, ws=ws_live,
+                tau=ctrl.tau_rows(live)[0], band=ctrl.band,
+                banded_mask=banded_mask)
         losses_mat[live, exec0:exec0 + seg] = seg_losses
         ctrl.observe(live, seg_losses, ws_live)
         if boundary_hook is not None:
             boundary_hook(step + 1, ctrl, losses_mat)
         step += 1
+        if ckpt is not None:
+            st = {"orders": _orders_np(orders),
+                  "source": source.state_dict(),
+                  "losses": losses_mat.copy()}
+            for f in ctrl._STATE_FIELDS:
+                st["ctrl_" + f] = getattr(ctrl, f).copy()
+            for k, v in (hook_state or {}).items():
+                st["hs_" + k] = np.asarray(v)
+            ckpt.save(step, st, meta=dict(meta or {}, step=step,
+                                          device_rounds=device_rounds))
     return orders, losses_mat, device_rounds
 
 
@@ -560,11 +825,18 @@ def run_round_segment(xs, orders, norms, progress, seg_len: int, *,
         checks the batch against it; "dense" / "banded" selects it.
       with_w: also return the end-of-segment trained keys.
 
+      guardrail: a ``GuardrailPolicy`` (or monitor of
+        ``repro_torch.runtime.guardrails``): the integrity probes on this
+        segment's results (permutations, loss sanity, the stream audit of
+        ``source``, the band-tail audit with ``with_w``, and the sampled
+        plain-tier shadow recompute), raising ``IntegrityViolation``.
+        Probes are read-only: the results are unchanged.
+
     Returns:
       (orders (BS, N), losses (seg_len, BS)) on the device, plus
       ``ws (BS, N)`` with ``with_w=True``.
     """
-    _check_ported(cfg, mesh=mesh, guardrail=guardrail)
+    _check_ported(cfg, mesh=mesh)
     device = resolve_device(device)
     xs = torch.as_tensor(xs, dtype=_F32, device=device)
     orders = torch.as_tensor(orders, device=device).to(torch.int64)
@@ -604,11 +876,23 @@ def run_round_segment(xs, orders, norms, progress, seg_len: int, *,
                 f"regimes across the rung-aligned dense->banded switch "
                 f"{switch}; group instances by regime "
                 f"(rung_aligned_switch)")
-    tau_rows = _tau_schedule(cfg)[p[:, None] + np.arange(seg_len)].T
-    orders, losses, ws = _run_rounds_ragged(
+    mon = _open_guardrails(guardrail, cfg, "segment", device)
+    s_in = source.state_dict() if mon is not None else None
+    taus = _tau_schedule(cfg)
+    tau_rows = taus[p[:, None] + np.arange(seg_len)].T
+    o_out, losses, ws = _run_rounds_ragged(
         xs, orders, source, rows, tau_rows, norms, hw=hw, cfg=cfg,
         apply_fn=_select_apply_fn(cfg, band if banded else None))
-    return (orders, losses, ws) if with_w else (orders, losses)
+    if mon is not None:
+        _verify_rung(
+            mon, cfg, source, s_in, int(p.min()), seg_len,
+            lambda cfg_, src: run_round_segment(
+                xs, orders, norms, p, seg_len, source=src, rows=rows, hw=hw,
+                cfg=cfg_, device=device, regime=regime),
+            losses=_host(losses), orders=_host(o_out), n=n, rows=rows,
+            ws=_host(ws) if with_w else None, tau=taus[p],
+            band=band if (banded and with_w) else None)
+    return (o_out, losses, ws) if with_w else (o_out, losses)
 
 
 def _prep_instances(xs, hw, n_restarts, seed, seeds, source, norms, state,
@@ -666,6 +950,10 @@ def shuffle_soft_sort(
     norm=None,
     state=None,
     checkpoint_dir: str | None = None,
+    resume: bool = False,
+    checkpoint_every: int | None = None,
+    rung_hook: Optional[Callable[[int], None]] = None,
+    check_finite: bool = True,
     guardrail=None,
 ) -> tuple[np.ndarray, np.ndarray, list[float]]:
     """Sort x (N, d) onto an (h, w) grid.  Returns (order, x[order], losses).
@@ -676,23 +964,44 @@ def shuffle_soft_sort(
     ``(orders (1, N), losses (1, R0))`` continues a run after round R0
     (see ``repro_torch.core.reference``).  ``callback(r, order, loss)``
     is called after every round.  ``losses`` is the per-round list, one
-    host sync per round, with a ``NumericalDivergence`` check on each.
+    host sync per round, with a ``NumericalDivergence`` check on each
+    (``check_finite=False`` turns it off).
+
+    Preemption safety: ``checkpoint_dir`` publishes the carry (order, the
+    shuffle source's state, losses) every ``checkpoint_every`` rounds
+    (default ``rounds // 8``) through
+    ``repro_torch.runtime.anneal_checkpoint.AnnealCheckpointer``;
+    ``resume=True`` starts from the newest checkpoint there (a bare
+    directory from the beginning) and finishes bitwise an uninterrupted
+    run.  ``rung_hook(start_round)`` fires before each rung.
+    ``guardrail=`` (a ``repro_torch.runtime.guardrails.GuardrailPolicy``)
+    runs the integrity probes at every rung edge, raising
+    ``IntegrityViolation``; a guarded run returns the unguarded results
+    bitwise.
 
     ``cfg.schedule="adaptive"`` runs the plateau controller
     (``repro_torch.core.annealing``): the run may stop at a rung boundary,
     so ``losses`` holds the executed rounds only.  It decides at rung
     boundaries, so it takes no per-round ``callback`` and no ``state``.
     """
-    _check_ported(cfg, checkpoint_dir=checkpoint_dir, guardrail=guardrail)
+    _check_ported(cfg)
     if cfg.schedule == "adaptive":
         _check_adaptive(callback, state)
         res = shuffle_soft_sort_batched(
             x[None], hw, cfg, 1, seeds=[seed], device=device, source=source,
-            norms=None if norm is None else [norm])
+            norms=None if norm is None else [norm],
+            checkpoint_dir=checkpoint_dir, resume=resume,
+            checkpoint_every=checkpoint_every, rung_hook=rung_hook,
+            check_finite=check_finite, guardrail=guardrail)
         executed = int(res.rounds_executed[0, 0])
         return (res.order[0], res.sorted[0],
                 [float(v) for v in res.losses[0][:executed]])
+    ckpt = _open_checkpointer(checkpoint_dir, resume)
+    if callback is not None and (ckpt is not None or rung_hook is not None):
+        raise ValueError("checkpoint_dir/rung_hook are incompatible with "
+                         "the per-round callback stream")
     device = resolve_device(device)
+    mon = _open_guardrails(guardrail, cfg, "sequential", device)
     x_t = torch.as_tensor(np.asarray(x) if not isinstance(x, torch.Tensor)
                           else x, dtype=_F32, device=device)
     xs, _, _, n, source, xs_t, norms_t, orders, prior = _prep_instances(
@@ -700,17 +1009,54 @@ def shuffle_soft_sort(
         None if norm is None else [norm], state, device)
     losses = [float(v) for v in prior[0].cpu()]
     start = len(losses)
+    meta = _engine_meta("sequential", cfg, n, 1, hw, source)
+    if resume and ckpt is not None:
+        got = ckpt.restore_latest(_meta_expect(meta))
+        if got is not None:
+            st, start, _ = got
+            orders = _orders_t(st["order"], device)[None]
+            source.load_state_dict(st["source"])
+            losses = [float(v) for v in st["losses"]]
+    rungs = ckpt is not None or mon is not None or rung_hook is not None
+    edges = (_checkpoint_edges(cfg.rounds,
+                               checkpoint_every or max(1, cfg.rounds // 8))
+             if rungs else [cfg.rounds])
+    taus = _tau_schedule(cfg)
+    seg_start = start
 
     def on_round(r, orders_r, loss_r):
         losses.append(float(loss_r[0]))
-        _check_finite(np.asarray(losses[start:], np.float32)[:, None],
-                      start, cfg, "sequential")
+        if check_finite:
+            # The whole rung so far: the error names its FIRST bad round.
+            _check_finite(np.asarray(losses[seg_start:], np.float32)[:, None],
+                          seg_start, cfg, "sequential")
         if callback is not None:
             callback(r, orders_r[0].to(torch.int32).cpu().numpy(),
                      losses[-1])
 
-    orders, _ = _run_rounds(xs_t, orders, source, norms_t, start, hw=hw,
-                            cfg=cfg, on_round=on_round)
+    for end in edges:
+        if end <= seg_start:
+            continue
+        if rung_hook is not None:
+            rung_hook(seg_start)
+        s_in = source.state_dict() if mon is not None else None
+        o_in = orders
+        orders, _ = _run_segment(xs_t, orders, source, norms_t, seg_start,
+                                 end, hw=hw, cfg=cfg, on_round=on_round)
+        if mon is not None:
+            _verify_rung(
+                mon, cfg, source, s_in, seg_start, end - seg_start,
+                lambda cfg_, src: _run_segment(xs_t, o_in, src, norms_t,
+                                               seg_start, end, hw=hw,
+                                               cfg=cfg_),
+                losses=np.asarray(losses[seg_start:], np.float32),
+                orders=_host(orders), n=n, tau=float(taus[seg_start]))
+        if ckpt is not None:
+            ckpt.save(end, {"order": _orders_np(orders[0]),
+                            "source": source.state_dict(),
+                            "losses": np.asarray(losses, np.float32)},
+                      meta=dict(meta, round=end))
+        seg_start = end
     order = orders[0].to(torch.int32).cpu().numpy()
     return order, xs[0].cpu().numpy()[order], losses
 
@@ -760,6 +1106,10 @@ def shuffle_soft_sort_batched(
     norms=None,
     state=None,
     checkpoint_dir: str | None = None,
+    resume: bool = False,
+    checkpoint_every: int | None = None,
+    rung_hook: Optional[Callable[[int], None]] = None,
+    check_finite: bool = True,
     guardrail=None,
 ) -> BatchedSortResult:
     """Sort B problems at once, S random restarts each, as one (B*S, N)
@@ -779,32 +1129,51 @@ def shuffle_soft_sort_batched(
     controller; the result then carries ``rounds_executed`` (B, S), loss
     traces NaN past each early stop, and winners chosen by their
     last-executed loss.  It takes no ``callback`` and no ``state``.
+
+    ``checkpoint_dir`` / ``resume`` / ``checkpoint_every`` / ``rung_hook``
+    / ``check_finite`` / ``guardrail``: rung-boundary preemption safety
+    and integrity probes, as in ``shuffle_soft_sort``.  On the fixed
+    schedule any of ``checkpoint_dir``, ``rung_hook`` and ``guardrail``
+    cuts the rounds into rungs of ``checkpoint_every`` (bitwise one
+    segment of all of them); the adaptive schedule checkpoints at its
+    controller's rungs.  Without them the run is one segment and brings
+    nothing to the host before its end.
     """
-    _check_ported(cfg, mesh=mesh, checkpoint_dir=checkpoint_dir,
-                  guardrail=guardrail)
+    _check_ported(cfg, mesh=mesh)
     if cfg.schedule == "adaptive":
         _check_adaptive(callback, state)
+    ckpt = _open_checkpointer(checkpoint_dir, resume)
     device = resolve_device(device)
+    mon = _open_guardrails(guardrail, cfg, "batched", device)
+    rungs = ckpt is not None or rung_hook is not None or mon is not None
+    if callback is not None and rungs:
+        raise ValueError("checkpoint_dir/rung_hook/guardrail are "
+                         "incompatible with the per-round callback stream")
     xs, b, s, n, source, xs_t, norms_t, orders, prior = _prep_instances(
         xs, hw, n_restarts, seed, seeds, source, norms, state, device)
     if cfg.schedule == "adaptive":
-        return _batched_adaptive(xs, b, s, n, source, xs_t, norms_t, orders,
-                                 hw=hw, cfg=cfg)
-    start = prior.shape[1]
-
+        return _batched_adaptive(
+            xs, b, s, n, source, xs_t, norms_t, orders, hw=hw, cfg=cfg,
+            ckpt=ckpt, resume=resume, rung_hook=rung_hook,
+            check_finite=check_finite, monitor=mon)
     on_round = None
     if callback is not None:
         def on_round(r, orders_r, loss_r):
             loss_np = loss_r.cpu().numpy()
-            _check_finite(loss_np[None], r, cfg, "batched")
+            if check_finite:
+                _check_finite(loss_np[None], r, cfg, "batched")
             callback(r, orders_r.to(torch.int32).cpu().numpy(), loss_np)
 
-    orders, losses_rb = _run_rounds(xs_t, orders, source, norms_t, start,
-                                    hw=hw, cfg=cfg, on_round=on_round)
-    losses_np = losses_rb.cpu().numpy()
-    if callback is None:
-        _check_finite(losses_np, start, cfg, "batched")
-    all_losses = np.concatenate([prior.cpu().numpy(), losses_np.T], axis=1)
+    orders, losses_np = _run_fixed_checkpointed(
+        xs_t, orders, source, norms_t, hw=hw, cfg=cfg, ckpt=ckpt,
+        resume=resume,
+        every=((checkpoint_every or max(1, cfg.rounds // 8)) if rungs
+               else cfg.rounds),
+        rung_hook=rung_hook,
+        meta=_engine_meta("batched", cfg, n, b * s, hw, source),
+        check_finite=check_finite, monitor=mon, prior=prior,
+        on_round=on_round)
+    all_losses = losses_np.T
     all_losses = all_losses.reshape(b, s, cfg.rounds)
     all_orders = orders.to(torch.int32).cpu().numpy().reshape(b, s, n)
     best = np.argmin(all_losses[:, :, -1], axis=1)
@@ -822,12 +1191,19 @@ def shuffle_soft_sort_batched(
 
 
 def _batched_adaptive(xs, b, s, n, source, xs_t, norms_t, orders, *, hw,
-                      cfg: ShuffleSoftSortConfig) -> BatchedSortResult:
+                      cfg: ShuffleSoftSortConfig, ckpt=None,
+                      resume: bool = False, rung_hook=None,
+                      check_finite: bool = True,
+                      monitor=None) -> BatchedSortResult:
     """``shuffle_soft_sort_batched`` on the adaptive schedule."""
     bs = b * s
     ctrl = make_adaptive_controller(cfg, bs, n)
-    orders, losses_bs, _ = _run_adaptive(xs_t, orders, source, norms_t,
-                                         hw=hw, cfg=cfg, controller=ctrl)
+    orders, losses_bs, _ = _run_adaptive(
+        xs_t, orders, source, norms_t, hw=hw, cfg=cfg, controller=ctrl,
+        rung_hook=rung_hook, check_finite=check_finite, ckpt=ckpt,
+        resume=resume,
+        meta=_engine_meta("adaptive", cfg, n, bs, hw, source),
+        monitor=monitor)
     all_losses = losses_bs.reshape(b, s, cfg.rounds)
     all_orders = orders.to(torch.int32).cpu().numpy().reshape(b, s, n)
     final = losses_bs[np.arange(bs), ctrl.executed - 1].reshape(b, s)
@@ -925,9 +1301,9 @@ def restart_tournament(
     then at each rung boundary culls the worst ``cull_fraction`` of the
     live restarts (per problem, by rung-end loss) and anneals only the
     survivors, so the batch shrinks and later rounds launch on fewer
-    instances.  The survivors' rows are gathered on the device; only each
-    culled rung's (B * S_k,) last losses cross to the host for the
-    decision.  Each restart draws its own shuffle stream, so a culled
+    instances.  The survivors' rows are gathered on the device; each rung's
+    (T, B * S_k) losses cross to the host at its end, where the cull
+    decides.  Each restart draws its own shuffle stream, so a culled
     restart's stream simply stops, and a restart that survives every cull
     finishes bitwise the same (b, s) instance of
     ``shuffle_soft_sort_batched``.
@@ -944,8 +1320,12 @@ def restart_tournament(
         last-executed loss.
       rung_hook: ``f(start_round)``, called before each rung.
       check_finite: raise ``NumericalDivergence`` on a non-finite loss.
-      mesh, mesh_hook, checkpoint_dir, resume, guardrail: not ported yet
-        (``NotImplementedError``).
+      checkpoint_dir, resume: rung-boundary checkpoints at the
+        tournament's own rung edges (the cull boundaries), so the alive
+        sets and the survivors log always agree with the stored orders.
+      guardrail: integrity probes at every rung, as in
+        ``shuffle_soft_sort``.
+      mesh, mesh_hook: not ported yet (``NotImplementedError``).
 
     Returns:
       ``TournamentResult``, see its field docs.
@@ -953,38 +1333,74 @@ def restart_tournament(
     if not 0.0 <= cull_fraction < 1.0:
         raise ValueError(f"cull_fraction must be in [0, 1), got "
                          f"{cull_fraction}")
-    _check_ported(cfg, mesh=mesh, mesh_hook=mesh_hook,
-                  checkpoint_dir=checkpoint_dir, resume=resume,
-                  guardrail=guardrail)
+    _check_ported(cfg, mesh=mesh, mesh_hook=mesh_hook)
+    ckpt = _open_checkpointer(checkpoint_dir, resume)
     device = resolve_device(device)
+    mon = _open_guardrails(guardrail, cfg, "tournament", device)
     xs, b, s, n, source, xs_t, norms_t, orders, _ = _prep_instances(
         xs, hw, n_restarts, seed, seeds, source, norms, None, device)
     if cfg.schedule == "adaptive":
         return _restart_tournament_adaptive(
             xs, b, s, n, source, xs_t, norms_t, orders, hw=hw, cfg=cfg,
             cull_fraction=cull_fraction, n_rungs=n_rungs,
-            rung_hook=rung_hook, check_finite=check_finite)
+            rung_hook=rung_hook, check_finite=check_finite, ckpt=ckpt,
+            resume=resume, monitor=mon)
     edges = _rung_boundaries(cfg.rounds, n_rungs)
+    taus = _tau_schedule(cfg)
 
     # The live set is problem-major: live slot j of problem p at row
     # p * S_k + j; ``alive`` maps live slots to original restart indices.
     alive = np.tile(np.arange(s), (b, 1))                 # (B, S_k)
-    rungs = []              # (start, end, alive, losses (T, B * S_k))
     survivors_log = []
-    rounds_run = start = 0
+    rounds_run = start = k_done = 0
+    all_losses = np.full((b, s, cfg.rounds), np.nan, np.float32)
+    meta = _engine_meta("tournament", cfg, n, b * s, hw, source)
+    if resume and ckpt is not None:
+        got = ckpt.restore_latest(_meta_expect(meta))
+        if got is not None:
+            state, _, m = got
+            alive = np.asarray(state["alive"])
+            all_losses = np.asarray(state["all_losses"], np.float32).copy()
+            k_done = int(m["rung"])
+            survivors_log = [np.asarray(state[f"surv_{i:03d}"])
+                             for i in range(k_done)]
+            # The live set's xs is a gather of the inputs: only the carry
+            # (orders, streams, norms, alive) is stored.
+            xs_t = torch.repeat_interleave(xs, alive.shape[1], dim=0)
+            orders = _orders_t(state["orders"], device)
+            source.load_state_dict(state["source"])
+            norms_t = torch.as_tensor(state["norms"], device=device)
+            start = int(m["start"])
+            rounds_run = int(m["rounds_run"])
     for k, end in enumerate(edges):
+        if k < k_done:
+            continue
         if rung_hook is not None:
             rung_hook(start)
         s_k = alive.shape[1]
         rows = (np.arange(b)[:, None] * s + alive).reshape(-1)
-        orders, losses = _run_rounds(xs_t, orders, source, norms_t, start,
-                                     end, rows=rows, hw=hw, cfg=cfg,
-                                     pad_rows=True)
+        s_in = source.state_dict() if mon is not None else None
+        o_in = orders
+        orders, losses = _run_segment(xs_t, orders, source, norms_t, start,
+                                      end, rows=rows, hw=hw, cfg=cfg,
+                                      pad_rows=True)
         rounds_run += (end - start) * b * s_k
-        rungs.append((start, end, alive, losses))
+        seg = _host(losses).astype(np.float32)            # (T, B * S_k)
+        if check_finite:
+            _check_finite(seg, start, cfg, "tournament")
+        if mon is not None:
+            _verify_rung(
+                mon, cfg, source, s_in, start, end - start,
+                lambda cfg_, src: _run_segment(
+                    xs_t, o_in, src, norms_t, start, end, rows=rows, hw=hw,
+                    cfg=cfg_, pad_rows=True),
+                losses=seg, orders=_host(orders), rows=rows,
+                tau=float(taus[start]))
+        all_losses[np.arange(b)[:, None], alive, start:end] = (
+            seg.T.reshape(b, s_k, end - start))
         keep = _survivor_count(s_k, cull_fraction)
         if k < len(edges) - 1 and keep < s_k:
-            last = losses[-1].cpu().numpy().reshape(b, s_k)
+            last = seg[-1].reshape(b, s_k)
             sel = _tournament_cull(last, keep)            # (B, keep)
             alive = np.take_along_axis(alive, sel, axis=1)
             idx = torch.as_tensor(
@@ -995,14 +1411,15 @@ def restart_tournament(
             norms_t = norms_t.index_select(0, idx)
         survivors_log.append(alive.copy())
         start = end
-
-    all_losses = np.full((b, s, cfg.rounds), np.nan, np.float32)
-    for s0, s1, alive_k, losses in rungs:
-        seg = losses.cpu().numpy()                        # (T, B * S_k)
-        if check_finite:
-            _check_finite(seg, s0, cfg, "tournament")
-        all_losses[np.arange(b)[:, None], alive_k, s0:s1] = (
-            seg.T.reshape(b, alive_k.shape[1], s1 - s0))
+        if ckpt is not None:
+            st = {"orders": _orders_np(orders),
+                  "source": source.state_dict(),
+                  "norms": _host(norms_t), "alive": alive.copy(),
+                  "all_losses": all_losses.copy()}
+            for i, sv in enumerate(survivors_log):
+                st[f"surv_{i:03d}"] = sv
+            ckpt.save(end, st, meta=dict(meta, rung=k + 1, start=end,
+                                         rounds_run=rounds_run))
     final = all_losses[np.arange(b)[:, None], alive, -1]  # (B, S_fin)
     win = np.argmin(final, axis=1)                        # live slot
     order = orders.to(torch.int32).cpu().numpy().reshape(
@@ -1032,8 +1449,9 @@ def _tournament_result(xs, order, final_loss, best_restart, survivors_log,
 def _restart_tournament_adaptive(xs, b, s, n, source, xs_t, norms_t, orders,
                                  *, hw, cfg: ShuffleSoftSortConfig,
                                  cull_fraction: float, n_rungs: int,
-                                 rung_hook=None, check_finite: bool = True
-                                 ) -> TournamentResult:
+                                 rung_hook=None, check_finite: bool = True,
+                                 ckpt=None, resume: bool = False,
+                                 monitor=None) -> TournamentResult:
     """The tournament on the adaptive schedule: ``_run_adaptive`` with a
     cull hook at the rung edges.
 
@@ -1044,8 +1462,8 @@ def _restart_tournament_adaptive(xs, b, s, n, source, xs_t, norms_t, orders,
     competing with its final loss, and a culled one leaves through
     ``AdaptiveController.mark_culled``; the survivors' streams never see
     a perturbation.  The cross-rung cull state (the alive set and the
-    survivors log) lives in one dict, ``hstate``, for a checkpoint to
-    carry.
+    survivors log) lives in one dict, ``hstate``, which ``_run_adaptive``
+    checkpoints beside the controller and restores in place on resume.
     """
     ctrl = make_adaptive_controller(cfg, b * s, n)
     n_steps = cfg.rounds // ctrl.seg_len
@@ -1075,7 +1493,10 @@ def _restart_tournament_adaptive(xs, b, s, n, source, xs_t, norms_t, orders,
 
     orders, losses_mat, device_rounds = _run_adaptive(
         xs_t, orders, source, norms_t, hw=hw, cfg=cfg, controller=ctrl,
-        boundary_hook=hook, rung_hook=rung_hook, check_finite=check_finite)
+        boundary_hook=hook, rung_hook=rung_hook, check_finite=check_finite,
+        ckpt=ckpt, resume=resume,
+        meta=_engine_meta("tournament-adaptive", cfg, n, b * s, hw, source),
+        hook_state=hstate, monitor=monitor)
     # If every restart stopped before a late edge, its hook never fired;
     # the live set was already final, so it stands for those rungs too.
     alive = hstate["alive"]

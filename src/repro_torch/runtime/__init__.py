@@ -3,3 +3,13 @@
 #   sog_compress.py — self-organizing checkpoint compression: sort the
 #                     columns of each weight with ShuffleSoftSort, then
 #                     int8-quantize, delta-code and deflate them
+#
+#   checkpoint.py          — CheckpointManager: atomic step directories,
+#                            manifest, keep-k GC, async save (the
+#                            reference's on-disk format)
+#   anneal_checkpoint.py   — AnnealCheckpointer: the engines' flat rung
+#                            snapshots with a structural fingerprint
+#   fault_tolerance.py     — RetryPolicy, CorruptionSpec, FaultInjector,
+#                            DivergencePolicy, AnnealSupervisor
+#   guardrails.py          — GuardrailPolicy, GuardrailMonitor: the
+#                            integrity probes at rung boundaries

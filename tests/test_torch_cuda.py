@@ -982,3 +982,173 @@ def test_cuda_segment_matches_cpu_engine_and_each_instance_alone(cuda, band):
         o_i, l_i = segment(cuda, np.array([i]))
         np.testing.assert_array_equal(o_i[0], o_gpu[i])
         np.testing.assert_array_equal(l_i[:, 0], l_gpu[:, i])
+
+
+# ------------------------------------------- checkpoints and guardrails
+
+CHILD_DRAWS = r"""
+import sys
+import numpy as np
+import torch
+sys.path.insert(0, sys.argv[1])
+from repro_torch.core.prng import TorchShuffleSource
+src = TorchShuffleSource([1, 2, 3], 4096, "cuda")
+src.load_state_dict(np.load(sys.argv[2]))
+np.save(sys.argv[3], torch.stack([src.next_round() for _ in range(3)])
+        .cpu().numpy())
+"""
+
+
+@pytest.mark.cuda
+def test_cuda_generator_state_roundtrip(cuda, tmp_path):
+    """A card generator's state (a Philox seed and offset, read on the
+    host) set again gives the same draws bitwise, in this process and in
+    a fresh one; it never loads into a CPU generator."""
+    import os
+    import subprocess
+    import sys
+
+    from repro_torch.core.prng import TorchShuffleSource
+
+    src = TorchShuffleSource([1, 2, 3], 4096, cuda)
+    src.next_round([0, 2])
+    st = src.state_dict()
+    assert st.dtype == np.uint8 and st.shape[0] == 3
+    want = torch.stack([src.next_round() for _ in range(3)]).cpu().numpy()
+    src.load_state_dict(st)
+    got = torch.stack([src.next_round() for _ in range(3)]).cpu().numpy()
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(
+        src.advanced(st, None, 3), src.state_dict())
+    np.save(tmp_path / "state.npy", st)
+    src_dir = os.path.join(os.path.dirname(__file__), "..", "src")
+    subprocess.run([sys.executable, "-c", CHILD_DRAWS, src_dir,
+                    str(tmp_path / "state.npy"), str(tmp_path / "draws.npy")],
+                   check=True, timeout=300)
+    np.testing.assert_array_equal(np.load(tmp_path / "draws.npy"), want)
+    with pytest.raises(ValueError):
+        TorchShuffleSource([1, 2, 3], 4096, "cpu").load_state_dict(st)
+
+
+def _ckpt_problem(b=2, n=1024, d=20, seed=0):
+    rng = np.random.default_rng(seed)
+    return rng.normal(size=(b, n, d)).astype(np.float32), (32, n // 32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("band", [None, "auto"])
+def test_cuda_kill_and_resume_bitwise_on_the_kernel_tier(cuda, tmp_path,
+                                                          band):
+    """Kill at every rung on the card's kernel tier: each supervised
+    resume is bitwise the uninterrupted run; a card checkpoint does not
+    resume on the CPU (a ``ValueError``, no fallback)."""
+    from repro_torch.core import (ShuffleSoftSortConfig,
+                                  shuffle_soft_sort_batched)
+    from repro_torch.runtime.fault_tolerance import (AnnealSupervisor,
+                                                     FaultInjector,
+                                                     RetryPolicy)
+
+    xs, hw = _ckpt_problem()
+    cfg = ShuffleSoftSortConfig(rounds=8, inner_steps=4, use_kernel=True,
+                                band=band)
+
+    def run(**kw):
+        return shuffle_soft_sort_batched(xs, hw, cfg, n_restarts=2, seed=3,
+                                         device=cuda, checkpoint_every=2,
+                                         **kw)
+
+    ref = shuffle_soft_sort_batched(xs, hw, cfg, n_restarts=2, seed=3,
+                                    device=cuda)
+    for k in range(4):
+        hook = FaultInjector(lambda start: None, fail_calls={k})
+        sup = AnnealSupervisor(lambda a, b_, c, **kw: run(**kw),
+                               checkpoint_dir=str(tmp_path / f"k{k}"),
+                               retry=RetryPolicy(backoff_base_s=0.0))
+        got = sup.run(None, None, None, rung_hook=hook)
+        assert hook.faults == 1
+        np.testing.assert_array_equal(got.all_orders, ref.all_orders)
+        np.testing.assert_array_equal(got.all_losses, ref.all_losses)
+    with pytest.raises(ValueError, match="source"):
+        shuffle_soft_sort_batched(xs, hw, cfg, n_restarts=2, seed=3,
+                                  device="cpu", checkpoint_every=2,
+                                  checkpoint_dir=str(tmp_path / "k0"),
+                                  resume=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("schedule", ["fixed", "adaptive"])
+def test_cuda_guarded_run_is_bitwise_the_unguarded_run(cuda, schedule):
+    """The invariants on the kernel tier, and the shadow at rate 1 on the
+    dense plain tier, leave the results bitwise.  The shadow on the kernel
+    tier is refused on the card (the next test); the banded plain tier is
+    not bitwise reproducible on the card (its colsum and gather backward
+    accumulate with atomics), so the shadow there may fire too (ROADMAP.md
+    Queue C8)."""
+    from repro_torch.core import (ShuffleSoftSortConfig,
+                                  shuffle_soft_sort_batched)
+    from repro_torch.runtime.guardrails import (GuardrailMonitor,
+                                                GuardrailPolicy)
+
+    xs, hw = _ckpt_problem(seed=1)
+    extra = (dict(schedule="adaptive", adapt_every=2, patience=1,
+                  plateau_rtol=0.02) if schedule == "adaptive" else {})
+    for policy, use_kernel, band in (
+            (GuardrailPolicy(mode="invariants"), True, "auto"),
+            (GuardrailPolicy(mode="shadow", shadow_rate=1.0), False, None)):
+        cfg = ShuffleSoftSortConfig(rounds=8, inner_steps=4, band=band,
+                                    use_kernel=use_kernel, **extra)
+        ref = shuffle_soft_sort_batched(xs, hw, cfg, n_restarts=2, seed=4,
+                                        device=cuda)
+        mon = GuardrailMonitor(policy)
+        got = shuffle_soft_sort_batched(xs, hw, cfg, n_restarts=2, seed=4,
+                                        device=cuda, checkpoint_every=2,
+                                        guardrail=mon)
+        assert mon.rungs_checked >= 1 and not mon.incidents
+        if policy.mode == "shadow":
+            assert mon.rungs_shadowed == mon.rungs_checked
+        np.testing.assert_array_equal(got.all_orders, ref.all_orders)
+        np.testing.assert_array_equal(got.all_losses, ref.all_losses)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("schedule", ["fixed", "adaptive"])
+def test_cuda_shadow_is_refused_on_the_kernel_tier(cuda, schedule):
+    """Every engine refuses the shadow on the card's kernel tier, where it
+    fires on clean rungs, with a ``ValueError`` naming Queue C8 before it
+    runs a round; the invariants there are accepted."""
+    from repro_torch.core import (ShuffleSoftSortConfig, TorchShuffleSource,
+                                  restart_tournament, run_round_segment,
+                                  shuffle_soft_sort,
+                                  shuffle_soft_sort_batched)
+    from repro_torch.runtime.guardrails import (GuardrailMonitor,
+                                                GuardrailPolicy)
+
+    xs, hw = _ckpt_problem(n=256)
+    n = xs.shape[1]
+    extra = (dict(schedule="adaptive", adapt_every=2, patience=1)
+             if schedule == "adaptive" else {})
+    cfg = ShuffleSoftSortConfig(rounds=4, inner_steps=2, use_kernel=True,
+                                **extra)
+    fixed = ShuffleSoftSortConfig(rounds=4, inner_steps=2, use_kernel=True)
+    runs = {
+        "sequential": lambda g: shuffle_soft_sort(
+            xs[0], hw, cfg, device=cuda, guardrail=g),
+        "batched": lambda g: shuffle_soft_sort_batched(
+            xs, hw, cfg, n_restarts=2, device=cuda, guardrail=g),
+        "tournament": lambda g: restart_tournament(
+            xs, hw, cfg, n_restarts=2, n_rungs=2, device=cuda, guardrail=g),
+        "segment": lambda g: run_round_segment(
+            xs, np.tile(np.arange(n), (2, 1)), np.ones(2, np.float32),
+            np.zeros(2, np.int64), 2, source=TorchShuffleSource([1, 2], n,
+                                                                cuda),
+            hw=hw, cfg=fixed, device=cuda, guardrail=g),
+    }
+    for name, run in runs.items():
+        for guard in (GuardrailPolicy(mode="shadow"),
+                      GuardrailMonitor(GuardrailPolicy(mode="shadow",
+                                                       shadow_rate=1.0))):
+            with pytest.raises(ValueError, match="Queue C8"):
+                run(guard)
+        mon = GuardrailMonitor(GuardrailPolicy(mode="invariants"))
+        run(mon)
+        assert mon.rungs_checked >= 1 and not mon.incidents, name

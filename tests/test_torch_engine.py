@@ -304,8 +304,6 @@ def test_entry_points_never_fall_back_to_cpu(monkeypatch):
 
 @pytest.mark.parametrize("kw,feature", [
     ({"mesh": object()}, "mesh"),
-    ({"checkpoint_dir": "ckpt"}, "checkpoint_dir"),
-    ({"guardrail": object()}, "guardrail"),
 ])
 def test_unported_features_raise(kw, feature):
     cfg = teng.ShuffleSoftSortConfig(rounds=1, inner_steps=1,

@@ -360,8 +360,7 @@ def test_run_adaptive_counts_rounds_and_calls_its_hooks():
 
 @pytest.mark.parametrize("kw,item", [
     ({"mesh_hook": lambda start, mesh: None}, "A11"),
-    ({"resume": True}, "A10"), ({"checkpoint_dir": "ckpt"}, "A10"),
-    ({"mesh": object()}, "A11"), ({"guardrail": object()}, "A12")])
+    ({"mesh": object()}, "A11")])
 def test_tournament_refuses_unported_features(kw, item):
     with pytest.raises(NotImplementedError, match=item):
         teng.restart_tournament(_xs(0, 1), HW, _plain(rounds=2),
@@ -477,7 +476,7 @@ def test_segment_regime_checks_raise():
             regime="banded")
     with pytest.raises(NotImplementedError, match="A11"):
         seg([0, 0], mesh=object())
-    with pytest.raises(NotImplementedError, match="A12"):
+    with pytest.raises(TypeError, match="GuardrailPolicy"):
         seg([0, 0], guardrail=object())
     # Explicit regimes bypass the model's check (the caller groups).
     for regime in ("dense", "banded"):
