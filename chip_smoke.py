@@ -93,15 +93,26 @@ start):
    and a fresh one that resumes from its directory, bitwise; ms per round
    with checkpoints against none in alternating pairs, and the bytes of a
    snapshot.  ``guardrail_run`` — the same configuration unguarded (a
-   no-op ``rung_hook``) and with the invariants, each bitwise the
-   unguarded run, the overhead the minimum over interleaved repetitions;
-   the shadow at 1/32 and at rate 1 are refused on the kernel tier
-   (ROADMAP.md Queue C8), and an audit of every clean rung at rate 1
-   (kernel tier against the plain tier) counts the clean shadow
-   incidents and times the rate-1 shadow.  Chaos through the rung seam: a sign-flipped
-   loss at one dispatch is repaired by one verified replay, bitwise; a
-   corruption that persists on the kernel tier retires it, and the
-   launch counters show the kernels stop at that rung.
+   no-op ``rung_hook``), with the invariants, and with the shadow at 1/32
+   and at rate 1, each bitwise the unguarded run, the overhead the
+   minimum over interleaved repetitions; the rate-1 shadow (a bitwise
+   same-tier replay of each rung and the kernel-vs-plain apply check)
+   clean on all 8 rungs, and again on one dense kernel-tier run and on
+   the banded plain tier (ROADMAP.md Queue C8, repaired).  Chaos through
+   the rung seam: a sign-flipped loss at one dispatch is repaired by one
+   verified replay, bitwise; a corruption that persists on the kernel
+   tier retires it, and the launch counters show the kernels stop at
+   that rung.  ``serve_run`` — the continuous-batching ``SortServer``
+   (``repro_torch.launch.serve``) on the kernel tier, ``band="auto"``,
+   32 rounds x 8 inner steps in rungs of 8, two shape buckets (4096
+   product vectors on 64 x 64, 1024 RGB colours on 32 x 32): the
+   scenarios steady (Poisson at half the measured service rate; its
+   banded launches join the kernels line), faults, overload, preempt,
+   tournament (4 restarts, cull 0.5) and guarded (the shadow at 1/32 and
+   1), each with the exactly-once identity, valid permutations with
+   falling losses and 4 requests bitwise their solo runs (the preempted
+   ones first); no plain tier on the unguarded dispatches; then the
+   guardrail bench's detection grid on the card.
 8. ``sog_run`` — the slice at full width: Self-Organizing Gaussians (paper
    section IV-B), 1 scene x 2 restarts of 65536 splats with 14 attributes
    on a 256 x 256 grid, ``band="auto"`` (K = 4096), 32 rounds x 8 inner
@@ -1251,7 +1262,7 @@ def segment_run(torch, core, K, xs, hw=(64, 64)):
                                           source=source, hw=hw, cfg=cfg,
                                           device="cuda")
 
-        one_orders, one_losses = _run_rounds(
+        one_orders, one_losses, _ = _run_rounds(
             x8, start, TorchShuffleSource(seeds, n, "cuda"), norms, 0,
             hw=hw, cfg=cfg)
         source = TorchShuffleSource(seeds, n, "cuda")
@@ -1582,66 +1593,25 @@ class SegmentCorruptor:
         return orders, losses
 
 
-def guardrail_audit(torch, core, xs_t, norms_t, cfg, rounds, policy, hw):
-    """Every rung of a clean run, primary on the kernel tier and shadow on
-    the plain tier from the same input orders and stream state, held to
-    ``policy``'s probes by a fresh monitor each rung (so the run goes on
-    past a rung that fires).  Returns the rungs whose probes fired, with
-    the probe's name and detail, and the largest loss gap and the count of
-    instances whose orders differ at each rung."""
-    import dataclasses
-
-    from repro_torch.core import shufflesoftsort as eng
-    from repro_torch.core.prng import TorchShuffleSource, instance_seeds
-    from repro_torch.runtime.guardrails import (GuardrailMonitor,
-                                                IntegrityViolation)
-
-    bs, n = xs_t.shape[0], xs_t.shape[1]
-    src = TorchShuffleSource(instance_seeds(0, bs), n, "cuda")
-    orders = torch.arange(n, device="cuda").repeat(bs, 1)
-    plain = dataclasses.replace(cfg, use_kernel=False)
-    taus = eng._tau_schedule(cfg)
-    fired, rungs = [], []
-    for start in range(0, rounds, CKPT_EVERY):
-        end = start + CKPT_EVERY
-        s_in = src.state_dict()
-        o, l = eng._run_segment(xs_t, orders, src, norms_t, start, end,
-                                hw=hw, cfg=cfg)
-        o_sh, l_sh = eng._run_segment(xs_t, orders, src.fork(s_in), norms_t,
-                                      start, end, hw=hw, cfg=plain)
-        ln, lsh = l.cpu().numpy(), l_sh.cpu().numpy()
-        rungs.append(dict(start=start, rel_loss_gap=float(np.max(
-            np.abs(ln - lsh) / np.maximum(np.abs(lsh), 1e-6))),
-            instances_orders_differ=int((o != o_sh).any(1).sum())))
-        mon = GuardrailMonitor(policy, context="audit")
-        try:
-            mon.check_rung(start=start, losses=ln, orders=o.cpu().numpy(),
-                           source=src, stream_in=s_in,
-                           stream_out=src.state_dict(), seg_len=CKPT_EVERY,
-                           tau=float(taus[start]), oracle_losses=lsh,
-                           oracle_orders=o_sh.cpu().numpy())
-        except IntegrityViolation as e:   # a measured clean incident
-            fired.append(e.incident())
-        orders = o
-    return fired, rungs
-
-
 def guardrail_run(torch, core, K, xs, fixed, hw=(64, 64)):
     """Phase 7f: the integrity probes on band_main_run's configuration, in
-    rungs of 4 rounds.
+    rungs of 4 rounds (8 rungs).
 
-    Modes: unguarded (a no-op ``rung_hook``, so it runs on the same rung
-    seam) and ``invariants``, timed in GUARD_REPS interleaved repetitions
-    (the overhead is the minimum over them), each bitwise band_main_run's
-    result.  ``shadow`` at the default rate 1/32 and at rate 1 must be
-    refused on the kernel tier (a ``ValueError`` naming ROADMAP.md Queue
-    C8).  An audit of the clean run at rate 1 (``guardrail_audit``) counts
-    the rungs where the plain tier's shadow disagrees with the kernel
-    tier; its time is the rate-1 shadow's.  Chaos through the rung seam:
-    one sign-flipped loss is repaired by one verified replay, bitwise
-    clean; a corruption that persists while the kernel tier is on retires
-    it, and the launch counters show that the kernels stopped at that
-    rung."""
+    On the banded kernel tier: unguarded (a no-op ``rung_hook``, so it
+    runs on the same rung seam), ``invariants``, and the shadow at the
+    default rate 1/32 and at rate 1, timed in GUARD_REPS interleaved
+    repetitions (the overhead is the minimum over them); each bitwise
+    band_main_run's result with no incident, and the rate-1 shadow (a
+    bitwise same-tier replay and the kernel-vs-plain apply check) clean on
+    all 8 rungs (ROADMAP.md Queue C8, repaired), with 256 launches of each
+    banded kernel on the main run and more in the shadow's replay and
+    apply checks.  The rate-1 shadow also on one dense kernel-tier run
+    (main_run's configuration) and on the banded plain tier (1 problem x
+    2 restarts, for time), each clean on its 8 rungs and bitwise its
+    unguarded run, both timed.  Chaos through the rung seam: one
+    sign-flipped loss is repaired by one verified replay, bitwise clean; a
+    corruption that persists while the kernel tier is on retires it, and
+    the launch counters show that the kernels stopped at that rung."""
     import dataclasses
     import tempfile
 
@@ -1652,60 +1622,73 @@ def guardrail_run(torch, core, K, xs, fixed, hw=(64, 64)):
                                                 GuardrailPolicy,
                                                 shadow_sampled)
 
-    b, s, rounds = xs.shape[0], 2, 32
+    s, rounds = 2, 32
     cfg = core.ShuffleSoftSortConfig(rounds=rounds, inner_steps=8,
                                      use_kernel=True, band="auto")
     want = batched_fields(fixed[0])
+    full = GuardrailPolicy(mode="shadow", shadow_rate=1.0)
     modes = {"unguarded": None,
-             "invariants": GuardrailPolicy(mode="invariants")}
-    shadows = {"shadow_default": GuardrailPolicy(mode="shadow"),
-               "shadow_full": GuardrailPolicy(mode="shadow", shadow_rate=1.0)}
+             "invariants": GuardrailPolicy(mode="invariants"),
+             "shadow_default": GuardrailPolicy(mode="shadow"),
+             "shadow_full": full}
     starts = list(range(0, rounds, CKPT_EVERY))
     sampled = {m: [st for st in starts if shadow_sampled(
-        p.seed, st, p.shadow_rate)] for m, p in shadows.items()}
+        p.seed, st, p.shadow_rate)] for m, p in modes.items()
+        if p is not None and p.mode == "shadow"}
 
-    xs_t = torch.repeat_interleave(torch.as_tensor(xs, device="cuda"), s, 0)
-    norms_t = torch.repeat_interleave(torch.stack(
-        [core.mean_pairwise_distance(x) for x in
-         torch.as_tensor(xs, device="cuda")]), s, 0)
-    audit_s, (fired, audit_rungs) = timed(torch, lambda: guardrail_audit(
-        torch, core, xs_t, norms_t, cfg, rounds, shadows["shadow_full"], hw))
-
-    def run(policy):
+    def run(policy, cfg_=cfg, xs_=xs, restarts=s):
         mon = None if policy is None else GuardrailMonitor(policy)
         kw = ({"rung_hook": lambda start: None} if mon is None
               else {"guardrail": mon})
         res = core.shuffle_soft_sort_batched(
-            xs, hw, cfg, n_restarts=s, seed=0, device="cuda",
+            xs_, hw, cfg_, n_restarts=restarts, seed=0, device="cuda",
             checkpoint_every=CKPT_EVERY, **kw)
         return res, mon
 
-    refused = {}
-    for m, policy in shadows.items():
-        try:
-            run(policy)
-        except ValueError as e:
-            refused[m] = str(e)
-        require("Queue C8" in refused.get(m, ""),
-                f"{m}: the shadow on the kernel tier was not refused")
     seconds = {m: [] for m in modes}
-    summaries = {}
+    summaries, launches = {}, {}
     for rep in range(GUARD_REPS):
         for m in (list(modes) if rep % 2 == 0 else list(modes)[::-1]):
             torch.cuda.synchronize()
             K.reset_launch_counts()
             sec, (res, mon) = timed(torch, lambda: run(modes[m]))
             counts = K.launch_counts()
-            require_counts(counts, {**{k: rounds * 8 for k in BAND},
-                                    **{k: 0 for k in DENSE}})
+            require(all(counts[k] == 0 for k in DENSE)
+                    and all(counts[k] >= rounds * 8 for k in BAND)
+                    and (m != "unguarded"
+                         or all(counts[k] == rounds * 8 for k in BAND)),
+                    f"{m}: launch counts {counts}")
             require_fields(want, batched_fields(res), f"guarded run {m}")
             seconds[m].append(sec)
+            launches[m] = counts
             if mon is not None:
                 summaries[m] = mon.summary()
                 require(not mon.incidents, f"{m}: incidents {mon.incidents}")
+    require(summaries["shadow_full"]["rungs_shadowed"] == len(starts),
+            f"rate-1 shadow: {summaries['shadow_full']}")
     base = min(seconds["unguarded"])
-    overhead = {"invariants": min(seconds["invariants"]) / base - 1,
-                "shadow_full_from_audit": audit_s / base - 1}
+    overhead = {m: min(seconds[m]) / base - 1 for m in modes
+                if m != "unguarded"}
+
+    other_tiers = {}
+    for tier, cfg_t, xs_t, restarts in (
+            ("dense_kernel", dataclasses.replace(cfg, band=None), xs, s),
+            ("banded_plain", dataclasses.replace(cfg, use_kernel=False),
+             xs[:1], 2)):
+        sec_u, (ref, _) = timed(torch, lambda: run(None, cfg_t, xs_t,
+                                                   restarts))
+        sec_g, (got, mon) = timed(torch, lambda: run(full, cfg_t, xs_t,
+                                                     restarts))
+        require(not mon.incidents and mon.rungs_shadowed == len(starts),
+                f"{tier}: rate-1 shadow {mon.summary()}")
+        require_fields(batched_fields(ref), batched_fields(got),
+                       f"{tier}: guarded run")
+        other_tiers[tier] = dict(problems=xs_t.shape[0], restarts=restarts,
+                                 unguarded_seconds=sec_u,
+                                 shadow_full_seconds=sec_g,
+                                 overhead=sec_g / sec_u - 1,
+                                 rungs_shadowed=mon.rungs_shadowed,
+                                 incidents=mon.incidents)
 
     # Chaos through the rung seam.
     inner = eng._run_segment
@@ -1759,13 +1742,304 @@ def guardrail_run(torch, core, K, xs, fixed, hw=(64, 64)):
         require(core.is_valid_permutation(row), "invalid permutation")
     emit("guardrail_run", checkpoint_every=CKPT_EVERY, rungs=len(starts),
          seconds=seconds, overhead_min_over_reps=overhead,
-         audit_seconds=audit_s, clean_incidents_at_rate_1=len(fired),
-         clean_incident_rungs=[f["round"] for f in fired],
-         clean_incidents=fired, audit_rungs=audit_rungs,
-         sampled_rungs=sampled, shadow_refused=refused,
-         summaries=summaries, guarded_equals_unguarded=True,
-         transient=transient, persistent=dict(stats=sup.stats, calls=calls,
-                                              strike_rung=strike))
+         clean_incidents_at_rate_1=0, sampled_rungs=sampled,
+         launches=launches, summaries=summaries, other_tiers=other_tiers,
+         guarded_equals_unguarded=True, transient=transient,
+         persistent=dict(stats=sup.stats, calls=calls, strike_rung=strike))
+
+
+# Phase 7g: the continuous-batching SortServer on the card.
+SERVE = dict(rounds=32, inner_steps=8, max_batch=8, sched_rungs=4)
+SERVE_SHAPES = (((64, 64), 50), ((32, 32), 3))
+SERVE_REQUESTS = 32
+SERVE_SAMPLES = 4
+# The faults scenario's straggler, in one request's service times.  The
+# monitor judges a dispatch's time per instance-round, which on this
+# host-bound card is largest at a batch of 1 (about a 32nd of a request's
+# service time), so clean traffic keeps its mean plus 4 std below ~5
+# 32nds; a stall of 12 service times is 6 32nds per instance-round even
+# at a full batch of 8 (64 instance-rounds), 12 at a batch of 4.
+STRAGGLER_X = 12
+
+
+def serve_problems(count, seed):
+    """``count`` requests alternating two shape buckets: 4096 clustered
+    50-d product vectors on 64 x 64 (main_run's generator, a catalog of
+    its own per request) and 1024 RGB colours on 32 x 32 (the
+    quickstart's uniform draw)."""
+    from repro_torch.examples.image_grid_sorting import synthetic_catalog
+    out = []
+    for i in range(count):
+        hw, d = SERVE_SHAPES[i % 2]
+        n = hw[0] * hw[1]
+        if i % 2 == 0:
+            x = synthetic_catalog(n, d, clusters=24, seed=1000 * seed + i)[0]
+        else:
+            x = np.random.default_rng(1000 * seed + i).random(
+                (n, d), dtype=np.float32)
+        out.append((hw, d, x))
+    return out
+
+
+def server_seeds(seed, count):
+    """The seeds a server seeded ``seed`` gives its first ``count``
+    keyless submits, in submission order."""
+    rng = np.random.Generator(np.random.PCG64(seed))
+    return [int(rng.integers(0, 2**31 - 1)) for _ in range(count)]
+
+
+def solo_chain(torch, core, cfg, hw, x, seed, seg_len, restarts=1,
+               cull_fraction=0.5, n_rungs=1):
+    """A served request alone on the card: chained ``run_round_segment``
+    calls from ``TorchShuffleSource([seed])`` at the server's norm, or
+    with restarts the engine's tournament on the server's streams.
+    Returns (order, losses)."""
+    from repro_torch.core.prng import TorchShuffleSource, instance_seeds
+    n = x.shape[0]
+    x_t = torch.as_tensor(x, device="cuda")
+    norm = float(core.mean_pairwise_distance(x_t))
+    if restarts > 1:
+        res = core.restart_tournament(
+            x[None], hw, cfg, n_restarts=restarts,
+            seeds=[seed] + instance_seeds(seed, restarts)[1:],
+            cull_fraction=cull_fraction, n_rungs=n_rungs, device="cuda",
+            norms=[norm])
+        return res.order[0], res.all_losses[0, res.best_restart[0]]
+    src = TorchShuffleSource([seed], n, "cuda")
+    orders, parts = torch.arange(n, device="cuda")[None], []
+    for p0 in range(0, cfg.rounds, seg_len):
+        orders, ls = core.run_round_segment(
+            x_t[None], orders, [norm], [p0], seg_len, source=src, hw=hw,
+            cfg=cfg, device="cuda")
+        parts.append(ls[:, 0].cpu().numpy())
+    return orders[0].cpu().numpy().astype(np.int32), np.concatenate(parts)
+
+
+def check_served(torch, core, cfg, cell, problems, seed, seg_len, solos,
+                 **solo):
+    """Every completed result a valid permutation whose loss fell; then
+    SERVE_SAMPLES of them (half from each bucket where it can, the
+    preempted ones first; fewer only where fewer completed) bitwise their
+    solo runs.  ``solos`` caches the solo runs by problem and seed across
+    scenarios.  Returns the checked problem indices."""
+    seeds = server_seeds(seed, len(cell["problem_index"]))
+    done = [(j, i) for j, (i, r) in enumerate(zip(cell["problem_index"],
+                                                  cell["results"]))
+            if r is not None]
+    for j, i in done:
+        order, _, losses = cell["results"][j]
+        require(core.is_valid_permutation(order), "invalid permutation")
+        last = losses[np.isfinite(losses)][-1]
+        require(last < losses[0], f"request {i}: loss did not fall")
+    preempted = cell.get("preempted_problems", [])
+    picked = []
+    for b in (0, 1):                  # half of the samples per bucket
+        cands = [ji for ji in done if ji[1] % 2 == b]
+        cands.sort(key=lambda ji: ji[1] not in preempted)
+        picked += cands[:SERVE_SAMPLES // 2]
+    picked += [ji for ji in done if ji not in picked][
+        :SERVE_SAMPLES - len(picked)]  # a bucket short: top up
+    require(len(picked) == min(SERVE_SAMPLES, len(done)),
+            f"{cell['scenario']}: sampled {len(picked)} of {len(done)}")
+    require(not preempted or any(i in preempted for _, i in picked),
+            "no preempted request was sampled")
+    for j, i in picked:
+        hw, _, x = problems[i]
+        key = (id(problems), i, seeds[j])
+        if key not in solos:
+            solos[key] = solo_chain(torch, core, cfg, hw, x, seeds[j],
+                                    seg_len, **solo)
+        order, losses = solos[key]
+        got = cell["results"][j]
+        require(np.array_equal(got[0], order)
+                and np.array_equal(got[2], losses),
+                f"{cell['scenario']}: request {i} differs from its solo run")
+    return [i for _, i in picked]
+
+
+def check_outcomes(cell):
+    """No request of ``cell`` failed, and outside ``overload`` (whose
+    misses are its point) every offered request completed or was shed at
+    the queue: a server that fails its requests passes no scenario."""
+    name = cell["scenario"]
+    require(cell["failed"] == 0, f"{name}: {cell['failed']} requests failed")
+    if name != "overload":
+        require(cell["completed"] + cell["queue_rejected"]
+                == cell["requests"],
+                f"{name}: {cell['completed']} completed and "
+                f"{cell['queue_rejected']} shed of {cell['requests']}")
+    if name == "preempt":
+        require(cell["completed_gen2"] == cell["preempted_inflight"],
+                f"preempt: the successor completed {cell['completed_gen2']}"
+                f" of {cell['preempted_inflight']} preempted requests")
+
+
+def serve_run(torch, core, K):
+    """Phase 7g: ``SortServer`` on the card (``repro_torch.launch.serve``),
+    kernel tier, float32, ``band="auto"``, ``max_batch=8``, 32 rounds x 8
+    inner steps, ``sched_rungs=4`` (rungs of 8 rounds), two shape buckets
+    (``serve_problems``).  A closed-loop warm-up of 16 requests (all 16
+    outstanding: 8 per bucket) measures the service rate, and one request
+    alone its service time.  Scenarios
+    (``repro_torch.bench.serving_bench``): ``steady`` (32 Poisson arrivals
+    at 50% of the service rate; counts set to 0 just before it and read
+    just after: every banded kernel launched, no dense one, no plain tier),
+    ``faults`` (the same, a dispatch failure every 5th dispatch and one
+    straggler at dispatch 12, past the monitor's warm-up: a stall of
+    STRAGGLER_X times one request's service time, which the monitor's
+    per-instance-round time flags at any batch, and which must be flagged
+    and halve the bucket cap), ``overload`` (3x the service rate into
+    ``queue_depth=8``, each deadline 2x one request's service time),
+    ``preempt`` (``close(drain=False)`` after a quarter completed, a
+    successor adopts the rest), ``tournament`` (8 requests x 4 restarts,
+    a cull of 0.5 at every rung edge), and ``guarded`` (``steady`` under
+    the shadow at 1/32 and at rate 1: no incident).  Each: the
+    exactly-once identity, no failed request and (but ``overload``) every
+    request completed or shed (``check_outcomes``), valid permutations
+    with falling losses, 4 requests bitwise their solo runs (the
+    preempted ones first; in ``preempt`` the successor completes every
+    preempted request).  Then
+    the guardrail bench's detection grid on the card (N = 16, where every
+    kernel path runs the dense kernels 1-4): every corruption on every
+    serving path detected and repaired bitwise.  Returns the steady
+    scenario's launch counts (the kernels line adds them)."""
+    from repro_torch.bench import guardrail_bench, serving_bench as sb
+    from repro_torch.core import shufflesoftsort as eng
+    from repro_torch.runtime.guardrails import GuardrailPolicy
+
+    cfg = core.ShuffleSoftSortConfig(
+        rounds=SERVE["rounds"], inner_steps=SERVE["inner_steps"],
+        use_kernel=True, band="auto")
+    seg_len = SERVE["rounds"] // SERVE["sched_rungs"]
+    base = dict(max_batch=SERVE["max_batch"], device="cuda",
+                shapes=SERVE_SHAPES, sched_rungs=SERVE["sched_rungs"],
+                keep_results=True)
+    sb.warm(cfg, seg_len, SERVE["max_batch"], SERVE_SHAPES, "cuda")
+    emit("serve_run_config", **SERVE, shapes=SERVE_SHAPES, band="auto",
+         band_k=[core.resolve_band(cfg, hw[0] * hw[1])
+                 for hw, _ in SERVE_SHAPES],
+         cut="rounds 1000 -> 32 for time; the paper's section IV-A tasks")
+
+    # The plain tier must not run on the unguarded dispatches.
+    plain = {"calls": 0}
+    originals = (eng.softsort_apply_banded, eng.softsort_apply_chunked)
+
+    def counting(fn):
+        def wrapped(*a, **k):
+            plain["calls"] += 1
+            return fn(*a, **k)
+        return wrapped
+
+    eng.softsort_apply_banded, eng.softsort_apply_chunked = map(counting,
+                                                                originals)
+    try:
+        one = sb.run_scenario("single", cfg, requests=1, rate_hz=1e6,
+                              window=1, queue_depth=64,
+                              problems=serve_problems(1, 7), **base)
+        warm = sb.run_scenario("warmup", cfg, requests=16, rate_hz=1e6,
+                               window=16, queue_depth=64,
+                               problems=serve_problems(16, 8), **base)
+        rate = warm["goodput_rps"]
+        service_s = one["wall_s"]
+        cells, seed = {}, 0
+        problems = serve_problems(SERVE_REQUESTS, seed)
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        cells["steady"] = sb.run_scenario(
+            "steady", cfg, requests=SERVE_REQUESTS, rate_hz=0.5 * rate,
+            window=16, queue_depth=64, problems=problems, seed=seed, **base)
+        counts = K.launch_counts()
+        require(all(counts[k] > 0 for k in BAND)
+                and all(counts[k] == 0 for k in DENSE),
+                f"steady: launch counts {counts}")
+        delay_s = STRAGGLER_X * service_s
+        cells["faults"] = sb.run_scenario(
+            "faults", cfg, requests=SERVE_REQUESTS, rate_hz=0.5 * rate,
+            window=16, queue_depth=64, fail_every=5, delay_call=12,
+            delay_s=delay_s, problems=problems, seed=seed, **base)
+        flags = cells["faults"]["straggler_events"]
+        require(cells["faults"]["injected_delays"] == 1 and any(
+            e["dt_s"] >= delay_s
+            and e["bucket_cap"] == max(1, e["cap_before"] // 2)
+            for e in flags),
+            f"faults: the {delay_s:.3f} s straggler was not flagged with "
+            f"the cap halved: {flags}")
+        cells["overload"] = sb.run_scenario(
+            "overload", cfg, requests=SERVE_REQUESTS, rate_hz=3.0 * rate,
+            window=SERVE_REQUESTS, queue_depth=8,
+            deadline_s=2.0 * service_s, problems=problems, seed=seed,
+            **base)
+        pre = sb.run_preempt_scenario(
+            cfg, requests=SERVE_REQUESTS, rate_hz=0.5 * rate,
+            window=SERVE_REQUESTS, queue_depth=64, problems=problems,
+            seed=seed, **base)
+        cells["preempt"] = pre
+        tour = serve_problems(8, 1)
+        cells["tournament"] = sb.run_scenario(
+            "tournament", cfg, requests=8, rate_hz=0.5 * rate, window=8,
+            queue_depth=64, problems=tour, seed=1,
+            server_kw=dict(n_restarts=4, tournament_rungs=4,
+                           cull_fraction=0.5), **base)
+        require(plain["calls"] == 0,
+                f"the plain tier ran {plain['calls']} applies")
+    finally:
+        eng.softsort_apply_banded, eng.softsort_apply_chunked = originals
+    for rate_name, pol in (("guarded_default", GuardrailPolicy(
+            mode="shadow")), ("guarded_full", GuardrailPolicy(
+            mode="shadow", shadow_rate=1.0))):
+        cells[rate_name] = sb.run_scenario(
+            rate_name, cfg, requests=SERVE_REQUESTS, rate_hz=0.5 * rate,
+            window=16, queue_depth=64, problems=problems, seed=seed,
+            guardrail=pol, **base)
+        require(cells[rate_name]["integrity_violations"] == 0,
+                f"{rate_name}: clean shadow incidents")
+    bad = sb.gate([c for c in cells.values()])
+    require(not bad, f"serving gate: {bad}")
+    for cell in cells.values():
+        check_outcomes(cell)
+    # The preempted requests: the gen-2 server adopted them by seq, which
+    # is their submission order, so their problem indices are known.
+    pre["preempted_problems"] = [pre["problem_index"][q]
+                                 for q in pre["preempted_seqs"]]
+    sampled, solos = {}, {}
+    for name, cell in cells.items():
+        solo = (dict(restarts=4, cull_fraction=0.5, n_rungs=4)
+                if name == "tournament" else {})
+        sampled[name] = check_served(
+            torch, core, cfg, cell, tour if name == "tournament"
+            else problems, 1 if name == "tournament" else seed, seg_len,
+            solos, **solo)
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    det = guardrail_bench.run_detection_grid(
+        sorted(guardrail_bench.PATHS), sorted(guardrail_bench.CORRUPTIONS),
+        "cuda")
+    det_counts = K.launch_counts()
+    require(all(c["injected"] == 1 and c["detected"] and c["repaired"]
+                and c["bit_identical"] for c in det),
+            f"detection grid: {det}")
+    # N = 16: the banded path's switch falls past its last rung, so every
+    # kernel path of the grid runs the dense kernels.
+    require(all(det_counts[k] > 0 for k in DENSE),
+            f"detection grid launches {det_counts}")
+    steady = cells["steady"]
+    for name, cell in cells.items():
+        emit("serve_run", **{
+            k: v for k, v in cell.items()
+            if k not in ("results", "problem_index")},
+            p50_vs_steady=cell["p50_ms"] / max(steady["p50_ms"], 1e-9),
+            goodput_vs_steady=cell["goodput_rps"]
+            / max(steady["goodput_rps"], 1e-9),
+            sampled_bitwise_solo=sampled[name])
+    emit("serve_run_summary", service_rate_rps=rate, solo_runs=len(solos),
+         service_s_one_request=service_s, warmup=dict(
+             p50_ms=warm["p50_ms"], mean_batch=warm["mean_batch"]),
+         steady_launches=counts, plain_tier_calls=plain["calls"],
+         detection=[{k: c[k] for k in ("path", "corruption", "probe",
+                                       "detected", "repaired",
+                                       "bit_identical")} for c in det],
+         detection_launches=det_counts)
+    return counts
 
 
 def correlated_weight(rng, d, f, rank=16):
@@ -2168,8 +2442,11 @@ def main():
     segment_run(torch, core, K, xs)
     checkpoint_run(torch, core, K, xs, fixed)
     guardrail_run(torch, core, K, xs, fixed)
+    serve_counts = serve_run(torch, core, K)
     launches.update({k: v for k, v in sog_run(torch, core, K).items()
                      if k in BAND})
+    for k in BAND:
+        launches[k] += serve_counts[k]
     sog_codec(torch)
     launches.update({k: v for k, v in kernel_bench_phase(
         torch, kernels).items() if k in V1})

@@ -19,6 +19,12 @@ instances out of a round (the adaptive schedule's early stops and
 groups) advances no other instance's stream: instance ``i``'s ``t``-th
 round always sees its ``t``-th shuffle, as in the reference, where each
 instance splits its own key once per round it runs.
+
+``take(rows)`` copies some streams out at their current states and
+``stack_sources`` joins sources of one kind row-wise: the sort server
+builds one source per dispatch from the streams of the requests it
+coalesces, and commits each request's rows back when the dispatch is
+verified.
 """
 from __future__ import annotations
 
@@ -44,6 +50,10 @@ class ShuffleSource(Protocol):
     def fork(self, state=None) -> "ShuffleSource": ...
 
     def advanced(self, state, rows, draws: int) -> np.ndarray: ...
+
+    def take(self, rows) -> "ShuffleSource": ...
+
+    def __len__(self) -> int: ...
 
 
 def _rows(rows, count: int) -> np.ndarray:
@@ -108,6 +118,17 @@ class TorchShuffleSource:
             scratch.next_round(rows)
         return scratch.state_dict()
 
+    def take(self, rows) -> "TorchShuffleSource":
+        """A new source of the streams ``rows``, at their current states."""
+        rows = _rows(rows, len(self.generators))
+        out = TorchShuffleSource([0] * rows.size, self.n, self.device)
+        if rows.size:
+            out.load_state_dict(self.state_dict()[rows])
+        return out
+
+    def __len__(self) -> int:
+        return len(self.generators)
+
 
 class ReplayShuffleSource:
     """Replays ``shuffles[t, i]`` as instance ``i``'s ``t``-th shuffle;
@@ -157,3 +178,31 @@ class ReplayShuffleSource:
         pos = np.asarray(state, np.int64).copy()
         pos[_rows(rows, pos.size)] += int(draws)
         return pos
+
+    def take(self, rows) -> "ReplayShuffleSource":
+        rows = _rows(rows, self.pos.size)
+        out = ReplayShuffleSource.__new__(ReplayShuffleSource)
+        out.shuffles = self.shuffles[:, torch.as_tensor(
+            rows, device=self.shuffles.device)]
+        out.pos = self.pos[rows].copy()
+        return out
+
+    def __len__(self) -> int:
+        return int(self.pos.size)
+
+
+def stack_sources(sources: Sequence[ShuffleSource]) -> ShuffleSource:
+    """One source whose rows are the rows of ``sources``, in order, at
+    their current states; the sources themselves do not advance.  All of
+    one kind (and a replay's of one round count and N)."""
+    kinds = {src.kind for src in sources}
+    if len(kinds) != 1:
+        raise ValueError(f"cannot stack shuffle sources of kinds {kinds}")
+    parts = [src.take(None) for src in sources]
+    out = parts[0]
+    if isinstance(out, TorchShuffleSource):
+        out.generators = [g for part in parts for g in part.generators]
+    else:
+        out.shuffles = torch.cat([part.shuffles for part in parts], dim=1)
+        out.pos = np.concatenate([part.pos for part in parts])
+    return out

@@ -51,8 +51,9 @@ reference's field for field (orders, losses, the adaptive controller's
 shuffle source's state here, ``source`` (``ShuffleSource.state_dict``),
 and the fingerprint names the source's kind.  With none of these knobs
 set, the fixed batched engine runs one segment and brings nothing to the
-host before the run's end.  The shadow is refused on the kernel tier of
-a CUDA device (``_open_guardrails``).
+host before the run's end.  A shadow-sampled rung is replayed on its own
+tier and compared bitwise, and on the kernel tier its last trained keys
+also go through the kernel and the plain apply (``_shadow_checks``).
 
 Entry points run on CUDA unless ``device`` says otherwise; without a CUDA
 device they raise rather than fall back to the CPU.
@@ -377,8 +378,9 @@ def _run_rounds(xs_t, orders, source: ShuffleSource, norms_t, start: int,
     it on, so a run cut into segments runs every round on the apply an
     uninterrupted run gives it.  ``rows`` (BS,) are the batch's instance
     indices in ``source`` (None: all of them, in order); only their
-    streams advance.  ``pad_rows`` as in ``_loss_fn``.  Returns the orders
-    and the (end - start, BS) losses, both on the device."""
+    streams advance.  ``pad_rows`` as in ``_loss_fn``.  Returns the orders,
+    the (end - start, BS) losses and the last round's trained keys (BS, N)
+    (None when no round ran), all on the device."""
     dev = xs_t.device
     n = orders.shape[1]
     dense_fn = _select_apply_fn(cfg)
@@ -387,10 +389,10 @@ def _run_rounds(xs_t, orders, source: ShuffleSource, norms_t, start: int,
     switch = _band_switch_round(cfg, n)
     tau_inner = torch.as_tensor(_inner_taus(cfg), device=dev)
     bias1, bias2 = _adam_bias(cfg, dev)
-    losses = []
+    losses, w = [], None
     for r in range(start, cfg.rounds if end is None else end):
         shuf = source.next_round(rows)
-        orders, loss, _ = _outer_round(
+        orders, loss, w = _outer_round(
             xs_t, orders, shuf, tau_inner[r:r + 1], norms_t, bias1, bias2,
             hw=hw, cfg=cfg, apply_fn=band_fn if r >= switch else dense_fn,
             pad_rows=pad_rows)
@@ -399,8 +401,8 @@ def _run_rounds(xs_t, orders, source: ShuffleSource, norms_t, start: int,
             on_round(r, orders, loss)
     if not losses:
         return orders, torch.zeros((0, orders.shape[0]), dtype=_F32,
-                                   device=dev)
-    return orders, torch.stack(losses)
+                                   device=dev), None
+    return orders, torch.stack(losses), w
 
 
 # --------------------------------------------------------------------------
@@ -418,18 +420,10 @@ def _open_checkpointer(checkpoint_dir, resume):
     return AnnealCheckpointer(str(checkpoint_dir))
 
 
-def _open_guardrails(guardrail, cfg: ShuffleSoftSortConfig, context: str,
-                     device: torch.device):
+def _open_guardrails(guardrail, cfg: ShuffleSoftSortConfig, context: str):
     """The ``guardrail=`` knob as a ``GuardrailMonitor`` (or None): a
     ``GuardrailPolicy`` gets a fresh monitor, a monitor is used as it is
-    (a caller that reads its incidents afterwards).
-
-    The shadow on the kernel tier of a CUDA device is refused: there the
-    kernels and the plain tier commit other orders on clean rungs, so the
-    probe's exact order compare fires on runs that are right (ROADMAP.md
-    Queue C8), and under ``AnnealSupervisor`` it would retire the kernel
-    tier.
-    """
+    (a caller that reads its incidents afterwards)."""
     if guardrail is None:
         return None
     from repro_torch.runtime.guardrails import (GuardrailMonitor,
@@ -443,13 +437,6 @@ def _open_guardrails(guardrail, cfg: ShuffleSoftSortConfig, context: str,
         raise TypeError(
             "guardrail= must be a GuardrailPolicy or GuardrailMonitor, "
             f"got {guardrail!r}")
-    if (mon.policy.mode == "shadow" and cfg.use_kernel
-            and device.type == "cuda"):
-        raise ValueError(
-            "guardrail mode 'shadow' is refused on the kernel tier of a "
-            "CUDA device: its exact order compare fires on clean rungs "
-            "there (ROADMAP.md Queue C8); use mode='invariants', or the "
-            "shadow with use_kernel=False")
     return mon if mon.active else None
 
 
@@ -488,30 +475,96 @@ def _orders_t(orders, device) -> torch.Tensor:
     return torch.as_tensor(np.asarray(orders), device=device).to(torch.int64)
 
 
+_APPLY_QUANTITIES = ("y", "colsum", "dw", "dx")
+
+
+def _apply_errors(cfg: ShuffleSoftSortConfig, ws, xs,
+                  groups) -> dict[str, np.ndarray]:
+    """The shadow's apply check: the rung's last trained keys ``ws``
+    (BS, N) with its payload ``xs`` (BS, N, d) through the kernel tier's
+    apply and the plain tier's, forward and backward against one seeded
+    cotangent.  ``groups`` is ``_shadow_checks``'s.  Returns, per quantity
+    (y, colsum, dw, dx), the (BS,) errors of each instance: the largest
+    difference over the largest entry of the plain tier's row."""
+    out = {q: np.zeros(xs.shape[0]) for q in _APPLY_QUANTITIES}
+    ws = torch.as_tensor(ws, dtype=_F32, device=xs.device)
+    last_ramp = _inner_ramp(cfg)[-1]
+    for rows, band, tau in groups:
+        idx = torch.as_tensor(np.asarray(rows), device=xs.device)
+        w, x = ws[idx].detach(), xs[idx].detach()
+        tau = torch.as_tensor(np.asarray(tau, np.float32).reshape(-1)
+                              * last_ramp, device=xs.device)
+        gen = torch.Generator().manual_seed(0)
+        gy = torch.randn(tuple(x.shape), generator=gen).to(x.device)
+        gc = torch.randn(tuple(w.shape), generator=gen).to(w.device)
+        tiers = []
+        for cfg_ in (cfg, _plain_cfg(cfg)):
+            wv = w.clone().requires_grad_(True)
+            xv = x.clone().requires_grad_(True)
+            with torch.enable_grad():
+                y, colsum = _select_apply_fn(cfg_, band)(wv, xv, tau)
+                dw, dx = torch.autograd.grad(
+                    (y * gy).sum() + (colsum * gc).sum(), (wv, xv))
+            tiers.append([t.detach().float().reshape(t.shape[0], -1)
+                          for t in (y, colsum, dw, dx)])
+        for q, got, want in zip(_APPLY_QUANTITIES, *tiers):
+            err = ((got - want).abs().amax(dim=1)
+                   / want.abs().amax(dim=1).clamp_min(1e-30))
+            out[q][np.asarray(rows)] = _host(err)
+    return out
+
+
+def _shadow_checks(cfg: ShuffleSoftSortConfig, replay, xs, groups):
+    """The shadow of one rung, for the engines, ``run_round_segment`` and
+    the server alike.  ``replay()`` runs the rung again on ``cfg``'s tier
+    from its input orders and a fork of its input stream state and returns
+    (orders, losses, last trained keys).  ``xs`` (BS, N, d) is the rung's
+    payload on the device and ``groups`` ``[(rows, band, tau), ...]`` the
+    apply of the rung's last round for each group of rows: its band (None:
+    dense) and its outer temperature (a scalar, or one per row).  Returns
+    the replay's orders and losses on the host, and on the kernel tier
+    ``_apply_errors`` of the replay's keys (None on the plain tier, which
+    is the reference the kernels are held to)."""
+    orders, losses, ws = replay()
+    errors = (_apply_errors(cfg, ws, xs, groups) if cfg.use_kernel
+              else None)
+    return _host(orders), _host(losses), errors
+
+
+def _fixed_groups(cfg: ShuffleSoftSortConfig, n: int, bs: int, end: int):
+    """``_shadow_checks``'s groups for a fixed-schedule rung of ``bs`` rows
+    ending at round ``end``: one, at round ``end - 1``'s apply."""
+    band = resolve_band(cfg, n)
+    if end - 1 < _band_switch_round(cfg, n):
+        band = None
+    return [(np.arange(bs), band, _tau_schedule(cfg)[end - 1])]
+
+
 def _verify_rung(mon, cfg: ShuffleSoftSortConfig, source: ShuffleSource,
-                 s_in, start: int, seg_len: int, rerun, *, losses, orders,
-                 **probe_kw) -> None:
+                 s_in, start: int, seg_len: int, rerun, *, xs, groups,
+                 losses, orders, **probe_kw) -> None:
     """The probes on one rung, after the finite sentinel and before the
     save.  ``s_in`` is the source's state at the rung's start and
-    ``rerun(cfg, source)`` the engine's own call of the rung from its
-    input orders, returning (orders, losses); a shadow-sampled rung runs
-    it again on the plain PyTorch tier with a fork of the source at
-    ``s_in``.  ``losses`` and ``orders`` are the rung's host copies;
-    ``probe_kw`` goes on to ``GuardrailMonitor.check_rung``."""
-    oracle_l = oracle_o = None
+    ``rerun(source)`` the engine's own call of the rung from its input
+    orders on ``cfg``'s tier, returning (orders, losses, last keys); a
+    shadow-sampled rung runs it with a fork of the source at ``s_in``.
+    ``xs`` and ``groups`` are as ``_shadow_checks`` takes them.
+    ``losses`` and ``orders`` are the rung's host copies; ``probe_kw``
+    goes on to ``GuardrailMonitor.check_rung``."""
+    shadow = {}
     if mon.wants_shadow(start):
-        o_sh, l_sh = rerun(_plain_cfg(cfg), source.fork(s_in))
-        oracle_l = _host(l_sh)
-        if mon.compare_orders():
-            oracle_o = _host(o_sh)
+        o_sh, l_sh, errors = _shadow_checks(
+            cfg, lambda: rerun(source.fork(s_in)), xs, groups)
+        shadow = dict(oracle_orders=o_sh, oracle_losses=l_sh,
+                      apply_errors=None if errors is None else
+                      {q: float(np.max(e)) for q, e in errors.items()})
     mon.check_rung(start=start, losses=losses, orders=orders, source=source,
                    stream_in=s_in, stream_out=source.state_dict(),
-                   seg_len=seg_len, oracle_losses=oracle_l,
-                   oracle_orders=oracle_o, **probe_kw)
+                   seg_len=seg_len, **shadow, **probe_kw)
 
 
 def _plain_cfg(cfg: ShuffleSoftSortConfig) -> ShuffleSoftSortConfig:
-    """The shadow recompute's config: the plain PyTorch tier."""
+    """The plain PyTorch tier of ``cfg``: the apply check's reference."""
     return dataclasses.replace(cfg, use_kernel=False)
 
 
@@ -520,13 +573,15 @@ def _run_segment(xs_t, orders, source: ShuffleSource, norms_t, start: int,
                  on_round: Optional[Callable] = None,
                  pad_rows: bool = False):
     """One rung of the fixed schedule, rounds ``[start, end)``: the seam
-    the fixed engines (and the shadow recompute) go through, the
-    counterpart of the reference's ``_run_segments``.  ``_run_rounds``
+    the fixed engines go through, the counterpart of the reference's
+    ``_run_segments`` (the shadow's replay calls ``_run_rounds`` itself,
+    so a chaos wrapper on the seam never reaches it).  ``_run_rounds``
     splits it at the global switch round, so chained rungs are bitwise one
     uninterrupted run.  Returns the orders and the (end - start, BS)
     losses."""
     return _run_rounds(xs_t, orders, source, norms_t, start, end, rows=rows,
-                       hw=hw, cfg=cfg, on_round=on_round, pad_rows=pad_rows)
+                       hw=hw, cfg=cfg, on_round=on_round,
+                       pad_rows=pad_rows)[:2]
 
 
 def _run_fixed_checkpointed(xs_t, orders, source: ShuffleSource, norms_t, *,
@@ -584,8 +639,10 @@ def _run_fixed_checkpointed(xs_t, orders, source: ShuffleSource, norms_t, *,
         if mon is not None:
             _verify_rung(
                 mon, cfg, source, s_in, start, end - start,
-                lambda cfg_, src: _run_segment(xs_t, o_in, src, norms_t,
-                                               start, end, hw=hw, cfg=cfg_),
+                lambda src: _run_rounds(xs_t, o_in, src, norms_t, start, end,
+                                        hw=hw, cfg=cfg),
+                xs=xs_t, groups=_fixed_groups(cfg, o_in.shape[1],
+                                              o_in.shape[0], end),
                 losses=seg_np, orders=_host(orders), tau=float(taus[start]))
         parts.append(seg_np)
         if ckpt is not None:
@@ -670,8 +727,8 @@ def _run_adaptive(xs_t, orders, source: ShuffleSource, norms_t, *, hw,
     top of a rung loses that rung only; the resumed run replays it from
     the last boundary bitwise.  With a ``monitor`` the probes run after
     the finite sentinel and before the save; a shadow-sampled rung runs
-    each group again through the plain tier from the group's input orders
-    and a fork of the source at the rung's input state.
+    each group again on its tier from the group's input orders and a fork
+    of the source at the rung's input state (``_shadow_checks``).
 
     Returns orders (BS, N) on the device, losses (BS, R) float32, NaN at
     the rounds an instance never ran (``controller.executed`` counts the
@@ -721,7 +778,7 @@ def _run_adaptive(xs_t, orders, source: ShuffleSource, norms_t, *, hw,
                 groups.append((sel, rows, ctrl.tau_rows(live[sel]),
                                orders[rows], ctrl.band if is_banded else None))
 
-        def run_groups(cfg_, src):
+        def run_groups(src):
             """The rung's groups in order, each from its input orders:
             orders (live, N) on the device, losses (seg, live) and last
             keys (live, N) on the host."""
@@ -732,12 +789,12 @@ def _run_adaptive(xs_t, orders, source: ShuffleSource, norms_t, *, hw,
             for sel, rows, tau_g, o_in, band in groups:
                 o, l, w = _run_rounds_ragged(
                     xs_t[rows], o_in, src, live[sel], tau_g, norms_t[rows],
-                    hw=hw, cfg=cfg_, apply_fn=_select_apply_fn(cfg_, band))
+                    hw=hw, cfg=cfg, apply_fn=_select_apply_fn(cfg, band))
                 o_live[torch.as_tensor(sel, device=dev)] = o
                 l_live[:, sel], w_live[sel] = _host(l), _host(w)
             return o_live, l_live, w_live
 
-        o_live, seg_t, ws_live = run_groups(cfg, source)
+        o_live, seg_t, ws_live = run_groups(source)
         orders = orders.index_copy(0, torch.as_tensor(live, device=dev),
                                    o_live)
         seg_losses = np.ascontiguousarray(seg_t.T)          # (live, seg)
@@ -747,7 +804,10 @@ def _run_adaptive(xs_t, orders, source: ShuffleSource, norms_t, *, hw,
         if mon is not None:
             _verify_rung(
                 mon, cfg, source, s_in, exec0, seg,
-                lambda cfg_, src: run_groups(cfg_, src)[:2],
+                run_groups,
+                xs=xs_t[torch.as_tensor(live, device=dev)],
+                groups=[(sel, band, tau_g[-1])
+                        for sel, _, tau_g, _, band in groups],
                 losses=seg_t, orders=_host(o_live), rows=live, ws=ws_live,
                 tau=ctrl.tau_rows(live)[0], band=ctrl.band,
                 banded_mask=banded_mask)
@@ -829,7 +889,8 @@ def run_round_segment(xs, orders, norms, progress, seg_len: int, *,
         ``repro_torch.runtime.guardrails``): the integrity probes on this
         segment's results (permutations, loss sanity, the stream audit of
         ``source``, the band-tail audit with ``with_w``, and the sampled
-        plain-tier shadow recompute), raising ``IntegrityViolation``.
+        shadow: a bitwise same-tier replay and, on the kernel tier, the
+        kernel-vs-plain apply check), raising ``IntegrityViolation``.
         Probes are read-only: the results are unchanged.
 
     Returns:
@@ -876,19 +937,22 @@ def run_round_segment(xs, orders, norms, progress, seg_len: int, *,
                 f"regimes across the rung-aligned dense->banded switch "
                 f"{switch}; group instances by regime "
                 f"(rung_aligned_switch)")
-    mon = _open_guardrails(guardrail, cfg, "segment", device)
+    mon = _open_guardrails(guardrail, cfg, "segment")
     s_in = source.state_dict() if mon is not None else None
     taus = _tau_schedule(cfg)
     tau_rows = taus[p[:, None] + np.arange(seg_len)].T
-    o_out, losses, ws = _run_rounds_ragged(
-        xs, orders, source, rows, tau_rows, norms, hw=hw, cfg=cfg,
-        apply_fn=_select_apply_fn(cfg, band if banded else None))
+    band_use = band if banded else None
+
+    def segment(src):
+        return _run_rounds_ragged(xs, orders, src, rows, tau_rows, norms,
+                                  hw=hw, cfg=cfg,
+                                  apply_fn=_select_apply_fn(cfg, band_use))
+
+    o_out, losses, ws = segment(source)
     if mon is not None:
         _verify_rung(
-            mon, cfg, source, s_in, int(p.min()), seg_len,
-            lambda cfg_, src: run_round_segment(
-                xs, orders, norms, p, seg_len, source=src, rows=rows, hw=hw,
-                cfg=cfg_, device=device, regime=regime),
+            mon, cfg, source, s_in, int(p.min()), seg_len, segment, xs=xs,
+            groups=[(np.arange(bs), band_use, tau_rows[-1])],
             losses=_host(losses), orders=_host(o_out), n=n, rows=rows,
             ws=_host(ws) if with_w else None, tau=taus[p],
             band=band if (banded and with_w) else None)
@@ -1001,7 +1065,7 @@ def shuffle_soft_sort(
         raise ValueError("checkpoint_dir/rung_hook are incompatible with "
                          "the per-round callback stream")
     device = resolve_device(device)
-    mon = _open_guardrails(guardrail, cfg, "sequential", device)
+    mon = _open_guardrails(guardrail, cfg, "sequential")
     x_t = torch.as_tensor(np.asarray(x) if not isinstance(x, torch.Tensor)
                           else x, dtype=_F32, device=device)
     xs, _, _, n, source, xs_t, norms_t, orders, prior = _prep_instances(
@@ -1046,9 +1110,9 @@ def shuffle_soft_sort(
         if mon is not None:
             _verify_rung(
                 mon, cfg, source, s_in, seg_start, end - seg_start,
-                lambda cfg_, src: _run_segment(xs_t, o_in, src, norms_t,
-                                               seg_start, end, hw=hw,
-                                               cfg=cfg_),
+                lambda src: _run_rounds(xs_t, o_in, src, norms_t, seg_start,
+                                        end, hw=hw, cfg=cfg),
+                xs=xs_t, groups=_fixed_groups(cfg, n, 1, end),
                 losses=np.asarray(losses[seg_start:], np.float32),
                 orders=_host(orders), n=n, tau=float(taus[seg_start]))
         if ckpt is not None:
@@ -1144,7 +1208,7 @@ def shuffle_soft_sort_batched(
         _check_adaptive(callback, state)
     ckpt = _open_checkpointer(checkpoint_dir, resume)
     device = resolve_device(device)
-    mon = _open_guardrails(guardrail, cfg, "batched", device)
+    mon = _open_guardrails(guardrail, cfg, "batched")
     rungs = ckpt is not None or rung_hook is not None or mon is not None
     if callback is not None and rungs:
         raise ValueError("checkpoint_dir/rung_hook/guardrail are "
@@ -1336,7 +1400,7 @@ def restart_tournament(
     _check_ported(cfg, mesh=mesh, mesh_hook=mesh_hook)
     ckpt = _open_checkpointer(checkpoint_dir, resume)
     device = resolve_device(device)
-    mon = _open_guardrails(guardrail, cfg, "tournament", device)
+    mon = _open_guardrails(guardrail, cfg, "tournament")
     xs, b, s, n, source, xs_t, norms_t, orders, _ = _prep_instances(
         xs, hw, n_restarts, seed, seeds, source, norms, None, device)
     if cfg.schedule == "adaptive":
@@ -1391,9 +1455,10 @@ def restart_tournament(
         if mon is not None:
             _verify_rung(
                 mon, cfg, source, s_in, start, end - start,
-                lambda cfg_, src: _run_segment(
+                lambda src: _run_rounds(
                     xs_t, o_in, src, norms_t, start, end, rows=rows, hw=hw,
-                    cfg=cfg_, pad_rows=True),
+                    cfg=cfg, pad_rows=True),
+                xs=xs_t, groups=_fixed_groups(cfg, n, len(rows), end),
                 losses=seg, orders=_host(orders), rows=rows,
                 tau=float(taus[start]))
         all_losses[np.arange(b)[:, None], alive, start:end] = (

@@ -104,6 +104,59 @@ def softsort_apply_chunked(
     return torch.cat(ys, dim=-2)[:, :n], colsum
 
 
+def _windows(v: torch.Tensor, k: int) -> torch.Tensor:
+    """(B, N, C) -> (B, N, 2K+1, C): ``out[:, i, t] = v[:, i + t - K]``,
+    0 where ``i + t - K`` falls outside [0, N).  A view of a padded
+    copy."""
+    pad = torch.nn.functional.pad(v, (0, 0, k, k))     # (B, N + 2K, C)
+    return pad.unfold(1, 2 * k + 1, 1).permute(0, 1, 3, 2)
+
+
+def _diagonal_sums(g: torch.Tensor, k: int) -> torch.Tensor:
+    """The adjoint of ``_windows``: (B, N, 2K+1, C) -> (B, N, C),
+    ``out[:, j] = sum_t g[:, j - t + K, t]`` over the rows in range.
+
+    The rows are padded by K on each side and the window axis flipped, so
+    that the 2K+1 terms of ``out[:, j]`` sit on one strided diagonal,
+    ``gf[:, j + t', t']``; one reduction over that axis sums them in a
+    fixed order, with no atomics, so the result is the same bits on every
+    call, on the card too."""
+    b, n, w, c = g.shape
+    gf = torch.flip(torch.nn.functional.pad(g, (0, 0, 0, 0, k, k)),
+                    dims=(2,)).contiguous()            # (B, N + 2K, W, C)
+    return gf.as_strided((b, n, w, c),
+                         (gf.stride(0), w * c, (w + 1) * c, 1)).sum(dim=2)
+
+
+class _Windows(torch.autograd.Function):
+    """``_windows`` whose backward is ``_diagonal_sums``: the gradient of
+    a key or a payload row is the fixed-order sum over the 2K+1 windows
+    that hold it (an advanced-index gather would accumulate it with
+    atomics, in an order that changes from call to call on the card)."""
+
+    @staticmethod
+    def forward(ctx, v, k):
+        ctx.k = k
+        return _windows(v, k)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _diagonal_sums(g, ctx.k), None
+
+
+class _DiagonalSums(torch.autograd.Function):
+    """``_diagonal_sums`` whose backward is ``_windows``."""
+
+    @staticmethod
+    def forward(ctx, g, k):
+        ctx.k = k
+        return _diagonal_sums(g, k)
+
+    @staticmethod
+    def backward(ctx, dout):
+        return _windows(dout, ctx.k).contiguous(), None
+
+
 def softsort_apply_banded(
     w: torch.Tensor,
     x: torch.Tensor,
@@ -118,8 +171,11 @@ def softsort_apply_banded(
     keys whose rank is within ``band`` of i, a width-(2K+1) diagonal band
     of the soft permutation matrix in rank space.  Out-of-band entries are
     exactly zero; ``band_tail_bound`` bounds the mass they would carry.
-    The everywhere-runnable oracle of the banded kernel tier
-    (``repro_torch.kernels.ops.softsort_apply_banded``).
+    The window of keys and payload and the column sums are fixed-order
+    sums over the 2K+1 diagonals of the band (``_Windows``,
+    ``_DiagonalSums``), forward and backward, so two calls give the same
+    bits on the card as on the CPU.  The everywhere-runnable oracle of the
+    banded kernel tier (``repro_torch.kernels.ops.softsort_apply_banded``).
 
     Args:
       w: (N,) sort keys, or (B, N) for B instances.
@@ -141,27 +197,26 @@ def softsort_apply_banded(
         y, colsum = softsort_apply_banded(w[None], x[None], tau, band)
         return y[0], colsum[0]
     assert x.dim() == 3 and x.shape[:2] == w.shape, (w.shape, x.shape)
-    bsz, n = w.shape
+    n = w.shape[-1]
     d = x.shape[-1]
     k = int(band)
     assert k >= 1, band
     perm = torch.argsort(w.detach(), dim=-1, stable=True)
     ws = torch.gather(w, -1, perm)                     # grad-carrying
     xs = torch.gather(x, 1, perm[..., None].expand(-1, -1, d))
-    # (N, 2K+1) rank window around each row; clipped indices keep the
-    # gathers in bounds and the mask zeroes the clipped slots.
+    # (N, 2K+1) rank window around each row; the mask zeroes the slots
+    # past either end (the windows hold 0 there).
     idx = (torch.arange(n, device=w.device)[:, None]
            + torch.arange(-k, k + 1, device=w.device)[None, :])
     valid = (idx >= 0) & (idx < n)
-    idxc = idx.clamp(0, n - 1)
-    s = -torch.abs(ws[:, :, None] - ws[:, idxc]) / _per_instance(tau)
+    wwin = _Windows.apply(ws[..., None], k)[..., 0]    # (B, N, 2K+1)
+    s = -torch.abs(ws[:, :, None] - wwin) / _per_instance(tau)
     # Finite mask value: exp(-1e30 - m) is exactly 0 in float32.
     s = torch.where(valid, s, torch.full_like(s, -1e30))
     p = torch.softmax(s, dim=-1)                       # (B, N, 2K+1)
-    y = torch.einsum("bnk,bnkd->bnd", p, xs[:, idxc])
+    y = torch.einsum("bnk,bnkd->bnd", p, _Windows.apply(xs, k))
     # Column sums in rank order, then back to the columns' own order.
-    colsum_sorted = torch.zeros_like(ws).scatter_add(
-        -1, idxc.reshape(1, -1).expand(bsz, -1), p.reshape(bsz, -1))
+    colsum_sorted = _DiagonalSums.apply(p[..., None], k)[..., 0]
     colsum = torch.zeros_like(ws).scatter(-1, perm, colsum_sorted)
     return y, colsum
 

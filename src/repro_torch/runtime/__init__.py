@@ -13,3 +13,5 @@
 #                            DivergencePolicy, AnnealSupervisor
 #   guardrails.py          — GuardrailPolicy, GuardrailMonitor: the
 #                            integrity probes at rung boundaries
+#   straggler.py           — StragglerMonitor (the sort server's
+#                            per-dispatch timing), DeviceHealthMonitor

@@ -25,12 +25,23 @@ Three probe families, in increasing cost:
   (the adaptive engine, ``run_round_segment(with_w=True)``), the bound is
   evaluated on the live keys, and at sampled rungs the dropped mass is
   measured densely (``measured_dropped_mass``) and held under the bound.
-* **Shadow recompute** (mode ``"shadow"``): a hash of ``(policy.seed,
-  rung start)`` samples ``shadow_rate`` of the rungs; a sampled rung runs
-  again through the plain PyTorch tier (``use_kernel=False``) from the
-  rung's input orders and stream state, and its losses must agree within
-  the per-dtype envelope (float32 ``2e-3``, bfloat16 ``0.5`` at rung
-  level); float32 compares the committed orders exactly.
+* **Shadow** (mode ``"shadow"``): a hash of ``(policy.seed, rung
+  start)`` samples ``shadow_rate`` of the rungs.  A sampled rung runs two
+  checks, each raising ``probe="shadow"`` with a ``check`` field in the
+  incident.  ``check="replay"``: the rung runs again on the tier the run
+  used, from the rung's input orders and stream state, and its orders and
+  losses must be bitwise the committed ones (the port's kernels and its
+  plain tiers are deterministic, so a clean rung replays exactly, and a
+  value corrupted after the run or a transient fault inside it does not).
+  ``check="apply"`` (kernel tier only): the rung's last trained keys go
+  once through the kernel tier's apply and the plain tier's, forward and
+  backward, and y, colsum, dw and dx must agree within the apply's own
+  tolerance (float32: 2e-5 of the largest entry forward, 1e-4 for the
+  gradients; bfloat16: 2e-2), which catches a kernel that is wrong on
+  every call.  No trajectory is followed across tiers, so the Adam steps'
+  amplification of rounding noise (ROADMAP.md Queue C1) cannot fire the
+  probe on a clean rung, as the reference's order compare across tiers
+  did on the port's kernel tier (Queue C8).
 
 A failed probe raises :class:`IntegrityViolation` (a sibling of
 ``NumericalDivergence``) with the probe's name, the round and an incident
@@ -55,10 +66,13 @@ from repro_torch.core.softsort import band_tail_bound
 
 _VALID_MODES = ("off", "invariants", "shadow")
 
-# Matches tools/check_bench.py --tol / --tol-bf16: the committed parity
-# envelopes for kernel-vs-oracle comparisons per compute dtype.
-DEFAULT_TOL = {"float32": 2e-3, "bfloat16": 2e-2}
-
+# The shadow's apply check (``check="apply"``): the largest error of y and
+# colsum (forward) and of dw and dx (gradients), over the largest entry of
+# the plain tier's, in float32; of every quantity in bfloat16.  The
+# port's kernel-vs-twin file tolerances (ROADMAP.md Queue C5).
+APPLY_TOL = {"float32": {"y": 2e-5, "colsum": 2e-5, "dw": 1e-4, "dx": 1e-4},
+             "bfloat16": {"y": 2e-2, "colsum": 2e-2, "dw": 2e-2,
+                          "dx": 2e-2}}
 
 class IntegrityViolation(RuntimeError):
     """A guardrail probe failed: the run produced state that violates
@@ -101,30 +115,18 @@ class GuardrailPolicy:
 
     ``mode`` selects the probe tier: ``"off"`` disables everything,
     ``"invariants"`` runs the free host-side checks, ``"shadow"`` adds
-    sampled plain-tier recompute at ``shadow_rate``.  Sampling is a pure
-    hash of ``(seed, rung start)`` — deterministic, replayable, and
-    independent of wall clock and of the shuffle streams.  ``heal_after`` is the
-    number of integrity strikes on one unit of work before the serving
-    tier consumes a ``DivergencePolicy`` rung (the first strike is a
-    plain replay from the last verified boundary — the right repair for
-    transient SDC).  Tolerances default to the documented per-dtype
-    parity envelopes; ``tail_slack`` is the multiplicative grace on the
+    the sampled replay and apply checks at ``shadow_rate``.  Sampling is a
+    pure hash of ``(seed, rung start)`` — deterministic, replayable, and
+    independent of wall clock and of the shuffle streams.  ``heal_after``
+    is the number of integrity strikes on one unit of work before the
+    serving tier consumes a ``DivergencePolicy`` rung (the first strike is
+    a plain replay from the last verified boundary — the right repair for
+    transient SDC).  ``tail_slack`` is the multiplicative grace on the
     band-tail audit (the measured mass is itself a float sum).
     """
     mode: str = "invariants"
     shadow_rate: float = 0.03125          # 1/32 of rungs; overhead ~ rate
     seed: int = 0
-    tol_f32: float = DEFAULT_TOL["float32"]
-    tol_bf16: float = DEFAULT_TOL["bfloat16"]
-    # Rung-level bf16 envelope for the shadow compare.  The 2e-2
-    # apply-level parity does NOT survive an outer round: bf16's 8-bit
-    # mantissa flips Adam rounding decisions, and measured clean drift
-    # of a bf16 rung vs. the f32 oracle reaches ~0.13 rel (even vs. a
-    # bf16 plain recompute — it is dtype noise, not kernel error).  The
-    # 0.5 gate stays far above benign drift and far below every
-    # corruption signature (exponent flips ~1e30 rel, sign flips 2.0,
-    # NaN always trips).
-    shadow_rel_bf16: float = 0.5
     explosion_factor: float = 1e3
     tail_slack: float = 1.05
     heal_after: int = 1
@@ -138,15 +140,6 @@ class GuardrailPolicy:
             raise ValueError(
                 f"shadow_rate must be in [0, 1], got {self.shadow_rate}")
 
-    def tol(self, dtype: str) -> float:
-        return self.tol_bf16 if str(dtype) == "bfloat16" else self.tol_f32
-
-    def shadow_tol(self, dtype: str) -> float:
-        """Rung-level loss envelope for the shadow-recompute compare
-        (see ``shadow_rel_bf16`` for why bf16 differs from the
-        apply-level parity constant)."""
-        return (self.shadow_rel_bf16 if str(dtype) == "bfloat16"
-                else self.tol_f32)
 
 
 def shadow_sampled(seed: int, start: int, rate: float) -> bool:
@@ -274,7 +267,8 @@ class GuardrailMonitor:
                    seg_len: Optional[int] = None, ws=None, tau=None,
                    band: Optional[int] = None, banded_mask=None,
                    descending: bool = False,
-                   oracle_losses=None, oracle_orders=None) -> None:
+                   oracle_losses=None, oracle_orders=None,
+                   apply_errors: Optional[dict] = None) -> None:
         """Run every applicable probe on one rung's synced state.
 
         ``losses`` is round-major ``(T, B)`` (or ``(T,)``); ``orders``
@@ -283,9 +277,11 @@ class GuardrailMonitor:
         ``source.state_dict()`` gave before and after the rung; ``rows``
         the instances that drew, None: all); ``ws``/``tau``/``band`` feed the
         band-tail audit (``banded_mask`` restricts it to the banded
-        instances); ``oracle_losses``/``oracle_orders`` are the shadow
-        recompute to compare against.  Raises IntegrityViolation on the
-        first failing probe; returns None when the rung verifies.
+        instances); ``oracle_losses``/``oracle_orders`` are the shadow's
+        same-tier replay, compared bitwise, and ``apply_errors`` its apply
+        check, ``{quantity: error}`` held to ``APPLY_TOL``.  Raises
+        IntegrityViolation on the first failing probe; returns None when
+        the rung verifies.
         """
         if not self.active:
             return
@@ -408,44 +404,60 @@ class GuardrailMonitor:
                             f"round {start} (band={band})",
                             round=start, measured=meas, bound=bound)
 
+        self.check_shadow(start=start, tau=tau, losses=losses,
+                          orders=orders, oracle_losses=oracle_losses,
+                          oracle_orders=oracle_orders,
+                          apply_errors=apply_errors)
+
+        if commit_losses is not None:
+            self._prev_loss_bytes, self._loss_ref = commit_losses
+
+    def check_shadow(self, *, start: int, tau=None, losses=None,
+                     orders=None, oracle_losses=None, oracle_orders=None,
+                     apply_errors: Optional[dict] = None) -> None:
+        """The shadow's two checks on one rung (``check_rung`` runs them
+        after the invariants): the committed ``losses`` and ``orders``
+        bitwise those of the same-tier replay, and each of
+        ``apply_errors`` within ``APPLY_TOL``."""
         if oracle_losses is not None and losses is not None:
             self.rungs_shadowed += 1
-            a = np.asarray(losses, np.float64).reshape(-1)
-            b = np.asarray(oracle_losses, np.float64).reshape(-1)
-            tol = pol.shadow_tol(self.dtype)
+            a = np.asarray(losses, np.float32).reshape(-1)
+            b = np.asarray(oracle_losses, np.float32).reshape(-1)
             if a.shape != b.shape:
-                self._fail("shadow", "shadow recompute shape mismatch "
-                           f"at round {start}", round=start, tau=tau)
-            rel = np.abs(a - b) / np.maximum(np.abs(b), 1e-6)
-            # `not (ok).all()` so NaN in either side trips the probe.
-            if not bool((rel <= tol).all()):
+                self._fail("shadow", "shadow replay shape mismatch at "
+                           f"round {start}", round=start, tau=tau,
+                           check="replay")
+            # Bitwise: a replay on the same tier reproduces a clean rung
+            # exactly (NaN in both sides trips the finite probe above).
+            if a.tobytes() != b.tobytes():
+                a64, b64 = a.astype(np.float64), b.astype(np.float64)
+                rel = np.abs(a64 - b64) / np.maximum(np.abs(b64), 1e-6)
                 worst = float(np.nanmax(rel)) \
                     if np.isfinite(rel).any() else float("inf")
-                t_bad = int(np.argmax(~(rel <= tol)))
                 self._fail(
                     "shadow",
-                    f"kernel-vs-plain loss mismatch at rung round "
-                    f"{start}: rel err {worst:.4g} > tol {tol:g} "
-                    f"({self.dtype})", round=start, tau=tau,
-                    rel_err=worst, tol=tol)
+                    f"losses differ from the same-tier replay at rung round "
+                    f"{start}: rel err {worst:.4g} ({self.dtype})",
+                    round=start, tau=tau, rel_err=worst, tol=0.0,
+                    check="replay")
         if oracle_orders is not None and orders is not None:
             a = np.asarray(orders)
             b = np.asarray(oracle_orders)
             if a.shape != b.shape or not (a == b).all():
                 self._fail("shadow",
-                           f"committed orders diverge from the plain "
-                           f"recompute at rung round {start}",
-                           round=start, tau=tau)
-
-        if commit_losses is not None:
-            self._prev_loss_bytes, self._loss_ref = commit_losses
-
-    def compare_orders(self) -> bool:
-        """Whether shadow recompute may compare committed orders
-        exactly: the reference's rule for f32 (it argues that ~1e-7 of
-        apply parity cannot flip a converged argsort); bf16 trajectories
-        may commit different ties, so bf16 compares losses only."""
-        return self.dtype != "bfloat16"
+                           f"committed orders differ from the same-tier "
+                           f"replay at rung round {start}",
+                           round=start, tau=tau, check="replay")
+        for quantity, err in (apply_errors or {}).items():
+            lim = APPLY_TOL[self.dtype][quantity]
+            # `not (err <= lim)` so NaN trips the probe.
+            if not float(err) <= lim:
+                self._fail(
+                    "shadow",
+                    f"kernel-vs-plain apply {quantity} error {float(err):.4g}"
+                    f" > tol {lim:g} at rung round {start} ({self.dtype})",
+                    round=start, tau=tau, rel_err=float(err), tol=lim,
+                    check="apply", quantity=quantity)
 
     def summary(self) -> dict:
         return {"mode": self.policy.mode,

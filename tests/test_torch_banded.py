@@ -559,3 +559,33 @@ def test_banded_oracle_per_instance_tau():
                                        atol=1e-6)
             np.testing.assert_allclose(c[i].numpy(), ci[0].numpy(),
                                        atol=1e-6)
+
+
+@pytest.mark.parametrize("n,d,k", [(17, 3, 1), (40, 5, 38), (64, 50, 8)])
+def test_banded_oracle_without_atomics_matches_jax(n, d, k):
+    """The windowed oracle's key and payload windows and its column sums
+    are fixed-order sums over the band's diagonals (``_Windows``,
+    ``_DiagonalSums``: no ``scatter_add``, no accumulating index), at the
+    narrowest band, a band one short of dense, and the main run's width
+    d = 50: values and dw, dx, dtau against jax.grad of the reference's
+    oracle at the file's tolerances, two calls bitwise equal, and the two
+    diagonal maps each other's adjoint in float64."""
+    w, x, a, b = _grad_inputs(n + k, (3,), n, d)
+
+    def jfn(w, x, tau):
+        return jss.softsort_apply_banded(w, x, tau, k)
+
+    def tfn(w, x, tau):
+        return tss.softsort_apply_banded(w, x, tau, k)
+
+    got = _torch_value_and_grads(tfn, w, x, a, b, 0.3)
+    _assert_values_and_grads(got, _jax_value_and_grads(jfn, w, x, a, b, 0.3))
+    again = _torch_value_and_grads(tfn, w, x, a, b, 0.3)
+    for g, h in zip(got, again):
+        assert np.asarray(g).tobytes() == np.asarray(h).tobytes()
+    gen = torch.Generator().manual_seed(n)
+    v = torch.randn(2, n, d, generator=gen, dtype=torch.float64)
+    g = torch.randn(2, n, 2 * k + 1, d, generator=gen, dtype=torch.float64)
+    lhs = (tss._windows(v, k) * g).sum()
+    rhs = (v * tss._diagonal_sums(g, k)).sum()
+    np.testing.assert_allclose(float(lhs), float(rhs), rtol=1e-12)

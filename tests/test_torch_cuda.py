@@ -1112,10 +1112,11 @@ def test_cuda_guarded_run_is_bitwise_the_unguarded_run(cuda, schedule):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("schedule", ["fixed", "adaptive"])
-def test_cuda_shadow_is_refused_on_the_kernel_tier(cuda, schedule):
-    """Every engine refuses the shadow on the card's kernel tier, where it
-    fires on clean rungs, with a ``ValueError`` naming Queue C8 before it
-    runs a round; the invariants there are accepted."""
+def test_cuda_shadow_is_clean_on_every_tier(cuda, schedule):
+    """The rate-1 shadow (a bitwise same-tier replay, and on the kernel
+    tier the kernel-vs-plain apply check) on the card: on the dense and
+    the banded kernel tier and the banded plain tier, every engine's
+    guarded run has no incident and is bitwise its unguarded run."""
     from repro_torch.core import (ShuffleSoftSortConfig, TorchShuffleSource,
                                   restart_tournament, run_round_segment,
                                   shuffle_soft_sort,
@@ -1127,28 +1128,111 @@ def test_cuda_shadow_is_refused_on_the_kernel_tier(cuda, schedule):
     n = xs.shape[1]
     extra = (dict(schedule="adaptive", adapt_every=2, patience=1)
              if schedule == "adaptive" else {})
-    cfg = ShuffleSoftSortConfig(rounds=4, inner_steps=2, use_kernel=True,
-                                **extra)
-    fixed = ShuffleSoftSortConfig(rounds=4, inner_steps=2, use_kernel=True)
-    runs = {
-        "sequential": lambda g: shuffle_soft_sort(
-            xs[0], hw, cfg, device=cuda, guardrail=g),
-        "batched": lambda g: shuffle_soft_sort_batched(
-            xs, hw, cfg, n_restarts=2, device=cuda, guardrail=g),
-        "tournament": lambda g: restart_tournament(
-            xs, hw, cfg, n_restarts=2, n_rungs=2, device=cuda, guardrail=g),
-        "segment": lambda g: run_round_segment(
-            xs, np.tile(np.arange(n), (2, 1)), np.ones(2, np.float32),
-            np.zeros(2, np.int64), 2, source=TorchShuffleSource([1, 2], n,
-                                                                cuda),
-            hw=hw, cfg=fixed, device=cuda, guardrail=g),
-    }
-    for name, run in runs.items():
-        for guard in (GuardrailPolicy(mode="shadow"),
-                      GuardrailMonitor(GuardrailPolicy(mode="shadow",
-                                                       shadow_rate=1.0))):
-            with pytest.raises(ValueError, match="Queue C8"):
-                run(guard)
-        mon = GuardrailMonitor(GuardrailPolicy(mode="invariants"))
-        run(mon)
-        assert mon.rungs_checked >= 1 and not mon.incidents, name
+    for tier in (dict(use_kernel=True), dict(use_kernel=True, band="auto"),
+                 dict(band="auto")):
+        cfg = ShuffleSoftSortConfig(rounds=4, inner_steps=2, **tier, **extra)
+        fixed = ShuffleSoftSortConfig(rounds=4, inner_steps=2, **tier)
+        runs = {
+            "sequential": lambda g: shuffle_soft_sort(
+                xs[0], hw, cfg, device=cuda, guardrail=g,
+                checkpoint_every=1),
+            "batched": lambda g: shuffle_soft_sort_batched(
+                xs, hw, cfg, n_restarts=2, device=cuda, guardrail=g,
+                checkpoint_every=1),
+            "tournament": lambda g: restart_tournament(
+                xs, hw, cfg, n_restarts=2, n_rungs=2, device=cuda,
+                guardrail=g),
+            "segment": lambda g: run_round_segment(
+                xs, np.tile(np.arange(n), (2, 1)), np.ones(2, np.float32),
+                np.zeros(2, np.int64), 2,
+                source=TorchShuffleSource([1, 2], n, cuda), hw=hw, cfg=fixed,
+                device=cuda, guardrail=g),
+        }
+        for name, run in runs.items():
+            ref = run(None)
+            mon = GuardrailMonitor(GuardrailPolicy(mode="shadow",
+                                                   shadow_rate=1.0))
+            got = run(mon)
+            assert mon.rungs_shadowed >= 1 and not mon.incidents, (tier, name)
+            for a, b in zip(_fields(ref), _fields(got)):
+                np.testing.assert_array_equal(a, b, err_msg=f"{tier} {name}")
+
+
+def _fields(res):
+    """An engine result's arrays, whatever the engine."""
+    if isinstance(res, tuple):
+        return [np.asarray(torch.as_tensor(v).cpu()) if isinstance(
+            v, torch.Tensor) else np.asarray(v) for v in res]
+    return [np.asarray(v) for v in vars(res).values()
+            if isinstance(v, np.ndarray)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [8, 64])
+def test_cuda_plain_banded_apply_is_bitwise_repeatable(cuda, k):
+    """Two calls of the plain banded apply (``core.softsort_apply_banded``,
+    whose windows and column sums are fixed-order diagonal sums, with no
+    atomics) give the same bits in y, colsum, dw and dx on the card."""
+    from repro_torch.core.softsort import softsort_apply_banded
+
+    gen = torch.Generator().manual_seed(k)
+    w = (torch.randn(3, 1000, generator=gen) * 30).to(cuda)
+    x = torch.randn(3, 1000, 50, generator=gen).to(cuda)
+    gy = torch.randn(3, 1000, 50, generator=gen).to(cuda)
+    gc = torch.randn(3, 1000, generator=gen).to(cuda)
+    tau = torch.tensor([0.2, 0.5, 1.0], device=cuda)
+
+    def once():
+        wv, xv = w.clone().requires_grad_(True), x.clone().requires_grad_(True)
+        y, c = softsort_apply_banded(wv, xv, tau, k)
+        dw, dx = torch.autograd.grad((y * gy).sum() + (c * gc).sum(),
+                                     (wv, xv))
+        return [t.detach().cpu().numpy() for t in (y, c, dw, dx)]
+
+    for a, b in zip(once(), once()):
+        assert a.tobytes() == b.tobytes()
+
+
+@pytest.mark.cuda
+def test_cuda_served_request_is_bitwise_its_solo_chain(cuda):
+    """Mixed traffic on the card's kernel tier: a dense bucket (N = 64)
+    and a banded one (N = 256, ``band="auto"``), requests joining at
+    different rungs so that one dispatch mixes schedule positions; each
+    served request is bitwise its own chained ``run_round_segment`` run
+    alone (same seed, same norm)."""
+    from repro_torch.core import (ShuffleSoftSortConfig, TorchShuffleSource,
+                                  mean_pairwise_distance, run_round_segment)
+    from repro_torch.launch.serve import SortServer
+
+    cfg = ShuffleSoftSortConfig(rounds=8, inner_steps=2, use_kernel=True,
+                                band="auto")
+    rng = np.random.default_rng(5)
+    shapes = [((8, 8), 3), ((16, 16), 5)]
+    server = SortServer((8, 8), d=3, cfg=cfg, max_batch=8, sched_rungs=4,
+                        autostart=False, device=cuda)
+    futs, probs = [], []
+    for i in range(6):
+        hw, d = shapes[i % 2]
+        x = rng.random((hw[0] * hw[1], d), dtype=np.float32)
+        futs.append(server.submit(x, key=100 + i, hw=hw))
+        probs.append((hw, x, 100 + i))
+        if i % 2:
+            server._tick()
+    for _ in range(16):
+        server._tick()
+    server.close()
+    assert max(server.stats["batch_sizes"]) > 1
+    for fut, (hw, x, seed) in zip(futs, probs):
+        order, _, losses = fut.result(timeout=0)
+        n = x.shape[0]
+        x_t = torch.as_tensor(x, device=cuda)
+        norm = float(mean_pairwise_distance(x_t))
+        src = TorchShuffleSource([seed], n, cuda)
+        o, parts = torch.arange(n, device=cuda)[None], []
+        for p0 in range(0, 8, 2):
+            o, ls = run_round_segment(x_t[None], o, [norm], [p0], 2,
+                                      source=src, hw=hw, cfg=cfg,
+                                      device=cuda)
+            parts.append(ls[:, 0].cpu().numpy())
+        np.testing.assert_array_equal(order, o[0].cpu().numpy())
+        np.testing.assert_array_equal(losses, np.concatenate(parts))

@@ -11,12 +11,16 @@ against the reference's, on the same numpy inputs, on the CPU.
   over a scripted stub (the same ``stats`` and ``history``).
 * The stream audit (the port's ``key_chain`` probe): a clean rung
   verifies, a tampered generator state and a tampered replay ``pos`` fire.
-* Engine wiring: a guarded run (the invariants and the shadow recompute
-  at rate 1) is bitwise the unguarded run on all five engine paths, on
-  the plain tier (the shadow's plain recompute is then bitwise the run).
+* Engine wiring: a guarded run (the invariants and the shadow at rate 1)
+  is bitwise the unguarded run on all five engine paths, on the plain
+  tier and on the kernel tier.
 * The supervisor's two repairs: a transient sign-flipped loss is repaired
   by one verified replay, bitwise clean; a corruption that persists while
   the kernel tier is on retires it.
+* The shadow on the kernel tier (ROADMAP.md Queue C8, repaired): clean on
+  the reference's C8 cases and on every engine path; its same-tier replay
+  catches each corruption mode on each target, and its apply check a
+  kernel that is wrong on every call.
 """
 import dataclasses
 
@@ -234,7 +238,10 @@ def test_check_rung_fires_the_reference_probe(case):
     t, j = fired
     assert t.probe == j.probe == case.split("_orders")[0]
     assert t.round == j.round and t.context == j.context == "test"
-    assert sorted(t.incident()) == sorted(j.incident())
+    # The port's shadow names the check that fired (its replay here).
+    assert t.incident().pop("check", "replay") == "replay"
+    assert sorted(k for k in t.incident() if k != "check") == \
+        sorted(j.incident())
     assert [m.rungs_checked for m in mons][0] == mons[1].rungs_checked
     assert mons[0].summary()["incidents"][0]["probe"] == t.probe
 
@@ -369,13 +376,13 @@ def test_stream_audit_catches_a_tampered_pos():
 
 # ----------------------------------------------------- engine wiring
 
-def _segment(guardrail, with_w):
+def _segment(guardrail, with_w, **cfg_kw):
     xs = np.stack([_problem(0), _problem(1)])
     orders = np.tile(np.arange(N), (2, 1))
     res = run_round_segment(xs, orders, np.ones(2, np.float32),
                             np.zeros(2, np.int64), 2,
                             source=TorchShuffleSource([3, 4], N, "cpu"),
-                            hw=HW, cfg=_cfg(band=4, band_eps=1e3),
+                            hw=HW, cfg=_cfg(band=4, band_eps=1e3, **cfg_kw),
                             with_w=with_w, guardrail=guardrail, **CPU)
     return {f"out{i}": np.asarray(a) for i, a in enumerate(res)}
 
@@ -383,36 +390,38 @@ def _segment(guardrail, with_w):
 ACFG = dict(rounds=8, schedule="adaptive", patience=1, plateau_rtol=1.0,
             adapt_every=2)
 ENGINES = {
-    "sequential": lambda g: dict(zip(("order", "sorted", "losses"),
-                                     shuffle_soft_sort(
-                                         _problem(), HW, _cfg(), seed=5,
-                                         guardrail=g, **CPU))),
-    "batched": lambda g: dataclasses.asdict(shuffle_soft_sort_batched(
-        np.stack([_problem(0), _problem(1)]), HW, _cfg(band=4, band_eps=1e-2),
-        n_restarts=2, seed=5, guardrail=g, **CPU)),
-    "adaptive": lambda g: dataclasses.asdict(shuffle_soft_sort_batched(
+    "sequential": lambda g, k={}: dict(zip(("order", "sorted", "losses"),
+                                           shuffle_soft_sort(
+                                               _problem(), HW, _cfg(**k),
+                                               seed=5, guardrail=g, **CPU))),
+    "batched": lambda g, k={}: dataclasses.asdict(shuffle_soft_sort_batched(
         np.stack([_problem(0), _problem(1)]), HW,
-        _cfg(band=4, band_eps=1e3, **ACFG), n_restarts=2, seed=5,
+        _cfg(band=4, band_eps=1e-2, **k), n_restarts=2, seed=5, guardrail=g,
+        **CPU)),
+    "adaptive": lambda g, k={}: dataclasses.asdict(shuffle_soft_sort_batched(
+        np.stack([_problem(0), _problem(1)]), HW,
+        _cfg(band=4, band_eps=1e3, **ACFG, **k), n_restarts=2, seed=5,
         guardrail=g, **CPU)),
-    "tournament": lambda g: dataclasses.asdict(restart_tournament(
-        _problem()[None], HW, _cfg(), n_restarts=4, n_rungs=2, seed=5,
+    "tournament": lambda g, k={}: dataclasses.asdict(restart_tournament(
+        _problem()[None], HW, _cfg(**k), n_restarts=4, n_rungs=2, seed=5,
         guardrail=g, **CPU)),
-    "tournament_adaptive": lambda g: dataclasses.asdict(restart_tournament(
-        _problem()[None], HW, _cfg(**ACFG), n_restarts=4, seed=5,
-        guardrail=g, **CPU)),
-    "segment": lambda g: _segment(g, with_w=False),
-    "segment_with_w": lambda g: _segment(g, with_w=True),
+    "tournament_adaptive": lambda g, k={}: dataclasses.asdict(
+        restart_tournament(_problem()[None], HW, _cfg(**ACFG, **k),
+                           n_restarts=4, seed=5, guardrail=g, **CPU)),
+    "segment": lambda g, k={}: _segment(g, with_w=False, **k),
+    "segment_with_w": lambda g, k={}: _segment(g, with_w=True, **k),
 }
 
 
-@pytest.mark.parametrize("engine", sorted(ENGINES))
-def test_guarded_run_is_bitwise_the_unguarded_run(engine):
+def _guarded_equals_unguarded(engine, cfg_kw, policies):
+    """Each policy's guarded run is bitwise the unguarded run, with no
+    incident, and the shadow sampled every rung at rate 1."""
     run = ENGINES[engine]
-    ref = run(None)
-    for policy in (INVARIANTS, FULL_SHADOW):
+    ref = run(None, cfg_kw)
+    for policy in policies:
         mon = GuardrailMonitor(policy, context="test")
-        got = run(mon)
-        assert mon.rungs_checked >= 1
+        got = run(mon, cfg_kw)
+        assert mon.rungs_checked >= 1 and not mon.incidents
         if policy is FULL_SHADOW:
             assert mon.rungs_shadowed == mon.rungs_checked
         for k, v in ref.items():
@@ -420,6 +429,11 @@ def test_guarded_run_is_bitwise_the_unguarded_run(engine):
             for a, g in pairs:
                 np.testing.assert_array_equal(np.asarray(a), np.asarray(g),
                                               err_msg=f"{engine}: {k}")
+
+
+@pytest.mark.parametrize("engine", sorted(ENGINES))
+def test_guarded_run_is_bitwise_the_unguarded_run(engine):
+    _guarded_equals_unguarded(engine, {}, (INVARIANTS, FULL_SHADOW))
 
 
 class _SegmentCorruptor:
@@ -516,19 +530,20 @@ def _key_chain_shuffles(keys, rounds, n):
     return np.stack(out)
 
 
-@pytest.mark.parametrize("data,key_seed,lambda_sigma,ref_rung,port_rung", [
-    (0, 0, 2.0, None, 10), (0, 0, 0.0, None, 14), (1, 5, 0.0, 2, 2)],
+@pytest.mark.parametrize("data,key_seed,lambda_sigma,ref_rung", [
+    (0, 0, 2.0, None), (0, 0, 0.0, None), (1, 5, 0.0, 2)],
     ids=["std_on", "std_off", "both_fire"])
 def test_clean_shadow_incidents_against_the_reference(
-        data, key_seed, lambda_sigma, ref_rung, port_rung):
-    """ROADMAP.md Queue C8, a fault of the port: on the same inputs and
-    shuffles (rungs of 2 of 16 rounds, shadow rate 1), the reference's
-    guarded run (its Pallas kernels in interpret mode against its jnp
-    oracle) shadows every rung of the first two cases clean, while the
-    port's kernel tier (the CPU twins) against its plain tier fires on a
-    clean rung, with the std term on (rung 10) and off (rung 14).  The
-    reference's exact compare is not immune: ``both_fire`` is a case where
-    it fires too, at the rung where the port fires."""
+        data, key_seed, lambda_sigma, ref_rung):
+    """ROADMAP.md Queue C8, repaired: on the same inputs and shuffles
+    (rungs of 2 of 16 rounds, shadow rate 1), the reference's guarded run
+    (its Pallas kernels in interpret mode against its jnp oracle) shadows
+    every rung of the first two cases clean and fires at rung 2 of
+    ``both_fire``: its cross-tier order compare's own false positive.  The
+    port's shadow (a bitwise replay on the kernel tier and the
+    kernel-vs-plain apply check) shadows all 8 rungs of all three cases
+    clean, where its earlier cross-tier compare fired at rungs 10, 14 and
+    2, and the guarded run is bitwise the unguarded one."""
     from repro.core import shufflesoftsort as jeng
     from repro.runtime.guardrails import (GuardrailMonitor as JMonitor,
                                           GuardrailPolicy as JPolicy,
@@ -549,17 +564,21 @@ def test_clean_shadow_incidents_against_the_reference(
     assert jmon.rungs_shadowed == (8 if ref_rung is None
                                    else ref_rung // 2 + 1)
 
-    mon = GuardrailMonitor(FULL_SHADOW)
-    with pytest.raises(IntegrityViolation) as ei:
-        shuffle_soft_sort_batched(
+    def run(guard):
+        return shuffle_soft_sort_batched(
             xs, (8, 8), ShuffleSoftSortConfig(
                 rounds=16, inner_steps=8, use_kernel=True,
                 lambda_sigma=lambda_sigma),
             n_restarts=2, norms=norms,
             source=ReplayShuffleSource(shuffles, "cpu"), checkpoint_every=2,
-            guardrail=mon, **CPU)
-    assert ei.value.probe == "shadow" and ei.value.round == port_rung
-    assert mon.rungs_shadowed == port_rung // 2 + 1
+            **guard, **CPU)
+
+    mon = GuardrailMonitor(FULL_SHADOW)
+    guarded = run(dict(guardrail=mon))
+    assert mon.incidents == [] and mon.rungs_shadowed == 8
+    plain = run(dict(rung_hook=lambda start: None))
+    np.testing.assert_array_equal(guarded.all_orders, plain.all_orders)
+    np.testing.assert_array_equal(guarded.all_losses, plain.all_losses)
 
 
 def test_port_tiers_part_where_the_reference_tiers_agree():
@@ -578,7 +597,7 @@ def test_port_tiers_part_where_the_reference_tiers_agree():
     rnd, inst = 11, 0
     cfg = ShuffleSoftSortConfig(rounds=16, inner_steps=8)
     xs_t = torch.as_tensor(np.repeat(xs, 2, axis=0))
-    orders, _ = teng._run_rounds(
+    orders, _, _ = teng._run_rounds(
         xs_t, torch.arange(64).repeat(4, 1),
         ReplayShuffleSource(shuffles, "cpu"),
         torch.as_tensor(np.repeat(np.float32(norms), 2)), 0, rnd, hw=(8, 8),
@@ -628,24 +647,102 @@ def test_port_tiers_part_where_the_reference_tiers_agree():
     assert (np.sign(gaps["port", True]) != np.sign(gaps["port", False])).any()
 
 
-def test_shadow_on_the_card_kernel_tier_is_refused():
-    """The shadow on the kernel tier of a CUDA device is a ``ValueError``
-    naming Queue C8, for a policy and for a monitor alike; the invariants
-    there, the shadow on the plain tier there, and the shadow on the CPU's
-    kernel tier are accepted (no card is needed to open them)."""
-    card, cpu = torch.device("cuda"), torch.device("cpu")
-    kernel = _cfg(use_kernel=True)
-    for guard in (FULL_SHADOW, GuardrailMonitor(FULL_SHADOW),
-                  GuardrailPolicy(mode="shadow")):
-        with pytest.raises(ValueError, match="Queue C8"):
-            teng._open_guardrails(guard, kernel, "test", card)
-    for guard, cfg, dev in ((INVARIANTS, kernel, card),
-                            (FULL_SHADOW, _cfg(), card),
-                            (FULL_SHADOW, kernel, cpu)):
-        assert isinstance(teng._open_guardrails(guard, cfg, "test", dev),
-                          GuardrailMonitor)
-    assert teng._open_guardrails(GuardrailPolicy(mode="off"), kernel, "test",
-                                 card) is None
+_REPLAY_CORRUPTIONS = [(mode, target)
+                       for mode in ("bitflip", "signflip", "stale", "nan")
+                       for target in ("orders", "losses")
+                       if (mode, target) != ("nan", "orders")]
+_KERNEL_SHADOW_CASES = (
+    [("clean", engine) for engine in sorted(ENGINES)]
+    + [("replay", f"{mode}-{target}") for mode, target in _REPLAY_CORRUPTIONS]
+    + [("apply", "perturbed_y")])
+
+
+@pytest.mark.parametrize(
+    "check,case", _KERNEL_SHADOW_CASES,
+    ids=[f"{c}-{k}" for c, k in _KERNEL_SHADOW_CASES])
+def test_kernel_tier_shadow_is_clean_and_catches_corruption(
+        check, case, tmp_path, monkeypatch):
+    """The rate-1 shadow on the kernel tier (the CPU twins here):
+
+    * ``clean``: on each engine path the guarded run is bitwise the
+      unguarded one, with no incident;
+    * ``replay``: each ``FaultInjector`` value corruption of each target of
+      the rung seam's result, at the second rung, is detected and repaired
+      by one verified replay under ``AnnealSupervisor``, bitwise the clean
+      run; and the replay check alone fires on the corrupted rung against
+      its clean replay (the stale orders of the previous rung are a valid
+      permutation, so there it is the probe that fires);
+    * ``apply``: a kernel twin whose y is 1e-3 too large on every call
+      replays equal, so the apply check fires, and the supervisor retires
+      the kernel tier: the run finishes bitwise the plain tier's run."""
+    if check == "clean":
+        _guarded_equals_unguarded(case, dict(use_kernel=True),
+                                  (FULL_SHADOW,))
+        return
+    xs, cfg = _problem(0)[None], _cfg(use_kernel=True)
+    if check == "replay":
+        mode, target = case.split("-")
+        spec = tft.CorruptionSpec(mode, target, 3)
+        clean = shuffle_soft_sort_batched(xs, HW, cfg, seed=9, **CPU)
+        inj = tft.FaultInjector(teng._run_segment, corrupt_calls={1: spec})
+        monkeypatch.setattr(teng, "_run_segment", inj)
+        sup = AnnealSupervisor(checkpoint_dir=str(tmp_path),
+                               degrade=DivergencePolicy(integrity_retries=2))
+        # check_finite=False: the guardrails, not the engine's own finite
+        # sentinel, meet the non-finite corruptions.
+        out = sup.run(xs, HW, cfg, seed=9, checkpoint_every=1,
+                      check_finite=False, guardrail=FULL_SHADOW, **CPU)
+        assert inj.corruptions == 1
+        assert sup.stats["verified_replays"] == 1
+        assert not sup.stats["fallbacks"]
+        first = sup.stats["integrity_incidents"][0]
+        if (mode, target) == ("stale", "orders"):
+            assert (first["probe"], first["check"]) == ("shadow", "replay")
+        np.testing.assert_array_equal(out.all_orders, clean.all_orders)
+        np.testing.assert_array_equal(out.all_losses, clean.all_losses)
+        # The replay check alone, on a corrupted rung of rounds 0-1 (the
+        # stale source: the orders it started from, and the losses of the
+        # next rung).
+        from repro_torch.core import instance_seeds, mean_pairwise_distance
+        xs_t = torch.as_tensor(xs)
+        norms = mean_pairwise_distance(xs_t[0])[None]
+        src = TorchShuffleSource(instance_seeds(9, 1), N, "cpu")
+        o_in = torch.arange(N)[None]
+        o1, l1, _ = teng._run_rounds(xs_t, o_in, src, norms, 0, 2, hw=HW,
+                                     cfg=cfg)
+        _, l2, _ = teng._run_rounds(xs_t, o1, src, norms, 2, 4, hw=HW, cfg=cfg)
+        assert not torch.equal(o_in, o1)
+        got = [o1.numpy(), l1.numpy()]
+        pos = tft.CorruptionSpec._TARGETS[target]
+        got[pos] = spec.apply(got[pos], [o_in.numpy(), l2.numpy()][pos])
+        with pytest.raises(IntegrityViolation) as ei:
+            GuardrailMonitor(FULL_SHADOW).check_shadow(
+                start=0, orders=got[0], losses=got[1],
+                oracle_orders=o1.numpy(), oracle_losses=l1.numpy())
+        assert ei.value.detail["check"] == "replay"
+        return
+    from repro_torch.kernels import ops
+    fwd = ops.fwd_fused
+
+    def perturbed(*args):
+        y, m, l = fwd(*args)
+        return y * (1 + 1e-3), m, l
+
+    monkeypatch.setattr(ops, "fwd_fused", perturbed)
+    sup = AnnealSupervisor(checkpoint_dir=str(tmp_path),
+                           degrade=DivergencePolicy(integrity_retries=1))
+    out = sup.run(xs, HW, cfg, seed=9, checkpoint_every=1,
+                  guardrail=FULL_SHADOW, **CPU)
+    incidents = sup.stats["integrity_incidents"]
+    assert len(incidents) == 2 and all(
+        (r["probe"], r["check"], r["quantity"]) == ("shadow", "apply", "y")
+        and r["round"] == 0 for r in incidents)
+    assert sup.stats["verified_replays"] == 1
+    assert sup.stats["fallbacks"] == [
+        "retired kernel tier -> plain PyTorch apply (use_kernel=False)"]
+    ref = shuffle_soft_sort_batched(xs, HW, _cfg(), seed=9, **CPU)
+    np.testing.assert_array_equal(out.all_orders, ref.all_orders)
+    np.testing.assert_array_equal(out.all_losses, ref.all_losses)
 
 
 def test_injector_corrupts_a_tensor_result_in_place_of_its_form():

@@ -404,7 +404,7 @@ def test_chained_segments_equal_one_run(split):
     cfg = _plain(rounds=6)
     xs, seeds = _xs(61, 2), instance_seeds(61, 2)
     norms, orders = torch.ones(2), torch.arange(N).repeat(2, 1)
-    want_o, want_l = teng._run_rounds(
+    want_o, want_l, _ = teng._run_rounds(
         torch.tensor(xs), orders, TorchShuffleSource(seeds, N, "cpu"), norms,
         0, hw=HW, cfg=cfg)
     source = TorchShuffleSource(seeds, N, "cpu")
