@@ -107,12 +107,22 @@ start):
    32 rounds x 8 inner steps in rungs of 8, two shape buckets (4096
    product vectors on 64 x 64, 1024 RGB colours on 32 x 32): the
    scenarios steady (Poisson at half the measured service rate; its
-   banded launches join the kernels line), faults, overload, preempt,
-   tournament (4 restarts, cull 0.5) and guarded (the shadow at 1/32 and
-   1), each with the exactly-once identity, valid permutations with
-   falling losses and 4 requests bitwise their solo runs (the preempted
-   ones first); no plain tier on the unguarded dispatches; then the
-   guardrail bench's detection grid on the card.
+   banded launches join the kernels line), faults (every 5th dispatch
+   fails), faults_stall (closed loop), overload, preempt,
+   tournament (4 restarts, cull 0.5), guarded (the shadow at 1/32 and
+   1) and capacity (a 2-restart tournament on a mesh of 8 slots of the
+   card, slots 3 and 5 lost, slot 3 back), each with the exactly-once
+   identity, valid permutations with falling losses and 4 requests
+   bitwise their solo runs (the preempted ones first); faults_stall's
+   stall of 3 rungs' time at a full bucket of 8 flagged and
+   the cap halved, no straggler flagged in steady, tournament and
+   guarded; no plain tier on the unguarded dispatches; then the
+   guardrail bench's detection grid on the card.  ``mesh_run`` — the
+   main run's catalog at 4 x 4 restarts on meshes of 1, 3 and 8 slots of
+   the card (``repro_torch.launch.mesh``), dense and banded, each bitwise
+   ``mesh=None``, with ms per round; a tournament on 3 slots, evictions
+   through ``mesh_hook``, a checkpoint on 8 slots resumed on 3 and a
+   supervised eviction, each bitwise.
 8. ``sog_run`` — the slice at full width: Self-Organizing Gaussians (paper
    section IV-B), 1 scene x 2 restarts of 65536 splats with 14 attributes
    on a 256 x 256 grid, ``band="auto"`` (K = 4096), 32 rounds x 8 inner
@@ -1748,18 +1758,190 @@ def guardrail_run(torch, core, K, xs, fixed, hw=(64, 64)):
          persistent=dict(stats=sup.stats, calls=calls, strike_rung=strike))
 
 
+# Phase 7h: instance sharding over a device mesh, on the one card.
+MESH = dict(problems=4, restarts=4, rounds=32, inner_steps=8)
+MESH_SLOTS = (1, 3, 8)
+MESH_TOURNAMENT = dict(restarts=8, n_rungs=3, cull_fraction=0.5, slots=3)
+# The elastic runs: from 4 slots, (rung, slot id) evicted at that rung;
+# the supervised run loses slot 2 of 4; the 8-slot run is killed at rung
+# 2 and resumed on 3 slots.  (Each slot of one card adds a round's host
+# time, so the elastic runs start from 4 slots, for time.)
+MESH_ELASTIC_SLOTS = 4
+MESH_EVICT = ((2, 3), (5, 1))
+MESH_KILL_RUNG = 2
+
+
+def mesh_run(torch, core, K, xs, hw=(64, 64)):
+    """Phase 7h: ``mesh=`` (``repro_torch.launch.mesh``) at main_run's
+    width, B x S = 4 x 4 = 16 instances of the catalog (N = 4096, d = 50,
+    32 rounds x 8 inner steps, kernel tier, float32), with meshes of 1, 3
+    (uneven: 16 rows padded to 18) and 8 slots, every slot on this card
+    (one card: the slots run one after the other, so this measures the
+    sharding's overhead, not a speedup).  ``make_sort_mesh()`` has one
+    slot per visible card, and one more raises.  Dense and
+    ``band="auto"``: each mesh's orders, losses and winners bitwise
+    ``mesh=None``'s, and ms per round of each.  Then, banded: a 4 x 8
+    tournament on 3 slots, its winners bitwise its ``mesh=None`` twin's;
+    a ``mesh_hook`` on 4 slots evicting slot 3 at rung 2 and slot 1 at
+    rung 5 (rungs of 4 rounds), bitwise the uninterrupted run; a run
+    checkpointed on 8 slots, killed at rung 2, resumed on 3, bitwise; an
+    ``AnnealSupervisor`` over a ``FaultInjector`` with ``device_loss``
+    on 4 slots: one eviction, bitwise.  Counts set to 0 at the phase's start and read
+    at its end (the kernels line adds them).  Returns them."""
+    import tempfile
+
+    from repro_torch.core.shufflesoftsort import _rung_boundaries
+    from repro_torch.launch.mesh import make_sort_mesh
+    from repro_torch.runtime.fault_tolerance import (AnnealSupervisor,
+                                                     FaultInjector,
+                                                     RetryPolicy,
+                                                     WorkerFailure)
+    cards = torch.cuda.device_count()
+    require(len(make_sort_mesh()) == cards,
+            f"make_sort_mesh() has {len(make_sort_mesh())} slots, "
+            f"{cards} cards")
+    try:
+        make_sort_mesh(cards + 1)
+        require(False, "make_sort_mesh(count + 1) did not raise")
+    except RuntimeError:
+        pass
+    s, n = MESH["restarts"], hw[0] * hw[1]
+    xs = xs[:MESH["problems"]]
+    rounds, inner = MESH["rounds"], MESH["inner_steps"]
+
+    def slots(k):
+        return make_sort_mesh(devices=["cuda"] * k)
+
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    timing, fixed = {}, {}
+    for band in (None, "auto"):
+        cfg = core.ShuffleSoftSortConfig(rounds=rounds, inner_steps=inner,
+                                         use_kernel=True, band=band)
+        emit("mesh_run_config", **MESH, n=n, d=xs.shape[2], grid=hw,
+             band=band, band_k=core.resolve_band(cfg, n), slots=MESH_SLOTS,
+             cut="rounds 1000 -> 32 for time; main_run's catalog at 4 x 4 "
+                 "restarts; every slot on one card")
+        row = {}
+        seconds, want = timed(torch, lambda: core.shuffle_soft_sort_batched(
+            xs, hw, cfg, n_restarts=s, seed=0, device="cuda"))
+        row["none"] = seconds / rounds * 1e3
+        for k in MESH_SLOTS:
+            seconds, got = timed(torch, lambda: core.shuffle_soft_sort_batched(
+                xs, hw, cfg, n_restarts=s, seed=0, mesh=slots(k)))
+            row[k] = seconds / rounds * 1e3
+            require_fields(batched_fields(want), batched_fields(got),
+                           f"mesh of {k} slots, band {band}")
+            require(np.array_equal(got.order, want.order),
+                    f"mesh of {k} slots, band {band}: winners' orders")
+        timing["dense" if band is None else "banded"] = row
+        fixed[band] = want
+    cfg = core.ShuffleSoftSortConfig(rounds=rounds, inner_steps=inner,
+                                     use_kernel=True, band="auto")
+    want = batched_fields(fixed["auto"])
+    t = MESH_TOURNAMENT
+
+    def tournament(mesh=None):
+        return core.restart_tournament(
+            xs, hw, cfg, n_restarts=t["restarts"], seed=0, mesh=mesh,
+            device="cuda", cull_fraction=t["cull_fraction"],
+            n_rungs=t["n_rungs"])
+
+    tour_s, tour = timed(torch, lambda: tournament(slots(t["slots"])))
+    twin_s, twin = timed(torch, tournament)
+    want_t = tournament_fields(twin)
+    del want_t["rounds_run"]          # the mesh's counts its padding
+    require_fields(want_t, tournament_fields(tour),
+                   f"tournament on {t['slots']} slots")
+    edges = _rung_boundaries(rounds, t["n_rungs"])
+    spans = np.diff([0] + edges)
+    live = [t["restarts"]] + [sv.shape[1] for sv in tour.survivors[:-1]]
+    rows = [xs.shape[0] * k for k in live]
+    padded = sum(r * -(-m // t["slots"]) * t["slots"]
+                 for r, m in zip(spans, rows))
+    require(tour.rounds_run == padded
+            and twin.rounds_run == sum(r * m for r, m in zip(spans, rows)),
+            f"rounds_run {tour.rounds_run} / {twin.rounds_run}, padded "
+            f"{padded}")
+    evicted = []
+
+    def evict(start, mesh):
+        for rung, dead in MESH_EVICT:
+            if start == rung * CKPT_EVERY:
+                evicted.append((start, dead))
+                return mesh.without([dead])
+        return None
+
+    evict_s, got = timed(torch, lambda: core.shuffle_soft_sort_batched(
+        xs, hw, cfg, n_restarts=s, seed=0, mesh=slots(MESH_ELASTIC_SLOTS),
+        mesh_hook=evict, checkpoint_every=CKPT_EVERY))
+    require(len(evicted) == len(MESH_EVICT), f"evictions {evicted}")
+    require_fields(want, batched_fields(got), "mesh_hook evictions")
+    with tempfile.TemporaryDirectory() as root:
+        kill = FaultInjector(lambda start: None, fail_calls={MESH_KILL_RUNG})
+        try:
+            core.shuffle_soft_sort_batched(
+                xs, hw, cfg, n_restarts=s, seed=0, mesh=slots(8),
+                checkpoint_every=CKPT_EVERY, rung_hook=kill,
+                checkpoint_dir=os.path.join(root, "kill"))
+            require(False, "the killed run finished")
+        except WorkerFailure:
+            pass
+        with open(os.path.join(root, "kill", sorted(os.listdir(
+                os.path.join(root, "kill")))[-1], "manifest.json")) as f:
+            saved_on = json.load(f)["mesh_shape"]
+        got = core.shuffle_soft_sort_batched(
+            xs, hw, cfg, n_restarts=s, seed=0, mesh=slots(3),
+            checkpoint_every=CKPT_EVERY, resume=True,
+            checkpoint_dir=os.path.join(root, "kill"))
+        require(saved_on == [8], f"checkpoint saved on mesh {saved_on}")
+        require_fields(want, batched_fields(got), "resume on 3 of 8 slots")
+        mesh = slots(MESH_ELASTIC_SLOTS)
+        run = FaultInjector(core.shuffle_soft_sort_batched,
+                            device_loss={1: mesh.ids[2]})
+        sup = AnnealSupervisor(run, checkpoint_dir=os.path.join(root, "sup"),
+                               retry=RetryPolicy(backoff_base_s=0.0))
+        kill = FaultInjector(lambda start: None, fail_calls={3})
+        got = sup.run(xs, hw, cfg, n_restarts=s, seed=0, mesh=mesh,
+                      rung_hook=kill, checkpoint_every=CKPT_EVERY)
+        require(sup.stats.get("evictions") == 1 and run.device_faults == 1,
+                f"supervisor stats {sup.stats}, history {sup.history}")
+        require_fields(want, batched_fields(got), "supervised eviction")
+    counts = K.launch_counts()
+    require(all(counts[k] > 0 for k in DENSE + BAND),
+            f"mesh_run launch counts {counts}")
+    emit("mesh_run", cards=cards, slots=MESH_SLOTS,
+         ms_per_round=timing, tournament_seconds=tour_s,
+         tournament_twin_seconds=twin_s,
+         tournament_rounds_run=tour.rounds_run,
+         twin_rounds_run=twin.rounds_run, evictions=evicted,
+         evict_seconds=evict_s, checkpoint_mesh_shape=saved_on,
+         supervisor=dict(stats=sup.stats, history=sup.history),
+         bitwise_mesh_none=True, launches=counts)
+    return counts
+
+
 # Phase 7g: the continuous-batching SortServer on the card.
 SERVE = dict(rounds=32, inner_steps=8, max_batch=8, sched_rungs=4)
 SERVE_SHAPES = (((64, 64), 50), ((32, 32), 3))
-SERVE_REQUESTS = 32
+SERVE_REQUESTS = 24              # per scenario, cut for time
 SERVE_SAMPLES = 4
-# The faults scenario's straggler, in one request's service times.  The
-# monitor judges a dispatch's time per instance-round, which on this
-# host-bound card is largest at a batch of 1 (about a 32nd of a request's
-# service time), so clean traffic keeps its mean plus 4 std below ~5
-# 32nds; a stall of 12 service times is 6 32nds per instance-round even
-# at a full batch of 8 (64 instance-rounds), 12 at a batch of 4.
-STRAGGLER_X = 12
+# The faults_stall scenario's straggler (ROADMAP.md Queue C9): a stall of
+# STRAGGLER_RUNGS times one rung's dispatch at a full bucket of 8 of the
+# 64 x 64 shape, at the first such dispatch from dispatch STRAGGLER_AFTER
+# on (past the monitor's warm-up of 8 judged dispatches; a signature's
+# first dispatch is learnt from, not judged).  The monitor judges a
+# dispatch against what its own signature costs, so the stall shows at a
+# full bucket.
+STRAGGLER_RUNGS = 3
+STRAGGLER_AFTER = 20
+# faults_stall's requests, offered closed loop so that full buckets of 8
+# last past STRAGGLER_AFTER.  It injects no failures: the Poisson
+# ``faults`` scenario does (every 5th dispatch).
+SERVE_STALL_REQUESTS = 48
+# The capacity scenario (8 slots of the card, each dispatch's slots one
+# after the other): requests cut for time (the reference bench's 48).
+SERVE_CAPACITY_REQUESTS = 8
 
 
 def serve_problems(count, seed):
@@ -1831,6 +2013,9 @@ def check_served(torch, core, cfg, cell, problems, seed, seg_len, solos,
         require(core.is_valid_permutation(order), "invalid permutation")
         last = losses[np.isfinite(losses)][-1]
         require(last < losses[0], f"request {i}: loss did not fall")
+    # A request the brownout ladder degraded ran another config.
+    degraded = set(cell.get("degraded_seqs", ()))
+    done = [(j, i) for j, i in done if j not in degraded]
     preempted = cell.get("preempted_problems", [])
     picked = []
     for b in (0, 1):                  # half of the samples per bucket
@@ -1881,24 +2066,30 @@ def serve_run(torch, core, K):
     (``serve_problems``).  A closed-loop warm-up of 16 requests (all 16
     outstanding: 8 per bucket) measures the service rate, and one request
     alone its service time.  Scenarios
-    (``repro_torch.bench.serving_bench``): ``steady`` (32 Poisson arrivals
-    at 50% of the service rate; counts set to 0 just before it and read
-    just after: every banded kernel launched, no dense one, no plain tier),
-    ``faults`` (the same, a dispatch failure every 5th dispatch and one
-    straggler at dispatch 12, past the monitor's warm-up: a stall of
-    STRAGGLER_X times one request's service time, which the monitor's
-    per-instance-round time flags at any batch, and which must be flagged
+    (``repro_torch.bench.serving_bench``): ``steady`` (SERVE_REQUESTS
+    Poisson arrivals at 50% of the service rate; counts set to 0 just
+    before it and read just after: every banded kernel launched, no dense
+    one, no plain tier), ``faults`` (``steady``'s traffic with a dispatch
+    failure every 5th dispatch), ``faults_stall`` (SERVE_STALL_REQUESTS
+    offered closed loop, so that full buckets of 8 occur, and one
+    straggler: a stall of 3 rungs' dispatch time at a full bucket of 8
+    past the monitor's warm-up (``STRAGGLER_*``), which must be flagged
     and halve the bucket cap), ``overload`` (3x the service rate into
     ``queue_depth=8``, each deadline 2x one request's service time),
     ``preempt`` (``close(drain=False)`` after a quarter completed, a
     successor adopts the rest), ``tournament`` (8 requests x 4 restarts,
     a cull of 0.5 at every rung edge), and ``guarded`` (``steady`` under
-    the shadow at 1/32 and at rate 1: no incident).  Each: the
-    exactly-once identity, no failed request and (but ``overload``) every
-    request completed or shed (``check_outcomes``), valid permutations
-    with falling losses, 4 requests bitwise their solo runs (the
-    preempted ones first; in ``preempt`` the successor completes every
-    preempted request).  Then
+    the shadow at 1/32 and at rate 1: no incident), and ``capacity``
+    (``SERVE_CAPACITY_REQUESTS`` requests of a 2-restart tournament on a
+    mesh of 8 slots of the card; slots 3 and 5 lost at dispatches 1 and
+    3, slot 3 back at 8; the brownout ladder armed: 2 evictions, 2
+    re-shards, 1 return, no lost future; the samples from the requests
+    the ladder left alone).  ``steady``, ``tournament`` and the guarded
+    scenarios flag no straggler.  Each: the exactly-once identity, no
+    failed request and (but ``overload``) every request completed or
+    shed (``check_outcomes``), valid permutations with falling losses, 4
+    requests bitwise their solo runs (the preempted ones first; in
+    ``preempt`` the successor completes every preempted request).  Then
     the guardrail bench's detection grid on the card (N = 16, where every
     kernel path runs the dense kernels 1-4): every corruption on every
     serving path detected and repaired bitwise.  Returns the steady
@@ -1952,18 +2143,31 @@ def serve_run(torch, core, K):
         require(all(counts[k] > 0 for k in BAND)
                 and all(counts[k] == 0 for k in DENSE),
                 f"steady: launch counts {counts}")
-        delay_s = STRAGGLER_X * service_s
+        full = SERVE["max_batch"]
+        (hw0, d0), n0 = SERVE_SHAPES[0], SERVE_SHAPES[0][0][0] ** 2
+        rung_s = statistics.median(timed(torch, lambda: core.run_round_segment(
+            np.stack([problems[0][2]] * full), np.tile(np.arange(n0), (full, 1)),
+            np.ones(full, np.float32), np.zeros(full, np.int64), seg_len,
+            source=core.TorchShuffleSource(list(range(full)), n0, "cuda"),
+            hw=hw0, cfg=cfg, device="cuda"))[0] for _ in range(3))
+        delay_s = STRAGGLER_RUNGS * rung_s
         cells["faults"] = sb.run_scenario(
             "faults", cfg, requests=SERVE_REQUESTS, rate_hz=0.5 * rate,
-            window=16, queue_depth=64, fail_every=5, delay_call=12,
-            delay_s=delay_s, problems=problems, seed=seed, **base)
-        flags = cells["faults"]["straggler_events"]
-        require(cells["faults"]["injected_delays"] == 1 and any(
+            window=16, queue_depth=64, fail_every=5, problems=problems,
+            seed=seed, **base)
+        stall_problems = serve_problems(SERVE_STALL_REQUESTS, seed)
+        cells["faults_stall"] = sb.run_stall_scenario(
+            cfg, requests=SERVE_STALL_REQUESTS, delay_s=delay_s,
+            after=STRAGGLER_AFTER, problems=stall_problems, seed=seed,
+            **base)
+        flags = cells["faults_stall"]["straggler_events"]
+        require(cells["faults_stall"]["injected_delays"] == 1 and any(
             e["dt_s"] >= delay_s
             and e["bucket_cap"] == max(1, e["cap_before"] // 2)
             for e in flags),
-            f"faults: the {delay_s:.3f} s straggler was not flagged with "
-            f"the cap halved: {flags}")
+            f"faults_stall: the {delay_s:.3f} s straggler ({STRAGGLER_RUNGS}"
+            f" x {rung_s:.3f} s at a bucket of {full}) was not flagged "
+            f"with the cap halved: {flags}")
         cells["overload"] = sb.run_scenario(
             "overload", cfg, requests=SERVE_REQUESTS, rate_hz=3.0 * rate,
             window=SERVE_REQUESTS, queue_depth=8,
@@ -1980,6 +2184,20 @@ def serve_run(torch, core, K):
             queue_depth=64, problems=tour, seed=1,
             server_kw=dict(n_restarts=4, tournament_rungs=4,
                            cull_fraction=0.5), **base)
+        cells["capacity"] = sb.run_capacity_scenario(
+            cfg, requests=SERVE_CAPACITY_REQUESTS, rate_hz=1e6, window=16,
+            queue_depth=16, max_batch=SERVE["max_batch"], deadline_s=600.0,
+            device="cuda", seed=2,
+            problems=serve_problems(SERVE_CAPACITY_REQUESTS, 2),
+            shapes=SERVE_SHAPES, sched_rungs=SERVE["sched_rungs"],
+            keep_results=True)
+        cap = cells["capacity"]
+        elastic = {k: cap[k] for k in ("evictions", "reshards",
+                                       "device_returns", "lost_futures",
+                                       "mesh_slots_end")}
+        require(elastic == dict(evictions=2, reshards=2, device_returns=1,
+                                lost_futures=0, mesh_slots_end=7),
+                f"capacity: {elastic}")
         require(plain["calls"] == 0,
                 f"the plain tier ran {plain['calls']} applies")
     finally:
@@ -1993,6 +2211,11 @@ def serve_run(torch, core, K):
             guardrail=pol, **base)
         require(cells[rate_name]["integrity_violations"] == 0,
                 f"{rate_name}: clean shadow incidents")
+    for name in ("steady", "tournament", "guarded_default",
+                 "guarded_full"):
+        require(cells[name]["stragglers"] == 0,
+                f"{name}: clean dispatches flagged as stragglers: "
+                f"{cells[name]['straggler_events']}")
     bad = sb.gate([c for c in cells.values()])
     require(not bad, f"serving gate: {bad}")
     for cell in cells.values():
@@ -2004,11 +2227,15 @@ def serve_run(torch, core, K):
     sampled, solos = {}, {}
     for name, cell in cells.items():
         solo = (dict(restarts=4, cull_fraction=0.5, n_rungs=4)
-                if name == "tournament" else {})
-        sampled[name] = check_served(
-            torch, core, cfg, cell, tour if name == "tournament"
-            else problems, 1 if name == "tournament" else seed, seg_len,
-            solos, **solo)
+                if name == "tournament" else
+                dict(restarts=2, cull_fraction=0.25, n_rungs=2)
+                if name == "capacity" else {})
+        served = {"tournament": (tour, 1), "capacity": (
+            serve_problems(SERVE_CAPACITY_REQUESTS, 2), 2),
+            "faults_stall": (stall_problems, seed)}
+        probs, seed_ = served.get(name, (problems, seed))
+        sampled[name] = check_served(torch, core, cfg, cell, probs, seed_,
+                                     seg_len, solos, **solo)
     torch.cuda.synchronize()
     K.reset_launch_counts()
     det = guardrail_bench.run_detection_grid(
@@ -2443,10 +2670,13 @@ def main():
     checkpoint_run(torch, core, K, xs, fixed)
     guardrail_run(torch, core, K, xs, fixed)
     serve_counts = serve_run(torch, core, K)
+    mesh_counts = mesh_run(torch, core, K, xs)
     launches.update({k: v for k, v in sog_run(torch, core, K).items()
                      if k in BAND})
     for k in BAND:
         launches[k] += serve_counts[k]
+    for k in DENSE + BAND:
+        launches[k] += mesh_counts[k]
     sog_codec(torch)
     launches.update({k: v for k, v in kernel_bench_phase(
         torch, kernels).items() if k in V1})

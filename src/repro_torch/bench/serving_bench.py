@@ -3,7 +3,7 @@
 ``benchmarks/serving_bench.py``: the same scenarios, columns and gate.
 
     python -m repro_torch.bench.serving_bench [--smoke] [--inject-faults]
-        [--device cpu] [--check] [--out serving.json]
+        [--capacity] [--device cpu] [--check] [--out serving.json]
 
 Poisson arrivals (seeded) of a mixed-shape problem population (two shape
 buckets) into a live server, with a closed-loop window of outstanding
@@ -20,8 +20,15 @@ requests:
   * ``preempt``  — warm restart under load: ``close(drain=False)`` once a
     quarter of the traffic completed, and a successor adopts the rest;
     exactly-once accounting across the two generations.
-  * ``capacity`` — elastic capacity loss needs a device mesh: not ported
-    yet (ROADMAP.md Queue A11), ``--capacity`` raises.
+  * ``capacity`` — elastic capacity loss: Poisson load against a mesh of
+    8 slots of the bench's device (``make_sort_mesh(devices=[device] *
+    8)``) while a ``FaultInjector`` takes slots 3 and 5 down at dispatches
+    1 and 3 and brings slot 3 back at dispatch 8; the
+    ``DeviceHealthMonitor`` evicts, the server re-shards at rung
+    boundaries, and the armed brownout ladder degrades deadline-bound
+    admissions of a 2-restart tournament (cull 0.25) instead of shedding
+    them.  Every future resolves exactly once (``lost_futures == 0``),
+    two evictions each re-shard once, one slot returns.
 
 Every request is accounted for exactly once:
 
@@ -29,8 +36,9 @@ Every request is accounted for exactly once:
 
 ``--check`` gates that in every cell, with ``tools/check_bench.py``'s
 serving rules: latency order, a recovery path that engaged wherever faults
-were injected, and a preempt row that preempted something and resumed all
-of it.  ``wall_clock`` is "measured" on CUDA and "cpu" on the host (CPU
+were injected, a preempt row that preempted something and resumed all
+of it, and a capacity row with no lost future, a re-shard per eviction
+and no more returns than evictions.  ``wall_clock`` is "measured" on CUDA and "cpu" on the host (CPU
 times say nothing about the card).
 """
 from __future__ import annotations
@@ -180,15 +188,18 @@ def _cell(name, cfg, device, shapes, requests, rate_hz, deadline_s, wall,
 
 def run_scenario(name, cfg, *, requests, rate_hz, window, queue_depth,
                  max_batch, device, deadline_s=None, fail_every=0,
-                 delay_call=None, delay_s=0.25, seed=0, shapes=SHAPES,
-                 problems=None, guardrail=None, sched_rungs=None,
-                 server_kw=None, keep_results=False):
+                 delay_call=None, delay_s=0.25, delay_when=None, seed=0,
+                 shapes=SHAPES, problems=None, guardrail=None,
+                 sched_rungs=None, server_kw=None, keep_results=False):
     """Offer ``requests`` Poisson arrivals at ``rate_hz`` to a fresh
     server (``server_kw`` goes on to ``SortServer``); returns the metrics
     cell.  ``delay_call`` is the dispatch that stalls ``delay_s`` seconds
-    (the injected straggler); the cell's ``straggler_events`` are the
-    server's flags, each with its dispatch's seconds and the bucket cap
-    before and after.  With ``keep_results`` the cell also holds
+    (the injected straggler), or with ``delay_when(xs, ...)`` the first
+    unfailed dispatch from ``delay_call`` on that it accepts
+    (``FaultInjector``'s predicate); the cell's ``straggler_events`` are the
+    server's flags, each with its dispatch's seconds, the seconds
+    expected of it and the bucket cap before and after.  With
+    ``keep_results`` the cell also holds
     ``results`` (each accepted request's result, None where it was
     rejected) and ``problem_index`` (its problem's index), in submission
     order: keyless submits draw their seeds from the server's stream in
@@ -200,7 +211,8 @@ def run_scenario(name, cfg, *, requests, rate_hz, window, queue_depth,
         run_round_segment,
         fail_calls=set(range(fail_every, 10_000, fail_every))
         if fail_every else set(),
-        delay_calls={delay_call: delay_s} if delay_call is not None else {})
+        delay_calls={delay_call: delay_s} if delay_call is not None else {},
+        delay_when=delay_when)
     server = _server(cfg, shapes=shapes, max_batch=max_batch,
                      queue_depth=queue_depth, seed=seed, device=device,
                      engine=engine if inject else None, guardrail=guardrail,
@@ -222,11 +234,29 @@ def run_scenario(name, cfg, *, requests, rate_hz, window, queue_depth,
     cell["injected_faults"] = engine.faults if inject else 0
     cell["injected_delays"] = engine.delays if inject else 0
     cell["straggler_events"] = [
-        {k: e[k] for k in ("dt_s", "cap_before", "bucket_cap")}
+        {k: e[k] for k in ("dt_s", "expected_s", "cap_before",
+                           "bucket_cap")}
         for e in server.events if e["event"] == "straggler"]
     if keep_results:
         cell.update(results=results, problem_index=index)
     return cell
+
+
+def run_stall_scenario(cfg, *, requests, max_batch, device, delay_s=1.0,
+                       after=16, seed=0, shapes=SHAPES, **kw):
+    """The straggler of ROADMAP.md Queue C9: ``requests`` offered closed
+    loop (16 outstanding, so full buckets occur), no failure, and one
+    stall of ``delay_s`` seconds at the first full bucket of the first
+    shape from dispatch ``after`` on, past the monitor's warm-up.  The
+    cell's ``straggler_events`` show whether it was flagged and the bucket
+    cap halved."""
+    (hw, _), full = shapes[0], max_batch
+    return run_scenario(
+        "faults_stall", cfg, requests=requests, rate_hz=1e6, window=16,
+        queue_depth=64, max_batch=max_batch, delay_call=after,
+        delay_s=delay_s, seed=seed, shapes=shapes, device=device,
+        delay_when=lambda xs, *a, **k: tuple(xs.shape[:2]) == (
+            full, hw[0] * hw[1]), **kw)
 
 
 def run_preempt_scenario(cfg, *, requests, rate_hz, window, queue_depth,
@@ -268,6 +298,69 @@ def run_preempt_scenario(cfg, *, requests, rate_hz, window, queue_depth,
     return cell
 
 
+def run_capacity_scenario(cfg, *, requests, rate_hz, window, queue_depth,
+                          max_batch, deadline_s, device, seed=0,
+                          shapes=SHAPES, problems=None, sched_rungs=None,
+                          keep_results=False):
+    """Elastic capacity loss under Poisson load: serve from a mesh of 8
+    slots of ``device``, take slots 3 and 5 down at dispatches 1 and 3
+    (the health monitor evicts each and the server re-shards over the
+    survivors at the next rung), bring slot 3 back at dispatch 8, and let
+    the armed brownout ladder degrade the deadline-bound admissions of a
+    2-restart tournament instead of shedding them.  Requests with a
+    deadline inside the policy's full-level slack band (10 s) take the
+    full ladder level.  With ``keep_results`` the cell also holds the
+    results, their problem indices and ``degraded_seqs``, the submission
+    indices of the requests the ladder degraded."""
+    from repro_torch.core import run_round_segment
+    from repro_torch.launch.mesh import make_sort_mesh
+    from repro_torch.launch.serve import BrownoutPolicy
+    from repro_torch.runtime.fault_tolerance import FaultInjector
+    from repro_torch.runtime.straggler import DeviceHealthMonitor
+
+    mesh = make_sort_mesh(devices=[device] * 8)
+    lose_a, lose_b = mesh.ids[3], mesh.ids[5]
+    engine = FaultInjector(run_round_segment,
+                           device_loss={1: lose_a, 3: lose_b},
+                           device_return={8: lose_a})
+    server = _server(cfg, shapes=shapes, max_batch=max_batch,
+                     queue_depth=queue_depth, seed=seed, device=device,
+                     engine=engine, sched_rungs=sched_rungs, server_kw=dict(
+                         mesh=mesh, n_restarts=2, tournament_rungs=2,
+                         cull_fraction=0.25,
+                         brownout=BrownoutPolicy(slack_full_s=10.0),
+                         device_health=DeviceHealthMonitor(
+                             lost_after=1, probe=engine.healthy)))
+    rng = np.random.RandomState(seed)
+    problems = problems or gen_problems(rng, requests, shapes)
+    gaps = rng.exponential(1.0 / rate_hz, size=requests)
+    t0 = time.perf_counter()
+    futs, rejected, index = _offer(server, problems, gaps, window,
+                                   deadline_s)
+    outcomes, results = _outcomes(futs)
+    wall = time.perf_counter() - t0
+    server.close()
+    st = server.stats
+    assert st["completed"] == outcomes["completed"], (st, outcomes)
+    cell = _cell("capacity", cfg, device, shapes, requests, rate_hz,
+                 deadline_s, wall, outcomes, rejected, [st])
+    resolved = sum(outcomes.values()) + rejected
+    cell.update(
+        injected_faults=engine.faults, injected_delays=engine.delays,
+        devices_start=len(mesh), device_faults=engine.device_faults,
+        evictions=st["evictions"], reshards=st["reshards"],
+        device_returns=st["device_returns"],
+        degraded_requests=st["brownouts"],
+        degradations={k: int(v) for k, v in st["degradations"].items()},
+        lost_futures=requests - resolved,
+        mesh_slots_end=0 if server.mesh is None else len(server.mesh))
+    if keep_results:
+        cell.update(results=results, problem_index=index, degraded_seqs=[
+            e["seq"] for e in server.events
+            if e["event"] == "brownout_degrade"])
+    return cell
+
+
 def gate(cells) -> list[str]:
     """``tools/check_bench.py``'s serving rules on the bench's cells;
     returns the failures."""
@@ -298,6 +391,15 @@ def gate(cells) -> list[str]:
             if c["completed_gen1"] + c["completed_gen2"] != c["completed"]:
                 bad.append(f"cells[{i}] completions do not add up across "
                            "generations")
+        if c["scenario"] == "capacity":
+            if c["lost_futures"] != 0:
+                bad.append(f"cells[{i}] lost {c['lost_futures']} futures")
+            if c["reshards"] != c["evictions"] or c["evictions"] < 1:
+                bad.append(f"cells[{i}] re-shard ledger broken: "
+                           f"{c['reshards']} reshards, {c['evictions']} "
+                           "evictions")
+            if c["device_returns"] > c["evictions"]:
+                bad.append(f"cells[{i}] more returns than evictions")
     return bad
 
 
@@ -308,7 +410,8 @@ def main(argv=None):
     ap.add_argument("--inject-faults", action="store_true",
                     help="add the fault-injection scenario")
     ap.add_argument("--capacity", action="store_true",
-                    help="the elastic-capacity scenario (not ported yet)")
+                    help="add the elastic-capacity scenario (a mesh of 8 "
+                         "slots of the device, two lost, one back)")
     ap.add_argument("--device", default=None,
                     help="cuda (the default: raises without a CUDA "
                          "device) or cpu")
@@ -318,10 +421,6 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     from repro_torch.core import ShuffleSoftSortConfig, resolve_device
-    if args.capacity:
-        raise NotImplementedError(
-            "the capacity scenario needs a device mesh and eviction, not "
-            "ported to repro_torch yet (ROADMAP.md Queue A11)")
     device = resolve_device(args.device)
 
     requests = 16 if args.smoke else 48
@@ -337,6 +436,9 @@ def main(argv=None):
             "faults", cfg, requests=requests, rate_hz=40.0, window=16,
             queue_depth=64, max_batch=8, fail_every=7, delay_call=11,
             seed=args.seed, device=device))
+        cells.append(run_stall_scenario(
+            cfg, requests=3 * requests, max_batch=8, seed=args.seed,
+            device=device))
     cells.append(run_scenario(
         "overload", cfg, requests=requests, rate_hz=500.0, window=requests,
         queue_depth=12, max_batch=4, deadline_s=0.5, seed=args.seed,
@@ -344,6 +446,11 @@ def main(argv=None):
     cells.append(run_preempt_scenario(
         cfg, requests=requests, rate_hz=80.0, window=requests,
         queue_depth=64, max_batch=4, seed=args.seed, device=device))
+    if args.capacity:
+        cells.append(run_capacity_scenario(
+            cfg, requests=requests, rate_hz=60.0, window=16,
+            queue_depth=16, max_batch=8, deadline_s=5.0, seed=args.seed,
+            device=device))
 
     doc = {"bench": "serving_bench", "device": str(device),
            "smoke": bool(args.smoke), "cells": cells}
@@ -352,7 +459,11 @@ def main(argv=None):
               f"p50 {c['p50_ms']:.0f}ms p99 {c['p99_ms']:.0f}ms, "
               f"goodput {c['goodput_rps']:.1f}/s, "
               f"missed {c['deadline_missed']}, shed {c['queue_rejected']}, "
-              f"retries {c['retries']}, recoveries {c['recoveries']}")
+              f"retries {c['retries']}, recoveries {c['recoveries']}"
+              + (f", evicted {c['evictions']} resharded {c['reshards']} "
+                 f"returned {c['device_returns']}, degraded "
+                 f"{c['degraded_requests']}"
+                 if c["scenario"] == "capacity" else ""))
     if args.out:
         with open(args.out, "w") as f:
             json.dump(doc, f, indent=2)

@@ -20,11 +20,13 @@ groups) advances no other instance's stream: instance ``i``'s ``t``-th
 round always sees its ``t``-th shuffle, as in the reference, where each
 instance splits its own key once per round it runs.
 
-``take(rows)`` copies some streams out at their current states and
-``stack_sources`` joins sources of one kind row-wise: the sort server
-builds one source per dispatch from the streams of the requests it
-coalesces, and commits each request's rows back when the dispatch is
-verified.
+``take(rows, device)`` copies some streams out at their current states
+(onto another device, for a mesh slot) and ``stack_sources`` joins
+sources of one kind row-wise: the sort server builds one source per
+dispatch from the streams of the requests it coalesces, and commits each
+request's rows back when the dispatch is verified; a sharded dispatch
+hands each slot its rows' streams and commits them back in instance
+order.
 """
 from __future__ import annotations
 
@@ -51,7 +53,7 @@ class ShuffleSource(Protocol):
 
     def advanced(self, state, rows, draws: int) -> np.ndarray: ...
 
-    def take(self, rows) -> "ShuffleSource": ...
+    def take(self, rows, device=None) -> "ShuffleSource": ...
 
     def __len__(self) -> int: ...
 
@@ -118,10 +120,14 @@ class TorchShuffleSource:
             scratch.next_round(rows)
         return scratch.state_dict()
 
-    def take(self, rows) -> "TorchShuffleSource":
-        """A new source of the streams ``rows``, at their current states."""
+    def take(self, rows, device=None) -> "TorchShuffleSource":
+        """A new source of the streams ``rows``, at their current states,
+        on ``device`` (None: this source's).  A card generator's state is
+        a seed and an offset, so it moves to another card; a CPU state
+        does not load into a card generator (``ValueError``)."""
         rows = _rows(rows, len(self.generators))
-        out = TorchShuffleSource([0] * rows.size, self.n, self.device)
+        out = TorchShuffleSource([0] * rows.size, self.n,
+                                 self.device if device is None else device)
         if rows.size:
             out.load_state_dict(self.state_dict()[rows])
         return out
@@ -179,11 +185,13 @@ class ReplayShuffleSource:
         pos[_rows(rows, pos.size)] += int(draws)
         return pos
 
-    def take(self, rows) -> "ReplayShuffleSource":
+    def take(self, rows, device=None) -> "ReplayShuffleSource":
         rows = _rows(rows, self.pos.size)
         out = ReplayShuffleSource.__new__(ReplayShuffleSource)
         out.shuffles = self.shuffles[:, torch.as_tensor(
             rows, device=self.shuffles.device)]
+        if device is not None:
+            out.shuffles = out.shuffles.to(device)
         out.pos = self.pos[rows].copy()
         return out
 

@@ -14,10 +14,12 @@ Learns a permutation of N items with only N parameters by iterating:
           w    <- Adam step
       order <- commit argsort(w) through the shuffle
 
-Counterpart of ``repro.core.shufflesoftsort`` on its single-device path,
-fixed and adaptive schedules.  The engine runs B problems x S restarts as
-one (BS, N) batch; ``shuffle_soft_sort`` is the BS = 1 case of the same
-code.  Each round's shuffles come from a shuffle source
+Counterpart of ``repro.core.shufflesoftsort``, fixed and adaptive
+schedules.  The engine runs B problems x S restarts as one (BS, N) batch;
+``shuffle_soft_sort`` is the BS = 1 case of the same code.  With ``mesh=``
+(a ``repro_torch.launch.mesh.SortMesh``) every engine splits that batch
+over the mesh's slots (``_sharded``), bitwise the same per instance, and
+``mesh_hook=`` re-shards at rung boundaries.  Each round's shuffles come from a shuffle source
 (``repro_torch.core.prng``): per-instance ``torch.Generator`` streams by
 default, or a replayed array.  ``cfg.use_kernel`` routes the SoftSort
 apply, forward and backward, through the kernel tier
@@ -77,6 +79,7 @@ from repro_torch.core.losses import grid_sorting_loss, mean_pairwise_distance
 from repro_torch.core.prng import (
     ShuffleSource,
     TorchShuffleSource,
+    _rows,
     instance_seeds,
 )
 from repro_torch.core.softsort import (
@@ -174,22 +177,94 @@ def _check_schedule(cfg: ShuffleSoftSortConfig) -> None:
             f"cfg.schedule={cfg.schedule!r} must be 'fixed' or 'adaptive'")
 
 
-def _check_ported(cfg: ShuffleSoftSortConfig, **features) -> None:
-    """Refuse every setting whose code is not ported yet."""
+def _check_config(cfg: ShuffleSoftSortConfig) -> None:
     _check_schedule(cfg)
-    todo = {
-        "mesh": (features.get("mesh") is not None,
-                 "multi-GPU instance sharding (ROADMAP.md Queue A11)"),
-        "mesh_hook": (features.get("mesh_hook") is not None,
-                      "elastic re-sharding (ROADMAP.md Queue A11)"),
-    }
-    for name, (is_set, item) in todo.items():
-        if is_set:
-            raise NotImplementedError(
-                f"{name} is not ported to repro_torch yet: {item}")
     if cfg.compute_dtype not in ("float32", "bfloat16"):
         raise ValueError(f"compute_dtype must be float32 or bfloat16, got "
                          f"{cfg.compute_dtype}")
+
+
+def _check_mesh(mesh):
+    """``mesh`` as a ``SortMesh`` (or None); anything else is a
+    ``TypeError``."""
+    if mesh is None:
+        return None
+    from repro_torch.launch.mesh import SortMesh
+    if not isinstance(mesh, SortMesh):
+        raise TypeError(
+            "mesh= must be a SortMesh (repro_torch.launch.mesh"
+            f".make_sort_mesh) or None, got {mesh!r}")
+    return mesh
+
+
+def _run_device(device, mesh) -> torch.device:
+    """Where a run's carry lives: ``device``, or with none given the first
+    slot's device of ``mesh`` (and CUDA without a mesh)."""
+    if device is None and mesh is not None:
+        return mesh.slots[0].device
+    return resolve_device(device)
+
+
+def _swap_mesh(mesh_hook, start: int, mesh):
+    """The elastic re-shard seam: ``mesh_hook(start, mesh)`` may return a
+    replacement mesh for the rungs from ``start`` on (None keeps it).  The
+    carry is layout-free (orders and streams on the run's device, copied
+    to the slots per dispatch), so a swap changes no result."""
+    if mesh_hook is None:
+        return mesh
+    new = mesh_hook(start, mesh)
+    return mesh if new is None else _check_mesh(new)
+
+
+def _padded(bs: int, mesh) -> int:
+    """The rows a dispatch of ``bs`` instances runs: a multiple of the
+    mesh's slot count (the tail padded with copies of instance 0)."""
+    d = 1 if mesh is None else len(mesh)
+    return -(-bs // d) * d
+
+
+def _sharded(mesh, run, xs, orders, norms, source: ShuffleSource, rows,
+             cols=None):
+    """One dispatch of a (BS, N) batch split over ``mesh``'s slots.
+
+    The rows pad to a multiple of the slot count with copies of instance
+    0; slot j runs the contiguous slice j on its own device through
+    ``run(xs, orders, source, norms, cols)`` (``cols``: the slice's columns
+    of a (T, BS) array, the ragged engine's temperatures), one slot after
+    the other from this thread.  Each slot draws from a copy of its
+    instances' streams (``source.take(rows, device)``) taken at the
+    dispatch's start, a padding row from a copy of instance 0's, so every
+    stream advances once per round; the slots' streams are committed back
+    in instance order, and the outputs (orders, (T, BS) losses, last keys)
+    are gathered onto the batch's device, the padding cut off.  A slot's
+    loss runs in blocks of exactly 8 instances (``pad_rows``, Queue C7),
+    so each instance's results are bitwise the unsharded dispatch's
+    wherever that evaluates the loss in blocks too."""
+    home = xs.device
+    bs = xs.shape[0]
+    per = _padded(bs, mesh) // len(mesh)
+    idx = np.concatenate([np.arange(bs),
+                          np.zeros(per * len(mesh) - bs, np.int64)])
+    src_rows = _rows(rows, len(source))
+    slots = []
+    for j, slot in enumerate(mesh.slots):
+        part = idx[j * per:(j + 1) * per]
+        sel = torch.as_tensor(part, device=home)
+        slots.append((slot.device, part, sel,
+                      source.take(src_rows[part], slot.device)))
+    outs = [run(xs[sel].to(dev), orders[sel].to(dev), src,
+                norms[sel].to(dev), None if cols is None else cols[:, part])
+            for dev, part, sel, src in slots]
+    state = source.state_dict()
+    for j, (dev, part, sel, src) in enumerate(slots):
+        real = np.arange(j * per, (j + 1) * per) < bs
+        state[src_rows[part[real]]] = src.state_dict()[real]
+    source.load_state_dict(state)
+    o = torch.cat([out[0].to(home) for out in outs])[:bs]
+    l = torch.cat([out[1].to(home) for out in outs], dim=1)[:, :bs]
+    w = (None if outs[0][2] is None else
+         torch.cat([out[2].to(home) for out in outs])[:bs])
+    return o, l, w
 
 
 # Rows of one loss evaluation.  PyTorch's CUDA reductions choose how they
@@ -372,15 +447,24 @@ def _run_rounds(xs_t, orders, source: ShuffleSource, norms_t, start: int,
                 end: int | None = None, *, rows=None, hw,
                 cfg: ShuffleSoftSortConfig,
                 on_round: Optional[Callable] = None,
-                pad_rows: bool = False):
+                pad_rows: bool = False, mesh=None):
     """Rounds ``start .. end - 1`` (``end`` None: to R) over a (BS, N)
     batch, each round dense before the GLOBAL switch round and banded from
     it on, so a run cut into segments runs every round on the apply an
     uninterrupted run gives it.  ``rows`` (BS,) are the batch's instance
     indices in ``source`` (None: all of them, in order); only their
-    streams advance.  ``pad_rows`` as in ``_loss_fn``.  Returns the orders,
+    streams advance.  ``pad_rows`` as in ``_loss_fn``.  With a ``mesh`` the
+    batch is split over its slots (``_sharded``).  Returns the orders,
     the (end - start, BS) losses and the last round's trained keys (BS, N)
     (None when no round ran), all on the device."""
+    if mesh is not None:
+        if on_round is not None:
+            raise ValueError("a per-round callback is not supported on the "
+                             "sharded path; use mesh=None")
+        return _sharded(
+            mesh, lambda x, o, src, nm, _: _run_rounds(
+                x, o, src, nm, start, end, hw=hw, cfg=cfg, pad_rows=True),
+            xs_t, orders, norms_t, source, rows)
     dev = xs_t.device
     n = orders.shape[1]
     dense_fn = _select_apply_fn(cfg)
@@ -571,7 +655,7 @@ def _plain_cfg(cfg: ShuffleSoftSortConfig) -> ShuffleSoftSortConfig:
 def _run_segment(xs_t, orders, source: ShuffleSource, norms_t, start: int,
                  end: int, *, rows=None, hw, cfg: ShuffleSoftSortConfig,
                  on_round: Optional[Callable] = None,
-                 pad_rows: bool = False):
+                 pad_rows: bool = False, mesh=None):
     """One rung of the fixed schedule, rounds ``[start, end)``: the seam
     the fixed engines go through, the counterpart of the reference's
     ``_run_segments`` (the shadow's replay calls ``_run_rounds`` itself,
@@ -581,14 +665,15 @@ def _run_segment(xs_t, orders, source: ShuffleSource, norms_t, start: int,
     losses."""
     return _run_rounds(xs_t, orders, source, norms_t, start, end, rows=rows,
                        hw=hw, cfg=cfg, on_round=on_round,
-                       pad_rows=pad_rows)[:2]
+                       pad_rows=pad_rows, mesh=mesh)[:2]
 
 
 def _run_fixed_checkpointed(xs_t, orders, source: ShuffleSource, norms_t, *,
                             hw, cfg: ShuffleSoftSortConfig, ckpt,
                             resume: bool, every: int, rung_hook, meta: dict,
                             check_finite: bool = True, monitor=None,
-                            prior=None, on_round: Optional[Callable] = None):
+                            prior=None, on_round: Optional[Callable] = None,
+                            mesh=None, mesh_hook=None):
     """The fixed schedule of the batched engine in rung segments.
 
     Chains ``_run_segment`` across the checkpoint edges, bitwise one
@@ -599,7 +684,9 @@ def _run_fixed_checkpointed(xs_t, orders, source: ShuffleSource, norms_t, *,
     checkpoint (a bare directory from the beginning, or from ``prior``,
     the (BS, R0) losses of a ``state=`` carry).  ``rung_hook(start_round)``
     fires before each rung, where a preemption lands; ``on_round`` after
-    each round, as in ``_run_rounds``.
+    each round, as in ``_run_rounds``.  ``mesh`` splits each rung over its
+    slots; ``mesh_hook(start_round, mesh)`` fires right after ``rung_hook``
+    and may return a replacement mesh (``_swap_mesh``).
 
     With a ``monitor`` the probes (``_verify_rung``) run on each rung after
     the finite sentinel and before ``ckpt.save``, so the newest checkpoint
@@ -629,10 +716,12 @@ def _run_fixed_checkpointed(xs_t, orders, source: ShuffleSource, norms_t, *,
             continue
         if rung_hook is not None:
             rung_hook(start)
+        mesh = _swap_mesh(mesh_hook, start, mesh)
         s_in = source.state_dict() if mon is not None else None
         o_in = orders
         orders, seg = _run_segment(xs_t, orders, source, norms_t, start, end,
-                                   hw=hw, cfg=cfg, on_round=on_round)
+                                   hw=hw, cfg=cfg, on_round=on_round,
+                                   mesh=mesh)
         seg_np = _host(seg).astype(np.float32)
         if check_finite:
             _check_finite(seg_np, start, cfg, meta["engine"])
@@ -640,7 +729,7 @@ def _run_fixed_checkpointed(xs_t, orders, source: ShuffleSource, norms_t, *,
             _verify_rung(
                 mon, cfg, source, s_in, start, end - start,
                 lambda src: _run_rounds(xs_t, o_in, src, norms_t, start, end,
-                                        hw=hw, cfg=cfg),
+                                        hw=hw, cfg=cfg, mesh=mesh),
                 xs=xs_t, groups=_fixed_groups(cfg, o_in.shape[1],
                                               o_in.shape[0], end),
                 losses=seg_np, orders=_host(orders), tau=float(taus[start]))
@@ -649,13 +738,14 @@ def _run_fixed_checkpointed(xs_t, orders, source: ShuffleSource, norms_t, *,
             ckpt.save(end, {"orders": _orders_np(orders),
                             "source": source.state_dict(),
                             "losses": np.concatenate(parts, axis=0)},
-                      meta=dict(meta, round=end))
+                      meta=dict(meta, round=end), mesh=mesh)
         start = end
     return orders, np.concatenate(parts, axis=0)
 
 
 def _run_rounds_ragged(xs, orders, source: ShuffleSource, rows, tau_rows,
-                       norms, *, hw, cfg: ShuffleSoftSortConfig, apply_fn):
+                       norms, *, hw, cfg: ShuffleSoftSortConfig, apply_fn,
+                       mesh=None):
     """T rounds of a group of k instances, each at its own temperatures.
 
     ``xs`` (k, N, d), ``orders`` (k, N) and ``norms`` (k,) are the group's
@@ -668,11 +758,20 @@ def _run_rounds_ragged(xs, orders, source: ShuffleSource, rows, tau_rows,
     loss runs on padded blocks (``_loss_fn``): a group's size changes from
     rung to rung.
 
+    With a ``mesh`` the group is split over its slots (``_sharded``),
+    each padding row at instance 0's temperatures.
+
     Returns orders (k, N), losses (T, k) and the last round's trained
     keys ws (k, N), all on the device.
     """
-    dev = xs.device
     tau_rows = np.asarray(tau_rows, np.float32)
+    if mesh is not None:
+        return _sharded(
+            mesh, lambda x, o, src, nm, tau: _run_rounds_ragged(
+                x, o, src, None, tau, nm, hw=hw, cfg=cfg,
+                apply_fn=apply_fn),
+            xs, orders, norms, source, rows, cols=tau_rows)
+    dev = xs.device
     tau_inner = torch.as_tensor(tau_rows[:, :, None] * _inner_ramp(cfg),
                                 device=dev)               # (T, k, I)
     bias1, bias2 = _adam_bias(cfg, dev)
@@ -703,7 +802,8 @@ def _run_adaptive(xs_t, orders, source: ShuffleSource, norms_t, *, hw,
                   rung_hook: Optional[Callable[[int], None]] = None,
                   check_finite: bool = True, ckpt=None, resume: bool = False,
                   meta: dict | None = None,
-                  hook_state: dict | None = None, monitor=None):
+                  hook_state: dict | None = None, monitor=None,
+                  mesh=None, mesh_hook=None):
     """The adaptive schedule: rung by rung until no instance is live.
 
     Each rung advances every live instance by ``seg_len`` rounds.  The
@@ -718,7 +818,10 @@ def _run_adaptive(xs_t, orders, source: ShuffleSource, norms_t, *, hw,
 
     ``rung_hook(executed_rounds)`` runs at the top of each rung, before
     any work; ``boundary_hook(step, controller, losses)`` after each
-    boundary's observe (the tournament culls from it).
+    boundary's observe (the tournament culls from it).  ``mesh`` splits
+    each group over its slots, each group on its own (the reference's
+    ``_ragged_w_run``); ``mesh_hook(executed_rounds, mesh)`` fires right
+    after ``rung_hook`` and may swap the mesh (``_swap_mesh``).
 
     With ``ckpt`` every committed rung publishes the orders, the source's
     state, the losses, the controller's ``ctrl_*`` state and the entries
@@ -733,7 +836,7 @@ def _run_adaptive(xs_t, orders, source: ShuffleSource, norms_t, *, hw,
     Returns orders (BS, N) on the device, losses (BS, R) float32, NaN at
     the rounds an instance never ran (``controller.executed`` counts the
     rounds each ran), and the instance-rounds run on the device, the sum
-    over dispatches of rounds x group size.
+    over dispatches of rounds x group size (the mesh's padding included).
     """
     ctrl = controller
     seg = ctrl.seg_len
@@ -765,6 +868,7 @@ def _run_adaptive(xs_t, orders, source: ShuffleSource, norms_t, *, hw,
             break
         if rung_hook is not None:
             rung_hook(step * seg)
+        mesh = _swap_mesh(mesh_hook, step * seg, mesh)
         # Stopped instances never rejoin, so every live instance has run
         # exactly step * seg rounds.
         exec0 = step * seg
@@ -789,7 +893,8 @@ def _run_adaptive(xs_t, orders, source: ShuffleSource, norms_t, *, hw,
             for sel, rows, tau_g, o_in, band in groups:
                 o, l, w = _run_rounds_ragged(
                     xs_t[rows], o_in, src, live[sel], tau_g, norms_t[rows],
-                    hw=hw, cfg=cfg, apply_fn=_select_apply_fn(cfg, band))
+                    hw=hw, cfg=cfg, apply_fn=_select_apply_fn(cfg, band),
+                    mesh=mesh)
                 o_live[torch.as_tensor(sel, device=dev)] = o
                 l_live[:, sel], w_live[sel] = _host(l), _host(w)
             return o_live, l_live, w_live
@@ -798,7 +903,8 @@ def _run_adaptive(xs_t, orders, source: ShuffleSource, norms_t, *, hw,
         orders = orders.index_copy(0, torch.as_tensor(live, device=dev),
                                    o_live)
         seg_losses = np.ascontiguousarray(seg_t.T)          # (live, seg)
-        device_rounds += seg * live.size
+        device_rounds += seg * sum(_padded(g[0].size, mesh)
+                                   for g in groups)
         if check_finite:
             _check_finite(seg_t, exec0, cfg, "adaptive", ws=ws_live)
         if mon is not None:
@@ -825,7 +931,8 @@ def _run_adaptive(xs_t, orders, source: ShuffleSource, norms_t, *, hw,
             for k, v in (hook_state or {}).items():
                 st["hs_" + k] = np.asarray(v)
             ckpt.save(step, st, meta=dict(meta or {}, step=step,
-                                          device_rounds=device_rounds))
+                                          device_rounds=device_rounds),
+                      mesh=mesh)
     return orders, losses_mat, device_rounds
 
 
@@ -880,7 +987,11 @@ def run_round_segment(xs, orders, norms, progress, seg_len: int, *,
       seg_len: rounds to run (the scheduler's preemption quantum).
       source: the shuffle source (``repro_torch.core.prng``).
       rows: (BS,) the instances' indices in ``source`` (None: 0..BS-1).
-      device: where to run (None: CUDA, and an error without it).
+      device: where to run (None: CUDA, and an error without it; with a
+        mesh, its first slot's device).
+      mesh: a ``SortMesh`` (``repro_torch.launch.mesh``): the batch is
+        split over its slots, the tail padded with copies of instance 0;
+        per instance bitwise ``mesh=None``.
       regime: None infers the apply from ``rung_aligned_switch`` and
         checks the batch against it; "dense" / "banded" selects it.
       with_w: also return the end-of-segment trained keys.
@@ -897,8 +1008,9 @@ def run_round_segment(xs, orders, norms, progress, seg_len: int, *,
       (orders (BS, N), losses (seg_len, BS)) on the device, plus
       ``ws (BS, N)`` with ``with_w=True``.
     """
-    _check_ported(cfg, mesh=mesh)
-    device = resolve_device(device)
+    _check_config(cfg)
+    mesh = _check_mesh(mesh)
+    device = _run_device(device, mesh)
     xs = torch.as_tensor(xs, dtype=_F32, device=device)
     orders = torch.as_tensor(orders, device=device).to(torch.int64)
     if not isinstance(norms, torch.Tensor):
@@ -946,7 +1058,8 @@ def run_round_segment(xs, orders, norms, progress, seg_len: int, *,
     def segment(src):
         return _run_rounds_ragged(xs, orders, src, rows, tau_rows, norms,
                                   hw=hw, cfg=cfg,
-                                  apply_fn=_select_apply_fn(cfg, band_use))
+                                  apply_fn=_select_apply_fn(cfg, band_use),
+                                  mesh=mesh)
 
     o_out, losses, ws = segment(source)
     if mon is not None:
@@ -1048,7 +1161,7 @@ def shuffle_soft_sort(
     so ``losses`` holds the executed rounds only.  It decides at rung
     boundaries, so it takes no per-round ``callback`` and no ``state``.
     """
-    _check_ported(cfg)
+    _check_config(cfg)
     if cfg.schedule == "adaptive":
         _check_adaptive(callback, state)
         res = shuffle_soft_sort_batched(
@@ -1175,6 +1288,7 @@ def shuffle_soft_sort_batched(
     rung_hook: Optional[Callable[[int], None]] = None,
     check_finite: bool = True,
     guardrail=None,
+    mesh_hook=None,
 ) -> BatchedSortResult:
     """Sort B problems at once, S random restarts each, as one (B*S, N)
     batch: each inner step launches every kernel once for all instances.
@@ -1197,21 +1311,39 @@ def shuffle_soft_sort_batched(
     ``checkpoint_dir`` / ``resume`` / ``checkpoint_every`` / ``rung_hook``
     / ``check_finite`` / ``guardrail``: rung-boundary preemption safety
     and integrity probes, as in ``shuffle_soft_sort``.  On the fixed
-    schedule any of ``checkpoint_dir``, ``rung_hook`` and ``guardrail``
-    cuts the rounds into rungs of ``checkpoint_every`` (bitwise one
-    segment of all of them); the adaptive schedule checkpoints at its
-    controller's rungs.  Without them the run is one segment and brings
-    nothing to the host before its end.
+    schedule any of ``checkpoint_dir``, ``rung_hook``, ``guardrail`` and
+    ``mesh_hook`` cuts the rounds into rungs of ``checkpoint_every``
+    (bitwise one segment of all of them); the adaptive schedule
+    checkpoints at its controller's rungs.  Without them the run is one
+    segment and brings nothing to the host before its end.
+
+    ``mesh`` (a ``SortMesh`` of ``repro_torch.launch.mesh``) splits the
+    flattened B x S instances over its slots, the tail slot padded with
+    copies of instance 0, and gathers the outputs onto ``device``; each
+    problem's winner is the host argmin of its final losses, as without a
+    mesh.  Per seed the results are bitwise ``mesh=None``'s wherever the
+    unsharded run evaluates its loss in blocks of 8 (B x S > 8, or the
+    adaptive schedule; ROADMAP.md Queue C7).  The run's carry lives on
+    ``device`` (default: the first slot's).  ``mesh_hook(start_round,
+    mesh) -> mesh | None`` fires at each rung boundary after
+    ``rung_hook``: a returned mesh runs the rungs after it (elastic
+    re-sharding over the survivors of an eviction), bitwise the same.  A
+    checkpoint written on one mesh resumes on another, or on none.
     """
-    _check_ported(cfg, mesh=mesh)
+    _check_config(cfg)
+    mesh = _check_mesh(mesh)
     if cfg.schedule == "adaptive":
         _check_adaptive(callback, state)
+    if mesh is not None and callback is not None:
+        raise ValueError("callback streaming is not supported on the "
+                         "sharded path; use mesh=None")
     ckpt = _open_checkpointer(checkpoint_dir, resume)
-    device = resolve_device(device)
+    device = _run_device(device, mesh)
     mon = _open_guardrails(guardrail, cfg, "batched")
-    rungs = ckpt is not None or rung_hook is not None or mon is not None
+    rungs = (ckpt is not None or rung_hook is not None or mon is not None
+             or mesh_hook is not None)
     if callback is not None and rungs:
-        raise ValueError("checkpoint_dir/rung_hook/guardrail are "
+        raise ValueError("checkpoint_dir/rung_hook/guardrail/mesh_hook are "
                          "incompatible with the per-round callback stream")
     xs, b, s, n, source, xs_t, norms_t, orders, prior = _prep_instances(
         xs, hw, n_restarts, seed, seeds, source, norms, state, device)
@@ -1219,7 +1351,8 @@ def shuffle_soft_sort_batched(
         return _batched_adaptive(
             xs, b, s, n, source, xs_t, norms_t, orders, hw=hw, cfg=cfg,
             ckpt=ckpt, resume=resume, rung_hook=rung_hook,
-            check_finite=check_finite, monitor=mon)
+            check_finite=check_finite, monitor=mon, mesh=mesh,
+            mesh_hook=mesh_hook)
     on_round = None
     if callback is not None:
         def on_round(r, orders_r, loss_r):
@@ -1236,7 +1369,7 @@ def shuffle_soft_sort_batched(
         rung_hook=rung_hook,
         meta=_engine_meta("batched", cfg, n, b * s, hw, source),
         check_finite=check_finite, monitor=mon, prior=prior,
-        on_round=on_round)
+        on_round=on_round, mesh=mesh, mesh_hook=mesh_hook)
     all_losses = losses_np.T
     all_losses = all_losses.reshape(b, s, cfg.rounds)
     all_orders = orders.to(torch.int32).cpu().numpy().reshape(b, s, n)
@@ -1257,8 +1390,8 @@ def shuffle_soft_sort_batched(
 def _batched_adaptive(xs, b, s, n, source, xs_t, norms_t, orders, *, hw,
                       cfg: ShuffleSoftSortConfig, ckpt=None,
                       resume: bool = False, rung_hook=None,
-                      check_finite: bool = True,
-                      monitor=None) -> BatchedSortResult:
+                      check_finite: bool = True, monitor=None, mesh=None,
+                      mesh_hook=None) -> BatchedSortResult:
     """``shuffle_soft_sort_batched`` on the adaptive schedule."""
     bs = b * s
     ctrl = make_adaptive_controller(cfg, bs, n)
@@ -1267,7 +1400,7 @@ def _batched_adaptive(xs, b, s, n, source, xs_t, norms_t, orders, *, hw,
         rung_hook=rung_hook, check_finite=check_finite, ckpt=ckpt,
         resume=resume,
         meta=_engine_meta("adaptive", cfg, n, bs, hw, source),
-        monitor=monitor)
+        monitor=monitor, mesh=mesh, mesh_hook=mesh_hook)
     all_losses = losses_bs.reshape(b, s, cfg.rounds)
     all_orders = orders.to(torch.int32).cpu().numpy().reshape(b, s, n)
     final = losses_bs[np.arange(bs), ctrl.executed - 1].reshape(b, s)
@@ -1389,7 +1522,12 @@ def restart_tournament(
         sets and the survivors log always agree with the stored orders.
       guardrail: integrity probes at every rung, as in
         ``shuffle_soft_sort``.
-      mesh, mesh_hook: not ported yet (``NotImplementedError``).
+      mesh: a ``SortMesh``: each rung's (shrinking) live set is split over
+        its slots, padded to a multiple of the slot count; ``rounds_run``
+        counts the padding.  Winners are bitwise ``mesh=None``'s.
+      mesh_hook: ``f(start_round, mesh) -> mesh | None`` at each rung
+        boundary after ``rung_hook``; a returned mesh runs the rungs after
+        it (elastic re-sharding), bitwise the same.
 
     Returns:
       ``TournamentResult``, see its field docs.
@@ -1397,9 +1535,10 @@ def restart_tournament(
     if not 0.0 <= cull_fraction < 1.0:
         raise ValueError(f"cull_fraction must be in [0, 1), got "
                          f"{cull_fraction}")
-    _check_ported(cfg, mesh=mesh, mesh_hook=mesh_hook)
+    _check_config(cfg)
+    mesh = _check_mesh(mesh)
     ckpt = _open_checkpointer(checkpoint_dir, resume)
-    device = resolve_device(device)
+    device = _run_device(device, mesh)
     mon = _open_guardrails(guardrail, cfg, "tournament")
     xs, b, s, n, source, xs_t, norms_t, orders, _ = _prep_instances(
         xs, hw, n_restarts, seed, seeds, source, norms, None, device)
@@ -1408,7 +1547,7 @@ def restart_tournament(
             xs, b, s, n, source, xs_t, norms_t, orders, hw=hw, cfg=cfg,
             cull_fraction=cull_fraction, n_rungs=n_rungs,
             rung_hook=rung_hook, check_finite=check_finite, ckpt=ckpt,
-            resume=resume, monitor=mon)
+            resume=resume, monitor=mon, mesh=mesh, mesh_hook=mesh_hook)
     edges = _rung_boundaries(cfg.rounds, n_rungs)
     taus = _tau_schedule(cfg)
 
@@ -1441,14 +1580,15 @@ def restart_tournament(
             continue
         if rung_hook is not None:
             rung_hook(start)
+        mesh = _swap_mesh(mesh_hook, start, mesh)
         s_k = alive.shape[1]
         rows = (np.arange(b)[:, None] * s + alive).reshape(-1)
         s_in = source.state_dict() if mon is not None else None
         o_in = orders
         orders, losses = _run_segment(xs_t, orders, source, norms_t, start,
                                       end, rows=rows, hw=hw, cfg=cfg,
-                                      pad_rows=True)
-        rounds_run += (end - start) * b * s_k
+                                      pad_rows=True, mesh=mesh)
+        rounds_run += (end - start) * _padded(b * s_k, mesh)
         seg = _host(losses).astype(np.float32)            # (T, B * S_k)
         if check_finite:
             _check_finite(seg, start, cfg, "tournament")
@@ -1457,7 +1597,7 @@ def restart_tournament(
                 mon, cfg, source, s_in, start, end - start,
                 lambda src: _run_rounds(
                     xs_t, o_in, src, norms_t, start, end, rows=rows, hw=hw,
-                    cfg=cfg, pad_rows=True),
+                    cfg=cfg, pad_rows=True, mesh=mesh),
                 xs=xs_t, groups=_fixed_groups(cfg, n, len(rows), end),
                 losses=seg, orders=_host(orders), rows=rows,
                 tau=float(taus[start]))
@@ -1484,7 +1624,7 @@ def restart_tournament(
             for i, sv in enumerate(survivors_log):
                 st[f"surv_{i:03d}"] = sv
             ckpt.save(end, st, meta=dict(meta, rung=k + 1, start=end,
-                                         rounds_run=rounds_run))
+                                         rounds_run=rounds_run), mesh=mesh)
     final = all_losses[np.arange(b)[:, None], alive, -1]  # (B, S_fin)
     win = np.argmin(final, axis=1)                        # live slot
     order = orders.to(torch.int32).cpu().numpy().reshape(
@@ -1516,7 +1656,8 @@ def _restart_tournament_adaptive(xs, b, s, n, source, xs_t, norms_t, orders,
                                  cull_fraction: float, n_rungs: int,
                                  rung_hook=None, check_finite: bool = True,
                                  ckpt=None, resume: bool = False,
-                                 monitor=None) -> TournamentResult:
+                                 monitor=None, mesh=None,
+                                 mesh_hook=None) -> TournamentResult:
     """The tournament on the adaptive schedule: ``_run_adaptive`` with a
     cull hook at the rung edges.
 
@@ -1561,7 +1702,7 @@ def _restart_tournament_adaptive(xs, b, s, n, source, xs_t, norms_t, orders,
         boundary_hook=hook, rung_hook=rung_hook, check_finite=check_finite,
         ckpt=ckpt, resume=resume,
         meta=_engine_meta("tournament-adaptive", cfg, n, b * s, hw, source),
-        hook_state=hstate, monitor=monitor)
+        hook_state=hstate, monitor=monitor, mesh=mesh, mesh_hook=mesh_hook)
     # If every restart stopped before a late edge, its hook never fired;
     # the live set was already final, so it stands for those rungs too.
     alive = hstate["alive"]

@@ -64,6 +64,7 @@
 // (no --use_fast_math: the parity needs expf, not __expf).
 
 #include <cuda_runtime.h>
+#include "smem_limit.cuh"
 
 #include <climits>
 
@@ -486,14 +487,10 @@ int launch_fwd(const float* q, const float* k, const float* v, float* o,
                float* m, float* l, const Geom& g, int splits,
                cudaStream_t stream) {
   constexpr int bytes = smem_floats<ROWS, DHP, STAGES>() * (int)sizeof(float);
-  static bool limit_set = false;
-  if (!limit_set) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        fa_fwd_kernel<ROWS, DHP, STAGES>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (e != cudaSuccess) return (int)e;
-    limit_set = true;
-  }
+  static bool limit_set[MAX_DEVICES] = {};
+  if (const int e = raise_smem_limit(limit_set,
+                                     fa_fwd_kernel<ROWS, DHP, STAGES>, bytes))
+    return e;
   const dim3 grid(g.row_tiles * g.bhkv, splits);
   fa_fwd_kernel<ROWS, DHP, STAGES><<<grid, NT, bytes, stream>>>(q, k, v, o, m,
                                                                l, g);

@@ -131,6 +131,7 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include "smem_limit.cuh"
 
 #include <cstdint>
 #include <type_traits>
@@ -1243,14 +1244,10 @@ int launch_fwd_band(const void* ws, const void* wc, const void* x,
                     int d, int K, int exact_max, cudaStream_t stream) {
   using C = FwdBand<DT>;
   constexpr int bytes = C::FLOATS * (int)sizeof(float);
-  static bool limit_set = false;   // once per instantiation
-  if (!limit_set) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        fwd_band_kernel<T, DT, GIVEN_ML>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (e != cudaSuccess) return (int)e;
-    limit_set = true;
-  }
+  static bool limit_set[MAX_DEVICES] = {};   // per instantiation
+  if (const int e = raise_smem_limit(limit_set,
+                                     fwd_band_kernel<T, DT, GIVEN_ML>, bytes))
+    return e;
   dim3 grid((n + C::TR - 1) / C::TR, d > DT ? (d + DT - 1) / DT : 1, B);
   fwd_band_kernel<T, DT, GIVEN_ML><<<grid, C::NT, bytes, stream>>>(
       (const float*)ws, (const float*)wc, (const T*)x, (const float*)tau,
@@ -1268,15 +1265,10 @@ int launch_band_dcol(const void* ws, const void* wc, const void* x,
   using C = DcolBand<DT>;
   const int nd = d > DT ? (d + DT - 1) / DT : 1;
   const int bytes = C::floats(nd) * (int)sizeof(float);
-  static bool limit_set = false;
-  if (!limit_set) {   // the larger of the two sizes, once
-    const cudaError_t e = cudaFuncSetAttribute(
-        bwd_band_dcol_kernel<T, DT>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize,
-        C::floats(2) * (int)sizeof(float));
-    if (e != cudaSuccess) return (int)e;
-    limit_set = true;
-  }
+  static bool limit_set[MAX_DEVICES] = {};   // the larger of two sizes
+  if (const int e = raise_smem_limit(limit_set, bwd_band_dcol_kernel<T, DT>,
+                                     C::floats(2) * (int)sizeof(float)))
+    return e;
   dim3 grid((n + C::TC - 1) / C::TC, nd, B);
   bwd_band_dcol_kernel<T, DT><<<grid, C::NT, bytes, stream>>>(
       (const float*)ws, (const float*)wc, (const T*)x, (const float*)tau,
@@ -1307,20 +1299,17 @@ int launch_band_dws(const void* ws, const void* wc, const void* x,
   using C = DwsBand<DT>;
   const int nd = DT == 64 && d > DT ? (d + DT - 1) / DT : 1;
   const int bytes = C::floats(nd) * (int)sizeof(float);
-  static bool limit_set = false;
-  if (!limit_set) {   // each instantiation's size, once
-    cudaError_t e = cudaFuncSetAttribute(
-        bwd_band_dws_delta_kernel<T, DT, false>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize,
-        C::floats(1) * (int)sizeof(float));
-    if (e != cudaSuccess) return (int)e;
-    if constexpr (DT == 64) {
-      e = cudaFuncSetAttribute(bwd_band_dws_delta_kernel<T, DT, true>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               C::floats(2) * (int)sizeof(float));
-      if (e != cudaSuccess) return (int)e;
-    }
-    limit_set = true;
+  static bool limit_set[MAX_DEVICES] = {};   // each instantiation's size
+  if (const int e = raise_smem_limit(limit_set,
+                                     bwd_band_dws_delta_kernel<T, DT, false>,
+                                     C::floats(1) * (int)sizeof(float)))
+    return e;
+  if constexpr (DT == 64) {
+    static bool limit_set_mt[MAX_DEVICES] = {};
+    if (const int e = raise_smem_limit(
+            limit_set_mt, bwd_band_dws_delta_kernel<T, DT, true>,
+            C::floats(2) * (int)sizeof(float)))
+      return e;
   }
   dim3 grid((n + C::TR - 1) / C::TR, B);
   auto kernel = bwd_band_dws_delta_kernel<T, DT, false>;

@@ -38,10 +38,17 @@ bitwise its own chained ``run_round_segment`` run alone, whatever traffic
 shared its dispatches (on the card the kernels are batch-invariant and the
 loss runs in blocks of 8 instances; on the CPU the plain tier is).
 
-Not ported yet: device meshes, device eviction and re-sharding
-(``mesh=``, ``device_health=``, ``--mesh-devices``, ``--device-health``;
-ROADMAP.md Queue A11) and the LM decode workload (``--workload lm``;
-Queue A16).  They raise ``NotImplementedError``.
+Scale-out: ``mesh=`` (``--mesh-devices D``) splits every dispatch over
+the slots of a ``repro_torch.launch.mesh.SortMesh``, and
+``device_health=`` (``--device-health STRIKES``) evicts a slot that a
+``DeviceLost`` names: the mesh is rebuilt over the survivors, the rung
+replays there without spending retry budget, and a slot that probes
+healthy again grows the mesh back at a tick.  Requests carry their state
+on the server's device between rungs, so a re-shard moves nothing and
+changes no result.
+
+Not ported yet: the LM decode workload (``--workload lm``; ROADMAP.md
+Queue A16) raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -53,8 +60,6 @@ from concurrent.futures import Future
 
 import numpy as np
 import torch
-
-_A11 = "device meshes and elastic re-sharding (ROADMAP.md Queue A11)"
 
 
 # --------------------------------------------------------------------------
@@ -193,7 +198,7 @@ class WarmHandoff:
     # The engine's FaultInjector cursor (chaos scenarios), if it has one.
     injector_state: dict | None = None
     brownout_level: int = 0
-    # No device mesh yet (Queue A11): always empty, kept for the layout.
+    # The slot ids out of the mesh, and the health monitor's strikes.
     evicted_devices: tuple = ()
     health_state: dict | None = None
 
@@ -256,9 +261,20 @@ class SortServer:
       re-queues its requests from their last committed boundary under
       ``retry``; budget exhaustion resolves the future with
       ``RequestFailed``.  Every future resolves exactly once.
-    * **Straggler rerouting**: per-dispatch wall time per instance-round
-      feeds a ``StragglerMonitor``; a flagged dispatch halves the bucket
-      cap (restored after ``straggler_recovery`` healthy dispatches).
+    * **Elastic capacity** (``mesh=``, ``device_health=``): a
+      ``DeviceHealthMonitor`` that declares a slot lost evicts it, the
+      mesh is rebuilt over the survivors (``mesh=None``, the server's own
+      device, once every slot is out: logged as an ``evict`` event with no
+      survivors) and the rung replays there without spending retry
+      budget; returned slots grow the mesh back at a tick boundary; an
+      eviction raises the brownout pressure by one level while it lasts.
+    * **Straggler rerouting**: a dispatch's wall time over the time
+      ``DispatchCost`` expects of its signature, batch bucket included
+      (ROADMAP.md Queue C9: the reference's time per instance-round
+      misjudges host-bound dispatches) feeds the ``straggler`` monitor; a
+      signature's first dispatch is learnt from, not judged.  A flagged
+      dispatch halves the bucket cap (restored after
+      ``straggler_recovery`` healthy dispatches).
     * **Brownout ladder** (``brownout=BrownoutPolicy()``).
     * **Guardrails** (``guardrail=GuardrailPolicy(...)``, or per request):
       the probes of ``repro_torch.runtime.guardrails`` run per request
@@ -279,8 +295,8 @@ class SortServer:
     has converged.
 
     The scheduler thread does all device work; ``submit`` never touches
-    the device.  ``mesh`` and ``device_health`` are not ported yet (Queue
-    A11) and raise ``NotImplementedError``.
+    the device (the server's ``device``, by default the mesh's first
+    slot's, and CUDA without a mesh).
     """
 
     def __init__(self, hw, d, cfg=None, max_batch: int = 8,
@@ -299,25 +315,27 @@ class SortServer:
         from repro_torch.core.shufflesoftsort import (
             ShuffleSoftSortConfig,
             _rung_boundaries,
-            resolve_device,
             run_round_segment,
         )
         from repro_torch.runtime.fault_tolerance import (
             DivergencePolicy,
             RetryPolicy,
         )
+        from repro_torch.core.shufflesoftsort import _check_mesh, _run_device
         from repro_torch.runtime.guardrails import GuardrailPolicy
-        from repro_torch.runtime.straggler import StragglerMonitor
+        from repro_torch.runtime.straggler import (
+            DeviceHealthMonitor,
+            DispatchCost,
+            StragglerMonitor,
+        )
 
-        if mesh is not None:
-            raise NotImplementedError(
-                f"SortServer(mesh=...) is not ported to repro_torch yet: "
-                f"{_A11}")
-        if device_health is not None:
-            raise NotImplementedError(
-                f"SortServer(device_health=...) is not ported to "
-                f"repro_torch yet: device eviction needs {_A11}")
-        self.device = resolve_device(device)
+        self.mesh = _check_mesh(mesh)
+        if device_health is not None and not isinstance(
+                device_health, DeviceHealthMonitor):
+            raise TypeError(
+                f"device_health must be a DeviceHealthMonitor or None, "
+                f"got {device_health!r}")
+        self.device = _run_device(device, self.mesh)
         self.hw = tuple(hw)
         self.n = self.hw[0] * self.hw[1]
         self.d = d
@@ -334,6 +352,7 @@ class SortServer:
         self.retry = retry or RetryPolicy()
         self.straggler = straggler or StragglerMonitor()
         self.straggler_recovery = int(straggler_recovery)
+        self._cost = DispatchCost(alpha=self.straggler.alpha)
         self._engine = engine_fn or run_round_segment
         if guardrail is not None and not isinstance(guardrail,
                                                     GuardrailPolicy):
@@ -348,7 +367,7 @@ class SortServer:
                 f"brownout must be a BrownoutPolicy or None, "
                 f"got {brownout!r}")
         self.brownout = brownout
-        self.device_health = None
+        self.device_health = device_health
 
         rounds = self.cfg.rounds
         self.adaptive = self.cfg.schedule == "adaptive"
@@ -409,8 +428,9 @@ class SortServer:
         self._bucket_cap = self.max_batch
         self._healthy_streak = 0
         self._switch_cache: dict[tuple, int] = {}
-        # Capacity lost to evicted devices raises the brownout target;
-        # with no mesh (Queue A11) nothing is ever evicted.
+        # Elastic capacity: the mesh as constructed, and the slot ids
+        # evicted from it (which also raise the brownout target).
+        self._mesh_full = self.mesh
         self._evicted: list[int] = []
         self._brownout_level = 0
         self.checkpoint_dir = checkpoint_dir
@@ -538,7 +558,11 @@ class SortServer:
                                   if hasattr(self._engine, "state_dict")
                                   else None),
                               brownout_level=self._brownout_level,
-                              evicted_devices=tuple(self._evicted))
+                              evicted_devices=tuple(self._evicted),
+                              health_state=(
+                                  self.device_health.state_dict()
+                                  if self.device_health is not None
+                                  else None))
         self.events.append({"event": "preempt",
                             "inflight": len(inflight)})
         if self.checkpoint_dir is not None:
@@ -556,8 +580,16 @@ class SortServer:
         if (handoff.injector_state is not None
                 and hasattr(self._engine, "load_state_dict")):
             self._engine.load_state_dict(handoff.injector_state)
+        # The elastic state: the same evicted set (the mesh rebuilt over
+        # the survivors) and the same strikes.
         self._brownout_level = int(handoff.brownout_level)
-        self._evicted = [int(dv) for dv in (handoff.evicted_devices or ())]
+        evicted = [int(dv) for dv in (handoff.evicted_devices or ())]
+        if evicted:
+            self._evicted = evicted
+            self._reshard()
+        if (handoff.health_state is not None
+                and self.device_health is not None):
+            self.device_health.load_state_dict(handoff.health_state)
         for req in handoff.requests:
             if req.future.done():       # pragma: no cover - defensive
                 continue
@@ -568,6 +600,60 @@ class SortServer:
             self._pending.append(req)
             self.events.append({"event": "adopt", "seq": req.seq,
                                 "progress": req.progress})
+
+    # ---- elastic capacity: eviction, re-shard, return ----------------
+
+    def _reshard(self):
+        """Rebuild ``self.mesh`` over the constructed slots not evicted
+        (``mesh=None`` once every slot is out: the server's own device
+        still serves).  No carry moves: the requests' state lives on the
+        server's device between rungs."""
+        if self._mesh_full is not None:
+            self.mesh = self._mesh_full.without(self._evicted)
+
+    def _device_failure(self, reqs: list[_SortRequest], exc) -> bool:
+        """A dispatch failure through the health monitor: a LOST verdict
+        evicts the slot, re-shards, and re-queues the rung's requests
+        without spending retry budget (the fault was the slot's), so the
+        replay at the next tick runs on the survivors.  Returns True when
+        handled so."""
+        if self.device_health is None:
+            return False
+        dev = self.device_health.classify(exc)
+        if dev is None:
+            return False
+        self._evicted.append(int(dev))
+        self.stats["evictions"] += 1
+        self._reshard()
+        self.stats["reshards"] += 1
+        self.events.append({"event": "evict", "device": int(dev),
+                            "survivors": (0 if self.mesh is None
+                                          else len(self.mesh)),
+                            "requeued": len(reqs)})
+        now = time.monotonic()
+        for req in reqs:
+            self._active.remove(req)
+            req.eligible_at = now
+            with self._cv:
+                self._pending.append(req)
+        return True
+
+    def _poll_device_returns(self):
+        """Grow the mesh back at a tick boundary when evicted slots probe
+        healthy again (``DeviceHealthMonitor.poll_returns``)."""
+        if self.device_health is None or not self._evicted:
+            return
+        grew = False
+        for dev in self.device_health.poll_returns():
+            dev = int(dev)
+            if dev in self._evicted:
+                self._evicted.remove(dev)
+                self.stats["device_returns"] += 1
+                grew = True
+                self.events.append({"event": "device_return",
+                                    "device": dev})
+        if grew:
+            self._reshard()
 
     # ---- brownout ------------------------------------------------------
 
@@ -911,10 +997,11 @@ class SortServer:
         return "banded" if req.progress >= self._switch_cache[ck] else "dense"
 
     def _tick(self) -> bool:
-        """One scheduler pass: step the brownout ladder, shed expired,
-        admit (applying the ladder), dispatch one rung per (shape bucket,
-        regime) group, cull, finalize."""
+        """One scheduler pass: grow back returned slots, step the brownout
+        ladder, shed expired, admit (applying the ladder), dispatch one
+        rung per (shape bucket, regime) group, cull, finalize."""
         now = time.monotonic()
+        self._poll_device_returns()
         with self._cv:
             self._update_brownout(len(self._pending))
         admitted: list[_SortRequest] = []
@@ -1014,9 +1101,12 @@ class SortServer:
             progress = np.array([r.progress for r, _ in rows], np.int64)
         src = stack_sources([r.src.take([i]) for r, i in rows])
         s_in = src.state_dict()
-        self.stats["compile_keys"].add(
-            (hw, reqs[0].d, regime, bucket, self.seg_len))
+        slots = 0 if self.mesh is None else len(self.mesh)
+        signature = (hw, reqs[0].d, regime, bucket, self.seg_len, slots)
+        self.stats["compile_keys"].add(signature)
         kw = dict(source=src, hw=hw, cfg=cfg_use, device=self.device)
+        if self.mesh is not None:
+            kw["mesh"] = self.mesh
         if adaptive:
             # regime= bypasses the model-based switch check (the
             # controller owns the grouping); with_w= feeds the measured
@@ -1030,8 +1120,11 @@ class SortServer:
             o, l = _host(out[0]).astype(np.int32), _host(out[1])
             w = _host(out[2]) if adaptive else None
         except Exception as e:
-            self._on_failure(reqs, e)
+            if not self._device_failure(reqs, e):
+                self._on_failure(reqs, e)
             return
+        if self.device_health is not None and self.mesh is not None:
+            self.device_health.record_success(self.mesh.ids)
         s_out = src.state_dict()
         # Divergence sentinel: a non-finite loss (or key) never commits.
         # Guarded groups attribute it per request slice instead (the
@@ -1048,7 +1141,7 @@ class SortServer:
             return
         dt = time.perf_counter() - t0
         self.stats["dispatch_s"] += dt
-        self._record_timing(dt, self.seg_len * bucket)
+        self._record_timing(dt, signature)
         self.stats["batches"] += 1
         self.stats["batch_sizes"].append(bs)
 
@@ -1100,8 +1193,8 @@ class SortServer:
         The shadow (``_shadow_checks``, the engines' helper) replays the
         WHOLE padded dispatch once, through ``run_round_segment`` itself
         (never ``self._engine``: chaos tests wrap the engine, the replay
-        must stay clean), on the dispatch's tier from its inputs and a
-        fork of its stacked source; each sampled slice is held to its rows
+        must stay clean), on the dispatch's tier and mesh from its inputs
+        and a fork of its stacked source; each sampled slice is held to its rows
         of the replay bitwise, and on the kernel tier to its rows of the
         apply check.  Replaying the whole batch keeps the replay bitwise
         where a smaller batch would not be (the CPU twins' batched
@@ -1133,6 +1226,8 @@ class SortServer:
         if any(m.wants_shadow(st) for m, st in zip(monitors, starts)):
             kw = ({"regime": regime} if cfg_use.schedule == "adaptive"
                   else {})
+            if self.mesh is not None:       # the dispatch's own layout
+                kw["mesh"] = self.mesh
             band = (resolve_band(cfg_use, xs.shape[1])
                     if regime == "banded" else None)
             shadow = _shadow_checks(
@@ -1282,18 +1377,26 @@ class SortServer:
             with self._cv:
                 self._pending.append(req)
 
-    def _record_timing(self, dt: float, instance_rounds: int):
-        """Feed the straggler monitor (per instance-round) and adapt the
-        bucket cap: flag -> halve, healthy streak -> restore."""
-        flagged = self.straggler.record(
-            self._dispatch_idx, dt / max(instance_rounds, 1))
+    def _record_timing(self, dt: float, signature):
+        """Judge a dispatch and adapt the bucket cap: flag -> halve,
+        healthy streak -> restore.  The straggler monitor gets ``dt`` over
+        the mean seconds of the dispatch's ``signature`` (shape, regime,
+        rung length, mesh slots, bucket; ``DispatchCost``); a signature's
+        first dispatch is learnt from, not judged.  Only unflagged
+        dispatches teach the cost model."""
+        expected = self._cost.expected(signature)
+        flagged = expected is not None and self.straggler.record(
+            self._dispatch_idx, dt / max(expected, 1e-12))
         self._dispatch_idx += 1
+        if not flagged:
+            self._cost.observe(signature, dt)
         if flagged:
             self.stats["stragglers"] += 1
             cap_before = self._bucket_cap
             self._bucket_cap = max(1, self._bucket_cap // 2)
             self._healthy_streak = 0
             self.events.append({"event": "straggler", "dt_s": dt,
+                                "expected_s": expected,
                                 "cap_before": cap_before,
                                 "bucket_cap": self._bucket_cap})
         else:
@@ -1324,13 +1427,25 @@ def serve_sorts(args):
     the accounting line."""
     from repro_torch.core.metrics import mean_neighbor_distance
     from repro_torch.core.shufflesoftsort import ShuffleSoftSortConfig
+    from repro_torch.launch.mesh import make_sort_mesh
     from repro_torch.runtime.guardrails import GuardrailPolicy
+    from repro_torch.runtime.straggler import DeviceHealthMonitor
 
     guardrail = (None if args.guardrail == "off" else
                  GuardrailPolicy(mode=args.guardrail,
                                  shadow_rate=args.shadow_rate,
                                  seed=args.seed))
     brownout = BrownoutPolicy() if args.brownout else None
+    device_health = (DeviceHealthMonitor(lost_after=args.device_health)
+                     if args.device_health else None)
+    mesh = None
+    if args.mesh_devices:
+        # --device names one device for every slot; without it the
+        # slots are the first D cards.
+        mesh = make_sort_mesh(
+            args.mesh_devices,
+            devices=None if args.device is None
+            else [args.device] * args.mesh_devices)
     hw = (args.sort_hw, args.sort_n // args.sort_hw)
     cfg = ShuffleSoftSortConfig(rounds=args.rounds,
                                 chunk=min(256, args.sort_n),
@@ -1340,13 +1455,14 @@ def serve_sorts(args):
                                 schedule=args.schedule)
     server = SortServer(hw, d=args.sort_d, cfg=cfg,
                         max_batch=args.max_batch, max_wait_ms=args.wait_ms,
-                        n_restarts=args.restarts,
+                        n_restarts=args.restarts, mesh=mesh,
                         tournament_rungs=args.tournament_rungs,
                         cull_fraction=args.cull_fraction,
                         queue_depth=args.queue_depth,
                         sched_rungs=args.sched_rungs or None,
                         seed=args.seed, guardrail=guardrail,
-                        brownout=brownout, device=args.device)
+                        brownout=brownout, device_health=device_health,
+                        device=args.device)
     rng = np.random.RandomState(0)
     xs = rng.rand(args.requests, args.sort_n, args.sort_d).astype(np.float32)
 
@@ -1391,10 +1507,17 @@ def serve_sorts(args):
             f"{server.stats['self_heals']} self-heals")
     deg = server.stats["degradations"]
     brownout_note = ""
+    if device_health is not None:
+        brownout_note += (
+            f"; elastic: {server.stats['evictions']} evictions, "
+            f"{server.stats['reshards']} reshards, "
+            f"{server.stats['device_returns']} returns")
     if brownout is not None:
-        brownout_note = "; degradations " + " ".join(
+        brownout_note += "; degradations " + " ".join(
             f"{r}={deg[r]}" for r in _BROWNOUT_LADDER)
-    print(f"served {args.requests} sort requests on {server.device} in "
+    where = (server.device if mesh is None
+             else f"{len(mesh)} mesh slots of {server.device}")
+    print(f"served {args.requests} sort requests on {where} in "
           f"{wall:.2f}s ({sps:.2f} sorts/s) across "
           f"{server.stats['batches']} device batches (sizes {sizes}); "
           f"p50 {p50:.1f}ms p99 {p99:.1f}ms; "
@@ -1411,6 +1534,9 @@ def serve_sorts(args):
             "rounds_saved": server.stats["rounds_saved"],
             "integrity_violations": server.stats["integrity_violations"],
             "self_heals": server.stats["self_heals"],
+            "evictions": server.stats["evictions"],
+            "reshards": server.stats["reshards"],
+            "device_returns": server.stats["device_returns"],
             "degradations": dict(deg)}
 
 
@@ -1433,8 +1559,9 @@ def main(argv=None):
     ap.add_argument("--max-batch", type=int, default=8)
     ap.add_argument("--wait-ms", type=float, default=5.0)
     ap.add_argument("--mesh-devices", type=int, default=0,
-                    help="shard coalesced batches over this many devices "
-                         "(not ported yet: ROADMAP.md Queue A11)")
+                    help="shard coalesced batches over a mesh of this many "
+                         "slots: the first D cards, or with --device D "
+                         "slots of that one device (0 = no mesh)")
     ap.add_argument("--tournament-rungs", type=int, default=1,
                     help=">1 runs restarts as a successive-halving "
                          "tournament (needs --restarts > 1)")
@@ -1473,20 +1600,15 @@ def main(argv=None):
                     help="arm the overload brownout ladder")
     ap.add_argument("--device-health", type=int, default=0,
                     metavar="STRIKES",
-                    help="evict a device after this many DeviceLost "
-                         "failures (not ported yet: ROADMAP.md Queue A11)")
+                    help="evict a mesh slot after this many DeviceLost "
+                         "dispatch failures and re-shard over the "
+                         "survivors (0 = off; needs --mesh-devices)")
     args = ap.parse_args(argv)
 
     if args.workload == "lm":
         raise NotImplementedError(
             "--workload lm is not ported to repro_torch yet: the LM decode "
             "server waits for the model port (ROADMAP.md Queue A16)")
-    if args.mesh_devices:
-        raise NotImplementedError(
-            f"--mesh-devices is not ported to repro_torch yet: {_A11}")
-    if args.device_health:
-        raise NotImplementedError(
-            f"--device-health is not ported to repro_torch yet: {_A11}")
     # CLI validation as argparse errors (exit 2), as the reference's.
     if args.sort_hw <= 0 or args.sort_n % args.sort_hw != 0:
         ap.error(f"--sort-hw {args.sort_hw} must be a positive "
@@ -1502,6 +1624,14 @@ def main(argv=None):
         ap.error(f"--shadow-rate {args.shadow_rate} must be in [0, 1]")
     if args.shadow_rate is None:
         args.shadow_rate = 0.03125
+    if args.mesh_devices < 0:
+        ap.error(f"--mesh-devices {args.mesh_devices} must be >= 0")
+    if args.device_health < 0:
+        ap.error(f"--device-health {args.device_health} must be >= 0 "
+                 "(strike budget; 0 disables)")
+    if args.device_health and not args.mesh_devices:
+        ap.error("--device-health needs --mesh-devices (eviction re-shards "
+                 "a mesh; without one there is no slot to lose)")
     return serve_sorts(args)
 
 

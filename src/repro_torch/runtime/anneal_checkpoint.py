@@ -57,12 +57,15 @@ class AnnealCheckpointer:
                                      async_save=async_save)
 
     def save(self, round_idx: int, state: dict[str, np.ndarray],
-             meta: dict) -> None:
+             meta: dict, mesh=None) -> None:
         """Publish ``state`` (a flat ``{str: array-like}`` dict) as the
-        checkpoint of rung/round ``round_idx``; ``meta`` is JSON-able."""
+        checkpoint of rung/round ``round_idx``; ``meta`` is JSON-able;
+        ``mesh`` (the run's ``SortMesh``, or None) goes into the manifest
+        for audit."""
         assert all(isinstance(k, str) for k in state), state.keys()
         self.mgr.save(int(round_idx),
                       {k: np.asarray(v) for k, v in state.items()},
+                      mesh=mesh,
                       extra={"anneal": meta,
                              "state_keys": sorted(state)})
 

@@ -17,8 +17,9 @@ order, ``None`` an empty subtree, every other value a leaf, which is the
 order ``jax.tree.flatten`` gives the same containers.  So each package
 reads the other's checkpoints of a flat dict.  Leaves are stored in
 logical layout: a torch tensor is copied to host numpy.  ``mesh_shape``
-and ``mesh_axes`` are null: the port shards no state yet (ROADMAP.md
-Queue A11).
+and ``mesh_axes`` record the ``SortMesh`` a state was saved under
+(``[n]`` and ``["data"]``; null without one), for audit only: the state
+is layout-free, so it restores onto any mesh, or none.
 """
 from __future__ import annotations
 
@@ -121,8 +122,8 @@ class CheckpointManager:
 
     # ----------------------------------------------------------- saving
 
-    def save(self, step: int, state: PyTree, *, extra: dict | None = None,
-             block: bool = False):
+    def save(self, step: int, state: PyTree, *, mesh=None,
+             extra: dict | None = None, block: bool = False):
         """Snapshot now; write (a)synchronously."""
         self.wait()                                # one write in flight
         flat, structure = _flatten(state)
@@ -130,8 +131,9 @@ class CheckpointManager:
         meta = {
             "step": int(step),
             "time": time.time(),
-            "mesh_shape": None,
-            "mesh_axes": None,
+            "mesh_shape": (None if mesh is None
+                           else list(dict(mesh.shape).values())),
+            "mesh_axes": None if mesh is None else list(mesh.axis_names),
             "extra": extra or {},
         }
 

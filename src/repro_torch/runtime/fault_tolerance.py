@@ -5,15 +5,16 @@ of ``repro.runtime.fault_tolerance``.
 
 Failures surface as exceptions raised by a dispatch function; tests and
 ``chip_smoke.py`` inject them deterministically with ``FaultInjector``
-(a worker failure at a rung, a corrupted result at a dispatch).
+(a worker failure at a rung, a corrupted result at a dispatch, a mesh
+slot lost from a dispatch on and back at a later one).
 ``AnnealSupervisor`` restarts a run from its newest rung checkpoint
 (``checkpoint_dir=`` / ``resume=`` of the engines), so a supervised run
-finishes bitwise the uninterrupted one.
+finishes bitwise the uninterrupted one; a ``DeviceLost`` naming a slot of
+the run's ``mesh=`` rebuilds the mesh over the survivors first (the
+carry is layout-free, so the resumed run is still bitwise).
 
-Not ported yet: device loss and return (``FaultInjector``'s
-``device_loss`` / ``device_return``) and the supervisor's eviction of a
-lost device need a device mesh (ROADMAP.md Queue A11), and
-``TrainSupervisor`` waits for the LM trainer (Queue A16).
+Not ported yet: ``TrainSupervisor`` waits for the LM trainer (ROADMAP.md
+Queue A16).
 """
 from __future__ import annotations
 
@@ -30,15 +31,15 @@ from repro_torch.runtime.checkpoint import _host
 
 log = logging.getLogger("repro_torch.runtime")
 
-_MESH_ITEM = "device meshes (ROADMAP.md Queue A11)"
-
 
 class WorkerFailure(RuntimeError):
     """Simulated node failure (tests / chaos injection)."""
 
 
 class DeviceLost(WorkerFailure):
-    """A device stopped serving mid-dispatch; ``device_id`` names it."""
+    """A mesh slot stopped serving mid-dispatch; ``device_id`` names its
+    slot id, so a ``DeviceHealthMonitor`` can evict it and the caller
+    rebuild the mesh over the survivors."""
 
     def __init__(self, message: str, *, device_id: int | None = None):
         super().__init__(message)
@@ -145,13 +146,6 @@ def _like(new: np.ndarray, old):
     return new
 
 
-def _refuse_device_chaos(device_loss, device_return) -> None:
-    if device_loss or device_return:
-        raise NotImplementedError(
-            f"device_loss / device_return are not ported to repro_torch "
-            f"yet: {_MESH_ITEM}")
-
-
 class FaultInjector:
     """Deterministic chaos harness around a dispatch callable.
 
@@ -161,13 +155,25 @@ class FaultInjector:
     calls the engine, and when ``i`` is in ``corrupt_calls`` corrupts the
     engine's RESULT as its ``CorruptionSpec`` says (silent corruption for
     the guardrail probes to catch; a tensor result comes back as a tensor
-    on its device).  Everything is counted (``calls`` / ``faults`` /
-    ``delays`` / ``corruptions``).  As an engine's ``rung_hook`` it kills
-    a run at the top of a chosen rung, where a preemption lands.
+    on its device).  With ``delay_when(*args, **kwargs)`` a delay
+    scheduled at ``i`` waits for the first call from ``i`` on that the
+    predicate accepts and that is not failed (a stall at a full batch,
+    say).  Everything is counted (``calls`` / ``faults`` /
+    ``delays`` / ``corruptions`` / ``device_faults``).  As an engine's
+    ``rung_hook`` it kills a run at the top of a chosen rung, where a
+    preemption lands.
 
-    The cursor and schedules are JSON-able (``state_dict`` /
-    ``load_state_dict``).  ``device_loss`` / ``device_return`` need a
-    device mesh and raise ``NotImplementedError`` until it is ported.
+    **Device loss and return**: ``device_loss`` maps a dispatch index to a
+    slot id taken DOWN from that index on, ``device_return`` a dispatch
+    index to a slot id brought BACK.  The down set is state: every
+    dispatch whose ``mesh=`` (a ``SortMesh``) holds a downed slot raises
+    ``DeviceLost`` naming it, until the caller rebuilds the mesh without
+    it; a dispatch with ``mesh=None`` has no slots and is never hit.
+    ``healthy(slot_id)`` is the probe a ``DeviceHealthMonitor`` polls for
+    returns.
+
+    The cursor, schedules and down set are JSON-able (``state_dict`` /
+    ``load_state_dict``), so a chaos scenario survives a ``WarmHandoff``.
     """
 
     def __init__(self, engine_fn: Callable, fail_calls=(),
@@ -176,34 +182,65 @@ class FaultInjector:
                  sleep_fn: Callable[[float], None] = time.sleep,
                  corrupt_calls: Optional[dict] = None,
                  device_loss: Optional[dict[int, int]] = None,
-                 device_return: Optional[dict[int, int]] = None):
-        _refuse_device_chaos(device_loss, device_return)
+                 device_return: Optional[dict[int, int]] = None,
+                 delay_when: Optional[Callable[..., bool]] = None):
         self.engine_fn = engine_fn
         self.fail_calls = set(fail_calls)
         self.delay_calls = dict(delay_calls or {})
+        self.delay_when = delay_when
         self.corrupt_calls = {
             int(k): (v if isinstance(v, CorruptionSpec)
                      else CorruptionSpec(**v))
             for k, v in (corrupt_calls or {}).items()}
+        self.device_loss = {int(k): int(v)
+                            for k, v in (device_loss or {}).items()}
+        self.device_return = {int(k): int(v)
+                              for k, v in (device_return or {}).items()}
+        self.down: set[int] = set()
         self.exc_type = exc_type
         self.sleep_fn = sleep_fn
         self.calls = 0
         self.faults = 0
         self.delays = 0
         self.corruptions = 0
+        self.device_faults = 0
         # The previous call's clean result per target: the stale source.
         self._prev: dict[str, np.ndarray] = {}
         # Covers index assignment and counting only; the sleep and the
         # engine run outside it.
         self._lock = threading.Lock()
 
+    def healthy(self, device_id: int) -> bool:
+        """Whether slot ``device_id`` is up: ``DeviceHealthMonitor``'s
+        probe for returns."""
+        with self._lock:
+            return int(device_id) not in self.down
+
     def __call__(self, *args, **kwargs):
         with self._lock:
             i = self.calls
             self.calls += 1
-            delay = self.delay_calls.get(i)
             fail = i in self.fail_calls
+            if self.delay_when is None:
+                delay = self.delay_calls.get(i)
+            else:
+                due = [j for j in self.delay_calls if j <= i]
+                delay = (self.delay_calls.pop(min(due))
+                         if due and not fail
+                         and self.delay_when(*args, **kwargs) else None)
             spec = self.corrupt_calls.get(i)
+            # Transitions fire at exact dispatch indices, then persist.
+            if i in self.device_loss:
+                self.down.add(self.device_loss[i])
+            if i in self.device_return:
+                self.down.discard(self.device_return[i])
+            lost = None
+            mesh = kwargs.get("mesh")
+            if mesh is not None and self.down:
+                hit = [d for d in mesh.ids if d in self.down]
+                if hit:
+                    lost = hit[0]
+                    self.device_faults += 1
             if delay is not None:
                 self.delays += 1
             if fail:
@@ -212,6 +249,10 @@ class FaultInjector:
             self.sleep_fn(delay)
         if fail:
             raise self.exc_type(f"injected fault at dispatch {i}")
+        if lost is not None:
+            raise DeviceLost(
+                f"device {lost} lost at dispatch {i} (down set "
+                f"{sorted(self.down)})", device_id=lost)
         result = self.engine_fn(*args, **kwargs)
         if spec is None and not self.corrupt_calls:
             return result
@@ -238,7 +279,8 @@ class FaultInjector:
         return tuple(out) if isinstance(result, tuple) else out[0]
 
     def state_dict(self) -> dict:
-        """JSON-able cursor and schedules (not the stale-source arrays)."""
+        """JSON-able cursor, schedules and down set (not the stale-source
+        arrays)."""
         with self._lock:
             return {
                 "calls": self.calls, "faults": self.faults,
@@ -249,14 +291,16 @@ class FaultInjector:
                 "corrupt_calls": {
                     str(k): dataclasses.asdict(v)
                     for k, v in self.corrupt_calls.items()},
-                "device_loss": {}, "device_return": {}, "down": [],
-                "device_faults": 0,
+                "device_loss": {str(k): int(v)
+                                for k, v in self.device_loss.items()},
+                "device_return": {str(k): int(v)
+                                  for k, v in self.device_return.items()},
+                "down": sorted(int(d) for d in self.down),
+                "device_faults": self.device_faults,
                 "exc_type": self.exc_type.__name__,
             }
 
     def load_state_dict(self, state: dict) -> None:
-        _refuse_device_chaos(state.get("device_loss"),
-                             state.get("device_return"))
         with self._lock:
             self.calls = int(state["calls"])
             self.faults = int(state["faults"])
@@ -268,6 +312,14 @@ class FaultInjector:
             self.corrupt_calls = {
                 int(k): CorruptionSpec(**v)
                 for k, v in state.get("corrupt_calls", {}).items()}
+            self.device_loss = {
+                int(k): int(v)
+                for k, v in state.get("device_loss", {}).items()}
+            self.device_return = {
+                int(k): int(v)
+                for k, v in state.get("device_return", {}).items()}
+            self.down = set(int(d) for d in state.get("down", []))
+            self.device_faults = int(state.get("device_faults", 0))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -346,6 +398,9 @@ class AnnealSupervisor:
     * **Integrity violations** first replay from the last verified
       checkpoint, up to ``degrade.integrity_retries`` times, then take
       the ladder.
+    * **A lost device** (a ``DeviceLost`` naming a slot of ``mesh=``)
+      evicts that slot: the retry runs on a mesh rebuilt over the
+      survivors (``stats["evictions"]``, an ``evict`` history entry).
 
     The checkpoint directory is the whole state: kill the process
     anywhere and a new supervisor over the same directory continues.
@@ -376,13 +431,9 @@ class AnnealSupervisor:
         """Run ``run_fn(xs, hw, cfg, ...)`` to completion, restarting from
         the newest rung checkpoint after each supervised failure.  Extra
         ``kwargs`` go to ``run_fn`` as they are (``rung_hook`` for chaos,
-        ``guardrail=``, ``device=``, ...)."""
+        ``guardrail=``, ``device=``, ``mesh=``, ...)."""
         from repro_torch.core.shufflesoftsort import NumericalDivergence
         from repro_torch.runtime.guardrails import IntegrityViolation
-        if kwargs.get("mesh") is not None:
-            raise NotImplementedError(
-                f"supervising a run on a mesh (device eviction) is not "
-                f"ported to repro_torch yet: {_MESH_ITEM}")
         cfg_cur = cfg
         restarts = 0
         replays = 0
@@ -436,6 +487,21 @@ class AnnealSupervisor:
                     raise RuntimeError(
                         f"exceeded {self.retry.max_retries} restarts"
                     ) from e
+                # A DeviceLost names its slot: the retry re-shards over
+                # the survivors instead of replaying onto the dead slot.
+                dev = getattr(e, "device_id", None)
+                mesh = kwargs.get("mesh")
+                survivors = (None if dev is None or mesh is None
+                             else mesh.without([dev]))
+                if survivors is not None:
+                    kwargs["mesh"] = survivors
+                    self.stats.setdefault("evictions", 0)
+                    self.stats["evictions"] += 1
+                    self.history.append(
+                        {"event": "evict", "device": int(dev),
+                         "survivors": len(survivors)})
+                    log.warning("evicted device %d; re-sharded over %d "
+                                "survivors", dev, len(survivors))
                 delay = self.retry.backoff(restarts)
                 if delay:
                     self.sleep_fn(delay)

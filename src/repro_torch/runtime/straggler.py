@@ -5,22 +5,30 @@ Per-step wall time feeds an EWMA mean/variance; a step slower than
 ``mean + z * std`` (and at least ``min_ratio`` x mean) is flagged.
 Flagged steps never update the baseline, so one straggler cannot poison
 the statistics it is judged against.  The consumer is the sort server
-(``repro_torch.launch.serve.SortServer``), which feeds per-dispatch wall
-clock normalized per instance-round and halves its batch bucket cap on a
-flag, so one slow coalesced batch stops stalling the traffic behind it.
+(``repro_torch.launch.serve.SortServer``), which halves its batch bucket
+cap on a flag, so one slow coalesced batch stops stalling the traffic
+behind it.
+
+What the server feeds the monitor is the port's own (ROADMAP.md Queue
+C9): a dispatch's seconds over the seconds ``DispatchCost`` expects of
+its signature.  The reference feeds seconds per instance-round, which is
+fair where a dispatch's time grows with its batch (the CPU) and spreads
+~8x with the batch alone where a host-bound card pays about the same at
+1 instance as at 8.  ``DispatchCost`` keeps each signature's mean over
+its clean dispatches: within one signature the work is fixed, so the
+host's fixed cost per dispatch cancels out.
 
 ``DeviceHealthMonitor`` is the sibling layer for hard failures: it
 classifies dispatch exceptions as transient (anonymous: retry under the
 caller's ``RetryPolicy``) or lost (a ``DeviceLost`` naming the device,
 past the strike budget: evict it and re-shard over the survivors).  Its
-consumer, the server's eviction branch, needs a device mesh, which is not
-ported yet (ROADMAP.md Queue A11): ``SortServer(device_health=...)``
-raises ``NotImplementedError``.
+consumer is the server's eviction branch (``SortServer(mesh=...,
+device_health=...)``).
 """
 from __future__ import annotations
 
 import math
-from typing import Callable, Optional
+from typing import Callable, Hashable, Optional
 
 
 class StragglerMonitor:
@@ -60,6 +68,32 @@ class StragglerMonitor:
             self.mean += self.alpha * d
             self.var = (1 - self.alpha) * (self.var + self.alpha * d * d)
         return is_straggler
+
+
+class DispatchCost:
+    """Expected seconds of a dispatch, learnt from clean dispatches.
+
+    A dispatch's ``signature`` is everything that fixes its work: shape,
+    regime, rung length, mesh slots and batch bucket.
+    ``observe(signature, dt)`` folds a clean dispatch into that
+    signature's mean: a running mean over its first ``1 / alpha``
+    dispatches, an EWMA with ``alpha`` after.  ``expected(signature)`` is
+    that mean, or None before the signature's first clean dispatch
+    (nothing to judge by yet).
+    """
+
+    def __init__(self, alpha: float = 0.05):
+        self.alpha = alpha
+        self.means: dict[Hashable, list] = {}
+
+    def expected(self, signature: Hashable) -> Optional[float]:
+        m = self.means.get(signature)
+        return None if m is None else m[0]
+
+    def observe(self, signature: Hashable, dt: float) -> None:
+        m = self.means.setdefault(signature, [0.0, 0])
+        m[1] += 1
+        m[0] += (dt - m[0]) / min(m[1], 1.0 / self.alpha)
 
 
 class DeviceHealthMonitor:

@@ -1236,3 +1236,79 @@ def test_cuda_served_request_is_bitwise_its_solo_chain(cuda):
             parts.append(ls[:, 0].cpu().numpy())
         np.testing.assert_array_equal(order, o[0].cpu().numpy())
         np.testing.assert_array_equal(losses, np.concatenate(parts))
+
+
+# ------------------------------------------------- the mesh on the card
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("band", [None, "auto"])
+def test_cuda_sharded_engines_are_bitwise_unsharded(cuda, band):
+    """Meshes of 1, 3 and 8 slots of this card on the kernel tier (std
+    term on): the fixed engine at B x S = 12 (padded to 15 / 16), the
+    adaptive engine with forced firing, a tournament and a segment are
+    bitwise ``mesh=None``: the kernels are batch-invariant and every
+    slot's loss runs in blocks of 8 instances."""
+    from repro_torch.core import (ShuffleSoftSortConfig, TorchShuffleSource,
+                                  restart_tournament, run_round_segment,
+                                  shuffle_soft_sort_batched)
+    from repro_torch.launch.mesh import make_sort_mesh
+
+    n, hw = 256, (16, 16)
+    xs, _ = _tournament_problem(3, 1, n, 1, seed=12)
+    fire = dict(schedule="adaptive", patience=1, plateau_rtol=1.0,
+                adapt_every=2)
+    for kw in ({}, fire):
+        cfg = ShuffleSoftSortConfig(use_kernel=True, rounds=6 if not kw
+                                    else 8, inner_steps=4, band=band, **kw)
+        want = shuffle_soft_sort_batched(xs, hw, cfg, n_restarts=4, seed=2,
+                                         device=cuda)
+        for k in (1, 3, 8):
+            got = shuffle_soft_sort_batched(
+                xs, hw, cfg, n_restarts=4, seed=2,
+                mesh=make_sort_mesh(devices=[cuda] * k))
+            np.testing.assert_array_equal(got.all_orders, want.all_orders)
+            np.testing.assert_array_equal(got.all_losses, want.all_losses)
+            np.testing.assert_array_equal(got.best_restart,
+                                          want.best_restart)
+    cfg = ShuffleSoftSortConfig(use_kernel=True, rounds=6, inner_steps=4,
+                                band=band)
+    tour = [restart_tournament(xs, hw, cfg, n_restarts=4, seed=2,
+                               cull_fraction=0.5, n_rungs=3, device=cuda,
+                               mesh=m)
+            for m in (None, make_sort_mesh(devices=[cuda] * 3))]
+    np.testing.assert_array_equal(tour[0].order, tour[1].order)
+    np.testing.assert_array_equal(tour[0].all_losses, tour[1].all_losses)
+    outs = []
+    for m in (None, make_sort_mesh(devices=[cuda] * 3)):
+        src = TorchShuffleSource([1, 2, 3, 4, 5], n, cuda)
+        outs.append(run_round_segment(
+            np.concatenate([xs, xs[:2]]), np.tile(np.arange(n), (5, 1)),
+            np.ones(5, np.float32), [0, 0, 2, 2, 4], 2, source=src, hw=hw,
+            cfg=cfg, device=cuda, mesh=m) + (src.state_dict(),))
+    for a, b in zip(*outs):
+        assert np.array_equal(np.asarray(torch.as_tensor(a).cpu()),
+                              np.asarray(torch.as_tensor(b).cpu()))
+
+
+@pytest.mark.cuda
+def test_cuda_mesh_over_two_cards(cuda):
+    """A mesh over two cards: each slot's streams and rows move to its
+    card, every kernel launch there raises its shared-memory limit on
+    that card first (once per device), and the results are bitwise the
+    run on the first card alone."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    from repro_torch.core import ShuffleSoftSortConfig, shuffle_soft_sort_batched
+    from repro_torch.launch.mesh import make_sort_mesh
+
+    n, hw = 256, (16, 16)
+    xs, _ = _tournament_problem(2, 1, n, 1, seed=13)
+    for band in (None, "auto"):
+        cfg = ShuffleSoftSortConfig(use_kernel=True, rounds=4, inner_steps=4,
+                                    band=band)
+        want = shuffle_soft_sort_batched(xs, hw, cfg, n_restarts=5, seed=1,
+                                         device="cuda:0")
+        got = shuffle_soft_sort_batched(xs, hw, cfg, n_restarts=5, seed=1,
+                                        mesh=make_sort_mesh(2))
+        np.testing.assert_array_equal(got.all_orders, want.all_orders)
+        np.testing.assert_array_equal(got.all_losses, want.all_losses)

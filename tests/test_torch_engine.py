@@ -306,12 +306,23 @@ def test_entry_points_never_fall_back_to_cpu(monkeypatch):
     ({"mesh": object()}, "mesh"),
 ])
 def test_unported_features_raise(kw, feature):
+    """Once refused as unported (ROADMAP.md Queue A11), a mesh is now
+    ported: an object that is not a ``SortMesh`` is a ``TypeError``, and
+    a mesh of CPU slots runs, bitwise the unsharded run."""
+    from repro_torch.launch.mesh import make_sort_mesh
     cfg = teng.ShuffleSoftSortConfig(rounds=1, inner_steps=1,
                                      **kw.pop("cfg", {}))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="SortMesh"):
         teng.shuffle_soft_sort_batched(_x(0, 1), HW, cfg, device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="SortMesh"):
         teng.restart_tournament(_x(0, 1), HW, cfg, device="cpu", **kw)
+    mesh = make_sort_mesh(devices=["cpu"] * 2)
+    got = teng.shuffle_soft_sort_batched(_x(0, 1), HW, cfg, n_restarts=3,
+                                         **{feature: mesh})
+    want = teng.shuffle_soft_sort_batched(_x(0, 1), HW, cfg, n_restarts=3,
+                                          device="cpu")
+    np.testing.assert_array_equal(got.all_orders, want.all_orders)
+    np.testing.assert_array_equal(got.all_losses, want.all_losses)
 
 
 def _imported_modules(path: pathlib.Path):

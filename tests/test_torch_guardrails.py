@@ -311,12 +311,28 @@ def test_supervisor_over_a_scripted_stub_matches_reference(tmp_path):
 
 
 def test_supervisor_refuses_a_mesh(tmp_path):
-    sup = AnnealSupervisor(lambda *a, **k: None,
-                           checkpoint_dir=str(tmp_path))
-    with pytest.raises(NotImplementedError, match="A11"):
-        sup.run(None, HW, _cfg(), mesh=object())
-    with pytest.raises(NotImplementedError, match="A11"):
-        tft.FaultInjector(lambda: None, device_loss={1: 0})
+    """Once refused as unported (ROADMAP.md Queue A11), a supervised run
+    on a mesh is now ported: an object that is not a ``SortMesh`` is a
+    ``TypeError``, a ``FaultInjector`` takes device chaos, and a slot it
+    takes down is evicted, the run finishing on the survivors."""
+    from repro_torch.launch.mesh import make_sort_mesh
+    xs = np.stack([_problem(i) for i in range(2)])
+    sup = AnnealSupervisor(checkpoint_dir=str(tmp_path / "a"))
+    with pytest.raises(TypeError, match="SortMesh"):
+        sup.run(xs, HW, _cfg(), device="cpu", mesh=object())
+    mesh = make_sort_mesh(devices=["cpu"] * 3)
+    inj = tft.FaultInjector(teng.shuffle_soft_sort_batched,
+                            device_loss={0: mesh.ids[1]})
+    sup = AnnealSupervisor(inj, checkpoint_dir=str(tmp_path / "b"),
+                           retry=tft.RetryPolicy(backoff_base_s=0.0))
+    got = sup.run(xs, HW, _cfg(), n_restarts=2, mesh=mesh)
+    want = teng.shuffle_soft_sort_batched(xs, HW, _cfg(), n_restarts=2,
+                                          device="cpu")
+    assert sup.stats["evictions"] == 1 and inj.device_faults == 1
+    assert sup.history[-1] == {"event": "evict", "device": mesh.ids[1],
+                               "survivors": 2}
+    np.testing.assert_array_equal(got.all_orders, want.all_orders)
+    np.testing.assert_array_equal(got.all_losses, want.all_losses)
 
 
 def test_injector_state_dict_roundtrip_matches_reference():

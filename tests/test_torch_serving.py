@@ -149,6 +149,24 @@ def test_fault_injector_is_deterministic():
     assert slept == [0.25, 0.5] and calls == [5, 7]
 
 
+def test_fault_injector_delay_waits_for_an_accepted_call():
+    """With ``delay_when`` a delay scheduled at call 1 lands on the first
+    call from 1 on that the predicate accepts and that is not failed;
+    the schedule left in ``state_dict`` loses it."""
+    calls, slept = [], []
+    inj = FaultInjector(lambda v: calls.append(v) or v, fail_calls={2},
+                        delay_calls={1: 0.5}, sleep_fn=slept.append,
+                        delay_when=lambda v: v >= 8)
+    assert inj(9) == 9 and inj(3) == 3          # call 0: not due yet
+    with pytest.raises(WorkerFailure):
+        inj(9)                                  # due, but failed
+    assert inj(4) == 4 and slept == []          # not accepted
+    assert inj(8) == 8 and slept == [0.5]       # call 4: the stall
+    assert inj(9) == 9 and slept == [0.5]       # once
+    assert (inj.calls, inj.faults, inj.delays) == (6, 1, 1)
+    assert inj.state_dict()["delay_calls"] == {} and calls == [9, 3, 4, 8, 9]
+
+
 # ---------------------------------------------- continuous batching core
 
 def test_mixed_progress_requests_share_one_dispatch_bitwise():
@@ -264,11 +282,25 @@ def test_sched_rung_alignment_is_validated():
 
 
 def test_mesh_and_device_health_are_not_ported():
-    """A device mesh and device eviction wait for Queue A11; the default
-    device is CUDA, an error without one (no quiet move to the CPU)."""
-    for kw in (dict(mesh=object()), dict(device_health=object())):
-        with pytest.raises(NotImplementedError, match="A11"):
+    """Once refused as unported (ROADMAP.md Queue A11), a mesh and a
+    health monitor are now ported: objects of other types are a
+    ``TypeError``, and a server on a mesh of CPU slots serves a request
+    bitwise its solo run.  The default device is CUDA, an error without
+    one (no quiet move to the CPU)."""
+    from repro_torch.launch.mesh import make_sort_mesh
+    for kw, what in ((dict(mesh=object()), "SortMesh"),
+                     (dict(device_health=object()), "DeviceHealthMonitor")):
+        with pytest.raises(TypeError, match=what):
             _server(autostart=False, **kw)
+    server = SortServer(HW, d=D, cfg=CFG, autostart=False,
+                        mesh=make_sort_mesh(devices=["cpu"] * 3),
+                        device_health=tstraggler.DeviceHealthMonitor())
+    assert server.device == torch.device("cpu")
+    x = _problems(1, seed=4)[0]
+    fut = server.submit(x, key=5)
+    _drain(server)
+    server.close()
+    _assert_result(fut.result(timeout=0), _solo(x, 5))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             SortServer(HW, d=D, cfg=CFG, autostart=False)
@@ -429,7 +461,8 @@ def test_cli_rejects_bf16_without_kernel(capsys):
 
 def test_cli_serves_and_accounts(capsys):
     """The README's command: 8 requests on the CPU; the accounting line
-    holds; the LM workload and the mesh flags are not ported yet."""
+    holds; the LM workload is not ported yet; the mesh flags serve on a
+    mesh of CPU slots, and --device-health needs --mesh-devices."""
     from repro_torch.launch.serve import main
     out = main(["--workload", "sort", "--device", "cpu", "--requests", "8",
                 "--sort-n", "64", "--rounds", "8"])
@@ -439,9 +472,16 @@ def test_cli_serves_and_accounts(capsys):
     assert out["completed"] == 8 and out["improved"] == 8
     with pytest.raises(NotImplementedError, match="A16"):
         main(["--workload", "lm"])
-    for flag in ("--mesh-devices", "--device-health"):
-        with pytest.raises(NotImplementedError, match="A11"):
-            main(["--device", "cpu", flag, "2"])
+    out = main(["--device", "cpu", "--requests", "3", "--sort-n", "64",
+                "--rounds", "4", "--mesh-devices", "3", "--device-health",
+                "1"])
+    line = capsys.readouterr().out
+    assert "3 mesh slots of cpu" in line and "elastic: 0 evictions" in line
+    assert out["completed"] == 3 and out["evictions"] == 0
+    with pytest.raises(SystemExit) as ei:
+        main(["--device", "cpu", "--device-health", "2"])
+    assert ei.value.code == 2
+    assert "--mesh-devices" in capsys.readouterr().err
 
 
 # --------------------------------------- adaptive annealing x faults
@@ -706,7 +746,8 @@ def test_brownout_cull_matches_aggressive_tournament():
 @pytest.mark.parametrize("disk", [False, True])
 def test_warm_handoff_roundtrips_the_ladder(tmp_path, disk):
     """The brownout position survives a handoff, in process and through
-    the JSON manifest; with no mesh the evicted-device set is empty."""
+    the JSON manifest; with no mesh the evicted-device set is empty (a
+    mesh's: ``tests/test_torch_elastic.py``)."""
     server = _server(autostart=False, brownout=BrownoutPolicy(),
                      checkpoint_dir=str(tmp_path) if disk else None)
     server._brownout_level = 3
@@ -775,24 +816,140 @@ def test_device_health_monitor_matches_reference():
         tstraggler.DeviceHealthMonitor(lost_after=0)
 
 
+# ------------------------------- the straggler yardstick (Queue C9)
+
+class _Clock:
+    """A fake ``time.perf_counter``: dispatches cost what the engine says."""
+
+    def __init__(self):
+        self.t = 0.0
+
+    def __call__(self):
+        return self.t
+
+
+def _host_bound(monkeypatch, cost=0.2, stalls=()):
+    """The server's dispatch clock made fake, and an engine that costs
+    ``cost`` seconds whatever its batch (a host-bound card), 4x that at
+    the dispatch indices ``stalls`` (a stall of 3 dispatches' time)."""
+    import types
+    from repro_torch.launch import serve
+    clock = _Clock()
+    monkeypatch.setattr(serve, "time", types.SimpleNamespace(
+        perf_counter=clock, monotonic=time.monotonic, sleep=time.sleep))
+    batches = []
+
+    def engine(xs, *args, **kwargs):
+        clock.t += cost * (4 if len(batches) in stalls else 1)
+        batches.append(xs.shape[0])
+        return run_round_segment(xs, *args, **kwargs)
+
+    return engine, batches
+
+
+def _reference_yardstick_flags(server, batches, seg_len, **kw):
+    """The flags the reference's yardstick (seconds per instance-round)
+    gives the same dispatches."""
+    mon = tstraggler.StragglerMonitor(**kw)
+    times = [0.2 * (4 if i in server._stalls else 1)
+             for i in range(len(batches))]
+    return [i for i, (dt, b) in enumerate(zip(times, batches))
+            if mon.record(i, dt / (seg_len * b))]
+
+
+def test_dispatch_cost_model():
+    """One mean per signature: nothing to judge by before a signature's
+    first dispatch; a running mean over the first ``1 / alpha``
+    dispatches, an EWMA after; signatures never mix."""
+    cost = tstraggler.DispatchCost(alpha=0.5)
+    assert cost.expected(("a", 8)) is None
+    cost.observe(("a", 8), 1.0)
+    assert cost.expected(("a", 8)) == 1.0
+    assert cost.expected(("a", 4)) is None
+    cost.observe(("a", 8), 2.0)          # a running mean, then the EWMA
+    assert cost.expected(("a", 8)) == 1.5
+    cost.observe(("a", 8), 2.0)
+    assert cost.expected(("a", 8)) == 1.75
+    cost.observe(("a", 4), 0.25)
+    assert cost.expected(("a", 4)) == 0.25
+    assert cost.expected(("a", 8)) == 1.75
+
+
+def test_host_bound_small_buckets_raise_no_flag(monkeypatch):
+    """A host-bound engine (the same seconds at any batch): a warm-up at
+    bucket 8, then clean dispatches at buckets 1 and 2, flags nothing,
+    where the reference's per-instance-round yardstick flags them; then a
+    stall of 3 dispatches' time at bucket 8 is flagged and halves the
+    bucket cap."""
+    engine, batches = _host_bound(monkeypatch, stalls={13})
+    mon = dict(z=4.0, min_ratio=2.0, warmup=3)
+    server = _server(max_batch=8, autostart=False, engine_fn=engine,
+                     straggler=tstraggler.StragglerMonitor(**mon))
+    server._stalls = {13}
+    for count, seed in ((8, 0), (1, 1), (2, 2)):
+        futs = [server.submit(x, key=10 * seed + i)
+                for i, x in enumerate(_problems(count, seed=seed))]
+        _drain(server)
+        assert all(f.result(timeout=0) for f in futs)
+    assert batches == [8] * 4 + [1] * 4 + [2] * 4
+    assert server.stats["stragglers"] == 0 and server._bucket_cap == 8
+    assert _reference_yardstick_flags(server, batches, 1, **mon)
+    futs = [server.submit(x, key=40 + i)
+            for i, x in enumerate(_problems(8, seed=4))]
+    _drain(server)
+    server.close()
+    assert all(f.result(timeout=0) for f in futs)
+    assert batches[12:14] == [8, 8]
+    ev = [e for e in server.events if e["event"] == "straggler"]
+    assert server.stats["stragglers"] == 1 and len(ev) == 1
+    assert ev[0]["cap_before"] == 8 and ev[0]["bucket_cap"] == 4
+    assert ev[0]["dt_s"] == pytest.approx(0.8)
+    assert ev[0]["expected_s"] == pytest.approx(0.2)
+
+
+def test_culled_tournament_raises_no_flag(monkeypatch):
+    """Tournament requests culled from 8 live restarts to 4 and 2 on a
+    host-bound engine: no flag, where the reference's yardstick flags the
+    culled dispatches."""
+    engine, batches = _host_bound(monkeypatch)
+    mon = dict(z=4.0, min_ratio=2.0, warmup=2)
+    cfg = ShuffleSoftSortConfig(rounds=6, inner_steps=2, chunk=16)
+    server = _server(cfg, max_batch=8, autostart=False, engine_fn=engine,
+                     n_restarts=8, tournament_rungs=3, sched_rungs=3,
+                     cull_fraction=0.5,
+                     straggler=tstraggler.StragglerMonitor(**mon))
+    server._stalls = set()
+    for i, x in enumerate(_problems(3, seed=5)):
+        fut = server.submit(x, key=50 + i)
+        _drain(server)
+        assert fut.result(timeout=0)
+    server.close()
+    assert batches == [8, 4, 2] * 3
+    assert server.stats["stragglers"] == 0 and server._bucket_cap == 8
+    assert _reference_yardstick_flags(server, batches, 2, **mon)
+
+
 # ------------------------------------------------------- the serving bench
 
 def test_serving_bench_smoke_check_passes_on_cpu(capsys):
     """``python -m repro_torch.bench.serving_bench --device cpu --smoke
     --check --inject-faults``: every scenario accounts for each offered
     request exactly once, the faults row retried, the preempt row resumed
-    every preempted request; ``--capacity`` waits for Queue A11."""
+    every preempted request, the faults_stall row flagged its stall at a
+    full bucket and halved the cap (ROADMAP.md Queue C9); ``--capacity``
+    adds the elastic cell (its checks: ``tests/test_torch_elastic.py``)."""
     from repro_torch.bench import serving_bench
     doc = serving_bench.main(["--device", "cpu", "--smoke", "--check",
                               "--inject-faults"])
-    assert "serving gate OK (4 cells)" in capsys.readouterr().out
+    assert "serving gate OK (5 cells)" in capsys.readouterr().out
     assert [c["scenario"] for c in doc["cells"]] == [
-        "steady", "faults", "overload", "preempt"]
+        "steady", "faults", "faults_stall", "overload", "preempt"]
     assert all(c["wall_clock"] == "cpu" for c in doc["cells"])
-    faults = doc["cells"][1]
+    faults, stall = doc["cells"][1:3]
     assert faults["injected_faults"] >= 1 and faults["retries"] >= 1
-    with pytest.raises(NotImplementedError, match="A11"):
-        serving_bench.main(["--device", "cpu", "--capacity"])
+    assert stall["injected_delays"] == 1 and any(
+        e["dt_s"] >= 1.0 and e["bucket_cap"] == e["cap_before"] // 2
+        for e in stall["straggler_events"]), stall["straggler_events"]
 
 
 def test_serving_bench_gate_flags_a_leak():

@@ -24,6 +24,7 @@ CPU, and their own contracts.
   partition are bitwise one uninterrupted run; the regime checks raise.
 """
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -359,12 +360,28 @@ def test_run_adaptive_counts_rounds_and_calls_its_hooks():
 
 
 @pytest.mark.parametrize("kw,item", [
-    ({"mesh_hook": lambda start, mesh: None}, "A11"),
+    ({"mesh_hook": lambda start, mesh: object()}, "A11"),
     ({"mesh": object()}, "A11")])
 def test_tournament_refuses_unported_features(kw, item):
-    with pytest.raises(NotImplementedError, match=item):
+    """Once refused as unported (ROADMAP.md Queue A11), ``mesh`` and
+    ``mesh_hook`` are now ported: an object that is not a ``SortMesh``
+    (given, or returned by the hook) is a ``TypeError``, and a mesh of
+    CPU slots, or a hook that moves the run onto one, gives the unsharded
+    tournament's results bitwise."""
+    from repro_torch.launch.mesh import make_sort_mesh
+    with pytest.raises(TypeError, match="SortMesh"):
         teng.restart_tournament(_xs(0, 1), HW, _plain(rounds=2),
                                 device="cpu", **kw)
+    mesh = make_sort_mesh(devices=["cpu"] * 3)
+    ported = ({"mesh": mesh} if "mesh" in kw else
+              {"mesh_hook": lambda start, m: mesh if start else None,
+               "device": "cpu"})
+    run = functools.partial(teng.restart_tournament, _xs(0, 2), HW,
+                            _plain(rounds=4), n_restarts=4, n_rungs=2,
+                            seed=3)
+    got, want = run(**ported), run(device="cpu")
+    np.testing.assert_array_equal(got.order, want.order)
+    np.testing.assert_array_equal(got.all_losses, want.all_losses)
 
 
 @pytest.mark.parametrize("bs", [1, 3, 8, 11, 16])
@@ -474,8 +491,12 @@ def test_segment_regime_checks_raise():
     with pytest.raises(ValueError, match="resolvable"):
         seg([0, 0], config=dataclasses.replace(cfg, band=None),
             regime="banded")
-    with pytest.raises(NotImplementedError, match="A11"):
+    with pytest.raises(TypeError, match="SortMesh"):
         seg([0, 0], mesh=object())
+    from repro_torch.launch.mesh import make_sort_mesh
+    for a, b in zip(seg([0, 0], mesh=make_sort_mesh(devices=["cpu"] * 3)),
+                    seg([0, 0])):
+        assert torch.equal(a, b)
     with pytest.raises(TypeError, match="GuardrailPolicy"):
         seg([0, 0], guardrail=object())
     # Explicit regimes bypass the model's check (the caller groups).
