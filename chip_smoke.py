@@ -50,7 +50,11 @@ start):
    vectors on a 64 x 64 grid, 32 rounds x 8 inner steps, float32.
    Asserts valid permutations, falling losses, a better neighbour
    distance than the unsorted layout, 256 launches of every dense kernel
-   and none of a banded one.
+   and none of a banded one; its ``digest`` (orders, then losses).
+   ``c10_check``: the same run with the parent's sampled loss normaliser
+   given as ``norms=`` is the parent's digest (``PARENT_MAIN_DIGEST``):
+   Queue C10's repair of the normaliser moved nothing else; the new
+   normaliser is printed beside the old one.
 6. ``band_main_run`` — the main run with ``band="auto"`` (K = 256, banded
    from round 0): 256 launches of each banded kernel, none of a dense one.
 7. ``band_switch_run`` — 2 problems x 1 restart of the same data with
@@ -168,8 +172,23 @@ start):
     the decode row against the prefill's last row; 2 launches of
     ``flash_forward`` and 1 of ``flash_combine`` (the decode step's).
 
-Phases 9 and 11 run right after phase 3, so that a faulty kernel stops
-the script before the long runs; 10 and 12 run after phase 8.
+13. ``threefry_run`` — the threefry kernel (``threefry_bits``,
+    ``csrc/threefry.cu``) bitwise its twin on the card in its three
+    layouts at ``THREEFRY_SHAPES``; jax's known-answer vectors; the draws
+    of ``threefry_draws`` (split, bits, permutation, uniform) in both
+    counter layouts against jax's digests (``THREEFRY_DIGESTS``); ms per
+    shuffle round at B.S = 8, N = 4096 of ``ThreefryShuffleSource`` and
+    ``TorchShuffleSource``; the kernel's times at two shapes.
+14. ``paper_table_run`` — the paper's Table III at N = 1024, full budget,
+    kernel tier (``repro_torch.bench.paper_table``): each row's
+    parameters, seconds, DPQ_16, neighbour distance and validity, its
+    ``--check`` (ShuffleSoftSort's DPQ_16 above SoftSort's, every row but
+    Kissing's valid, exact parameter counts; Kissing's validity as
+    found), 16000 launches of each dense kernel (8000 steps of each
+    SoftSort row) and the threefry kernel's.
+
+Phases 9, 11 and 13 run right after phase 3, so that a faulty kernel
+stops the script before the long runs; 10, 12 and 14 run after phase 8.
 
 Then the ``{"kernels": [...]}`` summary line, the card's name and power
 limit as ``nvidia-smi`` reports them, and ``{"ok": true, "device": ...}``
@@ -188,6 +207,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 T0 = time.perf_counter()
 SOFTSORT_CU = "src/repro_torch/kernels/csrc/softsort_apply.cu"
 FLASH_CU = "src/repro_torch/kernels/csrc/flash_attention.cu"
+THREEFRY_CU = "src/repro_torch/kernels/csrc/threefry.cu"
 REPLACES = {
     "fwd_fused": "src/repro/kernels/softsort_apply.py:150",
     "colsum": "src/repro/kernels/softsort_apply.py:182",
@@ -203,13 +223,16 @@ REPLACES = {
                      "src/repro/kernels/flash_attention.py:62",
     "flash_combine": "src/repro/kernels/flash_attention.py:42, "
                      "src/repro/kernels/flash_attention.py:62",
+    "threefry_bits": "none: the reference draws through XLA's threefry2x32 "
+                     "op (jax._src.prng), no Pallas kernel",
 }
 DENSE = ("fwd_fused", "colsum", "bwd_dws_delta", "bwd_dx")
 BAND = ("fwd_band", "colsum_band", "bwd_band_dws_delta", "bwd_band_dcol")
 V1 = ("v1_stats", "v1_apply")
 FLASH = ("flash_forward", "flash_combine")
 FWD_ATOL, GRAD_RTOL, BF16_RTOL = 2e-5, 1e-4, 2e-2
-SHAPES = [(8, 4096, 50), (3, 1000, 3), (1, 17, 1)]
+# ... and (1, 1024, 3): paper_table_run's SoftSort row (1024 colours).
+SHAPES = [(8, 4096, 50), (3, 1000, 3), (1, 17, 1), (1, 1024, 3)]
 MAIN_SHAPE = SHAPES[0]
 # kernel_check: SHAPES, DT = 32 and three payload tiles of 64, then the
 # shape run with row keys drawn apart from the column keys.
@@ -239,6 +262,39 @@ NEMO_PREFILL = (1, 4096, 4096, 32, 8, 128, True, 0)
 NEMO_DECODE = (1, 1, 4096, 32, 8, 128, True, 4095)
 NEMO_CUTS = ["context 128k -> 4096 keys, for time",
              "one layer's attention of 40, not the model"]
+# threefry_run: the draws of ``threefry_draws`` in each counter layout,
+# sha256 (first 16 hex digits) of their words (uint32), int32 permutations
+# or float32 values, computed from jax 0.9.0's jax.random on the CPU
+# (tests/test_torch_threefry.py recomputes them there), and jax's
+# known-answer vectors of the hash: (key, count) -> words.
+THREEFRY_DIGESTS = {
+    True: {"split_8": "11deb0153b5d7d21", "bits_8x4096": "bd3c04e484d0c7be",
+           "bits_1x1048576": "7a5f93479f388954",
+           "bits_3x1001": "811a3d4dd24b413a",
+           "permutation_8x4096": "67022e81d6ddde8d",
+           "uniform_1024x3": "21d19e3bd73b84aa"},
+    False: {"split_8": "7c4a3853480e53f8", "bits_8x4096": "732ae64955b83fb9",
+            "bits_1x1048576": "e5633c1d3b714950",
+            "bits_3x1001": "a0c5ebd698aa35e4",
+            "permutation_8x4096": "89421b32a48ea4c1",
+            "uniform_1024x3": "624dcfe3d4361d8d"},
+}
+THREEFRY_KNOWN = [((0x00000000, 0x00000000), (0x00000000, 0x00000000),
+                   (0x6B200159, 0x99BA4EFE)),
+                  ((0xFFFFFFFF, 0xFFFFFFFF), (0xFFFFFFFF, 0xFFFFFFFF),
+                   (0x1CB996FC, 0xBB002BE7)),
+                  ((0x13198A2E, 0x03707344), (0x243F6A88, 0x85A308D3),
+                   (0xC4923A9C, 0x483DF7A0))]
+# (R, M) of the kernel checks: main_run's shuffle round (B.S = 8, N =
+# 4096), the paper table's Gumbel noise (N^2 at N = 1024), an odd size.
+THREEFRY_SHAPES = [(8, 4096), (1, 1024 * 1024), (3, 1001)]
+# The previous sampled loss normaliser (pairs from a torch.Generator,
+# ``parent_norm``) gave main_run these orders and losses (sha256 of
+# all_orders, then all_losses, as repro_torch.bench.fixed_path_ab digests
+# them), NVIDIA H100 80GB HBM3: the check of Queue C10's repair that
+# nothing else moved.
+PARENT_MAIN_DIGEST = ("d7852086b69df36a66fb1040b2afa48287c2b5a8f45bf467679f9"
+                      "20f442b2e38")
 
 
 def emit(phase, **fields):
@@ -676,18 +732,19 @@ def function_phase(torch, ops, ref, core):
         del results
 
 
-def anneal(torch, core, K, xs, hw, cfg, restarts):
+def anneal(torch, core, K, xs, hw, cfg, restarts, norms=None):
     """One ``shuffle_soft_sort_batched`` run on the card, launch counts
-    set to 0 just before it and read just after.  Checks valid
-    permutations and finite, falling losses; returns the result, the
-    counts and the host-clock ms of each round."""
+    set to 0 just before it and read just after (``norms``: the loss
+    normalisers, None for the engine's own).  Checks valid permutations
+    and finite, falling losses; returns the result, the counts and the
+    host-clock ms of each round."""
     n = hw[0] * hw[1]
     stamps = []
     torch.cuda.synchronize()
     K.reset_launch_counts()
     t0 = time.perf_counter()
     res = core.shuffle_soft_sort_batched(
-        xs, hw, cfg, n_restarts=restarts, seed=0, device="cuda",
+        xs, hw, cfg, n_restarts=restarts, seed=0, device="cuda", norms=norms,
         callback=lambda r, o, l: stamps.append(time.perf_counter()))
     torch.cuda.synchronize()
     total = time.perf_counter() - t0
@@ -710,6 +767,46 @@ def require_counts(counts, want):
     """Exact launch counts: ``want`` maps kernel name -> launches."""
     require(all(counts[k] == v for k, v in want.items()),
             f"launch counts {counts}, expected {want}")
+
+
+def run_digest(res):
+    """sha256 of a batched result's orders, then losses (the digest of
+    ``repro_torch.bench.fixed_path_ab``)."""
+    import hashlib
+    return hashlib.sha256(res.all_orders.tobytes()
+                          + res.all_losses.tobytes()).hexdigest()
+
+
+def parent_norm(torch, x, sample=2048):
+    """The parent's sampled loss normaliser (before Queue C10's repair):
+    2048 pairs from a CPU ``torch.Generator`` seeded with 0, moved to
+    ``x``'s device."""
+    n = x.shape[0]
+    gen = torch.Generator().manual_seed(0)
+    i = torch.randint(0, n, (sample,), generator=gen).to(x.device)
+    j = torch.randint(0, n, (sample,), generator=gen).to(x.device)
+    return torch.mean(torch.sqrt(torch.sum(torch.square(x[i] - x[j]),
+                                           dim=-1) + 1e-12))
+
+
+def c10_check(torch, core, K, xs, hw, cfg, restarts):
+    """Queue C10: main_run again with the parent's normaliser given as
+    ``norms=``; its orders and losses must be the parent's digest, so the
+    repair moved the fixed path through the normaliser alone.  Prints the
+    new default normaliser beside the old one."""
+    xt = torch.as_tensor(xs, device="cuda")
+    old = torch.stack([parent_norm(torch, x) for x in xt])
+    new = torch.stack([core.mean_pairwise_distance(x) for x in xt])
+    res, _, timing = anneal(torch, core, K, xs, hw, cfg, restarts,
+                            norms=old)
+    digest = run_digest(res)
+    emit("c10_check", norm_parent=old.tolist(), norm_new=new.tolist(),
+         norm_ratio=(new / old).tolist(), digest=digest,
+         parent_digest=PARENT_MAIN_DIGEST,
+         ms_per_round=timing["ms_per_round"])
+    require(digest == PARENT_MAIN_DIGEST,
+            f"main_run with the parent's normaliser: digest {digest}, the "
+            f"parent's {PARENT_MAIN_DIGEST}")
 
 
 def catalog_runs(torch, core, K):
@@ -749,9 +846,11 @@ def catalog_runs(torch, core, K):
         require_counts(counts, {**{k: per_step for k in on},
                                 **{k: 0 for k in off}})
         emit(phase, **timing, mean_neighbor_distance_unsorted=nbr_before,
-             mean_neighbor_distance_sorted=nbr_after)
+             mean_neighbor_distance_sorted=nbr_after,
+             digest=run_digest(res))
         if band is None:
             dense_counts = counts
+            c10_check(torch, core, K, xs, hw, cfg, s)
         else:
             fixed = res, timing
 
@@ -2627,6 +2726,187 @@ def flash_main_run(torch, kernels, F, fops):
     return counts
 
 
+def draw_digest(t):
+    """sha256 (16 hex digits) of a draw: float32 values, or words and
+    indices as uint32."""
+    import hashlib
+    a = t.detach().cpu().numpy() if hasattr(t, "detach") else np.asarray(t)
+    raw = (a.astype(np.float32).tobytes() if a.dtype.kind == "f"
+           else a.astype(np.int64).astype(np.uint32).tobytes())
+    return hashlib.sha256(raw).hexdigest()[:16]
+
+
+def threefry_draws(tf, device, partitionable):
+    """The draws ``THREEFRY_DIGESTS`` holds, on ``device``."""
+    kw = dict(partitionable=partitionable)
+    k0 = tf.prng_key(0)
+    keys8 = tf.split(k0, 8, device=device, **kw)
+    return {
+        "split_8": keys8,
+        "bits_8x4096": tf.random_bits(keys8, (4096,), **kw),
+        "bits_1x1048576": tf.random_bits(k0, (1048576,), device=device,
+                                         **kw),
+        "bits_3x1001": tf.random_bits(
+            tf.split(tf.prng_key(3), 3, device=device, **kw), (1001,), **kw),
+        "permutation_8x4096": tf.permutation(keys8, 4096, **kw),
+        "uniform_1024x3": tf.uniform(tf.prng_key(42), (1024, 3),
+                                     device=device, **kw),
+    }
+
+
+def threefry_run(torch, core):
+    """The threefry kernel (``tf_bits``) bitwise its twin on the card in
+    every layout at ``THREEFRY_SHAPES``, the known-answer vectors, the
+    draws bitwise jax's (``THREEFRY_DIGESTS``), and the ms of one shuffle
+    round of main_run's shape (B.S = 8, N = 4096) from
+    ``ThreefryShuffleSource`` beside ``TorchShuffleSource``.  Returns the
+    kernel's stats for the kernels line, at the paper table's Gumbel
+    noise shape."""
+    import importlib
+
+    from repro_torch.core import threefry as tf
+    from repro_torch.kernels.bounds import PEAK_BYTES
+    TK = importlib.import_module("repro_torch.kernels.threefry")
+
+    dev = torch.device("cuda")
+    checked = []
+    for key, count, want in THREEFRY_KNOWN:
+        got = tf.threefry_2x32(np.array(key, np.uint32),
+                               np.array(count, np.uint32), device=dev)
+        require(got.tolist() == list(want),
+                f"threefry_2x32{key, count}: {got.tolist()} != {want}")
+    got = TK.threefry_bits(torch.zeros((1, 2), dtype=torch.int64,
+                                       device=dev), 2, TK.PAIRS)
+    require(TK.words(got)[0].tolist() == list(THREEFRY_KNOWN[0][2]),
+            f"kernel counter 0 of key 0: {got.tolist()}")
+    err = 0
+    for r, m in THREEFRY_SHAPES:
+        keys = tf.split(tf.prng_key(r + m), r, device=dev)
+        for mode in (TK.XOR, TK.ORIGINAL, TK.PAIRS):
+            mm = m + (m % 2 if mode == TK.PAIRS else 0)
+            a = TK.threefry_bits(keys, mm, mode)
+            b = TK.threefry_bits_plain(keys, mm, mode)
+            torch.cuda.synchronize()
+            require(torch.equal(a, b),
+                    f"threefry kernel != twin at {(r, mm)} mode {mode}")
+            err = max(err, int((a.long() - b.long()).abs().max()))
+            checked.append([r, mm, mode])
+    digests = {}
+    for part in (True, False):
+        got = {k: draw_digest(v) for k, v in
+               threefry_draws(tf, dev, part).items()}
+        require(got == THREEFRY_DIGESTS[part],
+                f"threefry draws (partitionable={part}) {got} != jax's "
+                f"{THREEFRY_DIGESTS[part]}")
+        digests["partitionable" if part else "original"] = got
+
+    # One shuffle round at main_run's shape, each source.
+    n, bs = 4096, 8
+    th = core.ThreefryShuffleSource(tf.split(tf.prng_key(0), bs,
+                                             device=dev), n, dev)
+    to = core.TorchShuffleSource(core.instance_seeds(0, bs), n, dev)
+    round_ms = {"threefry": time_ms(torch, th.next_round),
+                "torch": time_ms(torch, to.next_round)}
+    TK.threefry_bits.launches = 0
+    th.next_round()
+    launches_per_round = TK.threefry_bits.launches
+
+    stats = {}
+    for r, m in THREEFRY_SHAPES[:2]:
+        keys = tf.split(tf.prng_key(1), r, device=dev)
+        kern = lambda: TK.threefry_bits(keys, m, TK.XOR)      # noqa: E731
+        plain = lambda: TK.threefry_bits_plain(keys, m, TK.XOR)  # noqa: E731
+        # keys read as int64, the words written as int32: 4 B each
+        bound = (r * 2 * 8 + r * m * 4) / PEAK_BYTES * 1e3
+        stats[(r, m)] = {"ms": time_ms(torch, kern),
+                         "graph_ms": graph_ms(torch, kern),
+                         "plain_ms": time_ms(torch, plain, reps=5),
+                         "bound_ms": bound, "bound_by": "bytes",
+                         "library_ms": None, "max_abs_err": float(err),
+                         "shape": [r, m]}
+    emit("threefry_run", known_answers=len(THREEFRY_KNOWN) + 1,
+         kernel_vs_twin=checked, bitwise=True, digests=digests,
+         shuffle_round_ms=round_ms,
+         threefry_launches_per_shuffle_round=launches_per_round,
+         times={f"{r}x{m}": v for (r, m), v in stats.items()})
+    return {"threefry_bits": stats[THREEFRY_SHAPES[1]]}
+
+
+def paper_table_step_check(torch, paper_table, n):
+    """One SoftSort loss-and-gradient step of the table's SoftSort row on
+    the kernel tier against the plain tier, on the table's colours: keys
+    ``arange(N)`` at tau_start (the first step) and jittered keys at
+    tau_end (late in the anneal), loss within rtol 1e-5 and the gradient
+    within GRAD_RTOL of its maximum."""
+    import dataclasses
+
+    from repro_torch.core import shufflesoftsort as eng
+    from repro_torch.core.losses import mean_pairwise_distance
+    side = int(round(n ** 0.5))
+    x = paper_table.colours(n, 42, "cuda")[None]
+    cfg = paper_table.configs(n, "full", "kernel")[2]
+    plain_cfg = dataclasses.replace(cfg, use_kernel=False)
+    norm = mean_pairwise_distance(x[0]).reshape(1)
+    ident = torch.arange(n, device="cuda")[None]
+    g = torch.Generator().manual_seed(n)
+    jitter = 0.8 * (torch.rand(1, n, generator=g) - 0.5)
+    errs = {}
+    for name, w0, tau in (("first_step", torch.zeros(1, n), cfg.tau_start),
+                          ("late_step", jitter, cfg.tau_end)):
+        w0 = (torch.arange(n, dtype=torch.float32)[None] + w0).cuda()
+        t = torch.full((1,), tau, dtype=torch.float32, device="cuda")
+        out = []
+        for c in (cfg, plain_cfg):
+            w = w0.clone().requires_grad_(True)
+            loss = eng._loss_fn(w, x, ident, t, (side, side), norm, c,
+                                eng._select_apply_fn(c))
+            (grad,) = torch.autograd.grad(loss.sum(), w)
+            out.append((loss.detach(), grad))
+        (lk, gk), (lp, gp) = out
+        torch.cuda.synchronize()
+        errs[name] = {"loss": check(f"table step {name} loss", lk, lp,
+                                    rtol=1e-5),
+                      "grad": check(f"table step {name} grad", gk, gp,
+                                    rtol=GRAD_RTOL)}
+    emit("paper_table_step_check", shape=[1, n, 3], max_abs_err=errs)
+
+
+def paper_table_run(torch, kernels):
+    """The paper's Table III at N = 1024, ``budget="full"``, kernel tier
+    (``repro_torch.bench.paper_table``), with its ``--check``, after one
+    SoftSort step of the table held to the plain tier
+    (``paper_table_step_check``).  Launch counts set to 0 just before the
+    table and read just after; the SoftSort rows launch each dense kernel
+    once per step (8000 steps each), and the Gumbel-Sinkhorn noise,
+    Kissing's factors and ShuffleSoftSort's shuffles the threefry kernel.
+    Returns the counts."""
+    from repro_torch.bench import paper_table
+
+    n = 1024
+    paper_table_step_check(torch, paper_table, n)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    rows = paper_table.run(n, "full", device="cuda", tier="kernel")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    for r in rows:
+        emit("paper_table_row", **r)
+    bad = paper_table.check(rows, n)
+    steps = 2 * 1000 * 8
+    emit("paper_table_run", n=n, budget="full", tier="kernel",
+         seconds=seconds, check=bad or "passed",
+         kissing_valid=[r["valid"] for r in rows
+                        if r["method"] == "kissing"][0],
+         launches={k: v for k, v in counts.items() if v})
+    require(not bad, f"paper table check: {bad}")
+    require_counts(counts, {**{k: steps for k in DENSE},
+                            **{k: 0 for k in BAND}})
+    require(counts["threefry_bits"] > 0, "no threefry launch")
+    return counts
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2660,6 +2940,7 @@ def main():
     stats.update(band_stats[SOG_SHAPE])
     stats.update(v1_kernel_phase(torch, K))
     stats.update(flash_kernel_phase(torch, F, flash_ops))
+    stats.update(threefry_run(torch, core))
     function_phase(torch, ops, ref, core)
     xs, launches, fixed = catalog_runs(torch, core, K)
     adaptive_phases(torch, core, K, xs, fixed)
@@ -2682,10 +2963,15 @@ def main():
         torch, kernels).items() if k in V1})
     launches.update({k: v for k, v in flash_main_run(
         torch, kernels, F, flash_ops).items() if k in FLASH})
+    table_counts = paper_table_run(torch, kernels)
+    for k in DENSE:
+        launches[k] += table_counts[k]
+    launches["threefry_bits"] = table_counts["threefry_bits"]
 
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda",
-         "source": FLASH_CU if k in FLASH else SOFTSORT_CU,
+         "source": (FLASH_CU if k in FLASH else THREEFRY_CU
+                    if k == "threefry_bits" else SOFTSORT_CU),
          "replaces": REPLACES[k], "launches": launches[k],
          "max_abs_err": v["max_abs_err"], "ms": v["ms"],
          "plain_ms": v["plain_ms"], "bound_ms": v["bound_ms"],

@@ -9,3 +9,9 @@
 #                        overload, preempt; gates itself with --check
 #   guardrail_bench.py — the serving chaos grid and the probes' overhead;
 #                        gates itself with --check
+#   paper_table.py     — the paper's Table III (Gumbel-Sinkhorn, Kissing,
+#                        SoftSort, ShuffleSoftSort); gates itself with
+#                        --check
+#   run.py             — the reference's CSV entry point: Table III and
+#                        the kernel bench's cells
+#   fixed_path_ab.py   — A/B of the fixed path between two checkouts

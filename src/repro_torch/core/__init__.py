@@ -1,7 +1,9 @@
 # ShuffleSoftSort in PyTorch: softsort, the Algorithm 1 driver (fixed and
 # adaptive schedules, dense and banded apply, the restart tournament and
-# round segments), the adaptive controller,
-# losses eq. 2-4, metrics, and the shuffle sources.
+# round segments), the plain SoftSort baseline, the adaptive controller,
+# losses eq. 2-4, metrics, the shuffle sources and the jax.random-bitwise
+# threefry draws (``core.threefry``; the other Table III baselines are in
+# ``core.baselines``).
 from repro_torch.core.softsort import (  # noqa: F401
     softsort_matrix,
     softsort_apply_chunked,
@@ -27,9 +29,11 @@ from repro_torch.core.metrics import dpq, mean_neighbor_distance  # noqa: F401
 from repro_torch.core.prng import (  # noqa: F401
     ReplayShuffleSource,
     ShuffleSource,
+    ThreefryShuffleSource,
     TorchShuffleSource,
     instance_seeds,
 )
+from repro_torch.core.threefry import prng_key  # noqa: F401
 from repro_torch.core.shufflesoftsort import (  # noqa: F401
     BatchedSortResult,
     NumericalDivergence,
@@ -43,6 +47,7 @@ from repro_torch.core.shufflesoftsort import (  # noqa: F401
     rung_aligned_switch,
     shuffle_soft_sort,
     shuffle_soft_sort_batched,
+    soft_sort_baseline,
 )
 from repro_torch.core.reference import (  # noqa: F401
     carry_reference_checkpoint,

@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core import threefry
+
 
 def neighbor_loss_grid(grid: torch.Tensor, norm=1.0) -> torch.Tensor:
     """Mean L2 distance between 4-neighbourhood grid cells of an
@@ -57,13 +59,15 @@ def grid_sorting_loss(
 
 
 def mean_pairwise_distance(x: torch.Tensor, sample: int = 2048,
-                           generator: torch.Generator | None = None,
-                           chunk: int = 256) -> torch.Tensor:
+                           key=None, chunk: int = 256) -> torch.Tensor:
     """Normalization constant for L_nbr: mean distance of the pairs of the
     (N, d) rows of ``x``.  Exact (streamed in row chunks, the tail chunk
     padded and masked) up to ``N * N <= 4_194_304``; above that the mean
-    over ``sample`` random pairs drawn from ``generator`` (a CPU
-    ``torch.Generator``; ``None`` means one seeded with 0)."""
+    over ``sample`` pairs drawn as the reference draws them: ``k1, k2 =
+    split(key)``, ``i = randint(k1, (sample,), 0, N)``, ``j = randint(k2,
+    ...)`` (``repro_torch.core.threefry``, bitwise ``jax.random``; ``key``
+    is raw key data, None meaning ``prng_key(0)``).  The indices are drawn
+    on the host, with the twin, and moved to ``x``'s device."""
     n = x.shape[0]
     if n * n <= 4_194_304:
         nb = -(-n // chunk)
@@ -77,9 +81,9 @@ def mean_pairwise_distance(x: torch.Tensor, sample: int = 2048,
                                      dim=-1) + 1e-12)
             rows.append(torch.sum(d, dim=-1) * valid[b0:b0 + chunk])
         return torch.cat(rows).sum() / (n * (n - 1))
-    if generator is None:
-        generator = torch.Generator().manual_seed(0)
-    i = torch.randint(0, n, (sample,), generator=generator).to(x.device)
-    j = torch.randint(0, n, (sample,), generator=generator).to(x.device)
+    k1, k2 = threefry.split(threefry.prng_key(0) if key is None else key,
+                            device="cpu")
+    i = threefry.randint(k1, (sample,), 0, n).to(x.device, torch.int64)
+    j = threefry.randint(k2, (sample,), 0, n).to(x.device, torch.int64)
     return torch.mean(torch.sqrt(torch.sum(torch.square(x[i] - x[j]),
                                            dim=-1) + 1e-12))

@@ -9,9 +9,13 @@ time:
   run's device, seeded from the instance's seed, so instance ``i`` of a
   batched run and a sequential run with the same seed draw identical
   shuffles.  The default.
+* ``ThreefryShuffleSource`` — the reference's own draws: instance ``i``
+  holds a ``jax.random`` key and each round runs ``key, sub =
+  split(key); permutation(sub, N)`` (``repro_torch.core.threefry``),
+  bitwise ``jax.random.permutation`` along the reference's key chain.
+  The engines use it when given ``key=`` / ``keys=``.
 * ``ReplayShuffleSource`` — replays a given ``(R, BS, N)`` array; row
-  ``shuffles[t, i]`` is instance ``i``'s ``t``-th shuffle.  Parity tests
-  fill it from each instance's own JAX key chain.
+  ``shuffles[t, i]`` is instance ``i``'s ``t``-th shuffle.
 
 Each instance owns its stream and its position in it.  ``next_round(rows)``
 draws for the instances ``rows`` only, so a run that leaves some
@@ -34,6 +38,8 @@ from typing import Protocol, Sequence
 
 import numpy as np
 import torch
+
+from repro_torch.core import threefry
 
 
 class ShuffleSource(Protocol):
@@ -136,6 +142,72 @@ class TorchShuffleSource:
         return len(self.generators)
 
 
+class ThreefryShuffleSource:
+    """Per-instance ``jax.random`` key chains: the state is the (BS, 2)
+    uint32 keys, the reference's ``keys``; a round of instances ``rows``
+    splits their keys, keeps the first halves and draws
+    ``permutation(second, n)`` for all of them at once (one hash launch
+    per ``split`` and per sort-key draw, ``repro_torch.kernels.threefry``).
+    ``partitionable`` as in ``repro_torch.core.threefry``; the kind names
+    it, so a checkpoint resumes only on the layout that wrote it."""
+
+    def __init__(self, keys, n: int, device, partitionable: bool = True):
+        self.n = int(n)
+        self.device = torch.device(device)
+        self.partitionable = bool(partitionable)
+        self.kind = "threefry" if self.partitionable else "threefry-original"
+        self.keys = threefry.as_keys(keys, self.device).reshape(-1, 2)
+
+    def next_round(self, rows=None) -> torch.Tensor:
+        if rows is None:
+            pair = threefry.split(self.keys, partitionable=self.partitionable)
+            self.keys = pair[:, 0].contiguous()
+        else:
+            idx = torch.as_tensor(_rows(rows, len(self)), device=self.device)
+            pair = threefry.split(self.keys[idx],
+                                  partitionable=self.partitionable)
+            self.keys = self.keys.index_copy(0, idx, pair[:, 0])
+        return threefry.permutation(pair[:, 1], self.n,
+                                    partitionable=self.partitionable)
+
+    def state_dict(self) -> np.ndarray:
+        """(BS, 2) uint32 keys (a copy from the device)."""
+        return threefry.key_data(self.keys)
+
+    def load_state_dict(self, state) -> None:
+        state = np.asarray(state)
+        if (state.shape != (len(self), 2) or state.dtype.kind not in "iu"
+                or (state < 0).any() or (state > threefry.MASK).any()):
+            raise ValueError(f"a {self.kind} source of {len(self)} streams "
+                             f"takes ({len(self)}, 2) uint32 keys, got "
+                             f"{state.dtype} {state.shape}")
+        self.keys = threefry.as_keys(state, self.device)
+
+    def fork(self, state=None) -> "ThreefryShuffleSource":
+        return ThreefryShuffleSource(
+            self.state_dict() if state is None else state, self.n,
+            self.device, self.partitionable)
+
+    def advanced(self, state, rows, draws: int) -> np.ndarray:
+        """The keys after ``draws`` more rounds of instances ``rows``: the
+        split chain alone, on the host."""
+        keys = threefry.as_keys(np.asarray(state), "cpu").reshape(-1, 2)
+        idx = torch.as_tensor(_rows(rows, keys.shape[0]))
+        for _ in range(int(draws)):
+            keys[idx] = threefry.split(
+                keys[idx], partitionable=self.partitionable)[:, 0]
+        return threefry.key_data(keys)
+
+    def take(self, rows, device=None) -> "ThreefryShuffleSource":
+        idx = torch.as_tensor(_rows(rows, len(self)), device=self.device)
+        return ThreefryShuffleSource(
+            self.keys[idx], self.n, self.device if device is None else device,
+            self.partitionable)
+
+    def __len__(self) -> int:
+        return int(self.keys.shape[0])
+
+
 class ReplayShuffleSource:
     """Replays ``shuffles[t, i]`` as instance ``i``'s ``t``-th shuffle;
     ``shuffles`` is (R, BS, N), and ``pos`` (BS,) counts the rounds each
@@ -210,6 +282,8 @@ def stack_sources(sources: Sequence[ShuffleSource]) -> ShuffleSource:
     out = parts[0]
     if isinstance(out, TorchShuffleSource):
         out.generators = [g for part in parts for g in part.generators]
+    elif isinstance(out, ThreefryShuffleSource):
+        out.keys = torch.cat([part.keys.to(out.device) for part in parts])
     else:
         out.shuffles = torch.cat([part.shuffles for part in parts], dim=1)
         out.pos = np.concatenate([part.pos for part in parts])

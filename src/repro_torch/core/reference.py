@@ -7,9 +7,10 @@ plain forms the reference hands out — ``dataclasses.asdict`` of its
 config, and the checkpoint directory its ``AnnealCheckpointer`` writes,
 read here through the port's own reader (``read_reference_checkpoint``;
 the two packages share the on-disk format) — so the port can continue the
-run from that boundary.  The port cannot draw JAX's shuffles (ROADMAP.md
-Queue A3b): the remaining rounds' shuffles come from a replay source
-(``repro_torch.core.prng``) filled from the checkpoint's ``keys``.
+run from that boundary.  The remaining rounds' shuffles come from the
+checkpoint's own ``keys`` (``key``, sequential), continued by a
+``ThreefryShuffleSource`` bitwise along the reference's key chains, or
+from a source the caller gives (a replay of them, say).
 
 * ``state_from_reference``: the ``{"order", "losses"}`` (sequential) or
   ``{"orders", "losses"}`` (batched) carry as a ``state=`` argument.
@@ -18,8 +19,9 @@ Queue A3b): the remaining rounds' shuffles come from a replay source
   (the same fields in the same dtypes: both go on to the same decisions
   on the same observations).
 * ``carry_reference_checkpoint``: a reference checkpoint rewritten as a
-  port checkpoint of the same engine and round, its ``keys`` replaced by
-  a given source's state; a port run with that source and ``resume=True``
+  port checkpoint of the same engine and round, its ``keys`` kept as a
+  ``ThreefryShuffleSource``'s state (or replaced by a given source's); a
+  port run with ``key=`` / ``keys=`` (or that source) and ``resume=True``
   continues it (any engine, the adaptive one included).
 """
 from __future__ import annotations
@@ -75,23 +77,45 @@ def controller_state_from_reference(state: dict[str, np.ndarray]) -> dict:
             if k.startswith("ctrl_")}
 
 
-def carry_reference_checkpoint(reference_dir, port_dir, source) -> int:
+def carry_reference_checkpoint(reference_dir, port_dir, source=None) -> int:
     """Write the newest checkpoint of the reference run in
     ``reference_dir`` into ``port_dir`` as the port's checkpoint of the
-    same engine at the same round, its PRNG ``keys`` (``key``,
-    sequential) replaced by ``source``'s state.  ``source`` must draw the
-    rounds the reference would have drawn after that boundary: typically
+    same engine at the same round.  Returns the round (or rung step) of
+    the checkpoint.
+
+    With no ``source``, the reference's PRNG ``keys`` (``key``, sequential)
+    become the state of a ``ThreefryShuffleSource`` (kind ``"threefry"``):
+    the port's engine with ``key=`` or ``keys=`` (any of the right shape:
+    the checkpoint's keys replace them), ``checkpoint_dir=port_dir``,
+    ``resume=True`` and the reference's config continues the run on its
+    own key chains.  The fixed tournament stores the keys of its live
+    restarts only; they go to their instances' rows (``alive``), and a
+    culled row, which never draws again, holds zeros.
+
+    With a ``source``, the keys are replaced by its state: it must draw
+    the rounds the reference would have drawn after that boundary, e.g.
     a ``ReplayShuffleSource`` of each instance's remaining shuffles from
-    its own key chain, at ``pos`` 0.  Then the port's engine with
-    ``source=source, checkpoint_dir=port_dir, resume=True`` and the
-    reference's config continues the run.  Returns the round (or rung
-    step) of the checkpoint."""
+    its own key chain, at ``pos`` 0; the port's engine then runs with
+    ``source=source``."""
     got = read_reference_checkpoint(reference_dir)
     if got is None:
         raise FileNotFoundError(f"no checkpoint in {reference_dir}")
     state, step, meta = got
+    keys = state.get("keys", state.get("key"))
     state = {k: v for k, v in state.items() if k not in ("keys", "key")}
-    state["source"] = source.state_dict()
+    if source is not None:
+        state["source"], kind = source.state_dict(), source.kind
+    else:
+        keys = np.asarray(keys).reshape(-1, 2).astype(np.uint32)
+        bs = int(meta.get("instances", keys.shape[0]))
+        if keys.shape[0] != bs:            # the tournament's live rows
+            alive = np.asarray(state["alive"])
+            s = bs // alive.shape[0]
+            rows = (np.arange(alive.shape[0])[:, None] * s + alive)
+            full = np.zeros((bs, 2), np.uint32)
+            full[rows.reshape(-1)] = keys
+            keys = full
+        state["source"], kind = keys, "threefry"
     AnnealCheckpointer(str(port_dir)).save(
-        step, state, meta=dict(meta, source=source.kind))
+        step, state, meta=dict(meta, source=kind))
     return step

@@ -21,7 +21,9 @@ schedules.  The engine runs B problems x S restarts as one (BS, N) batch;
 over the mesh's slots (``_sharded``), bitwise the same per instance, and
 ``mesh_hook=`` re-shards at rung boundaries.  Each round's shuffles come from a shuffle source
 (``repro_torch.core.prng``): per-instance ``torch.Generator`` streams by
-default, or a replayed array.  ``cfg.use_kernel`` routes the SoftSort
+default, the reference's own ``jax.random`` key chains with ``key=`` /
+``keys=`` (bitwise its shuffles), or a replayed array.
+``cfg.use_kernel`` routes the SoftSort
 apply, forward and backward, through the kernel tier
 (``repro_torch.kernels.ops``).  ``cfg.band`` (K or "auto") swaps the
 O(N^2) apply for the O(N K) banded one from the round
@@ -57,6 +59,9 @@ host before the run's end.  A shadow-sampled rung is replayed on its own
 tier and compared bitwise, and on the kernel tier its last trained keys
 also go through the kernel and the plain apply (``_shadow_checks``).
 
+``soft_sort_baseline`` is the paper's plain SoftSort (Table III): one key
+vector trained end to end, no shuffles.
+
 Entry points run on CUDA unless ``device`` says otherwise; without a CUDA
 device they raise rather than fall back to the CPU.
 
@@ -76,8 +81,10 @@ import torch
 
 from repro_torch.core.annealing import AdaptiveController, adaptive_seg_len
 from repro_torch.core.losses import grid_sorting_loss, mean_pairwise_distance
+from repro_torch.core import threefry
 from repro_torch.core.prng import (
     ShuffleSource,
+    ThreefryShuffleSource,
     TorchShuffleSource,
     _rows,
     instance_seeds,
@@ -1072,10 +1079,30 @@ def run_round_segment(xs, orders, norms, progress, seg_len: int, *,
     return (o_out, losses, ws) if with_w else (o_out, losses)
 
 
+def _key_source(key, keys, bs: int, n: int, device, taken: bool):
+    """The ``ThreefryShuffleSource`` of ``key=`` / ``keys=``, as the
+    reference derives its instance keys: ``keys`` (BS, 2) as given, or
+    ``split(key, BS)``; None when neither is given.  ``taken``: the caller
+    also gave ``seeds=`` or ``source=`` (a ``ValueError``)."""
+    if key is None and keys is None:
+        return None
+    if taken or (key is not None and keys is not None):
+        raise ValueError("key=/keys= draw the reference's shuffles: pass one "
+                         "of them, and no seeds= or source=")
+    if keys is None:
+        keys = threefry.split(key, bs, device=device)
+    keys = threefry.as_keys(keys, device).reshape(-1, 2)
+    if keys.shape[0] != bs:
+        raise ValueError(f"keys must be ({bs}, 2), got {tuple(keys.shape)}")
+    return ThreefryShuffleSource(keys, n, device)
+
+
 def _prep_instances(xs, hw, n_restarts, seed, seeds, source, norms, state,
-                    device):
+                    device, key=None, keys=None):
     """Normalize the engine inputs into flattened (BS, ...) instances,
     problem-major (restart s of problem b at row ``b * S + s``).
+    ``key`` / ``keys`` as ``_key_source`` takes them; they override
+    ``seed``.
 
     Returns (xs (B, N, d), B, S, N, source, xs_t, norms_t, orders,
     prior losses (BS, start))."""
@@ -1107,6 +1134,9 @@ def _prep_instances(xs, hw, n_restarts, seed, seeds, source, norms, state,
             raise ValueError(f"state must be (orders ({bs}, {n}), losses "
                              f"({bs}, R0)), got {tuple(orders.shape)}, "
                              f"{tuple(prior.shape)}")
+    key_src = _key_source(key, keys, bs, n, device,
+                          seeds is not None or source is not None)
+    source = key_src if key_src is not None else source
     if source is None:
         if seeds is None:
             seeds = instance_seeds(seed, bs)
@@ -1124,6 +1154,7 @@ def shuffle_soft_sort(
     *,
     device=None,
     source=None,
+    key=None,
     norm=None,
     state=None,
     checkpoint_dir: str | None = None,
@@ -1136,7 +1167,11 @@ def shuffle_soft_sort(
     """Sort x (N, d) onto an (h, w) grid.  Returns (order, x[order], losses).
 
     ``seed`` seeds the shuffle stream; ``source`` (a shuffle source of
-    ``repro_torch.core.prng``) replaces it.  ``norm`` overrides the loss
+    ``repro_torch.core.prng``) replaces it, and ``key`` (raw
+    ``jax.random`` key data, e.g. ``threefry.prng_key(1)``) overrides
+    ``seed`` and draws the reference's shuffles from it: the reference's
+    ``key=``, whose chain is ``key, sub = split(key)`` per round
+    (``key`` with ``source`` is a ``ValueError``).  ``norm`` overrides the loss
     normalization ``mean_pairwise_distance(x)``.  ``state`` =
     ``(orders (1, N), losses (1, R0))`` continues a run after round R0
     (see ``repro_torch.core.reference``).  ``callback(r, order, loss)``
@@ -1165,7 +1200,10 @@ def shuffle_soft_sort(
     if cfg.schedule == "adaptive":
         _check_adaptive(callback, state)
         res = shuffle_soft_sort_batched(
-            x[None], hw, cfg, 1, seeds=[seed], device=device, source=source,
+            x[None], hw, cfg, 1,
+            seeds=[seed] if key is None else None, device=device,
+            source=source,
+            keys=None if key is None else threefry.as_keys(key, "cpu")[None],
             norms=None if norm is None else [norm],
             checkpoint_dir=checkpoint_dir, resume=resume,
             checkpoint_every=checkpoint_every, rung_hook=rung_hook,
@@ -1182,8 +1220,9 @@ def shuffle_soft_sort(
     x_t = torch.as_tensor(np.asarray(x) if not isinstance(x, torch.Tensor)
                           else x, dtype=_F32, device=device)
     xs, _, _, n, source, xs_t, norms_t, orders, prior = _prep_instances(
-        x_t[None], hw, 1, None, [seed], source,
-        None if norm is None else [norm], state, device)
+        x_t[None], hw, 1, seed, [seed] if key is None else None, source,
+        None if norm is None else [norm], state, device,
+        keys=None if key is None else threefry.as_keys(key, "cpu")[None])
     losses = [float(v) for v in prior[0].cpu()]
     start = len(losses)
     meta = _engine_meta("sequential", cfg, n, 1, hw, source)
@@ -1280,6 +1319,8 @@ def shuffle_soft_sort_batched(
     *,
     device=None,
     source=None,
+    key=None,
+    keys=None,
     norms=None,
     state=None,
     checkpoint_dir: str | None = None,
@@ -1295,9 +1336,16 @@ def shuffle_soft_sort_batched(
 
     Instance i (row ``b * S + s``) draws its shuffles from a generator
     seeded with ``seeds[i]`` (default: ``instance_seeds(seed, B * S)``),
-    so it matches ``shuffle_soft_sort(xs[b], ..., seed=seeds[i])``.
-    ``source`` (a shuffle source of ``repro_torch.core.prng``) replaces
-    the shuffle stream; ``norms`` (B,) overrides the per-problem
+    so it matches ``shuffle_soft_sort(xs[b], ...,
+    seed=seeds[i])``.  ``source`` (a shuffle source of
+    ``repro_torch.core.prng``) replaces the shuffle stream.  ``keys``
+    (B*S, 2) raw ``jax.random`` key data, or ``key`` split into B*S as
+    ``jax.random.split(key, B * S)``, draw the reference's own shuffles
+    (``ThreefryShuffleSource``): the reference's ``key=`` / ``keys=``, so
+    instance i matches ``shuffle_soft_sort(xs[b], key=keys[i])``.  They
+    override ``seed``; with ``seeds`` or ``source`` they raise
+    ``ValueError``.  ``norms`` (B,)
+    overrides the per-problem
     loss normalization; ``state`` = ``(orders (B*S, N), losses (B*S, R0))``
     continues a run after round R0.  ``callback(r, orders (B*S, N),
     losses (B*S,))`` is called after every round (a host sync); without
@@ -1346,7 +1394,8 @@ def shuffle_soft_sort_batched(
         raise ValueError("checkpoint_dir/rung_hook/guardrail/mesh_hook are "
                          "incompatible with the per-round callback stream")
     xs, b, s, n, source, xs_t, norms_t, orders, prior = _prep_instances(
-        xs, hw, n_restarts, seed, seeds, source, norms, state, device)
+        xs, hw, n_restarts, seed, seeds, source, norms, state, device,
+        key=key, keys=keys)
     if cfg.schedule == "adaptive":
         return _batched_adaptive(
             xs, b, s, n, source, xs_t, norms_t, orders, hw=hw, cfg=cfg,
@@ -1484,6 +1533,8 @@ def restart_tournament(
     *,
     device=None,
     source=None,
+    key=None,
+    keys=None,
     norms=None,
     checkpoint_dir: str | None = None,
     resume: bool = False,
@@ -1506,8 +1557,8 @@ def restart_tournament(
     ``shuffle_soft_sort_batched``.
 
     Args:
-      xs, hw, cfg, n_restarts, seed, seeds, device, source, norms: as in
-        ``shuffle_soft_sort_batched``.
+      xs, hw, cfg, n_restarts, seed, seeds, device, source, key, keys,
+        norms: as in ``shuffle_soft_sort_batched``.
       cull_fraction: fraction of live restarts dropped at each rung
         boundary (0 disables culling; 0.5 halves).
       n_rungs: number of anneal segments; culls happen at the
@@ -1541,7 +1592,8 @@ def restart_tournament(
     device = _run_device(device, mesh)
     mon = _open_guardrails(guardrail, cfg, "tournament")
     xs, b, s, n, source, xs_t, norms_t, orders, _ = _prep_instances(
-        xs, hw, n_restarts, seed, seeds, source, norms, None, device)
+        xs, hw, n_restarts, seed, seeds, source, norms, None, device,
+        key=key, keys=keys)
     if cfg.schedule == "adaptive":
         return _restart_tournament_adaptive(
             xs, b, s, n, source, xs_t, norms_t, orders, hw=hw, cfg=cfg,
@@ -1720,3 +1772,70 @@ def _restart_tournament_adaptive(xs, b, s, n, source, xs_t, norms_t, orders,
                               best_restart, survivors_log,
                               losses_mat.reshape(b, s, cfg.rounds),
                               device_rounds, b * s * cfg.rounds)
+
+
+# --------------------------------------------------------------------------
+# Plain SoftSort baseline (paper Table III, row 3): one weight vector
+# trained end to end with the same loss and tau anneal, no shuffling.
+# --------------------------------------------------------------------------
+
+def _softsort_train(x, norm, *, hw, cfg: ShuffleSoftSortConfig, apply_fn,
+                    steps: int):
+    """``steps`` Adam steps (beta 0.9 / 0.999, the reference's baseline,
+    not the engine's 0.5 / 0.9) on keys ``w = arange(N)``, tau annealed
+    per step as ``tau_start * (tau_end / tau_start) ** (i / steps)``
+    (float32), the loss ``_loss_fn`` with the identity shuffle.  Returns
+    ``argsort(w)`` (stable) and the last step's loss, on the device."""
+    from repro_torch.core.baselines._common import (adam_bias, adam_step,
+                                                    anneal)
+    n = x.shape[0]
+    dev = x.device
+    w = torch.arange(n, dtype=_F32, device=dev)[None]
+    ident = torch.arange(n, device=dev)[None]
+    taus = anneal(cfg.tau_start, cfg.tau_end, steps, dev)
+    bias1, bias2 = adam_bias(steps, dev)
+    norm = norm.reshape(1)
+    mu, nu = torch.zeros_like(w), torch.zeros_like(w)
+    loss = torch.zeros((1,), dtype=_F32, device=dev)
+    for i in range(steps):
+        wv = w.detach().requires_grad_(True)
+        with torch.enable_grad():
+            loss = _loss_fn(wv, x[None], ident, taus[i:i + 1], hw, norm,
+                            cfg, apply_fn)
+            (g,) = torch.autograd.grad(loss.sum(), wv)
+        w, mu, nu = adam_step(w, g, mu, nu, cfg.lr, bias1[i], bias2[i])
+    return torch.argsort(w[0], stable=True), loss.detach()[0]
+
+
+def soft_sort_baseline(
+    x,
+    hw: tuple[int, int],
+    cfg: ShuffleSoftSortConfig = ShuffleSoftSortConfig(),
+    steps: int | None = None,
+    *,
+    device=None,
+) -> tuple[np.ndarray, np.ndarray, float]:
+    """Pure SoftSort with the same budget (R * I steps by default).
+    Returns (order, x[order], final loss).
+
+    The baseline anneals tau continuously in one loop, so there is no
+    round boundary to switch at: ``cfg.band`` is honoured only when the
+    switch model admits the band for the WHOLE schedule
+    (``_band_switch_round`` 0), otherwise the run stays dense, as in the
+    reference.  ``cfg.use_kernel`` runs the apply on the kernel tier: the
+    dense SoftSort kernels 1-4 (or the banded 5-8), one forward and one
+    backward per step.  Runs on CUDA unless ``device`` says otherwise."""
+    from repro_torch.core.baselines._common import as_input
+    _check_config(cfg)
+    x = as_input(x, device)
+    n = x.shape[0]
+    if n != hw[0] * hw[1]:
+        raise ValueError(f"N = {n} does not fill the grid {hw}")
+    norm = mean_pairwise_distance(x)
+    band = resolve_band(cfg, n)
+    use_band = band is not None and _band_switch_round(cfg, n) == 0
+    apply_fn = _select_apply_fn(cfg, band if use_band else None)
+    order, loss = _softsort_train(x, norm, hw=hw, cfg=cfg, apply_fn=apply_fn,
+                                  steps=steps or cfg.rounds * cfg.inner_steps)
+    order = order.to(torch.int32).cpu().numpy()
+    return order, x.cpu().numpy()[order], float(loss)

@@ -1,11 +1,10 @@
 """Quickstart: the paper's flagship demo, 1024 random RGB colours sorted
 onto a 32 x 32 grid with ShuffleSoftSort (N parameters only).
 
-Counterpart of ``examples/quickstart.py``.  The reference draws its
-colours with ``jax.random.uniform(PRNGKey(42))``; the port has no
-threefry, so it draws them from ``numpy.random.default_rng(42)`` (the same
-distribution, other colours), and its sort draws its shuffles from the
-port's seeded streams (``seed=1``).
+Counterpart of ``examples/quickstart.py``, on the reference's data and
+noise: the colours are ``uniform(prng_key(42), (N, 3))`` and the sort runs
+with ``key=prng_key(1)`` (``repro_torch.core.threefry``, bitwise
+``jax.random``), as the reference's ``PRNGKey(42)`` and ``PRNGKey(1)``.
 
     PYTHONPATH=src python -m repro_torch.examples.quickstart \\
         [--rounds 600] [--n 1024] [--use-kernel] [--device cpu]
@@ -21,6 +20,7 @@ import argparse
 import numpy as np
 
 from repro_torch.core import ShuffleSoftSortConfig, shuffle_soft_sort
+from repro_torch.core.threefry import prng_key, uniform
 from repro_torch.core.metrics import dpq, mean_neighbor_distance
 from repro_torch.examples.image_grid_sorting import square_grid
 
@@ -46,7 +46,7 @@ def main(argv=None):
                     help="torch device of the sort (default: CUDA)")
     args = ap.parse_args(argv)
     hw = square_grid(ap, args.n)
-    x = np.random.default_rng(42).random((args.n, 3), dtype=np.float32)
+    x = uniform(prng_key(42), (args.n, 3), device=args.device).cpu().numpy()
 
     before = {"dpq": dpq(x, hw), "nbr": mean_neighbor_distance(x, hw)}
     print(f"random   : dpq={before['dpq']:.3f} nbr={before['nbr']:.3f}")
@@ -55,7 +55,7 @@ def main(argv=None):
     cfg = ShuffleSoftSortConfig(rounds=args.rounds, inner_steps=8,
                                 chunk=min(256, args.n),
                                 use_kernel=args.use_kernel)
-    order, xs, losses = shuffle_soft_sort(x, hw, cfg, seed=1,
+    order, xs, losses = shuffle_soft_sort(x, hw, cfg, key=prng_key(1),
                                           device=args.device)
     after = {"dpq": dpq(xs, hw), "nbr": mean_neighbor_distance(xs, hw)}
     print(f"sorted   : dpq={after['dpq']:.3f} nbr={after['nbr']:.3f} "
@@ -64,7 +64,7 @@ def main(argv=None):
     print("wrote colors_before.ppm / colors_after.ppm")
     if sorted(order.tolist()) != list(range(args.n)):
         raise SystemExit("invalid permutation")
-    return {"order": order, "before": before, "after": after,
+    return {"colors": x, "order": order, "before": before, "after": after,
             "losses": losses}
 
 

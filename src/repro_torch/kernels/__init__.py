@@ -1,6 +1,7 @@
 # Hand-written CUDA kernels, each beside its plain PyTorch twin: the
 # SoftSort apply (forward + backward, dense and banded, and the v1 split
-# forward of the kernel bench) and the flash-attention forward.
+# forward of the kernel bench), the flash-attention forward, and the
+# threefry-2x32 bits behind the port's jax.random-compatible draws.
 #
 #   ops.py              — ``softsort_apply`` / ``softsort_apply_banded`` /
 #                         ``softsort_apply_v1``: the autograd.Functions over
@@ -9,7 +10,8 @@
 #                         one-pass flash kernel and its split-K combine) and
 #                         its oracle ``flash_attention_ref``
 #   softsort_apply.py,  — the kernel wrappers (CPU -> plain twin, CUDA ->
-#   flash_attention.py    kernel, launch counters) and the twins
+#   flash_attention.py,   kernel, launch counters) and the twins
+#   threefry.py
 #   csrc/*.cu           — the CUDA C++ sources, sm_90a
 #   build.py, clib.py   — nvcc build at first use; ctypes launch
 #   bounds.py           — the least time each kernel's work takes on the card
@@ -19,6 +21,7 @@
 # launch on a CUDA tensor.
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import softsort_apply as _softsort
+from repro_torch.kernels import threefry as _threefry
 from repro_torch.kernels.flash_ops import (  # noqa: F401
     flash_attention,
     flash_attention_ref,
@@ -30,7 +33,7 @@ from repro_torch.kernels.ops import (  # noqa: F401
 )
 from repro_torch.kernels.ref import softsort_apply_ref  # noqa: F401
 
-KERNELS = _softsort.KERNELS + _flash.KERNELS
+KERNELS = _softsort.KERNELS + _flash.KERNELS + _threefry.KERNELS
 
 
 def reset_launch_counts() -> None:

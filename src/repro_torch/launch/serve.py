@@ -213,10 +213,15 @@ def _source_arrays(prefix: str, src) -> tuple[dict, str]:
 
 def _source_from(prefix: str, kind: str, arrays: dict, n: int, device):
     """The source ``_source_arrays`` flattened, on ``device``."""
-    from repro_torch.core.prng import ReplayShuffleSource, TorchShuffleSource
+    from repro_torch.core.prng import (ReplayShuffleSource,
+                                       ThreefryShuffleSource,
+                                       TorchShuffleSource)
     state = arrays[f"{prefix}_state"]
     if kind == "replay":
         src = ReplayShuffleSource(arrays[f"{prefix}_shuffles"], device)
+    elif kind.startswith("threefry"):
+        src = ThreefryShuffleSource(state, n, device,
+                                    partitionable=kind == "threefry")
     else:
         src = TorchShuffleSource([0] * len(state), n, device)
     src.load_state_dict(state)

@@ -17,10 +17,11 @@
   run without checkpoints.
 * Carry across: a reference run killed at a rung continues in the port
   from its checkpoint directory (``repro_torch.core.reference``), each
-  instance's remaining shuffles replayed from the checkpoint's keys, and
-  matches the reference's uninterrupted remainder per round: orders
-  equal, losses within rtol 1e-5, with ``lambda_sigma=0`` (ROADMAP.md
-  Queue C1).
+  instance's remaining shuffles replayed from the checkpoint's keys or,
+  on every engine kind, drawn from those keys themselves
+  (``ThreefryShuffleSource``), and matches the reference's uninterrupted
+  remainder per round: orders equal, losses within rtol 1e-5, with
+  ``lambda_sigma=0`` (ROADMAP.md Queue C1).
 """
 import dataclasses
 import os
@@ -613,3 +614,78 @@ def test_reference_checkpoint_continues_in_port_adaptive(tmp_path):
     _, last, meta = AnnealCheckpointer(str(tmp_path / "p")).restore_latest()
     assert last > step
     assert meta["source"] == "replay" and meta["engine"] == "adaptive"
+
+
+def _carry_case(kind, xs, keys):
+    """(reference run, port run, the reference's config) of one engine
+    kind; each run takes the checkpoint knobs as keywords."""
+    jkw = dict(rounds=6, inner_steps=2, chunk=16, **LS0)
+    if kind == "adaptive":
+        jkw.update(rounds=8, schedule="adaptive", patience=1,
+                   plateau_rtol=1.0, adapt_every=2)
+    jcfg = jeng.ShuffleSoftSortConfig(**jkw)
+    cfg = config_from_reference(dataclasses.asdict(jcfg))
+    norms = [float(jmpd(jnp.asarray(x))) for x in xs]
+    if kind == "sequential":
+        return (lambda **kw: jeng.shuffle_soft_sort(
+                    xs[0], HW, jcfg, key=keys[0], checkpoint_every=2, **kw),
+                lambda **kw: shuffle_soft_sort(
+                    xs[0], HW, cfg, key=np.zeros(2, np.uint32),
+                    checkpoint_every=2, norm=norms[0], **CPU, **kw))
+    if kind == "tournament":
+        return (lambda **kw: jeng.restart_tournament(
+                    xs, HW, jcfg, n_restarts=4, keys=keys, n_rungs=3, **kw),
+                lambda **kw: restart_tournament(
+                    xs, HW, cfg, n_restarts=4, keys=np.zeros((8, 2)),
+                    n_rungs=3, norms=norms, **CPU, **kw))
+    extra = {} if kind == "adaptive" else dict(checkpoint_every=2)
+    return (lambda **kw: jeng.shuffle_soft_sort_batched(
+                xs, HW, jcfg, n_restarts=4, keys=keys, **extra, **kw),
+            lambda **kw: shuffle_soft_sort_batched(
+                xs, HW, cfg, n_restarts=4, keys=np.zeros((8, 2)),
+                norms=norms, **extra, **CPU, **kw))
+
+
+def _live_keys(state):
+    """A newest checkpoint's keys of the instances that still draw."""
+    keys = np.asarray(state["source"] if "source" in state else
+                      state.get("keys", state.get("key"))).reshape(-1, 2)
+    if "alive" in state and "source" in state:
+        alive = np.asarray(state["alive"])
+        s = keys.shape[0] // alive.shape[0]
+        keys = keys[(np.arange(alive.shape[0])[:, None] * s
+                     + alive).reshape(-1)]
+    return keys
+
+
+@pytest.mark.parametrize("kind", ["sequential", "batched", "adaptive",
+                                  "tournament"])
+def test_reference_checkpoint_continues_on_its_own_keys(tmp_path, kind):
+    """No replay: the carried checkpoint keeps the reference's keys as a
+    ``ThreefryShuffleSource`` state, and the port's resumed run goes on
+    along the reference's key chains: its last checkpoint's keys are the
+    uninterrupted reference run's, bitwise (the shuffles of every
+    continued round), orders equal, losses within rtol 1e-5."""
+    xs = _x(12, b=1 if kind == "sequential" else 2)
+    keys = jax.random.split(jax.random.PRNGKey(6),
+                            1 if kind == "sequential" else 8)
+    ref, port = _carry_case(kind, xs, keys)
+    ref(checkpoint_dir=str(tmp_path / "w"))
+    want = ref()
+    _killed_reference_run(ref, tmp_path / "j", 1)
+    step = carry_reference_checkpoint(tmp_path / "j", tmp_path / "p")
+    assert step >= 1
+    _, _, meta = read_reference_checkpoint(tmp_path / "p")
+    assert meta["source"] == "threefry"
+    got = port(checkpoint_dir=str(tmp_path / "p"), resume=True)
+    last_ref = read_reference_checkpoint(tmp_path / "w")[0]
+    last_port = read_reference_checkpoint(tmp_path / "p")[0]
+    np.testing.assert_array_equal(_live_keys(last_port),
+                                  _live_keys(last_ref))
+    if kind == "sequential":
+        np.testing.assert_array_equal(got[0], want[0])
+        np.testing.assert_allclose(got[2], want[2], rtol=1e-5)
+        return
+    np.testing.assert_array_equal(got.order, want.order)
+    np.testing.assert_allclose(got.all_losses, np.asarray(want.all_losses),
+                               rtol=1e-5)

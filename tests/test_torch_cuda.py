@@ -1,6 +1,6 @@
 """The CUDA kernels of the port on the card, against their plain PyTorch
-twins and the oracles: the SoftSort apply (dense, banded, v1) and the
-flash-attention forward.  Every test here is marked ``cuda`` and skips
+twins and the oracles: the SoftSort apply (dense, banded, v1), the
+flash-attention forward and the threefry bits.  Every test here is marked ``cuda`` and skips
 without a CUDA device; the file imports neither JAX nor the reference
 package, so it runs on a machine that has only PyTorch:
 
@@ -1312,3 +1312,57 @@ def test_cuda_mesh_over_two_cards(cuda):
                                         mesh=make_sort_mesh(2))
         np.testing.assert_array_equal(got.all_orders, want.all_orders)
         np.testing.assert_array_equal(got.all_losses, want.all_losses)
+
+
+# ------------------------------------------------ threefry (A3b), Table III
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r,m", [(8, 4096), (1, 1024 * 1024), (3, 1001),
+                                 (5, 1), (2, 6)])
+def test_cuda_threefry_kernel_is_bitwise_its_twin(cuda, r, m):
+    TK = importlib.import_module("repro_torch.kernels.threefry")
+    keys = torch.tensor(np.random.default_rng(m).integers(
+        0, 2 ** 32, (r, 2)), dtype=torch.int64, device=cuda)
+    for mode in (TK.ORIGINAL, TK.XOR, TK.PAIRS):
+        mm = m + (m % 2 if mode == TK.PAIRS else 0)
+        TK.threefry_bits.launches = 0
+        got = TK.threefry_bits(keys, mm, mode)
+        assert TK.threefry_bits.launches == 1
+        assert torch.equal(got.cpu(),
+                           TK.threefry_bits_plain(keys.cpu(), mm, mode))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("partitionable", [True, False])
+def test_cuda_threefry_source_is_bitwise_the_cpu_source(cuda, partitionable):
+    from repro_torch.core import threefry as tf
+    from repro_torch.core.prng import ThreefryShuffleSource
+    keys = tf.split(tf.prng_key(5), 8, partitionable=partitionable,
+                    device="cpu")
+    a = ThreefryShuffleSource(keys, 4096, cuda, partitionable)
+    b = ThreefryShuffleSource(keys, 4096, "cpu", partitionable)
+    for rows in (None, [3, 1], None):
+        assert torch.equal(a.next_round(rows).cpu(), b.next_round(rows))
+    np.testing.assert_array_equal(a.state_dict(), b.state_dict())
+    for name in ("uniform", "normal"):
+        fn = getattr(tf, name)
+        assert torch.equal(fn(tf.prng_key(1), (64, 13), device=cuda).cpu(),
+                           fn(tf.prng_key(1), (64, 13), device="cpu"))
+
+
+@pytest.mark.cuda
+def test_cuda_soft_sort_baseline_runs_the_dense_kernels(cuda):
+    import dataclasses
+
+    from repro_torch.core import ShuffleSoftSortConfig, soft_sort_baseline
+    from repro_torch.core.threefry import prng_key, uniform
+    x = uniform(prng_key(42), (256, 3), device=cuda)
+    cfg = ShuffleSoftSortConfig(rounds=4, inner_steps=4, lambda_sigma=0.0)
+    K.reset_launch_counts()
+    kern = soft_sort_baseline(x, (16, 16),
+                              dataclasses.replace(cfg, use_kernel=True))
+    assert all(K.launch_counts()[k] == 16 for k in
+               ("fwd_fused", "colsum", "bwd_dws_delta", "bwd_dx"))
+    plain = soft_sort_baseline(x, (16, 16), cfg)
+    assert sorted(kern[0].tolist()) == list(range(256))
+    np.testing.assert_allclose(kern[2], plain[2], rtol=1e-4)

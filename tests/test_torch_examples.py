@@ -6,7 +6,8 @@ examples in ``examples/``, on the CPU.
   metric and the PPM writer: bitwise the reference's.
 * Each ``main`` at a tiny size with ``--device cpu``, in a scratch
   directory: valid permutations, a better layout than the unsorted one
-  (DPQ up, neighbour distance down), and the quickstart's PPM files.
+  (DPQ up, neighbour distance down), and the quickstart's PPM files; the
+  quickstart's colours bitwise the reference's ``PRNGKey(42)`` draw.
 """
 import importlib.util
 import pathlib
@@ -78,6 +79,9 @@ def _assert_better(before, after):
 def test_quickstart_runs_on_the_cpu(tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
     out = tquick.main(["--n", "64", "--rounds", "20", "--device", "cpu"])
+    import jax
+    want = np.asarray(jax.random.uniform(jax.random.PRNGKey(42), (64, 3)))
+    assert np.array_equal(out["colors"].view(np.int32), want.view(np.int32))
     assert is_valid_permutation(out["order"])
     _assert_better(out["before"], out["after"])
     assert len(out["losses"]) == 20

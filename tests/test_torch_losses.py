@@ -85,15 +85,42 @@ def test_mean_pairwise_distance_exact_path_matches_jax(n, chunk):
 
 
 def test_mean_pairwise_distance_sampled_path_is_seeded():
-    """Above 2048^2 pairs the port samples from an explicit generator: the
-    same seed gives the same value, and it estimates the exact mean."""
+    """Above 2048^2 pairs the port samples with a ``key=``: the same key
+    gives the same value, another key another one, and the default key
+    draws the reference's pairs (``prng_key(0)``)."""
+    import jax
+
+    from repro_torch.core import threefry
     rng = np.random.default_rng(9)
-    x = torch.tensor(rng.normal(size=(2100, 3)).astype(np.float32))
-    a = tl.mean_pairwise_distance(x, generator=torch.Generator().manual_seed(3))
-    b = tl.mean_pairwise_distance(x, generator=torch.Generator().manual_seed(3))
+    x_np = rng.normal(size=(2100, 3)).astype(np.float32)
+    x = torch.tensor(x_np)
+    key = threefry.prng_key(3)
+    a = tl.mean_pairwise_distance(x, key=key)
+    b = tl.mean_pairwise_distance(x, key=key)
     assert float(a) == float(b)
+    assert float(a) != float(tl.mean_pairwise_distance(
+        x, key=threefry.prng_key(4)))
     exact = tl.mean_pairwise_distance(x[:2048])
     assert abs(float(a) - float(exact)) / float(exact) < 0.05
+    # The default key's pairs are the reference's: JAX's mean over them.
+    k1, k2 = jax.random.split(jax.random.PRNGKey(0))
+    i = np.asarray(jax.random.randint(k1, (2048,), 0, 2100))
+    j = np.asarray(jax.random.randint(k2, (2048,), 0, 2100))
+    want = np.mean(np.sqrt(np.sum(np.square(x_np[i] - x_np[j]), axis=-1)
+                           + 1e-12))
+    np.testing.assert_allclose(float(tl.mean_pairwise_distance(x)), want,
+                               rtol=1e-6)
+
+
+@pytest.mark.parametrize("n,d", [(4096, 3), (4096, 50), (65536, 14)])
+def test_mean_pairwise_distance_sampled_path_matches_jax(n, d):
+    """Queue C10: above 2048^2 pairs the port's normaliser is the
+    reference's (the same 2048 sampled pairs), within float32 reduction
+    order."""
+    x = np.random.default_rng(n + d).random((n, d), dtype=np.float32)
+    np.testing.assert_allclose(
+        float(tl.mean_pairwise_distance(torch.tensor(x))),
+        float(jl.mean_pairwise_distance(jnp.asarray(x))), rtol=1e-6)
 
 
 @pytest.mark.parametrize("seed", [0, 1])

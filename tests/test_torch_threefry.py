@@ -1,0 +1,413 @@
+"""The port's threefry draws (``repro_torch.core.threefry``, the kernel
+twin of ``repro_torch.kernels.threefry``) and ``ThreefryShuffleSource``
+against the installed jax, on the CPU.
+
+* In both counter layouts (``jax.threefry_partitionable(True / False)``):
+  ``prng_key``, ``split``, ``random_bits``, ``uniform``, ``randint`` and
+  ``permutation`` bitwise, batched and unbatched; ``normal`` within 4 ulp
+  (XLA's ``log1p`` is not torch's: measured at most 3 ulp, on about 1% of
+  the values).  The hash on jax's known-answer vectors.
+* The stable sort of ``permutation`` on crafted sort keys with ties: the
+  earlier index first, as ``lax.sort_key_val(..., is_stable=True)``.
+* ``ThreefryShuffleSource``: its rounds along the reference's chains
+  (sequential: the key itself; batched: per row), rows drawn apart, and
+  ``fork``, ``advanced``, ``take``, ``stack_sources``.
+* The engines with ``key=`` / ``keys=`` on the plain tier: bitwise the
+  same engines fed a ``ReplayShuffleSource`` of the JAX chains, and
+  against the reference's own run with the same key (orders equal, losses
+  rtol 1e-5, ``lambda_sigma=0``: ROADMAP.md Queue C1).
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+from jax import lax  # noqa: E402
+from jax._src import prng as jprng  # noqa: E402
+
+from repro.core import shufflesoftsort as jeng  # noqa: E402
+from repro.core.losses import mean_pairwise_distance as jmpd  # noqa: E402
+from repro_torch.core import shufflesoftsort as teng  # noqa: E402
+from repro_torch.core import threefry as tf  # noqa: E402
+from repro_torch.core.prng import (  # noqa: E402
+    ReplayShuffleSource,
+    ThreefryShuffleSource,
+    TorchShuffleSource,
+    stack_sources,
+)
+from repro_torch.core.reference import config_from_reference  # noqa: E402
+from repro_torch.kernels import threefry as ktf  # noqa: E402
+
+CPU = "cpu"
+LAYOUTS = [True, False]
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """Small tensors: one intra-op thread is several times faster than
+    many contending ones (the suite runs in parallel workers)."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+# (key, count) -> the two words: jax's threefry2x32 known-answer vectors
+# (the Random123 test vectors), checked against the installed jax too.
+KNOWN = [((0x00000000, 0x00000000), (0x00000000, 0x00000000),
+          (0x6B200159, 0x99BA4EFE)),
+         ((0xFFFFFFFF, 0xFFFFFFFF), (0xFFFFFFFF, 0xFFFFFFFF),
+          (0x1CB996FC, 0xBB002BE7)),
+         ((0x13198A2E, 0x03707344), (0x243F6A88, 0x85A308D3),
+          (0xC4923A9C, 0x483DF7A0))]
+NORMAL_ULP = 4
+
+
+def _eq(got, want):
+    np.testing.assert_array_equal(np.asarray(got).astype(np.int64),
+                                  np.asarray(want).astype(np.int64))
+
+
+def _key(seed=42):
+    return jax.random.PRNGKey(seed)
+
+
+@pytest.mark.parametrize("key,count,want", KNOWN)
+def test_threefry_2x32_known_answers(key, count, want):
+    k = np.array(key, np.uint32)
+    c = np.array(count, np.uint32)
+    got = tf.threefry_2x32(k, c, device=CPU)
+    _eq(got, want)
+    _eq(got, jprng.threefry_2x32(jnp.asarray(k), jnp.asarray(c)))
+    k0, k1 = (torch.tensor([[v]]) for v in key)
+    x0, x1 = ktf.threefry2x32_plain(k0, k1, torch.tensor([[count[0]]]),
+                                    torch.tensor([[count[1]]]))
+    _eq([int(x0), int(x1)], want)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 42, -1, 2 ** 40 + 3])
+def test_prng_key_matches_jax(seed):
+    got = tf.prng_key(seed)
+    assert got.dtype == np.uint32
+    _eq(got, jax.random.PRNGKey(seed))
+
+
+@pytest.mark.parametrize("partitionable", LAYOUTS)
+@pytest.mark.parametrize("num", [2, 7])
+def test_split_matches_jax(partitionable, num):
+    with jax.threefry_partitionable(partitionable):
+        k = _key()
+        _eq(tf.split(np.asarray(k), num, partitionable=partitionable,
+                     device=CPU), jax.random.split(k, num))
+        ks = jax.random.split(k, 3)
+        _eq(tf.split(np.asarray(ks), num, partitionable=partitionable,
+                     device=CPU),
+            np.stack([np.asarray(jax.random.split(kk, num)) for kk in ks]))
+
+
+@pytest.mark.parametrize("partitionable", LAYOUTS)
+@pytest.mark.parametrize("shape", [(1,), (7,), (4096,), (3, 5), (64, 64)])
+def test_random_bits_match_jax(partitionable, shape):
+    with jax.threefry_partitionable(partitionable):
+        k = _key(7)
+        _eq(tf.random_bits(np.asarray(k), shape, partitionable=partitionable,
+                           device=CPU),
+            jax.random.bits(k, shape, jnp.uint32))
+        ks = jax.random.split(k, 2)
+        _eq(tf.random_bits(np.asarray(ks), shape,
+                           partitionable=partitionable, device=CPU),
+            np.stack([np.asarray(jax.random.bits(kk, shape, jnp.uint32))
+                      for kk in ks]))
+
+
+@pytest.mark.parametrize("partitionable", LAYOUTS)
+@pytest.mark.parametrize("bounds", [(0.0, 1.0), (1e-9, 1.0), (-2.5, 3.0)])
+def test_uniform_matches_jax_bitwise(partitionable, bounds):
+    with jax.threefry_partitionable(partitionable):
+        k = _key(3)
+        got = tf.uniform(np.asarray(k), (33, 31), *bounds,
+                         partitionable=partitionable, device=CPU).numpy()
+        want = np.asarray(jax.random.uniform(k, (33, 31), minval=bounds[0],
+                                             maxval=bounds[1]))
+        np.testing.assert_array_equal(got.view(np.int32),
+                                      want.view(np.int32))
+
+
+@pytest.mark.parametrize("partitionable", LAYOUTS)
+@pytest.mark.parametrize("lo,hi", [(0, 4096), (-5, 1000003), (0, 65536)])
+def test_randint_matches_jax(partitionable, lo, hi):
+    with jax.threefry_partitionable(partitionable):
+        k = _key(11)
+        got = tf.randint(np.asarray(k), (2048,), lo, hi,
+                         partitionable=partitionable, device=CPU)
+        assert got.dtype == torch.int32
+        _eq(got, jax.random.randint(k, (2048,), lo, hi))
+
+
+@pytest.mark.parametrize("partitionable", LAYOUTS)
+@pytest.mark.parametrize("n", [1, 2, 36, 1024, 4096])
+def test_permutation_matches_jax(partitionable, n):
+    with jax.threefry_partitionable(partitionable):
+        k = _key(n)
+        _eq(tf.permutation(np.asarray(k), n, partitionable=partitionable,
+                           device=CPU), jax.random.permutation(k, n))
+        ks = jax.random.split(k, 3)
+        _eq(tf.permutation(np.asarray(ks), n, partitionable=partitionable,
+                           device=CPU),
+            np.stack([np.asarray(jax.random.permutation(kk, n))
+                      for kk in ks]))
+
+
+@pytest.mark.parametrize("partitionable", LAYOUTS)
+def test_normal_within_ulp_bound(partitionable):
+    """Every value within NORMAL_ULP of XLA's (measured: at most 3 ulp, on
+    about 1% of the values), at one and at several intra-op threads."""
+    with jax.threefry_partitionable(partitionable):
+        k = _key(5)
+        want = np.asarray(jax.random.normal(k, (64, 500)))
+    for threads in (1, 4):
+        torch.set_num_threads(threads)
+        got = tf.normal(np.asarray(k), (64, 500), partitionable=partitionable,
+                        device=CPU).numpy()
+        ulp = np.abs(got.view(np.int32).astype(np.int64)
+                     - want.view(np.int32).astype(np.int64))
+        worst = np.argsort(ulp.ravel())[-3:]
+        assert ulp.max() <= NORMAL_ULP, (threads, worst, ulp.ravel()[worst],
+                                         got.ravel()[worst],
+                                         want.ravel()[worst])
+        assert np.mean(ulp > 0) < 0.05
+
+
+def test_permutation_sort_is_stable_on_tied_keys(monkeypatch):
+    """Crafted sort keys with ties in both rounds of an n = 4096 shuffle:
+    the port keeps the earlier index first, as XLA's stable sort."""
+    n = 4096
+    rng = np.random.default_rng(0)
+    crafted = [rng.integers(0, 40, n).astype(np.int64),
+               np.where(rng.random(n) < 0.5, 7,
+                        rng.integers(0, 2 ** 32, n)).astype(np.int64)]
+    calls = iter(crafted)
+    monkeypatch.setattr(tf, "_sort_words",
+                        lambda key, shape, *args: torch.as_tensor(
+                            next(calls) - 2 ** 31).to(torch.int32)[None])
+    got = tf.permutation(np.asarray(_key()), n, device=CPU)
+    x = jnp.arange(n)
+    for sk in crafted:
+        _, x = lax.sort_key_val(jnp.asarray(sk.astype(np.uint32)), x,
+                                is_stable=True)
+    _eq(got, x)
+
+
+def test_kernel_wrapper_routes_cpu_tensors_to_the_twin():
+    keys = torch.tensor([[0, 42], [1, 2]], dtype=torch.int64)
+    ktf.threefry_bits.launches = 0
+    for mode, m in ((ktf.ORIGINAL, 7), (ktf.XOR, 9), (ktf.PAIRS, 8)):
+        _eq(ktf.threefry_bits(keys, m, mode),
+            ktf.threefry_bits_plain(keys, m, mode))
+    assert ktf.threefry_bits.launches == 0
+    with pytest.raises(ValueError):
+        ktf.threefry_bits(keys, 7, ktf.PAIRS)
+    with pytest.raises(ValueError):
+        ktf.threefry_bits(keys.to(torch.int32), 8, ktf.XOR)
+
+
+# ------------------------------------------------ ThreefryShuffleSource
+
+def _chain(keys, rounds, n):
+    """(R, BS, n): each key's next shuffles along the reference's chain
+    (``pair = split(keys); keys, sub = pair[:, 0], pair[:, 1]``)."""
+    out, k = [], jnp.asarray(keys)
+    for _ in range(rounds):
+        pair = jax.vmap(jax.random.split)(k)
+        k, subs = pair[:, 0], pair[:, 1]
+        out.append(np.stack([np.asarray(jax.random.permutation(sk, n))
+                             for sk in subs]))
+    return np.stack(out)
+
+
+@pytest.mark.parametrize("partitionable", LAYOUTS)
+def test_source_rounds_follow_the_reference_chains(partitionable):
+    n = 36
+    with jax.threefry_partitionable(partitionable):
+        seq_key = _key(1)
+        keys = jax.random.split(_key(2), 3)
+        seq_want = _chain(np.asarray(seq_key)[None], 3, n)
+        want = _chain(keys, 3, n)
+        last = np.asarray(jax.vmap(jax.random.split)(
+            jax.vmap(jax.random.split)(keys)[:, 0])[:, 0])
+    seq = ThreefryShuffleSource(np.asarray(seq_key)[None], n, CPU,
+                                partitionable)
+    for t in range(3):
+        _eq(seq.next_round(), seq_want[t])
+    src = ThreefryShuffleSource(np.asarray(keys), n, CPU, partitionable)
+    assert src.kind == ("threefry" if partitionable else "threefry-original")
+    _eq(src.next_round(), want[0])
+    # rows drawn apart: row 1 alone, then rows 0 and 2 together
+    _eq(src.next_round([1]), want[1][1:2])
+    _eq(src.next_round([2, 0]), want[1][[2, 0]])
+    assert src.state_dict().dtype == np.uint32
+    _eq(src.state_dict(), last)
+
+
+def test_source_fork_advanced_take_and_stack():
+    n = 16
+    keys = np.asarray(jax.random.split(_key(4), 4))
+    src = ThreefryShuffleSource(keys, n, CPU)
+    s0 = src.state_dict()
+    fork = src.fork()
+    a = src.next_round([0, 2])
+    _eq(fork.next_round([0, 2]), a)
+    _eq(src.advanced(s0, [0, 2], 1), src.state_dict())
+    _eq(src.advanced(s0, None, 0), s0)
+    part = src.take([3, 1])
+    assert len(part) == 2 and part.kind == src.kind
+    _eq(part.state_dict(), src.state_dict()[[3, 1]])
+    _eq(part.next_round(), src.fork().next_round([3, 1]))
+    both = stack_sources([src.take([0]), src.take([1, 2])])
+    _eq(both.state_dict(), src.state_dict()[:3])
+    with pytest.raises(ValueError):
+        stack_sources([src, TorchShuffleSource([1], n, CPU)])
+    with pytest.raises(ValueError):
+        src.load_state_dict(np.zeros((3, 2), np.uint32))
+    fork.load_state_dict(s0)
+    _eq(fork.state_dict(), s0)
+
+
+# ------------------------------------------------ the engines with key=
+
+N, HW, D = 16, (4, 4), 3
+LS0 = dict(lambda_sigma=0.0)
+
+
+def _cfgs(**kw):
+    jcfg = jeng.ShuffleSoftSortConfig(rounds=5, inner_steps=2, chunk=16,
+                                      **LS0, **kw)
+    return jcfg, config_from_reference(dataclasses.asdict(jcfg))
+
+
+def _xs(seed, b):
+    return np.random.default_rng(seed).normal(size=(b, N, D)).astype(
+        np.float32)
+
+
+def _norms(xs):
+    return [float(jmpd(jnp.asarray(x))) for x in xs]
+
+
+def test_sequential_key_is_the_reference_chain():
+    jcfg, cfg = _cfgs()
+    x = _xs(0, 1)[0]
+    key = _key(9)
+    replay = ReplayShuffleSource(_chain(np.asarray(key)[None], 5, N), CPU)
+    got = teng.shuffle_soft_sort(x, HW, cfg, key=np.asarray(key),
+                                 norm=_norms([x])[0], device=CPU)
+    via = teng.shuffle_soft_sort(x, HW, cfg, source=replay,
+                                 norm=_norms([x])[0], device=CPU)
+    _eq(got[0], via[0])
+    assert got[2] == via[2]
+    want = jeng.shuffle_soft_sort(x, HW, jcfg, key=key)
+    _eq(got[0], want[0])
+    np.testing.assert_allclose(got[2], want[2], rtol=1e-5)
+    with pytest.raises(ValueError):
+        teng.shuffle_soft_sort(x, HW, cfg, key=np.asarray(key), device=CPU,
+                               source=TorchShuffleSource([1], N, CPU))
+
+
+@pytest.mark.parametrize("schedule", ["fixed", "adaptive"])
+def test_sequential_default_seed_is_zero(schedule):
+    """With no seed=, key= or source=, the sequential engine draws from
+    seed 0's stream: bitwise seed=0 and an explicit source of seed 0."""
+    kw = (dict(schedule="adaptive", patience=1, plateau_rtol=1.0,
+               adapt_every=1) if schedule == "adaptive" else {})
+    _, cfg = _cfgs(**kw)
+    x = _xs(3, 1)[0]
+    got = teng.shuffle_soft_sort(x, HW, cfg, device=CPU)
+    for want in (teng.shuffle_soft_sort(x, HW, cfg, seed=0, device=CPU),
+                 teng.shuffle_soft_sort(
+                     x, HW, cfg, device=CPU,
+                     source=TorchShuffleSource([0], N, CPU))):
+        _eq(got[0], want[0])
+        assert got[2] == want[2]
+
+
+@pytest.mark.parametrize("schedule", ["fixed", "adaptive"])
+def test_batched_key_is_the_reference_chain(schedule):
+    kw = (dict(schedule="adaptive", patience=1, plateau_rtol=1.0,
+               adapt_every=1) if schedule == "adaptive" else {})
+    jcfg, cfg = _cfgs(**kw)
+    xs = _xs(1, 2)
+    key = _key(5)
+    keys = np.asarray(jax.random.split(key, 4))
+    got = teng.shuffle_soft_sort_batched(xs, HW, cfg, n_restarts=2,
+                                         key=np.asarray(key),
+                                         norms=_norms(xs), device=CPU)
+    via = teng.shuffle_soft_sort_batched(
+        xs, HW, cfg, n_restarts=2, norms=_norms(xs), device=CPU,
+        source=ReplayShuffleSource(_chain(keys, 5, N), CPU))
+    _eq(got.all_orders, via.all_orders)
+    np.testing.assert_array_equal(got.all_losses, via.all_losses)
+    want = jeng.shuffle_soft_sort_batched(xs, HW, jcfg, n_restarts=2,
+                                          key=key)
+    _eq(got.all_orders, want.all_orders)
+    np.testing.assert_allclose(got.all_losses, np.asarray(want.all_losses),
+                               rtol=1e-5)
+    with pytest.raises(ValueError):
+        teng.shuffle_soft_sort_batched(xs, HW, cfg, seeds=[1, 2, 3, 4],
+                                       keys=keys, device=CPU)
+
+
+def test_tournament_keys_are_the_reference_chain():
+    jcfg, cfg = _cfgs()
+    xs = _xs(2, 2)
+    keys = np.asarray(jax.random.split(_key(6), 8))
+    got = teng.restart_tournament(xs, HW, cfg, n_restarts=4, keys=keys,
+                                  n_rungs=2, norms=_norms(xs), device=CPU)
+    via = teng.restart_tournament(
+        xs, HW, cfg, n_restarts=4, n_rungs=2, norms=_norms(xs), device=CPU,
+        source=ReplayShuffleSource(_chain(keys, 5, N), CPU))
+    _eq(got.order, via.order)
+    np.testing.assert_array_equal(got.all_losses, via.all_losses)
+    want = jeng.restart_tournament(xs, HW, jcfg, n_restarts=4,
+                                   keys=jnp.asarray(keys), n_rungs=2)
+    for a, b in zip(got.survivors, want.survivors):
+        _eq(a, b)
+    _eq(got.order, want.order)
+    np.testing.assert_allclose(got.all_losses, np.asarray(want.all_losses),
+                               rtol=1e-5)
+
+
+def test_chip_smoke_digests_are_jaxs():
+    """The digests ``chip_smoke.py`` holds the card to are jax's draws, and
+    the port's on the CPU."""
+    import importlib.util
+    import pathlib
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke_consts", path)
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    assert cs.THREEFRY_KNOWN == KNOWN
+    for part in LAYOUTS:
+        with jax.threefry_partitionable(part):
+            k0 = jax.random.PRNGKey(0)
+            keys8 = jax.random.split(k0, 8)
+            want = {
+                "split_8": keys8,
+                "bits_8x4096": jnp.stack([jax.random.bits(
+                    k, (4096,), jnp.uint32) for k in keys8]),
+                "bits_1x1048576": jax.random.bits(k0, (1048576,),
+                                                  jnp.uint32),
+                "bits_3x1001": jnp.stack([jax.random.bits(
+                    k, (1001,), jnp.uint32) for k in jax.random.split(
+                        jax.random.PRNGKey(3), 3)]),
+                "permutation_8x4096": jnp.stack([jax.random.permutation(
+                    k, 4096) for k in keys8]),
+                "uniform_1024x3": jax.random.uniform(
+                    jax.random.PRNGKey(42), (1024, 3)),
+            }
+        want = {k: cs.draw_digest(np.asarray(v)) for k, v in want.items()}
+        assert want == cs.THREEFRY_DIGESTS[part]
+        got = {k: cs.draw_digest(v) for k, v in
+               cs.threefry_draws(tf, CPU, part).items()}
+        assert got == want
