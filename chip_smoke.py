@@ -187,6 +187,33 @@ start):
     found), 16000 launches of each dense kernel (8000 steps of each
     SoftSort row) and the threefry kernel's.
 
+15. ``serve_key_check`` (after ``serve_run``) — raw ``jax.random`` keys on
+    ``SortServer.submit`` (ROADMAP.md Queue C11), kernel tier, 1024
+    colours on 32 x 32: a one-restart request with ``prng_key(7)``
+    bitwise ``shuffle_soft_sort(key=prng_key(7))``; a two-restart
+    request's keys the reference server's chain ``[key] +
+    split(fold_in(key, 1), 1)``, its first round's shuffles that chain's
+    and its result the batched engine's on those keys, bitwise; an
+    injected admission fault resolves its future with ``RequestFailed``
+    within 10 s and the accounting holds.
+16. ``autotune_run`` (after ``mesh_run``) — the payload-tile autotune
+    (``repro_torch.kernels.autotune``): the full search over its cells in
+    both dtypes, every candidate tile held to the twins, into a scratch
+    table read back through ``lookup_blocks``; whether the tiles agree
+    bitwise, cell by cell and per quantity; the committed table's rows
+    read back, the fallback elsewhere; main_run and band_main_run again
+    with the committed table moved aside, their digests unchanged.
+17. ``batched_bench_run`` — the batched bench
+    (``repro_torch.bench.batched_bench``, kernel tier) with ``--check``:
+    B in {1, 8, 64} at N = 1024 and ``--full``'s N = 4096 at B in {1, 8}
+    (B = 64 cut for time), each seed's order and losses bitwise on the
+    batched and sequential paths (Queue C12: every loss in blocks of 8);
+    the scaling sweep on meshes of 1 and 8 slots of the card, the mesh's
+    orders bitwise the unsharded run's; the cull sweep; the adaptive rows
+    and their gate (at least 20% of the rounds saved at a final-loss gap
+    of at most 1%), and the same rows in jax 0.9.0's counter layout,
+    reported ungated.
+
 Phases 9, 11 and 13 run right after phase 3, so that a faulty kernel
 stops the script before the long runs; 10, 12 and 14 run after phase 8.
 
@@ -812,9 +839,10 @@ def c10_check(torch, core, K, xs, hw, cfg, restarts):
 def catalog_runs(torch, core, K):
     """Phases 5-7 on the clustered 4096-item catalog (d = 50): the dense
     main run, the all-banded main run, the run across the band switch.
-    Returns the catalog, the launch counts of the dense main run, and the
+    Returns the catalog, the launch counts of the dense main run, the
     all-banded run's result and timing (the fixed schedule that
-    ``adaptive_run`` is held against)."""
+    ``adaptive_run`` is held against), and the digests of the dense and
+    the all-banded main run."""
     from repro_torch.core.shufflesoftsort import _band_switch_round
     from repro_torch.examples.image_grid_sorting import synthetic_catalog
 
@@ -826,6 +854,7 @@ def catalog_runs(torch, core, K):
     nbr_before = [core.mean_neighbor_distance(xs[i], hw) for i in range(b)]
     per_step = rounds * inner
     dense_counts = fixed = None
+    digests = {}
     for phase, band in (("main_run", None), ("band_main_run", "auto")):
         cfg = core.ShuffleSoftSortConfig(rounds=rounds, inner_steps=inner,
                                          use_kernel=True, band=band)
@@ -845,9 +874,10 @@ def catalog_runs(torch, core, K):
         on, off = (DENSE, BAND) if band is None else (BAND, DENSE)
         require_counts(counts, {**{k: per_step for k in on},
                                 **{k: 0 for k in off}})
+        digests[phase] = run_digest(res)
         emit(phase, **timing, mean_neighbor_distance_unsorted=nbr_before,
              mean_neighbor_distance_sorted=nbr_after,
-             digest=run_digest(res))
+             digest=digests[phase])
         if band is None:
             dense_counts = counts
             c10_check(torch, core, K, xs, hw, cfg, s)
@@ -863,8 +893,9 @@ def catalog_runs(torch, core, K):
     require_counts(counts, {**{k: switch * inner for k in DENSE},
                             **{k: (16 - switch) * inner for k in BAND}})
     emit("band_switch_run", problems=2, restarts=1, n=n, d=d, band=24,
-         rounds=16, inner_steps=inner, switch_round=switch, **timing)
-    return xs, dense_counts, fixed
+         rounds=16, inner_steps=inner, switch_round=switch,
+         digest=run_digest(res), **timing)
+    return xs, dense_counts, fixed, digests
 
 
 # The adaptive runs on the catalog of phases 5-7 (4 problems x 2 restarts,
@@ -1141,7 +1172,7 @@ def loss_block_check(torch, hw=(64, 64), d=50, full=32):
     instances.  ``full`` random instances at the catalog's shape; for each
     batch of the first B of them, the loss values and their gradients
     against y and colsum, computed as one batch (``grid_sorting_loss``)
-    and as the engine's padded blocks (``_loss_fn`` with ``pad_rows``),
+    and as the engine's padded blocks (``_loss_fn``),
     each row against its row of the full batch computed the same way.
     Reports the batch sizes at which one batch differs (PyTorch's CUDA
     reductions choose their split from the number of rows); requires the
@@ -1165,8 +1196,7 @@ def loss_block_check(torch, hw=(64, 64), d=50, full=32):
         cv = c[:b].clone().requires_grad_(True)
         if blocked:
             loss = eng._loss_fn(None, x[:b], ident[:b], None, hw, norm[:b],
-                                cfg, lambda w, xs_, t: (yv, cv),
-                                pad_rows=True)
+                                cfg, lambda w, xs_, t: (yv, cv))
         else:
             loss = grid_sorting_loss(yv, cv, x[:b], hw, norm[:b])
         return (loss.detach(), *torch.autograd.grad(loss.sum(), (yv, cv)))
@@ -2907,6 +2937,227 @@ def paper_table_run(torch, kernels):
     return counts
 
 
+SERVE_KEY = dict(rounds=16, inner_steps=4, sched_rungs=4, max_batch=8)
+
+
+def serve_key_check(torch, core, K):
+    """Queue C11 on the card: raw ``jax.random`` keys on
+    ``SortServer.submit``, kernel tier, 1024 colours on 32 x 32.  A
+    one-restart request with ``prng_key(7)`` is bitwise
+    ``shuffle_soft_sort(key=prng_key(7))``; a two-restart request's
+    streams start at the reference server's chain ``[key] +
+    split(fold_in(key, 1), 1)`` (drawn here through ``threefry.fold_in``
+    and ``split``), its first round's shuffles are that chain's, and its
+    result is the batched engine's on those keys, bitwise; an admission
+    that raises resolves its future with ``RequestFailed`` within 10 s
+    and the accounting holds.  Returns the launch counts of the served
+    requests."""
+    from repro_torch.core import threefry as tf
+    from repro_torch.launch.serve import RequestFailed, SortServer
+
+    hw, d = (32, 32), 3
+    n = hw[0] * hw[1]
+    cfg = core.ShuffleSoftSortConfig(
+        rounds=SERVE_KEY["rounds"], inner_steps=SERVE_KEY["inner_steps"],
+        use_kernel=True)
+    x = tf.uniform(tf.prng_key(3), (n, d), device="cuda")
+    x_np = x.cpu().numpy()
+
+    def server(restarts, **kw):
+        return SortServer(hw, d=d, cfg=cfg, n_restarts=restarts,
+                          max_batch=SERVE_KEY["max_batch"],
+                          sched_rungs=SERVE_KEY["sched_rungs"],
+                          device="cuda", **kw)
+
+    def drain(srv):
+        for _ in range(256):
+            with srv._cv:
+                if not srv._pending and not srv._active:
+                    return
+            srv._tick()
+        require(False, "serve_key_check: the server did not drain")
+
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    one = server(1, autostart=False)
+    fut = one.submit(x_np, key=tf.prng_key(7))
+    drain(one)
+    one.close()
+    got = fut.result(timeout=0)
+    counts = K.launch_counts()
+    want = core.shuffle_soft_sort(x, hw, cfg, key=tf.prng_key(7),
+                                  device="cuda")
+    require(np.array_equal(got[0], want[0])
+            and np.array_equal(got[2], np.asarray(want[2], np.float32)),
+            "a one-restart raw-key request is not shuffle_soft_sort(key=)")
+
+    base = tf.as_keys(tf.prng_key(7), "cuda")
+    chain = torch.cat([base[None], tf.split(tf.fold_in(base, 1), 1)])
+    two = server(2, autostart=False)
+    fut2 = two.submit(x_np, key=tf.prng_key(7))
+    req = two._pending[0]
+    two._admit(req)
+    require(np.array_equal(req.src.state_dict(), tf.key_data(chain)),
+            "a two-restart request's keys are not the reference's chain")
+    first = req.src.fork().next_round()
+    want_first = tf.permutation(tf.split(chain)[:, 1], n)
+    require(torch.equal(first, want_first),
+            "a two-restart request's first shuffles are not the chain's")
+    drain(two)
+    two.close()
+    got2 = fut2.result(timeout=0)
+    res = core.shuffle_soft_sort_batched(x[None], hw, cfg, n_restarts=2,
+                                         keys=chain, device="cuda")
+    require(np.array_equal(got2[0], res.order[0])
+            and np.array_equal(got2[2], res.losses[0]),
+            "a two-restart raw-key request is not the batched engine's run "
+            "on the chain")
+
+    srv = server(1, max_wait_ms=0.0)
+    real, fired = srv._admit, []
+
+    def admit(r):
+        if not fired:
+            fired.append(r.seq)
+            raise RuntimeError("injected admission fault")
+        return real(r)
+
+    srv._admit = admit
+    t0 = time.perf_counter()
+    bad = srv.submit(x_np, key=tf.prng_key(8))
+    try:
+        bad.result(timeout=10)
+        typed = False
+    except RequestFailed:
+        typed = True
+    resolved_s = time.perf_counter() - t0
+    ok = srv.submit(x_np, key=tf.prng_key(9)).result(timeout=120)
+    srv.close()
+    st = srv.stats
+    offered = st["requests"]
+    accounted = (st["completed"] + st["failed"] + st["deadline_missed"]
+                 + st["queue_rejected"])
+    require(typed and resolved_s < 10, "an admission fault left its "
+            "future unresolved or untyped")
+    require(accounted == offered == 2 and st["failed"] == 1
+            and core.is_valid_permutation(ok[0]),
+            f"accounting after an admission fault: {st}")
+    emit("serve_key_check", n=n, d=d, grid=hw, rounds=cfg.rounds,
+         inner_steps=cfg.inner_steps, one_restart_bitwise_keyed_run=True,
+         two_restart_chain=tf.key_data(chain).tolist(),
+         two_restart_bitwise_batched_on_chain=True,
+         admission_fault_resolved_s=resolved_s, accounting={
+             k: st[k] for k in ("requests", "completed", "failed",
+                                "deadline_missed", "queue_rejected")},
+         launches={k: v for k, v in counts.items() if v})
+    require(all(counts[k] > 0 for k in DENSE),
+            f"serve_key_check launched no dense kernel: {counts}")
+    return counts
+
+
+# The batched bench's runs (repro_torch.bench.batched_bench), each with
+# --check.  --full's N = 4096 cells at B = 1 and 8 only: the B = 64 cell
+# (64 sequential anneals of 50 rounds) is cut for time.  The adaptive rows
+# run in the pinned jax<0.5's counter layout (the bench's default, that of
+# the reference's committed rows the gate was set on) and, reported beside
+# them ungated, in jax 0.9.0's.
+BATCHED_BENCH = [
+    ("sweep", ["--check"]),
+    ("full", ["--full", "--ns", "4096", "--bs", "1", "8", "--check"]),
+    ("scaling", ["--devices", "1", "8", "--check"]),
+    ("cull", ["--cull-sweep", "--check"]),
+    ("adaptive", ["--adaptive", "--check"]),
+    ("adaptive_partitionable", ["--adaptive", "--partitionable"]),
+]
+BATCHED_BENCH_CUTS = ["--full at N = 4096: B = 64 cut for time (B = 1, 8 "
+                      "run)"]
+
+
+def batched_bench_run(torch, kernels):
+    """The batched bench on the card (kernel tier), its modes in turn
+    with ``--check``: batched bitwise sequential per seed, the mesh's
+    orders bitwise the unsharded run's on 1 and 8 slots, cull 0 at no
+    gap, and the adaptive gate (at least 20% of the rounds saved at a
+    final-loss gap of at most 1%).  Launch counts set to 0 just before
+    and read just after; returns them."""
+    from repro_torch.bench import batched_bench
+
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    seconds = {}
+    for mode, argv in BATCHED_BENCH:
+        t0 = time.perf_counter()
+        doc = batched_bench.main(argv)
+        seconds[mode] = time.perf_counter() - t0
+        for row in doc["cells"]:
+            emit("batched_bench_row", bench_mode=mode, **row)
+    counts = kernels.launch_counts()
+    emit("batched_bench_run", seconds=seconds, cut=BATCHED_BENCH_CUTS,
+         check="passed (adaptive_partitionable ungated)",
+         launches={k: v for k, v in counts.items() if v})
+    require(all(counts[k] > 0 for k in DENSE)
+            and counts["threefry_bits"] > 0,
+            f"the batched bench missed a kernel: {counts}")
+    return counts
+
+
+def autotune_run(torch, core, K, xs, main_digests):
+    """The payload-tile autotune on the card: the full search over
+    ``FULL_CELLS`` x ``DTYPES`` (every candidate tile held to the twins
+    before it is timed) into a scratch table, read back through
+    ``lookup_blocks``; whether the tiles agree bitwise, cell by cell and
+    per quantity; ``lookup_blocks`` on the committed table returns its
+    rows (and the fallback elsewhere); and with the committed table moved
+    aside, main_run's and band_main_run's digests as ``catalog_runs``
+    found them (``main_digests``)."""
+    import tempfile
+
+    from repro_torch.kernels import autotune
+
+    out = os.path.join(tempfile.mkdtemp(), "autotune.json")
+    t0 = time.perf_counter()
+    rows = autotune.main(["--out", out, "--check", "--reps", "20"])
+    search_s = time.perf_counter() - t0
+    for r in rows:
+        emit("autotune_cell", **r)
+    committed = autotune._load_table(autotune.TABLE_PATH)
+    require(committed is not None, "the committed autotune table does not "
+            "load")
+    for key, dt in committed.items():
+        require(autotune.lookup_blocks(*key) == dt,
+                f"lookup_blocks misses the committed row {key}")
+    for r in rows:
+        key = autotune._cell_key(r["tier"], r["N"], r["d"], r["K"],
+                                 r["dtype"], "cuda")
+        require(key in committed or autotune.lookup_blocks(*key)
+                == K.band_payload_tile(r["d"])[0],
+                f"lookup_blocks at {key} is not the fallback")
+        require(r["bitwise"] or key not in committed,
+                f"the committed table holds a row whose tiles differ: {key}")
+
+    # main_run and band_main_run again, the committed table moved aside
+    digests = {}
+    table = autotune.TABLE_PATH
+    autotune.TABLE_PATH = os.path.join(os.path.dirname(out), "absent.json")
+    try:
+        for phase, band in (("main_run", None), ("band_main_run", "auto")):
+            cfg = core.ShuffleSoftSortConfig(rounds=32, inner_steps=8,
+                                             use_kernel=True, band=band)
+            res, _, _ = anneal(torch, core, K, xs, (64, 64), cfg, 2)
+            digests[phase] = run_digest(res)
+    finally:
+        autotune.TABLE_PATH = table
+    require(digests == main_digests,
+            f"digests without the table {digests}, with it {main_digests}")
+    emit("autotune_run", cells=len(rows), search_s=search_s,
+         committed_rows=len(committed),
+         bitwise_by_cell={f"{r['tier']}/{r['N']}/{r['d']}/{r['K']}/"
+                          f"{r['dtype']}": r["bitwise_by"] for r in rows},
+         winners={f"{r['tier']}/{r['N']}/{r['d']}/{r['K']}/{r['dtype']}":
+                  r["winner"][0] for r in rows},
+         digests_without_table=digests)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2942,7 +3193,7 @@ def main():
     stats.update(flash_kernel_phase(torch, F, flash_ops))
     stats.update(threefry_run(torch, core))
     function_phase(torch, ops, ref, core)
-    xs, launches, fixed = catalog_runs(torch, core, K)
+    xs, launches, fixed, main_digests = catalog_runs(torch, core, K)
     adaptive_phases(torch, core, K, xs, fixed)
     loss_block_check(torch)
     tournament_run(torch, core, K, xs)
@@ -2951,13 +3202,16 @@ def main():
     checkpoint_run(torch, core, K, xs, fixed)
     guardrail_run(torch, core, K, xs, fixed)
     serve_counts = serve_run(torch, core, K)
+    key_counts = serve_key_check(torch, core, K)
     mesh_counts = mesh_run(torch, core, K, xs)
+    autotune_run(torch, core, K, xs, main_digests)
+    bench_counts = batched_bench_run(torch, kernels)
     launches.update({k: v for k, v in sog_run(torch, core, K).items()
                      if k in BAND})
     for k in BAND:
         launches[k] += serve_counts[k]
     for k in DENSE + BAND:
-        launches[k] += mesh_counts[k]
+        launches[k] += mesh_counts[k] + key_counts[k] + bench_counts[k]
     sog_codec(torch)
     launches.update({k: v for k, v in kernel_bench_phase(
         torch, kernels).items() if k in V1})
@@ -2966,7 +3220,8 @@ def main():
     table_counts = paper_table_run(torch, kernels)
     for k in DENSE:
         launches[k] += table_counts[k]
-    launches["threefry_bits"] = table_counts["threefry_bits"]
+    launches["threefry_bits"] = (table_counts["threefry_bits"]
+                                 + bench_counts["threefry_bits"])
 
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda",

@@ -34,7 +34,7 @@ order.
 """
 from __future__ import annotations
 
-from typing import Protocol, Sequence
+from typing import Protocol, Sequence, runtime_checkable
 
 import numpy as np
 import torch
@@ -42,6 +42,7 @@ import torch
 from repro_torch.core import threefry
 
 
+@runtime_checkable
 class ShuffleSource(Protocol):
     kind: str
 
@@ -190,13 +191,13 @@ class ThreefryShuffleSource:
 
     def advanced(self, state, rows, draws: int) -> np.ndarray:
         """The keys after ``draws`` more rounds of instances ``rows``: the
-        split chain alone, on the host."""
-        keys = threefry.as_keys(np.asarray(state), "cpu").reshape(-1, 2)
-        idx = torch.as_tensor(_rows(rows, keys.shape[0]))
-        for _ in range(int(draws)):
-            keys[idx] = threefry.split(
-                keys[idx], partitionable=self.partitionable)[:, 0]
-        return threefry.key_data(keys)
+        split chain alone, on the host
+        (``repro_torch.runtime.guardrails.expected_key_chain``)."""
+        from repro_torch.runtime.guardrails import expected_key_chain
+        keys = threefry.key_data(np.asarray(state)).reshape(-1, 2)
+        idx = _rows(rows, keys.shape[0])
+        keys[idx] = expected_key_chain(keys[idx], draws, self.partitionable)
+        return keys
 
     def take(self, rows, device=None) -> "ThreefryShuffleSource":
         idx = torch.as_tensor(_rows(rows, len(self)), device=self.device)

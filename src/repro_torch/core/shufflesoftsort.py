@@ -244,9 +244,9 @@ def _sharded(mesh, run, xs, orders, norms, source: ShuffleSource, rows,
     stream advances once per round; the slots' streams are committed back
     in instance order, and the outputs (orders, (T, BS) losses, last keys)
     are gathered onto the batch's device, the padding cut off.  A slot's
-    loss runs in blocks of exactly 8 instances (``pad_rows``, Queue C7),
-    so each instance's results are bitwise the unsharded dispatch's
-    wherever that evaluates the loss in blocks too."""
+    loss runs in blocks of exactly 8 instances, as every loss does
+    (``_loss_fn``, Queues C7 and C12), so each instance's results are
+    bitwise the unsharded dispatch's."""
     home = xs.device
     bs = xs.shape[0]
     per = _padded(bs, mesh) // len(mesh)
@@ -279,16 +279,16 @@ def _sharded(mesh, run, xs, orders, norms, source: ShuffleSource, rows,
 # instance's loss can change in its last bits with the batch around it (on
 # an H100 at N = 4096, d = 50, against 32 instances: the loss values at 4,
 # 8 and 12, the std term's gradient at one; ``chip_smoke.py``'s
-# ``loss_block_check``).  A batch of more than _LOSS_ROWS instances,
-# and with ``pad_rows`` any batch, is therefore evaluated in blocks of
-# exactly _LOSS_ROWS rows, a short block padded: every instance then sees
-# one reduction however many instances share its dispatch.  A fixed-engine
-# batch of at most _LOSS_ROWS is evaluated whole, as it always was.
+# ``loss_block_check``; at N = 1024, d = 3 one row against 8 moved a
+# sequential run off its batched row, Queue C12).  Every batch is
+# therefore evaluated in blocks of exactly _LOSS_ROWS rows, a short block
+# padded: every instance sees one reduction however many instances share
+# its dispatch, a sequential run's one instance too.
 _LOSS_ROWS = 8
 
 
 def _loss_fn(w, x_shuf, inv_shuf, tau, hw, norm, cfg: ShuffleSoftSortConfig,
-             apply_fn, pad_rows: bool = False) -> torch.Tensor:
+             apply_fn) -> torch.Tensor:
     """(BS,) losses of a (BS, N) key batch; ``norm`` is (BS,)."""
     y_shuf, colsum = apply_fn(w, x_shuf, tau)
     d = y_shuf.shape[-1]
@@ -297,8 +297,6 @@ def _loss_fn(w, x_shuf, inv_shuf, tau, hw, norm, cfg: ShuffleSoftSortConfig,
                              lambda_s=cfg.lambda_s,
                              lambda_sigma=cfg.lambda_sigma)
     bs = y.shape[0]
-    if bs == _LOSS_ROWS or (bs < _LOSS_ROWS and not pad_rows):
-        return loss(y, colsum, x_shuf, norm=norm)
     out = []
     for b0 in range(0, bs, _LOSS_ROWS):
         block = [t[b0:b0 + _LOSS_ROWS] for t in (y, colsum, x_shuf, norm)]
@@ -333,14 +331,13 @@ def _adam_bias(cfg: ShuffleSoftSortConfig, device):
 
 
 def _outer_round(xs, orders, shuf, tau_inner, norms, bias1, bias2, *,
-                 hw, cfg: ShuffleSoftSortConfig, apply_fn,
-                 pad_rows: bool = False):
+                 hw, cfg: ShuffleSoftSortConfig, apply_fn):
     """One outer round for a (BS, N) batch of instances.
 
     ``shuf`` (BS, N) is the round's shuffles, ``tau_inner`` the
     device-resident inner temperatures, (BS, I) with a row per instance or
     (1, I) shared by the batch, ``bias1``/``bias2`` (I,) the Adam bias
-    corrections ``1 - b ** t``, ``pad_rows`` as in ``_loss_fn``.  Returns
+    corrections ``1 - b ** t``.  Returns
     the committed orders, the last inner step's losses (BS,) and its
     trained keys ``w`` (BS, N).
     """
@@ -359,7 +356,7 @@ def _outer_round(xs, orders, shuf, tau_inner, norms, bias1, bias2, *,
         wv = w.detach().requires_grad_(True)
         with torch.enable_grad():
             loss = _loss_fn(wv, x_shuf, inv_shuf, taus[i], hw, norms, cfg,
-                            apply_fn, pad_rows)
+                            apply_fn)
             (g,) = torch.autograd.grad(loss.sum(), wv)
         mu = cfg.b1 * mu + (1 - cfg.b1) * g
         nu = cfg.b2 * nu + (1 - cfg.b2) * torch.square(g)
@@ -453,14 +450,13 @@ def _band_switch_round(cfg: ShuffleSoftSortConfig, n: int) -> int:
 def _run_rounds(xs_t, orders, source: ShuffleSource, norms_t, start: int,
                 end: int | None = None, *, rows=None, hw,
                 cfg: ShuffleSoftSortConfig,
-                on_round: Optional[Callable] = None,
-                pad_rows: bool = False, mesh=None):
+                on_round: Optional[Callable] = None, mesh=None):
     """Rounds ``start .. end - 1`` (``end`` None: to R) over a (BS, N)
     batch, each round dense before the GLOBAL switch round and banded from
     it on, so a run cut into segments runs every round on the apply an
     uninterrupted run gives it.  ``rows`` (BS,) are the batch's instance
     indices in ``source`` (None: all of them, in order); only their
-    streams advance.  ``pad_rows`` as in ``_loss_fn``.  With a ``mesh`` the
+    streams advance.  With a ``mesh`` the
     batch is split over its slots (``_sharded``).  Returns the orders,
     the (end - start, BS) losses and the last round's trained keys (BS, N)
     (None when no round ran), all on the device."""
@@ -470,7 +466,7 @@ def _run_rounds(xs_t, orders, source: ShuffleSource, norms_t, start: int,
                              "sharded path; use mesh=None")
         return _sharded(
             mesh, lambda x, o, src, nm, _: _run_rounds(
-                x, o, src, nm, start, end, hw=hw, cfg=cfg, pad_rows=True),
+                x, o, src, nm, start, end, hw=hw, cfg=cfg),
             xs_t, orders, norms_t, source, rows)
     dev = xs_t.device
     n = orders.shape[1]
@@ -485,8 +481,7 @@ def _run_rounds(xs_t, orders, source: ShuffleSource, norms_t, start: int,
         shuf = source.next_round(rows)
         orders, loss, w = _outer_round(
             xs_t, orders, shuf, tau_inner[r:r + 1], norms_t, bias1, bias2,
-            hw=hw, cfg=cfg, apply_fn=band_fn if r >= switch else dense_fn,
-            pad_rows=pad_rows)
+            hw=hw, cfg=cfg, apply_fn=band_fn if r >= switch else dense_fn)
         losses.append(loss)
         if on_round is not None:
             on_round(r, orders, loss)
@@ -661,8 +656,7 @@ def _plain_cfg(cfg: ShuffleSoftSortConfig) -> ShuffleSoftSortConfig:
 
 def _run_segment(xs_t, orders, source: ShuffleSource, norms_t, start: int,
                  end: int, *, rows=None, hw, cfg: ShuffleSoftSortConfig,
-                 on_round: Optional[Callable] = None,
-                 pad_rows: bool = False, mesh=None):
+                 on_round: Optional[Callable] = None, mesh=None):
     """One rung of the fixed schedule, rounds ``[start, end)``: the seam
     the fixed engines go through, the counterpart of the reference's
     ``_run_segments`` (the shadow's replay calls ``_run_rounds`` itself,
@@ -672,7 +666,7 @@ def _run_segment(xs_t, orders, source: ShuffleSource, norms_t, start: int,
     losses."""
     return _run_rounds(xs_t, orders, source, norms_t, start, end, rows=rows,
                        hw=hw, cfg=cfg, on_round=on_round,
-                       pad_rows=pad_rows, mesh=mesh)[:2]
+                       mesh=mesh)[:2]
 
 
 def _run_fixed_checkpointed(xs_t, orders, source: ShuffleSource, norms_t, *,
@@ -786,7 +780,7 @@ def _run_rounds_ragged(xs, orders, source: ShuffleSource, rows, tau_rows,
     for t in range(tau_rows.shape[0]):
         orders, loss, w = _outer_round(
             xs, orders, source.next_round(rows), tau_inner[t], norms, bias1,
-            bias2, hw=hw, cfg=cfg, apply_fn=apply_fn, pad_rows=True)
+            bias2, hw=hw, cfg=cfg, apply_fn=apply_fn)
         losses.append(loss)
     return orders, torch.stack(losses), w
 
@@ -1369,9 +1363,9 @@ def shuffle_soft_sort_batched(
     flattened B x S instances over its slots, the tail slot padded with
     copies of instance 0, and gathers the outputs onto ``device``; each
     problem's winner is the host argmin of its final losses, as without a
-    mesh.  Per seed the results are bitwise ``mesh=None``'s wherever the
-    unsharded run evaluates its loss in blocks of 8 (B x S > 8, or the
-    adaptive schedule; ROADMAP.md Queue C7).  The run's carry lives on
+    mesh.  Per seed the results are bitwise ``mesh=None``'s: every run
+    evaluates its loss in blocks of 8 (ROADMAP.md Queues C7, C12).  The
+    run's carry lives on
     ``device`` (default: the first slot's).  ``mesh_hook(start_round,
     mesh) -> mesh | None`` fires at each rung boundary after
     ``rung_hook``: a returned mesh runs the rungs after it (elastic
@@ -1639,7 +1633,7 @@ def restart_tournament(
         o_in = orders
         orders, losses = _run_segment(xs_t, orders, source, norms_t, start,
                                       end, rows=rows, hw=hw, cfg=cfg,
-                                      pad_rows=True, mesh=mesh)
+                                      mesh=mesh)
         rounds_run += (end - start) * _padded(b * s_k, mesh)
         seg = _host(losses).astype(np.float32)            # (T, B * S_k)
         if check_finite:
@@ -1649,7 +1643,7 @@ def restart_tournament(
                 mon, cfg, source, s_in, start, end - start,
                 lambda src: _run_rounds(
                     xs_t, o_in, src, norms_t, start, end, rows=rows, hw=hw,
-                    cfg=cfg, pad_rows=True, mesh=mesh),
+                    cfg=cfg, mesh=mesh),
                 xs=xs_t, groups=_fixed_groups(cfg, n, len(rows), end),
                 losses=seg, orders=_host(orders), rows=rows,
                 tau=float(taus[start]))

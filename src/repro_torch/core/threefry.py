@@ -135,6 +135,18 @@ def split(key, num: int = 2, *, partitionable: bool = True,
     return words(out).reshape(*lead, int(num), 2)
 
 
+def fold_in(key, data: int, *, device=None) -> torch.Tensor:
+    """``jax.random.fold_in(key, data)``: each key's hash of the counter
+    words ``(0, data mod 2**32)``, the seed words of a uint32 ``data``.
+    One layout: jax folds in alike with ``jax_threefry_partitionable`` on
+    or off.  (..., 2) key data in, the same shape out."""
+    k = as_keys(key, device)
+    x1 = torch.full_like(k[..., 0], int(data) & MASK)
+    h0, h1 = threefry2x32_plain(k[..., 0], k[..., 1], torch.zeros_like(x1),
+                                x1)
+    return torch.stack([h0, h1], dim=-1)
+
+
 def uniform(key, shape=(), minval=0.0, maxval=1.0, *,
             partitionable: bool = True, device=None) -> torch.Tensor:
     """``jax.random.uniform(key, shape, float32, minval, maxval)``: the

@@ -90,16 +90,17 @@ def _dtau(dtau_cols, shared: bool):
 class _SoftSortApply(torch.autograd.Function):
 
     @staticmethod
-    def forward(ctx, w, x, tau, cd):
+    def forward(ctx, w, x, tau, cd, dt):
         w32 = w.detach().to(_F32).contiguous()
         perm = torch.argsort(w32, dim=-1, stable=True)
         ws = torch.gather(w32, -1, perm)
         xc = x.detach().to(cd).contiguous()
         taus = _tau_rows(tau.detach(), w32.shape[0])
-        y, m, l = fwd_fused(ws, w32, xc, taus)
+        y, m, l = fwd_fused(ws, w32, xc, taus, dt)
         c = colsum(ws, w32, taus, m, l, cd)
         ctx.save_for_backward(w32, xc, taus, perm, m, l, y)
         ctx.shared_tau = tau.numel() == 1
+        ctx.dt = dt
         ctx.dtypes = (w.dtype, x.dtype)
         return y.to(_F32), c
 
@@ -110,20 +111,23 @@ class _SoftSortApply(torch.autograd.Function):
         ws = torch.gather(w32, -1, perm)
         dy_c = dy.to(_F32).to(cd).contiguous()
         dc_c = dc.to(_F32).to(cd).contiguous()
-        D, dws = bwd_dws_delta(ws, w32, xc, tau, m, l, dy_c, y, dc_c)
-        dx, dw_cols, dtau_cols = bwd_dx(ws, w32, xc, tau, m, l, dy_c, dc_c, D)
+        D, dws = bwd_dws_delta(ws, w32, xc, tau, m, l, dy_c, y, dc_c, ctx.dt)
+        dx, dw_cols, dtau_cols = bwd_dx(ws, w32, xc, tau, m, l, dy_c, dc_c, D,
+                                        ctx.dt)
         dw = dw_cols + torch.zeros_like(dws).scatter_(-1, perm, dws)
         dtau = _dtau(dtau_cols, ctx.shared_tau) if ctx.needs_input_grad[2] else None
-        return dw.to(ctx.dtypes[0]), dx.to(ctx.dtypes[1]), dtau, None
+        return dw.to(ctx.dtypes[0]), dx.to(ctx.dtypes[1]), dtau, None, None
 
 
 def softsort_apply(w, x, tau, descending: bool = False,
-                   compute_dtype: str = "float32"):
+                   compute_dtype: str = "float32", payload_tile=None):
     """Kernel-tier ``(P_soft @ x, colsum(P_soft))``.
 
     w: (N,) or (B, N) keys; x: (N, d) or (B, N, d) payload; tau a float or
     a tensor with one element, shared by the batch, or a (B,) tensor, one
-    per instance.
+    per instance.  ``payload_tile`` (16, 32 or 64) fixes the kernels'
+    payload tile on the card; None takes the autotune table's
+    (``repro_torch.kernels.autotune.lookup_blocks``).
     Returns y (float32, x's batch shape) and colsum (w's shape).
     """
     batched = w.dim() == 2
@@ -134,7 +138,7 @@ def softsort_apply(w, x, tau, descending: bool = False,
                          "do not match")
     y, c = _SoftSortApply.apply(wb, xb, _tau_tensor(tau, w.device,
                                                     wb.shape[0]),
-                                _cd(compute_dtype))
+                                _cd(compute_dtype), payload_tile)
     if not batched:
         y, c = y[0], c[0]
     if descending:
@@ -145,18 +149,19 @@ def softsort_apply(w, x, tau, descending: bool = False,
 class _SoftSortApplyBanded(torch.autograd.Function):
 
     @staticmethod
-    def forward(ctx, w, x, tau, band, cd):
+    def forward(ctx, w, x, tau, band, cd, dt):
         w32 = w.detach().to(_F32).contiguous()
         xc = x.detach().to(cd).contiguous()
         perm = torch.argsort(w32, dim=-1, stable=True)
         ws, xs = _rank_order(w32, xc, perm)
         taus = _tau_rows(tau.detach(), w32.shape[0])
-        y, m, l = fwd_band(ws, xs, taus, band)
+        y, m, l = fwd_band(ws, xs, taus, band, dt)
         c_sorted = colsum_band(ws, taus, m, l, band, cd)
         c = torch.empty_like(c_sorted).scatter_(-1, perm, c_sorted)
         ctx.save_for_backward(w32, xc, taus, perm, m, l, y)
         ctx.shared_tau = tau.numel() == 1
         ctx.band = band
+        ctx.dt = dt
         ctx.dtypes = (w.dtype, x.dtype)
         return y.to(_F32), c
 
@@ -168,9 +173,9 @@ class _SoftSortApplyBanded(torch.autograd.Function):
         dy_c = dy.to(_F32).to(cd).contiguous()
         dc_s = torch.gather(dc.to(_F32), -1, perm).to(cd).contiguous()
         D, dws_row = bwd_band_dws_delta(ws, xs, tau, m, l, dy_c, y, dc_s,
-                                        band)
+                                        band, ctx.dt)
         dxs, dws_col, dtau_cols = bwd_band_dcol(ws, xs, tau, m, l, dy_c,
-                                                dc_s, D, band)
+                                                dc_s, D, band, ctx.dt)
         # Both axes are sorted keys: the key gradient has a row and a
         # column part, summed in rank order and scattered through perm.
         dw = torch.empty_like(dws_row).scatter_(-1, perm, dws_row + dws_col)
@@ -178,7 +183,8 @@ class _SoftSortApplyBanded(torch.autograd.Function):
         dx = torch.empty(dxs.shape, dtype=_F32, device=dxs.device).scatter_(
             1, idx, dxs.to(_F32))
         dtau = _dtau(dtau_cols, ctx.shared_tau) if ctx.needs_input_grad[2] else None
-        return dw.to(ctx.dtypes[0]), dx.to(ctx.dtypes[1]), dtau, None, None
+        return (dw.to(ctx.dtypes[0]), dx.to(ctx.dtypes[1]), dtau, None, None,
+                None)
 
 
 def _rank_order(w32, xc, perm):
@@ -189,10 +195,11 @@ def _rank_order(w32, xc, perm):
 
 
 def softsort_apply_banded(w, x, tau, band: int, descending: bool = False,
-                          compute_dtype: str = "float32"):
+                          compute_dtype: str = "float32", payload_tile=None):
     """Banded kernel-tier ``(P_soft @ x, colsum(P_soft))`` in O(N K).
 
-    Same arguments and returns as ``softsort_apply``, plus ``band`` = K,
+    Same arguments (``payload_tile`` too) and returns as
+    ``softsort_apply``, plus ``band`` = K,
     the half-width in rank space: only pairs within K ranks are scored
     (``repro_torch.core.softsort_apply_banded`` is its oracle, and
     ``band_tail_bound`` bounds the mass left out).  ``band >= N - 1``
@@ -204,7 +211,8 @@ def softsort_apply_banded(w, x, tau, band: int, descending: bool = False,
         raise ValueError(f"band must be >= 1, got {band}")
     if band >= n - 1:
         return softsort_apply(w, x, tau, descending=descending,
-                              compute_dtype=compute_dtype)
+                              compute_dtype=compute_dtype,
+                              payload_tile=payload_tile)
     batched = w.dim() == 2
     wb = w if batched else w[None]
     xb = x if batched else x[None]
@@ -213,7 +221,7 @@ def softsort_apply_banded(w, x, tau, band: int, descending: bool = False,
                          "do not match")
     y, c = _SoftSortApplyBanded.apply(
         wb, xb, _tau_tensor(tau, w.device, wb.shape[0]), band,
-        _cd(compute_dtype))
+        _cd(compute_dtype), payload_tile)
     if not batched:
         y, c = y[0], c[0]
     if descending:

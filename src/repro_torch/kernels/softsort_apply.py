@@ -71,8 +71,9 @@ On the card the four dense kernels run the kernel bodies of the banded
 ones (``fwd_fused`` that of ``fwd_band``, ``colsum`` of ``colsum_band``,
 ``bwd_dws_delta`` of ``bwd_band_dws_delta``, ``bwd_dx`` of
 ``bwd_band_dcol``) with the band K = N and column keys ``w``: their
-wrappers pass K = N, the payload tile ``band_payload_tile(d)`` (all but
-``colsum``, which has no payload) and, for ``fwd_fused``, ``EXACT_MAX``
+wrappers pass K = N, the payload tile (all but ``colsum``, which has no
+payload; ``_payload_dt``: the caller's ``dt``, the autotune table's
+winner, or ``band_payload_tile(d)``) and, for ``fwd_fused``, ``EXACT_MAX``
 (the row maximum is not known beforehand, so a first sweep takes it).
 ``v1_apply`` runs ``fwd_fused``'s body with m and l given, and passes K = N
 and the payload tile as ``fwd_fused`` does.
@@ -88,12 +89,13 @@ PLAIN_BLOCK = 128      # column / row block of the plain twins
 # The fixed tiles of the v1 kernels, constexprs of csrc/softsort_apply.cu:
 # kernel 9a's rows and threads per block, and the column step of kernel
 # 9b (kernel 1's).  Kernels 1, 3, 4, 5, 7, 8 and 9b take their payload
-# tile from ``band_payload_tile``; kernels 2, 6 and 9a have none.
+# tile at run time (``_payload_dt``); kernels 2, 6 and 9a have none.
 TILES = {"V1_TR": 32, "V1_NT": 256, "BTC": 64}
 BAND_PAYLOAD_TILES = (16, 32, 64)
 EXACT_MAX = 1          # fwd_fused's flag: take the row maximum in a sweep
 _F32 = torch.float32
 _DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
+_DTYPE_NAMES = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
 
 
 def _inv_tau(tau):
@@ -361,6 +363,19 @@ def band_payload_tile(d: int) -> tuple[int, int]:
     return 64, -(-d // 64)
 
 
+def _payload_dt(dt, tier: str, n: int, d: int, k: int, cd) -> int:
+    """The payload tile of one launch of kernels 1, 3, 4, 5, 7, 8 or 9b:
+    ``dt`` when the caller names one, else the autotune table's winner
+    for (tier, N, d, K, dtype) on the card (``autotune.lookup_blocks``:
+    9b reads the dense tier's row), which falls back to
+    ``band_payload_tile(d)[0]`` on any miss.  A tile the launcher rejects
+    (``dt_ok`` in the .cu) fails the launch."""
+    if dt is not None:
+        return int(dt)
+    from repro_torch.kernels.autotune import lookup_blocks
+    return lookup_blocks(tier, n, d, k, _DTYPE_NAMES[cd])
+
+
 _P, _I = clib.P, clib.I
 _SIGNATURES = {
     "ss_fwd_fused": [_P] * 7 + [_I] * 6,
@@ -438,8 +453,9 @@ def _launch(wrapper, symbol: str, cd, *args) -> None:
                 _SIGNATURES[symbol], *args)
 
 
-def fwd_fused(ws, w, x, tau):
-    """Kernel 1.  (y (B, N, d) in x's dtype, m, l (B, N) float32)."""
+def fwd_fused(ws, w, x, tau, dt=None):
+    """Kernel 1.  (y (B, N, d) in x's dtype, m, l (B, N) float32).  ``dt``
+    the payload tile (``_payload_dt``)."""
     if clib.route(ws, w, x, tau) == "cpu":
         return fwd_fused_plain(ws, w, x, tau)
     bsz, n, d = _check(ws, w, x, tau)
@@ -449,7 +465,8 @@ def fwd_fused(ws, w, x, tau):
     l = torch.empty_like(w)
     if bsz * n:
         _launch(fwd_fused, "ss_fwd_fused", x.dtype, ws, w, x, tau, y, m, l,
-                bsz, n, d, n, band_payload_tile(d)[0], EXACT_MAX)
+                bsz, n, d, n, _payload_dt(dt, "fused", n, d, 0, x.dtype),
+                EXACT_MAX)
     return y, m, l
 
 
@@ -466,7 +483,7 @@ def colsum(ws, w, tau, m, l, cd=_F32):
     return c
 
 
-def bwd_dws_delta(ws, w, x, tau, m, l, dy, y, dc):
+def bwd_dws_delta(ws, w, x, tau, m, l, dy, y, dc, dt=None):
     """Kernel 3.  (D, dws), (B, N) float32."""
     if clib.route(ws, w, x, tau, m, l, dy, y, dc) == "cpu":
         return bwd_dws_delta_plain(ws, w, x, tau, m, l, dy, y, dc)
@@ -478,11 +495,11 @@ def bwd_dws_delta(ws, w, x, tau, m, l, dy, y, dc):
     if bsz * n:
         _launch(bwd_dws_delta, "ss_bwd_dws_delta", x.dtype, ws, w, x, tau,
                 m, l, dy, y, dc, D, dws, bsz, n, d, n,
-                band_payload_tile(d)[0])
+                _payload_dt(dt, "fused", n, d, 0, x.dtype))
     return D, dws
 
 
-def bwd_dx(ws, w, x, tau, m, l, dy, dc, D):
+def bwd_dx(ws, w, x, tau, m, l, dy, dc, D, dt=None):
     """Kernel 4.  (dx (B, N, d) in x's dtype, dw_cols, dtau_cols (B, N)
     float32)."""
     if clib.route(ws, w, x, tau, m, l, dy, dc, D) == "cpu":
@@ -495,11 +512,12 @@ def bwd_dx(ws, w, x, tau, m, l, dy, dc, D):
     dtc = torch.empty_like(w)
     if bsz * n:
         _launch(bwd_dx, "ss_bwd_dx", x.dtype, ws, w, x, tau, m, l, dy, dc, D,
-                dx, dwc, dtc, bsz, n, d, n, band_payload_tile(d)[0])
+                dx, dwc, dtc, bsz, n, d, n,
+                _payload_dt(dt, "fused", n, d, 0, x.dtype))
     return dx, dwc, dtc
 
 
-def fwd_band(ws, xs, tau, band):
+def fwd_band(ws, xs, tau, band, dt=None):
     """Kernel 5.  (y (B, N, d) in xs's dtype, m, l (B, N) float32)."""
     if clib.route(ws, xs, tau) == "cpu":
         return fwd_band_plain(ws, xs, tau, band)
@@ -511,7 +529,7 @@ def fwd_band(ws, xs, tau, band):
     l = torch.empty_like(ws)
     if bsz * n:
         _launch(fwd_band, "ss_fwd_band", xs.dtype, ws, xs, tau, y, m, l,
-                bsz, n, d, k, band_payload_tile(d)[0])
+                bsz, n, d, k, _payload_dt(dt, "banded", n, d, k, xs.dtype))
     return y, m, l
 
 
@@ -529,7 +547,7 @@ def colsum_band(ws, tau, m, l, band, cd=_F32):
     return c
 
 
-def bwd_band_dws_delta(ws, xs, tau, m, l, dy, y, dc, band):
+def bwd_band_dws_delta(ws, xs, tau, m, l, dy, y, dc, band, dt=None):
     """Kernel 7.  (D, dws_row), (B, N) float32, rank order."""
     if clib.route(ws, xs, tau, m, l, dy, y, dc) == "cpu":
         return bwd_band_dws_delta_plain(ws, xs, tau, m, l, dy, y, dc, band)
@@ -542,11 +560,11 @@ def bwd_band_dws_delta(ws, xs, tau, m, l, dy, y, dc, band):
     if bsz * n:
         _launch(bwd_band_dws_delta, "ss_bwd_band_dws_delta", xs.dtype, ws,
                 xs, tau, m, l, dy, y, dc, D, dws, bsz, n, d, k,
-                band_payload_tile(d)[0])
+                _payload_dt(dt, "banded", n, d, k, xs.dtype))
     return D, dws
 
 
-def bwd_band_dcol(ws, xs, tau, m, l, dy, dc, D, band):
+def bwd_band_dcol(ws, xs, tau, m, l, dy, dc, D, band, dt=None):
     """Kernel 8.  (dxs (B, N, d) in xs's dtype, dws_col, dtau_cols (B, N)
     float32), all in rank order."""
     if clib.route(ws, xs, tau, m, l, dy, dc, D) == "cpu":
@@ -561,7 +579,7 @@ def bwd_band_dcol(ws, xs, tau, m, l, dy, dc, D, band):
     if bsz * n:
         _launch(bwd_band_dcol, "ss_bwd_band_dcol", xs.dtype, ws, xs, tau, m,
                 l, dy, dc, D, dxs, dwc, dtc, bsz, n, d, k,
-                band_payload_tile(d)[0])
+                _payload_dt(dt, "banded", n, d, k, xs.dtype))
     return dxs, dwc, dtc
 
 
@@ -584,7 +602,7 @@ def v1_stats(ws, w, tau):
     return m, l
 
 
-def v1_apply(ws, w, x, tau, m, l):
+def v1_apply(ws, w, x, tau, m, l, dt=None):
     """Kernel 9b: kernel 1's body with m and l given.  y (B, N, d)
     float32."""
     if clib.route(ws, w, x, tau, m, l) == "cpu":
@@ -595,7 +613,7 @@ def v1_apply(ws, w, x, tau, m, l):
     y = torch.empty_like(x)
     if bsz * n:
         _launch(v1_apply, "ss_v1_apply", _F32, ws, w, x, tau, m, l, y, bsz,
-                n, d, n, band_payload_tile(d)[0])
+                n, d, n, _payload_dt(dt, "fused", n, d, 0, _F32))
     return y
 
 

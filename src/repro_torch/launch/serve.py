@@ -139,7 +139,7 @@ class _SortRequest:                   # tracked in lists via `is`
     x: np.ndarray                      # (N, d) float32
     hw: tuple[int, int]
     d: int
-    key: object                        # int seed or a ShuffleSource
+    key: object                        # int seed, raw key or a source
     future: Future
     priority: int
     seq: int
@@ -226,6 +226,53 @@ def _source_from(prefix: str, kind: str, arrays: dict, n: int, device):
         src = TorchShuffleSource([0] * len(state), n, device)
     src.load_state_dict(state)
     return src
+
+
+def _request_key(key, n_restarts: int):
+    """``submit``'s ``key`` as the request keeps it: an int seed, raw key
+    data as a (2,) uint32 numpy array, or the shuffle source itself.
+    Raises ``TypeError`` / ``ValueError`` for anything else."""
+    from repro_torch.core import threefry
+    from repro_torch.core.prng import ShuffleSource
+    if isinstance(key, (bool, np.bool_)):
+        raise TypeError(f"key must be an int seed, raw key data or a "
+                        f"shuffle source, got {key!r}")
+    if isinstance(key, (int, np.integer)):
+        return int(key)
+    if isinstance(key, (np.ndarray, torch.Tensor, list, tuple)):
+        if isinstance(key, torch.Tensor):
+            if key.dtype == torch.uint32:      # numpy takes no uint32 view
+                key = key.view(torch.int32).to(torch.int64) & threefry.MASK
+            key = key.detach().cpu().numpy()
+        data = np.asarray(key)
+        if data.dtype.kind not in "iu":
+            raise TypeError(f"raw key data must be integers, got "
+                            f"{data.dtype}")
+        if data.shape != (2,):
+            raise ValueError(f"raw key data must be (2,), got {data.shape}")
+        if (data.astype(np.int64) < 0).any() or (data > threefry.MASK).any():
+            raise ValueError(f"raw key data must be uint32 words, got "
+                             f"{data.tolist()}")
+        return data.astype(np.uint32)
+    if not isinstance(key, ShuffleSource):
+        raise TypeError(f"key must be an int seed, raw key data or a "
+                        f"shuffle source, got {type(key).__name__}")
+    if len(key) != n_restarts:
+        raise ValueError(f"a shuffle source key needs n_restarts = "
+                         f"{n_restarts} streams, got {len(key)}")
+    return key
+
+
+def restart_keys(key, n_restarts: int, device) -> torch.Tensor:
+    """A raw-key request's restart keys, the reference server's chain:
+    ``[key] + split(fold_in(key, 1), S - 1)``, and ``[key]`` at S = 1.
+    (S, 2) int64 key data on ``device``."""
+    from repro_torch.core import threefry
+    base = threefry.as_keys(key, device).reshape(1, 2)
+    if n_restarts == 1:
+        return base
+    return torch.cat([base, threefry.split(threefry.fold_in(base[0], 1),
+                                           n_restarts - 1)])
 
 
 # --------------------------------------------------------------------------
@@ -467,10 +514,15 @@ class SortServer:
 
         ``key`` — an int seed of the request's shuffle streams (restart 0
         draws from ``TorchShuffleSource([key])``, so a one-restart result
-        is bitwise that seed's solo run), or a shuffle source of
-        ``n_restarts`` streams (the request's own; parity tests pass a
-        ``ReplayShuffleSource`` of the reference's shuffles); missing, a
-        seed drawn from the server-owned seeded stream.  ``hw`` defaults
+        is bitwise that seed's solo run); raw ``jax.random`` key data, a
+        (2,) uint32 array or integer tensor (``threefry.prng_key(i)``),
+        whose restarts draw the reference's chain (``restart_keys``: a
+        one-restart result is bitwise ``shuffle_soft_sort(key=key)``); or
+        a shuffle source of ``n_restarts`` streams (the request's own;
+        parity tests pass a ``ReplayShuffleSource`` of the reference's
+        shuffles); missing, a seed drawn from the server-owned seeded
+        stream.  Any other key raises ``TypeError`` or ``ValueError``
+        here.  ``hw`` defaults
         to the server's signature; another grid (with a matching x) routes
         the request to its own shape bucket.  ``priority`` — higher admits
         first.  ``deadline_s`` — relative seconds; past it the request is
@@ -493,11 +545,8 @@ class SortServer:
             raise ValueError(
                 f"x shape {x.shape} != server signature "
                 f"{(self.n, self.d)}; pass hw= to use another bucket")
-        if key is not None and not isinstance(key, (int, np.integer)):
-            if len(key) != self.n_restarts:
-                raise ValueError(
-                    f"a shuffle source key needs n_restarts = "
-                    f"{self.n_restarts} streams, got {len(key)}")
+        if key is not None:
+            key = _request_key(key, self.n_restarts)
         if deadline_s is None:
             deadline_s = self.default_deadline_s
         now = time.monotonic()
@@ -513,7 +562,7 @@ class SortServer:
             fut: Future = Future()
             req = _SortRequest(
                 x=x, hw=req_hw, d=x.shape[1],
-                key=int(key) if isinstance(key, (int, np.integer)) else key,
+                key=key,
                 future=fut, priority=int(priority), seq=self._seq,
                 deadline=None if deadline_s is None else now + deadline_s,
                 submitted=now,
@@ -745,7 +794,10 @@ class SortServer:
         for i, req in enumerate(handoff.requests):
             arrays[f"req{i}_x"] = req.x
             key_kind = None
-            if not isinstance(req.key, int):
+            if isinstance(req.key, np.ndarray):
+                arrays[f"req{i}_key_state"] = req.key
+                key_kind = "raw"
+            elif not isinstance(req.key, int):
                 more, key_kind = _source_arrays(f"req{i}_key", req.key)
                 arrays.update(more)
             has_state = req.orders is not None
@@ -843,8 +895,9 @@ class SortServer:
             x = arrays[f"req{i}_x"]
             n = x.shape[0]
             key = (m["seed"] if m["key_kind"] is None else
-                   _source_from(f"req{i}_key", m["key_kind"], arrays, n,
-                                self.device))
+                   arrays[f"req{i}_key_state"] if m["key_kind"] == "raw"
+                   else _source_from(f"req{i}_key", m["key_kind"], arrays,
+                                     n, self.device))
             req = _SortRequest(
                 x=x, hw=tuple(m["hw"]), d=int(m["d"]), key=key,
                 future=Future(), priority=int(m["priority"]),
@@ -945,19 +998,24 @@ class SortServer:
 
     def _admit(self, req: _SortRequest):
         """First admission: the request's streams, norm and engine state
-        on the device.  Restart 0 draws from the key's own seed, so a
-        one-restart result reproduces that seed's solo run; re-admissions
-        after a fault keep their committed state."""
+        on the device.  Restart 0 draws from the key's own seed (or raw
+        key), so a one-restart result reproduces that key's solo run;
+        re-admissions after a fault keep their committed state."""
         if req.x_dev is None:
             req.x_dev = torch.as_tensor(req.x, device=self.device)
         if req.orders is not None:
             return
         from repro_torch.core.losses import mean_pairwise_distance
-        from repro_torch.core.prng import TorchShuffleSource, instance_seeds
+        from repro_torch.core.prng import (ThreefryShuffleSource,
+                                           TorchShuffleSource,
+                                           instance_seeds)
         s, n = self.n_restarts, req.x.shape[0]
         if isinstance(req.key, int):
             seeds = [req.key] + instance_seeds(req.key, s)[1:]
             req.src = TorchShuffleSource(seeds, n, self.device)
+        elif isinstance(req.key, np.ndarray):
+            req.src = ThreefryShuffleSource(
+                restart_keys(req.key, s, self.device), n, self.device)
         else:
             req.src = req.key.take(None)
         req.norm = float(mean_pairwise_distance(req.x_dev))
@@ -1033,9 +1091,18 @@ class SortServer:
                 else:
                     rest.append(req)
             self._pending = rest
-        for req in admitted:
-            self._apply_brownout(req, now)
-            self._admit(req)
+        try:
+            for req in admitted:
+                self._apply_brownout(req, now)
+                self._admit(req)
+        except Exception as e:
+            # The tick's admissions have left _pending and are not yet in
+            # _active: fail them here, typed, or no one ever resolves them.
+            err = RequestFailed(f"admission failed: {e!r}")
+            err.__cause__ = e
+            for req in admitted:
+                self._resolve_exc(req, err, "failed")
+            admitted = []
         self._active.extend(admitted)
         if not self._active:
             return False
@@ -1430,6 +1497,7 @@ def _parse_band(value):
 def serve_sorts(args):
     """The CLI: fire concurrent sort requests at a SortServer and print
     the accounting line."""
+    from repro_torch.core import threefry
     from repro_torch.core.metrics import mean_neighbor_distance
     from repro_torch.core.shufflesoftsort import ShuffleSoftSortConfig
     from repro_torch.launch.mesh import make_sort_mesh
@@ -1475,7 +1543,7 @@ def serve_sorts(args):
     futs, shed = [], 0
     for i in range(args.requests):
         try:
-            futs.append(server.submit(xs[i], key=i))
+            futs.append(server.submit(xs[i], key=threefry.prng_key(i)))
         except QueueFull:
             shed += 1
     results, outcomes = [], {"completed": 0, "failed": 0,

@@ -18,7 +18,8 @@ Three probe families, in increasing cost:
   **stream audit**: the shuffle source's state after the rung is its
   state before, advanced by exactly ``seg_len`` draws of the instances
   that ran (``ShuffleSource.advanced``: a cloned generator replays the
-  draws, a replay source adds ``seg_len`` to ``pos``).  It keeps the
+  draws, a replay source adds ``seg_len`` to ``pos``, a threefry source
+  runs ``expected_key_chain``).  It keeps the
   reference's probe name ``key_chain``, whose counterpart audits JAX's
   split chain.
 * **Band-tail audit**: where the rung's trained keys ``w`` are at hand
@@ -156,6 +157,21 @@ def shadow_sampled(seed: int, start: int, rate: float) -> bool:
         return True
     h = zlib.crc32(f"{int(seed)}:{int(start)}".encode()) & 0xFFFFFFFF
     return (h / 2.0 ** 32) < rate
+
+
+def expected_key_chain(keys_in, seg_len: int,
+                       partitionable: bool = True) -> np.ndarray:
+    """The ``jax.random`` keys a clean rung must carry after ``seg_len``
+    rounds: every round runs ``key, sub = split(key)`` and keeps ``key``
+    (``repro_torch.core.threefry.split``, on the host), so the keys out
+    are a function of the keys in, and a corrupted key state shows.
+    ``keys_in`` (R, 2) raw key data; returns (R, 2) uint32.  The chain of
+    ``ThreefryShuffleSource`` (its ``advanced``), the stream audit's."""
+    from repro_torch.core import threefry
+    keys = threefry.as_keys(np.asarray(keys_in), "cpu").reshape(-1, 2)
+    for _ in range(int(seg_len)):
+        keys = threefry.split(keys, partitionable=partitionable)[:, 0]
+    return threefry.key_data(keys)
 
 
 # Rows of one block of ``measured_dropped_mass``: (block, N) float64

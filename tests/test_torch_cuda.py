@@ -1366,3 +1366,53 @@ def test_cuda_soft_sort_baseline_runs_the_dense_kernels(cuda):
     plain = soft_sort_baseline(x, (16, 16), cfg)
     assert sorted(kern[0].tolist()) == list(range(256))
     np.testing.assert_allclose(kern[2], plain[2], rtol=1e-4)
+
+
+# ----------------------------------------- payload-tile autotune (A14b)
+
+_AUTOTUNE_CELLS = [(t, n, d, k, cd) for t, n, d, k in
+                   [("fused", 1024, 8, 0), ("fused", 1024, 50, 0),
+                    ("banded", 1024, 8, 128), ("banded", 1024, 50, 128),
+                    ("banded", 2048, 8, 128), ("banded", 4096, 8, 256)]
+                   for cd in ("float32", "bfloat16")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tier,n,d,k,cd", _AUTOTUNE_CELLS)
+def test_cuda_every_payload_tile_matches_the_twins(cuda, tier, n, d, k, cd):
+    """Each autotune cell (``autotune.FULL_CELLS``, both dtypes): every
+    candidate tile's y, colsum, dw and dx within the twins' tolerance
+    (``search_cell`` raises otherwise), and the committed table's rule:
+    a ``cuda`` row only where every tile gives the same bits, so the table
+    moves no result."""
+    from repro_torch.kernels import autotune
+    assert (tier, n, d, k) in autotune.FULL_CELLS
+    row = autotune.search_cell(tier, n, d, k, cd, autotune.CANDIDATES[tier],
+                               reps=1, device=cuda)
+    assert row["tiles"] == sorted({autotune._effective(c, d)
+                                   for c in autotune.CANDIDATES[tier]})
+    committed = autotune._load_table(autotune.TABLE_PATH)
+    key = autotune._cell_key(tier, n, d, k, cd, "cuda")
+    if not row["bitwise"]:
+        assert key not in committed, row["bitwise_by"]
+        assert autotune.lookup_blocks(tier, n, d, k, cd) \
+            == K.band_payload_tile(d)[0]
+
+
+# ------------------------------ batched == sequential per seed (Queue C12)
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [8, 64])
+def test_cuda_batched_equals_sequential_per_seed(cuda, b):
+    """The batched bench's cell on the kernel tier (N = 1024, d = 3, 10
+    rounds x 4 inner steps, the reference bench's problems and keys): each
+    seed's order and losses bitwise the same on the batched and the
+    sequential path.  Before every loss ran in blocks of 8 instances, the
+    sequential run's one-row loss reduced in another split than the
+    batched run's 8 rows, and most seeds moved (Queue C12)."""
+    from repro_torch.bench import batched_bench
+    from repro_torch.core import ShuffleSoftSortConfig
+    cfg = ShuffleSoftSortConfig(rounds=10, inner_steps=4, chunk=256,
+                                use_kernel=True)
+    row = batched_bench.bench_cell(b, 1024, 3, cfg, cuda, warm=False)
+    assert row["seeds_orders_differ"] == [] and row["seeds_losses_differ"] == []

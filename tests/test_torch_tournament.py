@@ -386,8 +386,8 @@ def test_tournament_refuses_unported_features(kw, item):
 
 @pytest.mark.parametrize("bs", [1, 3, 8, 11, 16])
 def test_loss_blocks_equal_one_batch_on_the_cpu(bs):
-    """The engine's loss in padded blocks of 8 instances (``_loss_fn``
-    with ``pad_rows``) gives every instance the loss and the gradients of
+    """The engine's loss in padded blocks of 8 instances (``_loss_fn``,
+    at every batch size) gives every instance the loss and the gradients of
     one batch: the pad rows reach neither the losses nor the gradients.
     (On the card the blocks are what makes them batch-invariant,
     ``chip_smoke.py`` ``loss_block_check``.)"""
@@ -404,8 +404,7 @@ def test_loss_blocks_equal_one_batch_on_the_cpu(bs):
         yv, cv = y.clone().requires_grad_(True), c.clone().requires_grad_(True)
         if blocked:
             loss = teng._loss_fn(None, x, torch.arange(N).expand(bs, N), None,
-                                 HW, norm, cfg, lambda w, xs, t: (yv, cv),
-                                 pad_rows=True)
+                                 HW, norm, cfg, lambda w, xs, t: (yv, cv))
         else:
             loss = grid_sorting_loss(yv, cv, x, HW, norm)
         runs.append((loss, *torch.autograd.grad(loss.sum(), (yv, cv))))
