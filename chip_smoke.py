@@ -214,8 +214,34 @@ start):
     of at most 1%), and the same rows in jax 0.9.0's counter layout,
     reported ungated.
 
+18. ``lm_arch_run`` — the LM zoo (``repro_torch.models``) served by
+    ``repro_torch.launch.serve.serve_lm``: each of the ten architectures
+    at the serve CLI's ``tiny`` preset, float32, 4 requests, prompts <= 24,
+    8 new tokens; exactly the ``flash_forward`` launches its layer kinds
+    and steps make (``lm_flash_calls``: the encoder again at each decode
+    step for the audio model) and ``flash_combine`` wherever the keys
+    split; every step's logits against the same weights on the host (the
+    plain twins), teacher-forced with the card's tokens, within
+    ``LM_ARCH_ATOL``; whether the greedy tokens agree.
+19. ``lm_serve_run`` — Qwen1.5-0.5B at its full published size (24
+    layers, d = 1024, 16 heads of 64, vocab 151936 padded to 152064,
+    619832320 parameters, bfloat16), random weights from seed 0, through
+    ``serve_lm`` at (a) the reference CLI's defaults (8 requests, prompts
+    <= 24, 32 new tokens) and (b) 8 requests, prompts <= 1024, 64 new
+    tokens, where the decode keys split: init seconds, prefill ms, ms per
+    decode step, tok/s, peak memory and exact flash launches; logits
+    finite, tokens in range; ``lm_serve_checks``: prefill(T) +
+    decode_step(T) against forward(T + 1) at the last position, layer
+    0's attention on its own q/k/v against the oracle (float32 within
+    FWD_ATOL, bf16 within one bf16 rounding), the teacher-forced logits
+    of the kernel route against the oracle route (the attention function
+    swapped in this script) within ``LM_BF16_RTOL`` of the largest logit,
+    and the times of the float32 head and of the wrapper's cast of a
+    bf16 KV cache.
+
 Phases 9, 11 and 13 run right after phase 3, so that a faulty kernel
-stops the script before the long runs; 10, 12 and 14 run after phase 8.
+stops the script before the long runs; 10, 12 and 14 run after phase 8,
+and 18 and 19 right after 12.
 
 Then the ``{"kernels": [...]}`` summary line, the card's name and power
 limit as ``nvidia-smi`` reports them, and ``{"ok": true, "device": ...}``
@@ -2756,6 +2782,327 @@ def flash_main_run(torch, kernels, F, fops):
     return counts
 
 
+# The LM phases: every architecture at the CLI's tiny preset (float32),
+# then Qwen1.5-0.5B at its full published size (bfloat16, as its config
+# says) at two traffic points of the reference CLI's parameters.
+LM_ARCH_TRAFFIC = dict(requests=4, prompt_len=24, max_new=8)
+LM_QWEN = "qwen1.5-0.5b"
+LM_QWEN_PARAMS = 619_832_320      # the reference's eval_shape count
+LM_SERVE_POINTS = {
+    "a": dict(requests=8, prompt_len=24, max_new=32),    # the CLI defaults
+    "b": dict(requests=8, prompt_len=1024, max_new=64),  # decode keys split
+}
+# lm_arch_run: card against host, both float32 (TF32 off): sums in other
+# orders, as the CPU tests' logits bound.
+LM_ARCH_ATOL = 1e-4
+# lm_serve_run, bfloat16 through 24 layers: max abs error over max |logit|
+# of the reference side, for routes that round activations to bf16 at
+# other places (another product shape, the oracle's attention).
+LM_BF16_RTOL = 5e-2
+
+
+def lm_flash_calls(cfg, requests, max_len, max_new):
+    """(kv planes, packed query rows, keys) of every flash_attention call
+    of ``serve_lm``: the encoder (audio), then each layer's self- and
+    cross-attention, at the prefill and at each of the max_new - 1 decode
+    steps (which run the encoder again) over the padded cache."""
+    unit, repeats = cfg.block_program()
+    kinds = unit * repeats
+    planes, rep = requests * cfg.num_kv_heads, cfg.num_heads // cfg.num_kv_heads
+    ctx_len = cfg.vision_tokens if cfg.family == "vlm" else cfg.audio_frames
+    enc = [(planes, rep * cfg.audio_frames, cfg.audio_frames)] * (
+        cfg.encoder_layers if cfg.is_encdec else 0)
+    calls = []
+    for rows, keys in [(max_len, max_len)] + [(1, max_len + max_new)] * (
+            max_new - 1):
+        calls += enc
+        for kind in kinds:
+            if kind.startswith("attn") or kind == "cross_attn":
+                calls.append((planes, rep * rows, keys))
+            if kind == "cross_attn":
+                calls.append((planes, rep * rows, ctx_len))
+    return calls
+
+
+def lm_want(F, cfg, requests, max_len, max_new):
+    calls = lm_flash_calls(cfg, requests, max_len, max_new)
+    return {"flash_forward": len(calls),
+            "flash_combine": sum(F.decode_splits(*c) > 1 for c in calls)}
+
+
+def lm_teacher_forced(torch, model, cfg, prompts, tokens, device):
+    """Each step's logits of ``model`` fed the prompts, then ``tokens``
+    (requests, max_new) one by one, as ``serve_lm`` runs them."""
+    from repro_torch.launch.serve import lm_context, pad_caches
+    from repro_torch.models import decode_step, prefill
+    max_new, max_len = tokens.shape[1], prompts.shape[1]
+    ctx = lm_context(cfg, tokens.shape[0], device)
+    toks = torch.from_numpy(tokens).to(device)
+    with torch.inference_mode():
+        logits, caches = prefill(model, torch.from_numpy(prompts).to(
+            device, torch.long), ctx)
+        caches = pad_caches(caches, max_new)
+        out = [logits]
+        for i in range(max_new - 1):
+            logits, caches = decode_step(model, toks[:, i:i + 1], caches,
+                                         max_len + i, ctx)
+            out.append(logits)
+    return out
+
+
+def lm_step_errors(got, want, vocab):
+    """Max abs error of each step's logits over the ``vocab`` real
+    columns (the padded ones are -1e30 on both sides), and max |want|."""
+    want = [w[..., :vocab].to(g.device) for g, w in zip(got, want)]
+    return ([max_err(g[..., :vocab], w) for g, w in zip(got, want)],
+            max(float(w.abs().max()) for w in want))
+
+
+def lm_arch_run(torch, kernels, F):
+    """Phase 18: each of the ten architectures at the serve CLI's tiny
+    preset, float32, through ``serve_lm`` on the card: 4 requests, prompts
+    <= 24, 8 new tokens.  Counts set to 0 just before each serve and read
+    just after: exactly the flash launches of its layer kinds and steps.
+    Every step's logits against the same weights on the host (plain
+    twins), teacher-forced with the card's tokens, within LM_ARCH_ATOL;
+    whether the host's greedy tokens agree.  Returns the summed counts."""
+    import copy
+
+    from repro_torch.configs import get_config, list_archs
+    from repro_torch.launch.serve import serve_lm
+    from repro_torch.launch.train import PRESETS
+    from repro_torch.models import init_model, reduced_config
+
+    total = {k: 0 for k in FLASH}
+    for arch in list_archs():
+        cfg = reduced_config(get_config(arch), **PRESETS["tiny"])
+        model = init_model(cfg, "cuda", seed=0)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        out = serve_lm(cfg, device="cuda", model=model, **LM_ARCH_TRAFFIC)
+        counts = kernels.launch_counts()
+        want = lm_want(F, cfg, LM_ARCH_TRAFFIC["requests"], out["max_len"],
+                       LM_ARCH_TRAFFIC["max_new"])
+        require_counts(counts, want)
+        host = lm_teacher_forced(torch, copy.deepcopy(model).to("cpu"), cfg,
+                                 out["prompts"], out["tokens"], "cpu")
+        errs, scale = lm_step_errors(out["logits"], host, cfg.vocab_size)
+        require(max(errs) <= LM_ARCH_ATOL,
+                f"{arch}: card vs host logits {max(errs):.3g} > "
+                f"{LM_ARCH_ATOL}")
+        host_tokens = torch.cat([h.argmax(-1) for h in host], 1).numpy()
+        agree = int((host_tokens == out["tokens"]).sum())
+        unit, repeats = cfg.block_program()
+        emit("lm_arch_run", arch=arch, family=cfg.family,
+             kinds=list(unit * repeats), encoder_layers=cfg.encoder_layers,
+             dtype=cfg.param_dtype, traffic=LM_ARCH_TRAFFIC,
+             max_len=out["max_len"], launches={k: counts[k] for k in FLASH},
+             expected=want, max_abs_err=max(errs), max_abs_logit=scale,
+             atol=LM_ARCH_ATOL, greedy_tokens_agree=agree,
+             greedy_tokens=int(out["tokens"].size),
+             prefill_ms=out["prefill_s"] * 1e3,
+             decode_ms_per_step=out["decode_s"] * 1e3 / (
+                 LM_ARCH_TRAFFIC["max_new"] - 1),
+             tok_per_s=out["tok_per_s"])
+        for k in FLASH:
+            total[k] += counts[k]
+        del model, host, out
+    return total
+
+
+def lm_oracle_attention(fops):
+    """The plain oracle in the place of the flash attention: float32
+    scores and softmax, the output in q's dtype."""
+    def attention(q, k, v, causal=True, q_offset=0):
+        return fops.flash_attention_ref(q, k, v, causal=causal,
+                                        q_offset=q_offset).to(q.dtype)
+    return attention
+
+
+def lm_attention_check(torch, model, cfg, prompts, fops):
+    """Layer 0's attention on the model's own q, k, v (bf16) at prefill
+    and at a decode row (q_offset T - 1, the keys split): the kernel in
+    float32 against the oracle within FWD_ATOL, and as the model runs it
+    (bf16 operands, bf16 output) within one bf16 rounding of the
+    output."""
+    from repro_torch.models import attention as A
+    from repro_torch.models.layers import embed, rmsnorm
+    layer = model.blocks[0]
+    toks = torch.from_numpy(prompts).to("cuda", torch.long)
+    b, t = toks.shape
+    with torch.inference_mode():
+        h = rmsnorm(layer.norm1, embed(model.embed, toks), cfg.norm_eps)
+        q, k, v = A.qkv(layer.attn, cfg, h, torch.arange(
+            t, device="cuda").expand(b, t))
+        errs = {}
+        for name, qq, off in (("prefill", q, 0), ("decode", q[:, -1:], t - 1)):
+            ref = fops.flash_attention_ref(qq, k, v, q_offset=off)
+            o32 = fops.flash_attention(qq.float(), k.float(), v.float(),
+                                       True, off)
+            o16 = fops.flash_attention(qq, k, v, True, off)
+            torch.cuda.synchronize()
+            errs[name + "_f32"] = check(f"{name} f32", o32, ref,
+                                        atol=FWD_ATOL)
+            errs[name + "_bf16"] = check(
+                f"{name} bf16", o16, ref,
+                atol=2.0 ** -8 * float(ref.abs().max()))
+    return errs
+
+
+def lm_serve_run(torch, kernels, F, fops):
+    """Phase 19: Qwen1.5-0.5B at its full published size (24 layers,
+    d = 1024, 16 heads of 64, vocab 151936 padded to 152064, bfloat16),
+    random weights from seed 0, through ``serve_lm`` at traffic points (a)
+    and (b) (LM_SERVE_POINTS), counts set to 0 just before each and read
+    just after: every attention call on ``flash_forward``, and
+    ``flash_combine`` at (b)'s decode steps.  Logits finite and tokens in
+    range; prefill(T) + decode_step(T) against forward(T + 1) at the last
+    position; layer 0's attention on its own q/k/v against the oracle;
+    the teacher-forced logits of the kernel route against the oracle
+    route (the attention function swapped here) within LM_BF16_RTOL; the
+    head's float32 product and the wrapper's float32 cast of a bf16 KV
+    cache, timed.  Returns the summed counts of (a) and (b)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import pad_caches, serve_lm
+    from repro_torch.models import (attention as A, decode_step, forward,
+                                    init_model, model as M, param_count,
+                                    prefill)
+
+    cfg = get_config(LM_QWEN)
+    t0 = time.perf_counter()
+    model = init_model(cfg, "cuda", seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    require(param_count(model) == LM_QWEN_PARAMS,
+            f"{param_count(model)} parameters, expected {LM_QWEN_PARAMS}")
+    total = {k: 0 for k in FLASH}
+    outs = {}
+    for name, traffic in LM_SERVE_POINTS.items():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        out = serve_lm(cfg, device="cuda", model=model, **traffic)
+        counts = kernels.launch_counts()
+        want = lm_want(F, cfg, traffic["requests"], out["max_len"],
+                       traffic["max_new"])
+        require_counts(counts, want)
+        require(all(bool(torch.isfinite(lg).all()) for lg in out["logits"]),
+                "non-finite logits")
+        steps = traffic["max_new"] - 1
+        emit("lm_serve_run", point=name, model=LM_QWEN, traffic=traffic,
+             max_len=out["max_len"], dtype=cfg.param_dtype,
+             params=param_count(model), init_s=init_s,
+             prefill_ms=out["prefill_s"] * 1e3,
+             decode_ms_per_step=out["decode_s"] * 1e3 / steps,
+             tok_per_s=out["tok_per_s"],
+             peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+             launches={k: counts[k] for k in FLASH}, expected=want,
+             kv_splits=F.decode_splits(
+                 traffic["requests"] * cfg.num_kv_heads, 1,
+                 out["max_len"] + traffic["max_new"]),
+             nvidia_smi=nvidia_smi_line())
+        for k in FLASH:
+            total[k] += counts[k]
+        outs[name] = out
+
+    # prefill(T) + decode_step(T) against forward(T + 1), prompts of (a)
+    a = outs["a"]
+    prompts = torch.from_numpy(a["prompts"]).to("cuda", torch.long)
+    nxt = torch.from_numpy(a["tokens"][:, :1]).to("cuda")
+    t = prompts.shape[1]
+    with torch.inference_mode():
+        full = forward(model, torch.cat([prompts, nxt], 1)).logits
+        lp, caches = prefill(model, prompts)
+        ld, _ = decode_step(model, nxt, pad_caches(caches, 1), t)
+    full, lp, ld = (x_[..., :cfg.vocab_size] for x_ in (full, lp, ld))
+    scale = float(full.abs().max())
+    consistency = {
+        "prefill_vs_forward": check("prefill vs forward", lp,
+                                    full[:, t - 1:t],
+                                    atol=LM_BF16_RTOL * scale),
+        "decode_vs_forward": check("decode vs forward", ld, full[:, t:],
+                                   atol=LM_BF16_RTOL * scale),
+        "max_abs_logit": scale}
+    del full, caches
+
+    attn_errs = lm_attention_check(torch, model, cfg, outs["b"]["prompts"],
+                                   fops)
+
+    # The kernel route against the oracle route, teacher-forced with (a)'s
+    # tokens: only the attention function differs.
+    kernel_route = lm_teacher_forced(torch, model, cfg, a["prompts"],
+                                     a["tokens"], "cuda")
+    saved = A.flash_attention
+    A.flash_attention = lm_oracle_attention(fops)
+    try:
+        kernels.reset_launch_counts()
+        oracle_route = lm_teacher_forced(torch, model, cfg, a["prompts"],
+                                         a["tokens"], "cuda")
+        oracle_counts = kernels.launch_counts()
+    finally:
+        A.flash_attention = saved
+    require(not any(oracle_counts[k] for k in FLASH),
+            f"the oracle route launched {oracle_counts}")
+    errs, scale = lm_step_errors(kernel_route, oracle_route,
+                                 cfg.vocab_size)
+    require(max(errs) <= LM_BF16_RTOL * scale,
+            f"kernel vs oracle route {max(errs):.3g} > "
+            f"{LM_BF16_RTOL * scale:.3g}")
+    agree = int(sum((k_.argmax(-1) == o.argmax(-1)).sum().item()
+                    for k_, o in zip(kernel_route, oracle_route)))
+
+    # What the float32 head and the wrapper's cast of a bf16 cache cost.
+    b = outs["b"]
+    x = torch.randn(8, 1, cfg.d_model, device="cuda", dtype=torch.bfloat16)
+    w = model.lm_head.w
+    keys = b["max_len"] + LM_SERVE_POINTS["b"]["max_new"]
+    kv = [torch.randn(8, keys, cfg.num_kv_heads, cfg.resolved_head_dim,
+                      device="cuda", dtype=torch.bfloat16) for _ in range(2)]
+    q = torch.randn(8, 1, cfg.num_heads, cfg.resolved_head_dim,
+                    device="cuda", dtype=torch.bfloat16)
+    kv32 = [t_.float() for t_ in kv]
+    with torch.inference_mode():
+        costs = {
+            "head_ms": time_ms(torch, lambda: M._head(model, x)),
+            "head_weight_cast_ms": time_ms(torch, lambda: w.float()),
+            "head_bf16_product_ms": time_ms(torch, lambda: x @ w),
+            "cache_cast_ms_per_layer": time_ms(torch, lambda: [
+                fops.heads_major(t_) for t_ in kv]),
+            "decode_attention_bf16_cache_ms": time_ms(
+                torch, lambda: fops.flash_attention(q, *kv, True, keys - 1)),
+            "decode_attention_f32_cache_ms": time_ms(
+                torch, lambda: fops.flash_attention(q.float(), *kv32, True,
+                                                    keys - 1)),
+        }
+    # Device time of one decode step and of the prefill, as CUDA-graph
+    # replays: the step's launches without the host's dispatch between
+    # them, against the host-clock step of the serve.
+    for name, o in outs.items():
+        prompts = torch.from_numpy(o["prompts"]).to("cuda", torch.long)
+        tok = torch.from_numpy(o["tokens"][:, :1]).to("cuda")
+        with torch.inference_mode():
+            _, caches = prefill(model, prompts)
+            caches = pad_caches(caches, LM_SERVE_POINTS[name]["max_new"])
+            costs[f"decode_step_graph_ms_{name}"] = graph_ms(
+                torch, lambda: decode_step(model, tok, caches,
+                                           o["max_len"]))
+            costs[f"prefill_graph_ms_{name}"] = graph_ms(
+                torch, lambda: prefill(model, prompts), reps=5)
+        del caches
+    emit("lm_serve_checks", model=LM_QWEN, consistency=consistency,
+         attention_vs_oracle=attn_errs,
+         kernel_vs_oracle_route={"max_abs_err": max(errs),
+                                 "max_abs_logit": scale,
+                                 "rtol": LM_BF16_RTOL,
+                                 "greedy_tokens_agree": agree,
+                                 "greedy_tokens": int(a["tokens"].size)},
+         costs=costs, layers=cfg.num_layers, cache_keys=keys,
+         nvidia_smi=nvidia_smi_line())
+    del model, outs, kernel_route, oracle_route
+    torch.cuda.empty_cache()
+    return total
+
+
 def draw_digest(t):
     """sha256 (16 hex digits) of a draw: float32 values, or words and
     indices as uint32."""
@@ -3217,6 +3564,10 @@ def main():
         torch, kernels).items() if k in V1})
     launches.update({k: v for k, v in flash_main_run(
         torch, kernels, F, flash_ops).items() if k in FLASH})
+    lm_counts = (lm_arch_run(torch, kernels, F),
+                 lm_serve_run(torch, kernels, F, flash_ops))
+    for k in FLASH:
+        launches[k] += sum(c[k] for c in lm_counts)
     table_counts = paper_table_run(torch, kernels)
     for k in DENSE:
         launches[k] += table_counts[k]

@@ -13,7 +13,7 @@
   bench's small cell).
 
 The reference's roofline rows read its dry-run JSON of XLA's HLO, which
-the port does not have yet (ROADMAP.md A16): the section prints the
+the port does not have yet (ROADMAP.md A16d): the section prints the
 reference's note that the records are missing.
 """
 from __future__ import annotations
@@ -66,7 +66,7 @@ def main(argv=None) -> int:
                 print(f"kernel.N{nn}_d{d}_B{bsz}_K{band}_{dtype}.{tier},"
                       f"{secs * 1e6:.0f},{';'.join(derived)}")
 
-    # ---- roofline terms: not ported (A16) -----------------------------
+    # ---- roofline terms: not ported (A16d) ----------------------------
     sys.stderr.write("[no dryrun_single.json; run repro.launch.dryrun "
                      "--all --out ... for roofline rows]\n")
     return 0

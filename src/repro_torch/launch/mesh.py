@@ -18,7 +18,7 @@ eviction, keeps their ids, so a health monitor's verdicts keep naming the
 same slots.
 
 The LM path's meshes (``make_production_mesh``, ``axis_rules_for``) wait
-for the model port (ROADMAP.md Queue A16).
+for the LM meshes and dry-run (ROADMAP.md Queue A16d).
 """
 from __future__ import annotations
 

@@ -1,6 +1,19 @@
-"""Grid-sort serving: the continuous-batching ``SortServer``, in PyTorch.
+"""Batched serving in PyTorch: LM decode serving and grid-sort
+serving.
 
-The port of the sort workload of ``repro.launch.serve``.  ``SortServer``
+The port of ``repro.launch.serve``.  Two workloads share the CLI:
+
+* ``--workload lm`` (the default) — LM decode serving (``serve_lm``).
+  Requests arrive with different prompt lengths; they are right-padded
+  into one decode batch, prefilled once, then decoded step-locked,
+  greedily, over KV caches padded to the decode horizon.  Every attention
+  call runs on the port's flash kernels.
+
+      python -m repro_torch.launch.serve --arch qwen1.5-0.5b \\
+          --preset tiny --requests 8 --max-new 32      # on the card
+      python -m repro_torch.launch.serve --device cpu --preset tiny
+
+* ``--workload sort`` — grid-sort serving.  ``SortServer``
 is a continuous-batching scheduler: concurrent ``submit()`` calls (one per
 user upload, say) join the annealing loop at the next ROUND boundary and
 leave at the boundary where they finish, the tournament's rung structure
@@ -46,9 +59,6 @@ replays there without spending retry budget, and a slot that probes
 healthy again grows the mesh back at a tick.  Requests carry their state
 on the server's device between rungs, so a re-shard moves nothing and
 changes no result.
-
-Not ported yet: the LM decode workload (``--workload lm``; ROADMAP.md
-Queue A16) raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -1613,16 +1623,120 @@ def serve_sorts(args):
             "degradations": dict(deg)}
 
 
+# --------------------------------------------------------------------------
+# LM decode serving.
+# --------------------------------------------------------------------------
+
+def lm_prompts(cfg, requests: int, prompt_len: int):
+    """The reference CLI's prompts, from ``np.random.RandomState(0)``: the
+    drawn lengths only set ``max_len``, and every row is ``max_len``
+    tokens.  Returns (prompts (requests, max_len) int32, max_len)."""
+    rng = np.random.RandomState(0)
+    lens = rng.randint(4, prompt_len + 1, size=requests)
+    max_len = int(lens.max())
+    prompts = rng.randint(0, cfg.vocab_size,
+                          size=(requests, max_len)).astype(np.int32)
+    return prompts, max_len
+
+
+def lm_context(cfg, requests: int, device):
+    """The stub modality context of a vlm or audio model (zeros, as the
+    reference CLI's), or None."""
+    if cfg.family == "vlm":
+        return torch.zeros(requests, cfg.vision_tokens, cfg.vision_d,
+                           device=device)
+    if cfg.is_encdec:
+        return torch.zeros(requests, cfg.audio_frames, cfg.d_model,
+                           device=device)
+    return None
+
+
+def pad_caches(caches, extra: int):
+    """The attention caches padded with ``extra`` zero positions along the
+    sequence; SSM caches as they are."""
+    from repro_torch.models.attention import KVCache
+    return [KVCache(*(torch.nn.functional.pad(t, (0, 0, 0, 0, 0, extra))
+                      for t in c)) if isinstance(c, KVCache) else c
+            for c in caches]
+
+
+def serve_lm(cfg, requests: int = 8, max_new: int = 32, prompt_len: int = 24,
+             device=None, model=None):
+    """Serve ``requests`` LM requests as the reference CLI does: the
+    reference's prompts, one prefill of the right-padded batch, the caches
+    padded to ``max_len + max_new``, then ``max_new - 1`` greedy decode
+    steps (a vlm or audio model encodes its context again at each step).
+
+    ``model`` defaults to ``init_model(cfg, device)``; ``device`` to CUDA
+    (an error without it).  Returns ``tok_per_s`` and ``prefill_s`` (host
+    seconds, ended by a device sync), ``decode_s``, ``tokens`` (requests,
+    max_new) int64 numpy, each step's ``logits`` (requests, 1, V) float32
+    on the device, ``prompts``, ``max_len`` and ``device``."""
+    from repro_torch.core.shufflesoftsort import resolve_device
+    from repro_torch.models import decode_step, init_model, prefill
+
+    device = resolve_device(device)
+    model = init_model(cfg, device) if model is None else model
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    prompts, max_len = lm_prompts(cfg, requests, prompt_len)
+    ctx = lm_context(cfg, requests, device)
+    with torch.inference_mode():
+        sync()
+        t0 = time.perf_counter()
+        logits, caches = prefill(model, torch.from_numpy(prompts).to(
+            device, torch.long), ctx)
+        caches = pad_caches(caches, max_new)
+        sync()
+        prefill_s = time.perf_counter() - t0
+
+        tok = logits.argmax(-1)                                 # (B, 1)
+        out_tokens, out_logits = [tok], [logits]
+        t0 = time.perf_counter()
+        for i in range(max_new - 1):
+            logits, caches = decode_step(model, tok, caches, max_len + i,
+                                         ctx)
+            tok = logits.argmax(-1)
+            out_tokens.append(tok)
+            out_logits.append(logits)
+        sync()
+        decode_s = time.perf_counter() - t0
+    gen = torch.cat(out_tokens, dim=1).cpu().numpy()
+
+    tps = requests * (max_new - 1) / max(decode_s, 1e-9)
+    print(f"served {requests} requests (prompt<= {max_len}) on {device}: "
+          f"prefill {prefill_s:.2f}s, decode {decode_s:.2f}s "
+          f"({tps:.1f} tok/s), output shape {gen.shape}")
+    if gen.shape != (requests, max_new):
+        raise RuntimeError(f"generated {gen.shape}, expected "
+                           f"{(requests, max_new)}")
+    if not (np.all(gen >= 0) and np.all(gen < cfg.vocab_size)):
+        raise RuntimeError("a generated token lies outside the vocabulary")
+    return {"tok_per_s": tps, "prefill_s": prefill_s, "decode_s": decode_s,
+            "tokens": gen, "logits": out_logits, "prompts": prompts,
+            "max_len": max_len, "device": str(device)}
+
+
 def main(argv=None):
+    from repro_torch.configs import get_config, list_archs
+    from repro_torch.launch.train import PRESETS
+
     ap = argparse.ArgumentParser(
-        description="Serve grid-sort requests with the port's SortServer.")
-    ap.add_argument("--workload", choices=("lm", "sort"), default="sort",
-                    help="'sort' (the default until the LM port lands); "
-                         "'lm' is not ported yet (ROADMAP.md Queue A16)")
+        description="Serve LM decode requests, or grid-sort requests with "
+                    "the port's SortServer.")
+    ap.add_argument("--workload", choices=("lm", "sort"), default="lm")
     ap.add_argument("--device", default=None,
                     help="torch device (default: CUDA, an error without "
                          "it; 'cpu' runs on the host)")
+    ap.add_argument("--arch", choices=list_archs(), default="qwen1.5-0.5b")
+    ap.add_argument("--preset", choices=PRESETS, default="tiny")
     ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--max-new", type=int, default=32)
+    ap.add_argument("--prompt-len", type=int, default=24)
+    # sort-workload knobs
     ap.add_argument("--sort-n", type=int, default=256)
     ap.add_argument("--sort-hw", type=int, default=16,
                     help="grid height; width = sort-n / sort-hw")
@@ -1679,9 +1793,15 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     if args.workload == "lm":
-        raise NotImplementedError(
-            "--workload lm is not ported to repro_torch yet: the LM decode "
-            "server waits for the model port (ROADMAP.md Queue A16)")
+        from repro_torch.models import reduced_config
+        if args.requests < 1 or args.max_new < 1:
+            ap.error("--requests and --max-new must be >= 1")
+        if args.prompt_len < 4:
+            ap.error(f"--prompt-len {args.prompt_len} must be >= 4 (prompt "
+                     "lengths are drawn from [4, --prompt-len])")
+        cfg = reduced_config(get_config(args.arch), **PRESETS[args.preset])
+        return serve_lm(cfg, args.requests, args.max_new, args.prompt_len,
+                        args.device)
     # CLI validation as argparse errors (exit 2), as the reference's.
     if args.sort_hw <= 0 or args.sort_n % args.sort_hw != 0:
         ap.error(f"--sort-hw {args.sort_hw} must be a positive "

@@ -1,0 +1,165 @@
+"""Layer kinds and the stack of layers.
+
+Counterpart of ``repro.models.blocks``.  A ``Layer`` holds the parameters
+of one layer kind (``attn_dense``, ``attn_moe``, ``mamba``,
+``mamba_dense``, ``mamba_moe``, ``cross_attn``); ``apply_layer_full``,
+``apply_layer_prefill`` and ``apply_layer_decode`` run it.  Where the
+reference stacks each unit position's parameters along a repeats axis and
+scans over it, the port keeps a plain list of ``num_layers`` layers (layer
+``r * len(unit) + i`` is unit position ``i`` of repeat ``r``), and the
+caches are a list with one entry per layer.
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from repro_torch.models import attention as attn
+from repro_torch.models import ssm as ssm_mod
+from repro_torch.models.attention import KVCache
+from repro_torch.models.layers import MLP, RMSNorm, mlp, param, rmsnorm
+from repro_torch.models.moe import MoE, moe_ffn, moe_ffn_gather
+from repro_torch.models.ssm import SSMCache
+
+_F32 = torch.float32
+
+
+class Layer(nn.Module):
+    """The parameters of one layer of kind ``kind``, named as the
+    reference's pytree keys."""
+
+    def __init__(self, kind: str, cfg, dtype, generator, device):
+        super().__init__()
+        self.kind = kind
+        d = cfg.d_model
+        if kind.startswith("attn") or kind == "cross_attn":
+            self.norm1 = RMSNorm(d, dtype, device)
+            self.attn = attn.Attention(cfg, dtype, generator, device)
+        if kind.startswith("mamba"):
+            self.norm1 = RMSNorm(d, dtype, device)
+            self.mamba = ssm_mod.Mamba(cfg, dtype, generator, device)
+        if kind == "cross_attn":
+            self.norm_c = RMSNorm(d, dtype, device)
+            self.xattn = attn.Attention(cfg, dtype, generator, device)
+            # the tanh gate of llama-3.2-vision, float32, 0 at init
+            self.xgate = param(torch.zeros((), dtype=_F32, device=device))
+        if kind.endswith("_moe"):
+            self.norm2 = RMSNorm(d, dtype, device)
+            self.moe = MoE(cfg, dtype, generator, device)
+        elif kind in ("attn_dense", "cross_attn", "mamba_dense"):
+            self.norm2 = RMSNorm(d, dtype, device)
+            self.mlp = MLP(d, cfg.d_ff, dtype, generator, device)
+
+
+def _gated(p, cfg, x, ctx_kv):
+    """x plus the tanh-gated cross-attention to the context.  The gate is
+    float32: the product is formed in float32, then cast, as JAX promotes
+    it (torch would compute a 0-d float32 tensor times bf16 in bf16)."""
+    y = attn.cross_attention(p.xattn, cfg, rmsnorm(p.norm_c, x, cfg.norm_eps),
+                             ctx_kv)
+    return x + (torch.tanh(p.xgate) * y.to(_F32)).to(x.dtype)
+
+
+def _ffn(p, cfg, x, capacity_factor=None):
+    """The FFN sub-block: (x, aux loss or None)."""
+    if hasattr(p, "moe"):
+        moe = moe_ffn_gather if cfg.moe_impl == "gather" else moe_ffn
+        y, aux = moe(p.moe, cfg, rmsnorm(p.norm2, x, cfg.norm_eps),
+                     capacity_factor=capacity_factor)
+        return x + y, aux["moe_balance"] + aux["router_z"]
+    if hasattr(p, "mlp"):
+        return x + mlp(p.mlp, rmsnorm(p.norm2, x, cfg.norm_eps)), None
+    return x, None
+
+
+def apply_layer_full(p, cfg, x, *, causal: bool, ctx=None):
+    """Train path: full sequence, no cache.  Returns (x, aux)."""
+    kind = p.kind
+    if kind.startswith("attn") or kind == "cross_attn":
+        x = x + attn.attention_full(p.attn, cfg,
+                                    rmsnorm(p.norm1, x, cfg.norm_eps),
+                                    causal=causal)
+    elif kind.startswith("mamba"):
+        x = x + ssm_mod.mamba_forward(p.mamba, cfg,
+                                      rmsnorm(p.norm1, x, cfg.norm_eps))
+    if kind == "cross_attn":
+        x = _gated(p, cfg, x, attn.context_kv(p.xattn, cfg, ctx))
+    x, aux = _ffn(p, cfg, x)
+    return x, (torch.zeros((), dtype=_F32, device=x.device)
+               if aux is None else aux)
+
+
+def apply_layer_prefill(p, cfg, x, *, ctx=None):
+    """Prefill: full sequence, and this layer's cache."""
+    kind = p.kind
+    cache = None
+    h = rmsnorm(p.norm1, x, cfg.norm_eps)
+    if kind.startswith("attn") or kind == "cross_attn":
+        y, cache = attn.attention_prefill(p.attn, cfg, h)
+        x = x + y
+    elif kind.startswith("mamba"):
+        # an SSM's prefill: the full forward, and the state after it
+        x = x + ssm_mod.mamba_forward(p.mamba, cfg, h)
+        cache = _ssm_state_after(p.mamba, cfg, h)
+    if kind == "cross_attn":
+        x = _gated(p, cfg, x, attn.context_kv(p.xattn, cfg, ctx))
+    return _ffn(p, cfg, x)[0], cache
+
+
+def _ssm_state_after(mp, cfg, h):
+    """The conv buffers (the last K-1 projected inputs) and the recurrent
+    state after a prefill pass over h."""
+    kw = cfg.ssm_conv
+    return SSMCache((h @ mp.wx)[:, -(kw - 1):, :],
+                    (h @ mp.wb)[:, -(kw - 1):, :],
+                    (h @ mp.wc)[:, -(kw - 1):, :],
+                    _final_state_scan(mp, cfg, h))
+
+
+def _final_state_scan(mp, cfg, h):
+    """The SSD state after the whole of h (B, T, D),
+    S_T = sum_j exp(sum_{i>j} la_i) dt_j B_j x_j^T, chunk by chunk with
+    the chunk min(Q_max, T)."""
+    b, t_true, _ = h.shape
+    hh, nst, p_ = cfg.ssm_heads, cfg.ssm_state, cfg.ssm_head_dim
+    q = min(cfg.ssm_chunk, t_true)
+    t = (t_true + q - 1) // q * q
+    h = ssm_mod._pad(h, t)
+    nc = t // q
+    x, bm, dt = ssm_mod._inputs(mp, h, t_true, t)
+    la = dt * -torch.exp(mp.a_log)
+    xh = x.reshape(b, t, hh, p_).to(_F32)
+
+    cum = torch.cumsum(la.reshape(b, nc, q, hh), dim=2)
+    w_end = torch.exp(cum[:, :, -1:, :] - cum) * dt.reshape(b, nc, q, hh)
+    s_local = torch.einsum("bcqh,bcqn,bcqhp->bchnp", w_end,
+                           bm.reshape(b, nc, q, nst),
+                           xh.reshape(b, nc, q, hh, p_))
+    s = torch.zeros(b, hh, nst, p_, dtype=_F32, device=h.device)
+    for c in range(nc):
+        s = torch.exp(cum[:, c, -1, :])[:, :, None, None] * s + s_local[:, c]
+    return s
+
+
+def apply_layer_decode(p, cfg, x, cache, pos: int, ctx_kv: KVCache | None):
+    """One-token step.  x (B, 1, D).  MoE layers run at capacity factor
+    E (no token drops)."""
+    kind = p.kind
+    h = rmsnorm(p.norm1, x, cfg.norm_eps)
+    if kind.startswith("attn") or kind == "cross_attn":
+        y, cache = attn.attention_decode(p.attn, cfg, h, cache, pos)
+    else:
+        y, cache = ssm_mod.mamba_decode(p.mamba, cfg, h, cache)
+    x = x + y
+    if kind == "cross_attn":
+        x = _gated(p, cfg, x, ctx_kv)
+    return _ffn(p, cfg, x, float(cfg.num_experts))[0], cache
+
+
+def make_caches(cfg, kinds, batch: int, seq: int, dtype=torch.bfloat16,
+                device=None):
+    """Empty caches, one per layer of ``kinds``."""
+    return [attn.empty_cache(cfg, batch, seq, dtype, device)
+            if kind.startswith("attn") or kind == "cross_attn"
+            else ssm_mod.empty_ssm_cache(cfg, batch, dtype, device)
+            for kind in kinds]

@@ -14,7 +14,7 @@ the run's ``mesh=`` rebuilds the mesh over the survivors first (the
 carry is layout-free, so the resumed run is still bitwise).
 
 Not ported yet: ``TrainSupervisor`` waits for the LM trainer (ROADMAP.md
-Queue A16).
+Queue A16b).
 """
 from __future__ import annotations
 

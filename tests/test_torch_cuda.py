@@ -1416,3 +1416,70 @@ def test_cuda_batched_equals_sequential_per_seed(cuda, b):
                                 use_kernel=True)
     row = batched_bench.bench_cell(b, 1024, 3, cfg, cuda, warm=False)
     assert row["seeds_orders_differ"] == [] and row["seeds_losses_differ"] == []
+
+
+# ----------------------------------------- the LM zoo on the flash kernels
+
+def _lm_on_card_and_host(arch, requests, max_new, prompt_len, **overrides):
+    """serve_lm on the card with a tiny-preset model, the same weights
+    teacher-forced on the host (plain twins), and the card's counts."""
+    import copy
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.serve import lm_context, pad_caches, serve_lm
+    from repro_torch.launch.train import PRESETS
+    from repro_torch.models import (decode_step, init_model, prefill,
+                                    reduced_config)
+    cfg = reduced_config(get_config(arch), **{**PRESETS["tiny"], **overrides})
+    model = init_model(cfg, "cuda", seed=0)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    out = serve_lm(cfg, requests, max_new, prompt_len, device="cuda",
+                   model=model)
+    counts = launch_counts()
+    host = copy.deepcopy(model).to("cpu")
+    toks = torch.from_numpy(out["tokens"])
+    with torch.inference_mode():
+        lg, caches = prefill(host, torch.from_numpy(out["prompts"]).long(),
+                             lm_context(cfg, requests, "cpu"))
+        caches, ref = pad_caches(caches, max_new), [lg]
+        for i in range(max_new - 1):
+            lg, caches = decode_step(host, toks[:, i:i + 1], caches,
+                                     out["max_len"] + i,
+                                     lm_context(cfg, requests, "cpu"))
+            ref.append(lg)
+    return cfg, out, counts, ref
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "whisper-small",
+                                  "granite-moe-3b-a800m"])
+def test_cuda_lm_serve_runs_attention_on_flash(cuda, arch):
+    """Every attention call of serve_lm launches flash_forward (audio: the
+    encoder again at each decode step); the card's logits are the host's
+    within atol 1e-4 (float32, TF32 off)."""
+    cfg, out, counts, ref = _lm_on_card_and_host(arch, 4, 8, 24)
+    per_pass = 2 + (2 + cfg.encoder_layers if cfg.is_encdec else 0)
+    assert counts["flash_forward"] == 8 * per_pass
+    assert counts["flash_combine"] == 0
+    for got, want in zip(out["logits"], ref):
+        np.testing.assert_allclose(got.cpu().numpy(), want.numpy(),
+                                   atol=1e-4, rtol=0)
+
+
+@pytest.mark.cuda
+def test_cuda_lm_decode_over_a_long_cache_launches_the_combine(cuda):
+    """One request, a 563-token prompt: its two kv planes split the keys
+    (``decode_splits``) at the prefill and at each decode step, so every
+    attention call also launches flash_combine."""
+    from repro_torch.kernels.flash_attention import decode_splits
+    cfg, out, counts, ref = _lm_on_card_and_host("qwen1.5-0.5b", 1, 6, 600)
+    t, rep = out["max_len"], cfg.num_heads // cfg.num_kv_heads
+    assert t == 563
+    assert decode_splits(cfg.num_kv_heads, rep * t, t) > 1
+    assert decode_splits(cfg.num_kv_heads, rep, t + 6) > 1
+    assert (counts["flash_forward"], counts["flash_combine"]) == (12, 12)
+    for got, want in zip(out["logits"], ref):
+        np.testing.assert_allclose(got.cpu().numpy(), want.numpy(),
+                                   atol=1e-4, rtol=0)

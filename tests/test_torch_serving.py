@@ -461,8 +461,8 @@ def test_cli_rejects_bf16_without_kernel(capsys):
 
 def test_cli_serves_and_accounts(capsys):
     """The README's command: 8 requests on the CPU; the accounting line
-    holds; the LM workload is not ported yet; the mesh flags serve on a
-    mesh of CPU slots, and --device-health needs --mesh-devices."""
+    holds; the LM workload serves; the mesh flags serve on a mesh of CPU
+    slots, and --device-health needs --mesh-devices."""
     from repro_torch.launch.serve import main
     out = main(["--workload", "sort", "--device", "cpu", "--requests", "8",
                 "--sort-n", "64", "--rounds", "8"])
@@ -470,16 +470,19 @@ def test_cli_serves_and_accounts(capsys):
     assert "completed 8 + failed 0 + deadline_missed 0 + queue_rejected 0 " \
            "== offered 8" in line
     assert out["completed"] == 8 and out["improved"] == 8
-    with pytest.raises(NotImplementedError, match="A16"):
-        main(["--workload", "lm"])
-    out = main(["--device", "cpu", "--requests", "3", "--sort-n", "64",
-                "--rounds", "4", "--mesh-devices", "3", "--device-health",
-                "1"])
+    out = main(["--workload", "lm", "--device", "cpu", "--requests", "2",
+                "--max-new", "3"])
+    assert "served 2 requests" in capsys.readouterr().out
+    assert out["tokens"].shape == (2, 3)
+    out = main(["--workload", "sort", "--device", "cpu", "--requests", "3",
+                "--sort-n", "64", "--rounds", "4", "--mesh-devices", "3",
+                "--device-health", "1"])
     line = capsys.readouterr().out
     assert "3 mesh slots of cpu" in line and "elastic: 0 evictions" in line
     assert out["completed"] == 3 and out["evictions"] == 0
     with pytest.raises(SystemExit) as ei:
-        main(["--device", "cpu", "--device-health", "2"])
+        main(["--workload", "sort", "--device", "cpu", "--device-health",
+              "2"])
     assert ei.value.code == 2
     assert "--mesh-devices" in capsys.readouterr().err
 
