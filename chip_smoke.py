@@ -239,9 +239,34 @@ start):
     and the times of the float32 head and of the wrapper's cast of a
     bf16 KV cache.
 
+20. ``lm_train_arch_run`` — one train step (``repro_torch.launch.steps.
+    make_train_step``) of each of the ten architectures at the ``tiny``
+    preset, float32, with the published remat setting ("full", or "dots"
+    for the NeMo, Llama-3 405B and vision models), on a
+    ``synthetic_batch`` of 2 x 32 tokens: exactly the ``flash_forward``
+    launches of its attention calls, doubled by the remat recompute; loss
+    and gradients finite; the card's gradients against the host's from
+    the same weights, per leaf within ``LM_TRAIN_GRAD_RTOL`` x max |g|.
+21. ``lm_train_run`` — Qwen1.5-0.5B trained at its full published size
+    (bfloat16 parameters, float32 Adam moments, remat "full"), random
+    weights from seed 0, ``LM_TRAIN["steps"]`` steps at batch 2 x seq
+    4096 (the train_4k cell's length), lr 3e-4, clip 1.0: exactly 48
+    ``flash_forward`` launches per step and no ``flash_combine``; a
+    finite, falling loss; ms per step, tokens/s, peak memory with remat
+    and for one step without, model TFLOP/s and ``mfu`` against the bf16
+    dense peak, and the device ms of one layer's attention forward and
+    backward (the reference's oracle recompute) and of the float32 head;
+    ``lm_train_checks``: one float32 step at the same size, the kernel
+    route against the oracle route (loss, and the gradients of
+    ``lm_head.w`` and layer 0's ``attn.wq.w``).
+22. ``lm_train_recovery_run`` — the train CLI's ``main`` at ``--preset
+    10m --steps 30 --fail-at 15 --ckpt-every 10``: one restart, the
+    final checkpoint bitwise the uninterrupted run's, and
+    ``--compress-grads`` with a falling loss.
+
 Phases 9, 11 and 13 run right after phase 3, so that a faulty kernel
 stops the script before the long runs; 10, 12 and 14 run after phase 8,
-and 18 and 19 right after 12.
+and 18 to 22 right after 12.
 
 Then the ``{"kernels": [...]}`` summary line, the card's name and power
 limit as ``nvidia-smi`` reports them, and ``{"ok": true, "device": ...}``
@@ -3103,6 +3128,382 @@ def lm_serve_run(torch, kernels, F, fops):
     return total
 
 
+# The LM training phases: one train step of every architecture at the
+# tiny preset (float32, card against host), Qwen1.5-0.5B trained at its
+# full published size (bfloat16 parameters, float32 moments, remat
+# "full"), then the train CLI's failure recovery at the 10m preset.
+LM_TRAIN_ARCH = dict(batch=2, seq=32)
+LM_TRAIN = dict(batch=2, seq=4096, steps=20, lr=3e-4, grad_clip=1.0)
+LM_TRAIN_CUTS = ["the train_4k cell's global batch 256 -> 2 (one card)"]
+# card against host, float32 (TF32 off), per leaf: max abs error over
+# max |g| of the host's leaf, plus 1e-7 (the CPU tests' gradient bound)
+LM_TRAIN_GRAD_RTOL = 1e-5
+# the full-size float32 step, kernel route against oracle route
+LM_TRAIN_F32_LOSS_RTOL = 1e-5
+LM_TRAIN_F32_GRAD_RTOL = 1e-4
+LM_RECOVERY = ["--preset", "10m", "--steps", "30", "--fail-at", "15",
+               "--ckpt-every", "10"]
+H100_BF16_PEAK = 989e12           # NVIDIA's data sheet, SXM, dense
+
+
+def lm_train_calls(cfg, batch, seq):
+    """(kv planes, packed query rows, keys) of every flash_attention call
+    of one forward of ``loss_fn``: the encoder (audio), then each layer's
+    self- and cross-attention."""
+    unit, repeats = cfg.block_program()
+    planes, rep = batch * cfg.num_kv_heads, cfg.num_heads // cfg.num_kv_heads
+    ctx_len = cfg.vision_tokens if cfg.family == "vlm" else cfg.audio_frames
+    calls = [(planes, rep * cfg.audio_frames, cfg.audio_frames)] * (
+        cfg.encoder_layers if cfg.is_encdec else 0)
+    for kind in unit * repeats:
+        if kind.startswith("attn") or kind == "cross_attn":
+            calls.append((planes, rep * seq, seq))
+        if kind == "cross_attn":
+            calls.append((planes, rep * seq, ctx_len))
+    return calls
+
+
+def lm_train_want(F, cfg, batch, seq, steps=1):
+    """Exact launches of ``steps`` train steps: each forward's calls, run
+    again by the backward under remat."""
+    calls = lm_train_calls(cfg, batch, seq) * (2 if cfg.remat else 1)
+    return {"flash_forward": steps * len(calls),
+            "flash_combine": steps * sum(F.decode_splits(*c) > 1
+                                         for c in calls)}
+
+
+def threefry_per_batch(cfg):
+    """``threefry_bits`` launches of one ``synthetic_batch``: the key's
+    split, randint's split and its two draws, and the context's draw of
+    a vlm or audio model (``fold_in`` hashes in plain torch)."""
+    return 4 + (cfg.family == "vlm" or cfg.is_encdec)
+
+
+def to_host(tree):
+    from repro_torch.tree import tree_map
+    return tree_map(lambda t: t.detach().to("cpu", copy=True), tree)
+
+
+def grad_errors(got, want):
+    """Per leaf: max abs error of ``got`` over 1e-5 x max |want| + 1e-7,
+    the largest such ratio, and its leaf."""
+    worst, name = 0.0, None
+    for k, w in want.items():
+        limit = LM_TRAIN_GRAD_RTOL * float(w.abs().max()) + 1e-7
+        ratio = max_err(got[k].cpu(), w) / limit
+        if ratio > worst:
+            worst, name = ratio, k
+    return worst, name
+
+
+def lm_train_arch_run(torch, kernels, F):
+    """Phase 20: one train step (``make_train_step``) of each of the ten
+    architectures at the tiny preset, float32, with its published remat
+    setting, on the card from random weights of seed 0 and a
+    ``synthetic_batch`` made there; counts set to 0 just before the step
+    and read just after: exactly the flash launches of its attention calls
+    (doubled under remat).  Loss and gradients finite; the card's
+    gradients (``value_and_grad``) against the host's from the same
+    weights, per leaf within LM_TRAIN_GRAD_RTOL x max |g| + 1e-7.
+    Returns the summed counts."""
+    from repro_torch.configs import get_config, list_archs
+    from repro_torch.data import synthetic_batch
+    from repro_torch.launch.steps import (make_train_step, model_params,
+                                          value_and_grad)
+    from repro_torch.launch.train import PRESETS
+    from repro_torch.models import init_model, reduced_config
+    from repro_torch.optim import adam_init
+
+    total = {k: 0 for k in FLASH}
+    b, t = LM_TRAIN_ARCH["batch"], LM_TRAIN_ARCH["seq"]
+    for arch in list_archs():
+        full = get_config(arch)
+        cfg = reduced_config(full, **PRESETS["tiny"], remat=full.remat,
+                             remat_policy=full.remat_policy)
+        params = model_params(init_model(cfg, "cuda", seed=0))
+        batch = synthetic_batch(cfg, b, t, 0, device="cuda")
+        state = {"params": params, "opt": adam_init(params)}
+        step = make_train_step(cfg)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        new, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        want = lm_train_want(F, cfg, b, t)
+        require_counts(counts, want)
+        require(all(bool(torch.isfinite(v).all()) for v in metrics.values()),
+                f"{arch}: non-finite metrics {metrics}")
+        (loss, _), grads = value_and_grad(cfg)(params, batch)
+        (hloss, _), hgrads = value_and_grad(cfg)(to_host(params),
+                                                 to_host(batch))
+        require(all(bool(torch.isfinite(g).all()) for g in grads.values()),
+                f"{arch}: non-finite gradients")
+        worst, leaf = grad_errors(grads, hgrads)
+        require(worst <= 1.0, f"{arch}: card vs host gradient of {leaf} "
+                f"{worst:.3g} x its bound")
+        emit("lm_train_arch_run", arch=arch, family=cfg.family,
+             remat=cfg.remat, remat_policy=cfg.remat_policy,
+             batch=b, seq=t, loss=float(loss), host_loss=float(hloss),
+             grad_norm=float(metrics["grad_norm"]),
+             worst_grad_err_over_bound=worst, worst_leaf=leaf,
+             rtol=LM_TRAIN_GRAD_RTOL,
+             launches={k: counts[k] for k in FLASH}, expected=want)
+        for k in FLASH:
+            total[k] += counts[k]
+        del params, state, new, grads, hgrads
+    return total
+
+
+def attention_costs(torch, fops, cfg, b, t):
+    """Device ms (CUDA events) of one layer's attention at the train
+    shape, bfloat16 operands as the model runs them: the flash forward,
+    and the backward (the reference's oracle recomputed per 128-row
+    chunk)."""
+    h, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    g = torch.Generator(device="cuda").manual_seed(0)
+    q = torch.randn(b, t, h, dh, device="cuda", generator=g).to(
+        torch.bfloat16).requires_grad_()
+    k, v = (torch.randn(b, t, hkv, dh, device="cuda", generator=g).to(
+        torch.bfloat16).requires_grad_() for _ in range(2))
+    o = fops.flash_attention(q, k, v, True, 0)
+    dout = torch.randn_like(o)
+    with torch.no_grad():
+        fwd = time_ms(torch, lambda: fops.flash_attention(q, k, v, True, 0),
+                      reps=5)
+    bwd = time_ms(torch, lambda: torch.autograd.grad(
+        o, (q, k, v), dout, retain_graph=True), reps=5, warmup=1)
+    return fwd, bwd
+
+
+def head_costs(torch, params, cfg, b, t):
+    """Device ms of the float32 head (``model._head``'s ops: the bf16
+    weight cast to float32, the product, the vocab-padding mask) forward
+    and backward at the train shape."""
+    import types
+
+    from repro_torch.models.layers import linear
+    p = types.SimpleNamespace(w=params["lm_head.w"].detach().requires_grad_(),
+                              b=None)
+    x = torch.randn(b, t, cfg.d_model, device="cuda",
+                    dtype=torch.bfloat16).requires_grad_()
+
+    def head():
+        logits = linear(p, x.float())
+        logits[..., cfg.vocab_size:] = -1e30
+        return logits
+
+    with torch.no_grad():
+        fwd = time_ms(torch, head, reps=5)
+    logits = head()
+    dl = torch.randn_like(logits)
+    bwd = time_ms(torch, lambda: torch.autograd.grad(
+        logits, (x, p.w), dl, retain_graph=True), reps=5, warmup=1)
+    del logits, dl
+    return fwd, bwd
+
+
+def lm_train_run(torch, kernels, F, fops):
+    """Phase 21: Qwen1.5-0.5B at its full published size (24 layers, d =
+    1024, vocab 151936 padded to 152064, bfloat16 parameters, float32
+    Adam moments, remat "full"), random weights from seed 0, trained for
+    LM_TRAIN["steps"] steps of ``make_train_step`` on ``synthetic_batch``
+    at batch 2 x seq 4096 (the train_4k cell's length; its global batch
+    256 cut for one card).  Counts set to 0 just before the steps and read
+    just after: exactly 48 ``flash_forward`` launches per step (24 layers,
+    recomputed under remat), no ``flash_combine``.  The loss finite at
+    every step and its last below its first, the gradient norm finite.
+    Host ms per step after the first, tokens/s, peak memory (and, for one
+    step, without remat), model TFLOP/s (6 x parameters x tokens) and its
+    share of the bf16 dense peak as ``mfu``; device ms of one layer's
+    attention forward and backward and of the f32 head.  Then one float32
+    step at the same size, kernel route against oracle route (attention
+    swapped for ``flash_attention_ref``): loss within
+    LM_TRAIN_F32_LOSS_RTOL, ``lm_head.w`` and layer 0's ``attn.wq.w``
+    gradients within LM_TRAIN_F32_GRAD_RTOL x max |g|.  Returns the
+    counts."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import synthetic_batch
+    from repro_torch.launch.steps import (make_train_step, model_params,
+                                          value_and_grad)
+    from repro_torch.models import attention as A
+    from repro_torch.models import init_model, param_count
+    from repro_torch.optim import adam_init
+
+    cfg = get_config(LM_QWEN)
+    b, t, n = LM_TRAIN["batch"], LM_TRAIN["seq"], LM_TRAIN["steps"]
+    params = model_params(init_model(cfg, "cuda", seed=0))
+    nparams = param_count(params)
+    require(nparams == LM_QWEN_PARAMS, f"{nparams} parameters")
+    state = {"params": params, "opt": adam_init(params)}
+    del params
+    step = make_train_step(cfg, lr=LM_TRAIN["lr"],
+                           grad_clip=LM_TRAIN["grad_clip"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    batches = [synthetic_batch(cfg, b, t, i, device="cuda")
+               for i in range(n)]
+    losses, norms, secs = [], [], []
+    for batch in batches:
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        losses.append(float(metrics["loss"]))      # syncs the card
+        norms.append(float(metrics["grad_norm"]))
+        secs.append(time.perf_counter() - t0)
+    counts = kernels.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    want = lm_train_want(F, cfg, b, t, n)
+    require(want == {"flash_forward": 2 * cfg.num_layers * n,
+                     "flash_combine": 0}, f"expected launches {want}")
+    want["threefry_bits"] = threefry_per_batch(cfg) * n
+    require_counts(counts, want)
+    require(all(np.isfinite(losses)) and all(np.isfinite(norms)),
+            f"non-finite loss or gradient norm: {losses}, {norms}")
+    require(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    step_s = statistics.median(secs[1:])
+    tokens = b * t
+    tflops = 6 * nparams * tokens / step_s / 1e12
+
+    # one step without remat, for its peak memory
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        no_remat = make_train_step(dataclasses.replace(cfg, remat=False))
+        s2, _ = no_remat(state, batches[0])
+        torch.cuda.synchronize()
+        peak_no_remat = torch.cuda.max_memory_allocated() / 1e9
+        del s2
+    except torch.cuda.OutOfMemoryError:
+        peak_no_remat = "did not fit"
+    torch.cuda.empty_cache()
+
+    attn_fwd, attn_bwd = attention_costs(torch, fops, cfg, b, t)
+    head_fwd, head_bwd = head_costs(torch, state["params"], cfg, b, t)
+    step_ms = step_s * 1e3
+    emit("lm_train_run", model=LM_QWEN, params=nparams,
+         dtype=cfg.param_dtype, moments="float32", remat=cfg.remat,
+         remat_policy=cfg.remat_policy, batch=b, seq=t, steps=n,
+         cuts=LM_TRAIN_CUTS, lr=LM_TRAIN["lr"], losses=losses,
+         grad_norms=norms, step_ms=step_ms, step_ms_all=[s * 1e3
+                                                         for s in secs],
+         tokens_per_s=tokens / step_s, peak_memory_gb=peak_gb,
+         peak_memory_gb_no_remat=peak_no_remat, model_tflops=tflops,
+         mfu=tflops * 1e12 / H100_BF16_PEAK,
+         attention_fwd_ms_per_layer=attn_fwd,
+         attention_bwd_ms_per_layer=attn_bwd,
+         attention_bwd_share=cfg.num_layers * attn_bwd / step_ms,
+         attention_fwd_share=2 * cfg.num_layers * attn_fwd / step_ms,
+         head_fwd_ms=head_fwd, head_bwd_ms=head_bwd,
+         head_share=(head_fwd + head_bwd) / step_ms,
+         launches={k: counts[k] for k in want}, expected=want,
+         nvidia_smi=nvidia_smi_line())
+    del state, batches
+    torch.cuda.empty_cache()
+
+    # float32 at the same size: the kernel route against the oracle route
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32")
+    params = model_params(init_model(cfg32, "cuda", seed=0))
+    batch = synthetic_batch(cfg32, b, t, 0, device="cuda")
+    keep = ("lm_head.w", "blocks.0.attn.wq.w")
+    (k_loss, _), grads = value_and_grad(cfg32)(params, batch)
+    k_grads = {k: grads[k] for k in keep}
+    del grads
+    saved = A.flash_attention
+    A.flash_attention = lm_oracle_attention(fops)
+    try:
+        kernels.reset_launch_counts()
+        (o_loss, _), grads = value_and_grad(cfg32)(params, batch)
+        oracle_counts = kernels.launch_counts()
+    finally:
+        A.flash_attention = saved
+    require(not any(oracle_counts[k] for k in FLASH),
+            f"the oracle route launched {oracle_counts}")
+    o_grads = {k: grads[k] for k in keep}
+    del grads
+    loss_err = abs(float(k_loss) - float(o_loss)) / abs(float(o_loss))
+    require(loss_err <= LM_TRAIN_F32_LOSS_RTOL,
+            f"f32 kernel vs oracle loss {loss_err:.3g}")
+    grad_errs = {k: check(f"f32 grad {k}", k_grads[k], o_grads[k],
+                          rtol=LM_TRAIN_F32_GRAD_RTOL) for k in keep}
+    emit("lm_train_checks", model=LM_QWEN, dtype="float32",
+         kernel_loss=float(k_loss), oracle_loss=float(o_loss),
+         loss_rel_err=loss_err, loss_rtol=LM_TRAIN_F32_LOSS_RTOL,
+         grad_max_abs_err=grad_errs,
+         grad_max_abs={k: float(o_grads[k].abs().max()) for k in keep},
+         grad_rtol=LM_TRAIN_F32_GRAD_RTOL)
+    del params, batch, k_grads, o_grads
+    torch.cuda.empty_cache()
+    return counts
+
+
+def final_params(directory):
+    """The arrays of the newest checkpoint in ``directory``."""
+    from repro_torch.runtime.checkpoint import CheckpointManager
+    mgr = CheckpointManager(directory)
+    step = mgr.latest_step()
+    path = os.path.join(directory, f"step-{step:09d}", "arrays.npz")
+    with np.load(path) as data:
+        return step, {k: data[k] for k in data.files}
+
+
+def lm_train_recovery_run(torch, kernels, F):
+    """Phase 22: the train CLI's ``main`` on the card at the 10m preset,
+    30 steps, a ``WorkerFailure`` injected at step 15 with checkpoints
+    every 10 steps, in a temporary directory: one restart, 30 steps, and
+    the final checkpoint's arrays (parameters, moments, step) bitwise
+    those of the same run uninterrupted.  Then ``--compress-grads``: the
+    loss falls.  Counts set to 0 just before each run and read just
+    after: 6 ``flash_forward`` launches per step run (35 steps with the
+    replay from step 10), and the batches' ``threefry_bits`` (36 batches:
+    the failed step's too).  Returns the summed counts."""
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import PRESETS, main
+    from repro_torch.models import reduced_config
+
+    cfg = reduced_config(get_config(LM_QWEN), **PRESETS["10m"])
+    total = {k: 0 for k in FLASH + ("threefry_bits",)}
+    runs = {}
+    with tempfile.TemporaryDirectory() as root:
+        for name, extra, steps_run, batches in (
+                ("failed", LM_RECOVERY, 35, 36),
+                ("clean", LM_RECOVERY[:4] + LM_RECOVERY[6:], 30, 30),
+                ("compressed", LM_RECOVERY[:4] + ["--compress-grads"], 30,
+                 30)):
+            d = os.path.join(root, name)
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            stats = main(extra + ["--ckpt-dir", d])
+            seconds = time.perf_counter() - t0
+            counts = kernels.launch_counts()
+            want = lm_train_want(F, cfg, 8, 128, steps_run)
+            want["threefry_bits"] = threefry_per_batch(cfg) * batches
+            require_counts(counts, want)
+            runs[name] = (stats, final_params(d))
+            emit("lm_train_recovery_run", run=name, argv=extra,
+                 stats=stats, seconds=seconds,
+                 launches={k: counts[k] for k in want}, expected=want)
+            for k in total:
+                total[k] += counts[k]
+    (fs, (fstep, fa)), (cs, (cstep, ca)) = runs["failed"], runs["clean"]
+    require(fs["restarts"] == 1 and fs["steps"] == 30,
+            f"recovery run: {fs}")
+    require(fstep == cstep == 30 and sorted(fa) == sorted(ca),
+            "final checkpoints differ in layout")
+    differ = [k for k in fa if fa[k].tobytes() != ca[k].tobytes()]
+    require(not differ, f"resumed run not bitwise the clean run: {differ}")
+    comp = runs["compressed"][0]
+    require(comp["last_loss"] < comp["first_loss"],
+            f"compressed run's loss did not fall: {comp}")
+    emit("lm_train_recovery_checks", bitwise=True, leaves=len(fa),
+         losses={k: (v[0]["first_loss"], v[0]["last_loss"])
+                 for k, v in runs.items()})
+    return total
+
+
 def draw_digest(t):
     """sha256 (16 hex digits) of a draw: float32 values, or words and
     indices as uint32."""
@@ -3565,14 +3966,19 @@ def main():
     launches.update({k: v for k, v in flash_main_run(
         torch, kernels, F, flash_ops).items() if k in FLASH})
     lm_counts = (lm_arch_run(torch, kernels, F),
-                 lm_serve_run(torch, kernels, F, flash_ops))
+                 lm_serve_run(torch, kernels, F, flash_ops),
+                 lm_train_arch_run(torch, kernels, F),
+                 lm_train_run(torch, kernels, F, flash_ops),
+                 lm_train_recovery_run(torch, kernels, F))
     for k in FLASH:
         launches[k] += sum(c[k] for c in lm_counts)
+    train_threefry = sum(c.get("threefry_bits", 0) for c in lm_counts[2:])
     table_counts = paper_table_run(torch, kernels)
     for k in DENSE:
         launches[k] += table_counts[k]
     launches["threefry_bits"] = (table_counts["threefry_bits"]
-                                 + bench_counts["threefry_bits"])
+                                 + bench_counts["threefry_bits"]
+                                 + train_threefry)
 
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda",

@@ -9,3 +9,6 @@
 #
 #   python -m repro_torch.examples.self_organizing_gaussians
 #       the paper's Self-Organizing Gaussians workload (section IV-B)
+#
+#   python -m repro_torch.examples.train_lm
+#       LM training through failure recovery (the loss must fall)

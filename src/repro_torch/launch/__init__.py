@@ -4,5 +4,9 @@
 #              ``python -m repro_torch.launch.serve --workload lm``) and
 #              SortServer, the continuous-batching grid-sort server
 #              (``python -m repro_torch.launch.serve --workload sort``)
-#   train.py — the LM zoo's presets (the training loop is not ported yet)
+#   train.py — LM training (``python -m repro_torch.launch.train``):
+#              synthetic data, Adam, checkpoints, TrainSupervisor, the
+#              presets the serve CLI names too
+#   steps.py — make_train_step: one train step as a function of
+#              (state, batch)
 #   mesh.py  — SortMesh, the instance sharding over device slots

@@ -13,6 +13,8 @@ from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.models import attention as attn
 from repro_torch.models import ssm as ssm_mod
@@ -87,6 +89,50 @@ def apply_layer_full(p, cfg, x, *, causal: bool, ctx=None):
     x, aux = _ffn(p, cfg, x)
     return x, (torch.zeros((), dtype=_F32, device=x.device)
                if aux is None else aux)
+
+
+def _unit_full(layers, cfg, x, causal, ctx):
+    aux = torch.zeros((), dtype=_F32, device=x.device)
+    for layer in layers:
+        x, a = apply_layer_full(layer, cfg, x, causal=causal, ctx=ctx)
+        aux = aux + a
+    return x, aux
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """``remat_policy="dots"``: keep the outputs of matrix products without
+    batch dimensions (``jax.checkpoint_policies.
+    dots_with_no_batch_dims_saveable``: a 3-D ``x @ w`` runs as one
+    ``mm``), recompute everything else."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def stack_full(layers, unit_len: int, cfg, x, *, causal=True, ctx=None):
+    """Train path over ``layers``, unit by unit (``unit_len`` consecutive
+    layers, the reference's scan body).  Returns (x, aux summed per unit,
+    then over the units, as the reference's scan carries it).  With
+    ``cfg.remat`` and autograd recording, each unit runs under
+    ``torch.utils.checkpoint``: its activations are recomputed in the
+    backward, all of them (``remat_policy="full"``) or all but the matrix
+    products' (``"dots"``).  Remat changes no value."""
+    remat = cfg.remat and torch.is_grad_enabled()
+    aux = torch.zeros((), dtype=_F32, device=x.device)
+    for start in range(0, len(layers), unit_len):
+        unit = layers[start:start + unit_len]
+        if not remat:
+            x, a = _unit_full(unit, cfg, x, causal, ctx)
+        elif cfg.remat_policy == "dots":
+            x, a = checkpoint(
+                _unit_full, unit, cfg, x, causal, ctx, use_reentrant=False,
+                context_fn=lambda: create_selective_checkpoint_contexts(
+                    _save_dots))
+        else:
+            x, a = checkpoint(_unit_full, unit, cfg, x, causal, ctx,
+                              use_reentrant=False)
+        aux = aux + a
+    return x, aux
 
 
 def apply_layer_prefill(p, cfg, x, *, ctx=None):

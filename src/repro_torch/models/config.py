@@ -8,9 +8,11 @@ dense/MoE).  The port builds a plain list of ``num_layers`` layers from
 that unit: layer ``r * len(unit) + i`` is unit position ``i`` of repeat
 ``r``.
 
-Some fields only steer the reference's SPMD sharding or its training step
-and are inert data here: ``embed_shard``, ``attn_seq_shard``, ``remat``,
-``remat_policy``, ``scan_unroll`` and ``moment_dtype``.
+Some fields only steer the reference's SPMD sharding or its sharded
+state specs and are inert data here: ``embed_shard``, ``attn_seq_shard``,
+``scan_unroll`` and ``moment_dtype`` (read by the sharded builders, ROADMAP.md
+A16d).  ``remat`` and ``remat_policy`` steer the train path
+(``repro_torch.models.blocks.stack_full``).
 """
 from __future__ import annotations
 

@@ -5,8 +5,9 @@ Counterpart of ``repro.models.layers``.  Parameters live in
 (``w``, ``b``, ``scale``, ``table``, ``wi`` / ``wg`` / ``wo``), with the
 reference's layouts: a linear weight is (d_in, d_out).  The functions take
 such a module and tensors, as the reference's take a parameter dict and
-arrays.  Parameters do not require gradients: the port serves these
-models, and their training is not ported yet (ROADMAP.md A16b).
+arrays.  Parameters require gradients, for training
+(``repro_torch.launch.steps``); the serving paths run under
+``torch.inference_mode()``, which records no graph.
 
 Mixed dtypes follow JAX's promotion, which PyTorch's matmul does not do by
 itself: ``linear`` of a float32 input and a bfloat16 weight computes in
@@ -40,7 +41,7 @@ def normal(shape, scale, dtype, generator, device):
 
 
 def param(t: torch.Tensor) -> nn.Parameter:
-    return nn.Parameter(t, requires_grad=False)
+    return nn.Parameter(t)
 
 
 def promoted(*ts):

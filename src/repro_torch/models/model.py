@@ -15,9 +15,10 @@ told otherwise, its weights drawn from one explicit ``torch.Generator``
 (on the ``meta`` device it allocates nothing: shapes and counts only).
 ``params_from_jax(cfg, tree)`` builds it from the reference's parameter
 pytree, as numpy arrays, so that both packages compute the same function.
-``forward``, ``loss_fn`` (the forward half: its training step waits for
-the training port), ``prefill``, ``precompute_ctx_kvs`` and
-``decode_step`` take the model where the reference takes ``params, cfg``.
+``forward``, ``loss_fn``, ``prefill``, ``precompute_ctx_kvs`` and
+``decode_step`` take the model where the reference takes ``params, cfg``;
+the train step (``repro_torch.launch.steps``) runs ``loss_fn`` with a
+train state's tensors in place of the parameters.
 
 Attention runs on the flash kernels (``repro_torch.models.attention``);
 the projections, MLPs, experts, SSM products and the head are PyTorch
@@ -160,9 +161,8 @@ def _encode_context(model, context):
     if cfg.family == "vlm":
         return linear(model.vision_proj, context)
     if cfg.is_encdec:
-        x = context
-        for layer in model.encoder:
-            x, _ = blocks.apply_layer_full(layer, cfg, x, causal=False)
+        x, _ = blocks.stack_full(model.encoder, 1, cfg, context,
+                                 causal=False)
         return rmsnorm(model.enc_norm, x, cfg.norm_eps)
     return context
 
@@ -186,11 +186,9 @@ def forward(model: LM, tokens, context=None) -> LMOutputs:
     embeddings of a vlm or audio model."""
     cfg = model.cfg
     ctx = _encode_context(model, context)
-    x = embed(model.embed, tokens)
-    aux = torch.zeros((), dtype=_F32, device=x.device)
-    for layer in model.blocks:
-        x, a = blocks.apply_layer_full(layer, cfg, x, causal=True, ctx=ctx)
-        aux = aux + a
+    x, aux = blocks.stack_full(model.blocks, len(cfg.block_program()[0]),
+                               cfg, embed(model.embed, tokens), causal=True,
+                               ctx=ctx)
     x = rmsnorm(model.final_norm, x, cfg.norm_eps)
     return LMOutputs(_head(model, x), aux)
 
@@ -258,8 +256,11 @@ def make_caches(cfg: ModelConfig, batch: int, seq: int,
                               resolve_device(device))
 
 
-def param_count(model: nn.Module) -> int:
-    return sum(p.numel() for p in model.parameters())
+def param_count(model) -> int:
+    """Parameters of a model, or of a train state's ``params`` dict."""
+    ps = model.parameters() if isinstance(model, nn.Module) else \
+        model.values()
+    return sum(p.numel() for p in ps)
 
 
 def reduced_config(cfg: ModelConfig, **overrides) -> ModelConfig:

@@ -12,11 +12,14 @@
   * **Keep-k GC**, resume-latest, and an **async save** (the host snapshot
     is taken at once, the write overlaps the caller's work).
 
-The flatten is the port's own: dict keys sorted, lists and tuples in
-order, ``None`` an empty subtree, every other value a leaf, which is the
-order ``jax.tree.flatten`` gives the same containers.  So each package
-reads the other's checkpoints of a flat dict.  Leaves are stored in
-logical layout: a torch tensor is copied to host numpy.  ``mesh_shape``
+The flatten is ``repro_torch.tree``'s: dict keys sorted, lists, tuples
+and named tuples in order, ``None`` an empty subtree, every other value a
+leaf, which is the order ``jax.tree.flatten`` gives the same containers.
+So each package reads the other's checkpoints of a flat dict.  Leaves are
+stored in logical layout: a torch tensor is copied to host numpy, a
+bfloat16 one as its bit patterns in a ``|V2`` entry, as ``np.savez``
+stores the reference's bfloat16 arrays (ROADMAP.md Queue C13), and
+restored bit for bit into a bfloat16 leaf of ``like``.  ``mesh_shape``
 and ``mesh_axes`` record the ``SortMesh`` a state was saved under
 (``[n]`` and ``["data"]``; null without one), for audit only: the state
 is layout-free, so it restores onto any mesh, or none.
@@ -28,81 +31,77 @@ import os
 import shutil
 import threading
 import time
+import zipfile
 from typing import Any, Optional
 
 import numpy as np
 import torch
 
+from repro_torch.tree import LEAF, flatten, unflatten
+
 PyTree = Any
-
-
-class _Leaf:
-    pass
-
-
-_LEAF = _Leaf()
-
-
-def _flatten(tree: PyTree):
-    """(leaves, structure): leaves in ``jax.tree.flatten`` order."""
-    if isinstance(tree, dict):
-        keys = sorted(tree)
-        leaves, subs = [], []
-        for k in keys:
-            lv, sub = _flatten(tree[k])
-            leaves += lv
-            subs.append(sub)
-        return leaves, ("dict", keys, subs)
-    if isinstance(tree, (list, tuple)):
-        leaves, subs = [], []
-        for v in tree:
-            lv, sub = _flatten(v)
-            leaves += lv
-            subs.append(sub)
-        return leaves, (type(tree).__name__, None, subs)
-    if tree is None:
-        return [], ("none", None, [])
-    return [tree], _LEAF
-
-
-def _unflatten(structure, leaves):
-    it = iter(leaves)
-
-    def build(node):
-        if node is _LEAF:
-            return next(it)
-        kind, keys, subs = node
-        if kind == "dict":
-            return {k: build(sub) for k, sub in zip(keys, subs)}
-        if kind == "none":
-            return None
-        vals = [build(sub) for sub in subs]
-        return tuple(vals) if kind == "tuple" else vals
-
-    return build(structure)
 
 
 def _render(node) -> str:
     """The structure as ``jax``'s treedef string renders it."""
-    if node is _LEAF:
+    if node is LEAF:
         return "*"
     kind, keys, subs = node
-    if kind == "dict":
+    if kind is dict:
         return "{" + ", ".join(f"{k!r}: {_render(s)}"
                                for k, s in zip(keys, subs)) + "}"
-    if kind == "none":
+    if kind is None:
         return "None"
     inner = ", ".join(_render(s) for s in subs)
-    if kind == "tuple":
+    if hasattr(kind, "_fields"):
+        return f"CustomNode(namedtuple[{kind.__name__}], [{inner}])"
+    if kind is tuple:
         return "(" + inner + ("," if len(subs) == 1 else "") + ")"
     return "[" + inner + "]"
 
 
 def _host(leaf) -> np.ndarray:
-    """A host copy of a tensor (or an array, as it is)."""
+    """A host copy of a tensor (or an array, as it is).  A bfloat16 tensor
+    comes back as its bit patterns in a 2-byte void array, the ``|V2``
+    entry ``np.savez`` writes of the reference's bfloat16 arrays."""
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().cpu().numpy()
+        leaf = leaf.detach()
+        if leaf.dtype == torch.bfloat16:
+            return leaf.view(torch.int16).cpu().numpy().view("V2")
+        return leaf.cpu().numpy()
     return np.asarray(leaf)
+
+
+def _tensor(a: np.ndarray, like: torch.Tensor) -> torch.Tensor:
+    """A stored array as a tensor of ``like``'s dtype on its device; a
+    ``|V2`` entry is read as bfloat16 bit patterns."""
+    if a.dtype.kind == "V" and a.dtype.itemsize == 2:
+        if like.dtype != torch.bfloat16:
+            raise ValueError(f"a bfloat16 (|V2) leaf restores only into a "
+                             f"bfloat16 tensor, not {like.dtype}")
+        return torch.from_numpy(a.view(np.int16).copy()).view(
+            torch.bfloat16).to(like.device)
+    return torch.as_tensor(a, device=like.device).to(like.dtype)
+
+
+def _savez(path: str, arrays: dict) -> None:
+    """``np.savez(path, **arrays)``, byte for byte, except that a bfloat16
+    leaf (``_host``'s 2-byte void array) gets the header descr ``'<V2'``
+    that numpy writes for the reference's ``ml_dtypes`` bfloat16 arrays,
+    where a plain void array would get ``'|V2'``."""
+    with zipfile.ZipFile(path, mode="w", compression=zipfile.ZIP_STORED,
+                         allowZip64=True) as zf:
+        for key, a in arrays.items():
+            a = np.asanyarray(a)
+            with zf.open(key + ".npy", "w", force_zip64=True) as fid:
+                if a.dtype.kind == "V" and a.dtype.itemsize == 2:
+                    a = np.ascontiguousarray(a)
+                    np.lib.format.write_array_header_1_0(
+                        fid, {"descr": "<V2", "fortran_order": False,
+                              "shape": a.shape})
+                    fid.write(a.tobytes())
+                else:
+                    np.lib.format.write_array(fid, a, allow_pickle=True)
 
 
 class CheckpointManager:
@@ -126,7 +125,7 @@ class CheckpointManager:
              extra: dict | None = None, block: bool = False):
         """Snapshot now; write (a)synchronously."""
         self.wait()                                # one write in flight
-        flat, structure = _flatten(state)
+        flat, structure = flatten(state)
         flat = [_host(a) for a in flat]            # the snapshot
         meta = {
             "step": int(step),
@@ -141,8 +140,8 @@ class CheckpointManager:
             tmp = os.path.join(self.directory, f"tmp-{step}")
             final = os.path.join(self.directory, f"step-{step:09d}")
             os.makedirs(tmp, exist_ok=True)
-            np.savez(os.path.join(tmp, "arrays.npz"),
-                     **{f"leaf_{i:05d}": a for i, a in enumerate(flat)})
+            _savez(os.path.join(tmp, "arrays.npz"),
+                   {f"leaf_{i:05d}": a for i, a in enumerate(flat)})
             meta["treedef"] = f"PyTreeDef({_render(structure)})"
             meta["num_leaves"] = len(flat)
             with open(os.path.join(tmp, "manifest.json"), "w") as f:
@@ -190,7 +189,7 @@ class CheckpointManager:
         if step is None:
             raise FileNotFoundError(f"no checkpoint in {self.directory}")
         final = os.path.join(self.directory, f"step-{step:09d}")
-        flat_like, structure = _flatten(like)
+        flat_like, structure = flatten(like)
         saved = self.manifest(step).get("num_leaves")
         if saved is not None and saved != len(flat_like):
             raise ValueError(
@@ -203,11 +202,11 @@ class CheckpointManager:
         out = []
         for a, lk in zip(flat, flat_like):
             if isinstance(lk, torch.Tensor):
-                a = torch.as_tensor(a, device=lk.device).to(lk.dtype)
+                a = _tensor(a, lk)
             elif hasattr(lk, "dtype"):
                 a = np.asarray(a, dtype=lk.dtype)
             out.append(a)
-        return _unflatten(structure, out), step
+        return unflatten(structure, out), step
 
     def manifest(self, step: int | None = None) -> dict:
         step = step if step is not None else self.latest_step()

@@ -13,8 +13,8 @@ finishes bitwise the uninterrupted one; a ``DeviceLost`` naming a slot of
 the run's ``mesh=`` rebuilds the mesh over the survivors first (the
 carry is layout-free, so the resumed run is still bitwise).
 
-Not ported yet: ``TrainSupervisor`` waits for the LM trainer (ROADMAP.md
-Queue A16b).
+``TrainSupervisor`` runs the LM trainer's steps
+(``repro_torch.launch.train``) with checkpoints and restarts.
 """
 from __future__ import annotations
 
@@ -28,6 +28,8 @@ import numpy as np
 import torch
 
 from repro_torch.runtime.checkpoint import _host
+from repro_torch.runtime.straggler import StragglerMonitor
+from repro_torch.tree import tree_map
 
 log = logging.getLogger("repro_torch.runtime")
 
@@ -320,6 +322,111 @@ class FaultInjector:
                 for k, v in state.get("device_return", {}).items()}
             self.down = set(int(d) for d in state.get("down", []))
             self.device_faults = int(state.get("device_faults", 0))
+
+
+def _host_copy(x):
+    """A host snapshot of one leaf of a train state."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().to("cpu", copy=True)
+    return np.array(x) if isinstance(x, np.ndarray) else x
+
+
+def _device_of(x):
+    return x.device if isinstance(x, torch.Tensor) else "host"
+
+
+def _placed(snap, device):
+    """A fresh copy of a snapshot leaf on ``device``."""
+    if isinstance(snap, torch.Tensor):
+        return snap.to(device, copy=True)
+    return np.array(snap) if isinstance(snap, np.ndarray) else snap
+
+
+class TrainSupervisor:
+    """Runs a train loop of ``step_fn(state, batch) -> (state, metrics)``
+    over ``data_fn(step)`` batches, checkpointing every
+    ``checkpoint_every`` steps and at the end, and surviving
+    ``WorkerFailure``s: a failure resumes from the newest checkpoint (one
+    still being written included: ROADMAP.md known property 10), or,
+    before the first one, replays from a host snapshot of the initial
+    state.  The state is a tree of tensors (``repro_torch.tree``) and
+    comes back on its devices.  ``history`` holds one ``metrics`` entry
+    per step, and ``straggler`` and ``failure`` events.  The reference's
+    ``shardings`` (a restore onto another mesh's layout) comes with the
+    LM meshes (ROADMAP.md A16d); ``mesh`` is recorded in the manifests."""
+
+    def __init__(
+        self,
+        step_fn: Callable[[Any, Any], tuple[Any, dict]],
+        data_fn: Callable[[int], Any],
+        ckpt,
+        *,
+        checkpoint_every: int = 50,
+        max_restarts: int = 10,
+        mesh=None,
+        straggler=None,
+    ):
+        self.step_fn = step_fn
+        self.data_fn = data_fn
+        self.ckpt = ckpt
+        self.checkpoint_every = checkpoint_every
+        self.max_restarts = max_restarts
+        self.mesh = mesh
+        self.straggler = straggler or StragglerMonitor()
+        self.restarts = 0
+        self.history: list[dict] = []
+
+    def run(self, state, start_step: int, num_steps: int):
+        """Run to ``start_step + num_steps``, surviving step failures."""
+        step = start_step
+        target = start_step + num_steps
+        # Host snapshot of the initial state: a failure before the first
+        # checkpoint restarts from here, not from the partly advanced
+        # state.
+        devices = tree_map(_device_of, state)
+        init_state = tree_map(_host_copy, state)
+        latest = self.ckpt.latest_step()
+        if latest is not None and latest > step:
+            state, step = self.ckpt.restore(state)
+            log.info("resumed at step %d", step)
+
+        while step < target:
+            try:
+                t0 = time.perf_counter()
+                batch = self.data_fn(step)
+                state, metrics = self.step_fn(state, batch)
+                metrics = {k: float(v) for k, v in metrics.items()}
+                dt = time.perf_counter() - t0
+                if self.straggler.record(step, dt):
+                    self.history.append({"step": step,
+                                         "event": "straggler", "dt": dt})
+                step += 1
+                self.history.append({"step": step, "metrics": metrics})
+                if step % self.checkpoint_every == 0 or step == target:
+                    self.ckpt.save(step, state, mesh=self.mesh)
+            except WorkerFailure as e:
+                self.restarts += 1
+                self.history.append({"step": step, "event": "failure",
+                                     "error": str(e)})
+                if self.restarts > self.max_restarts:
+                    raise RuntimeError(
+                        f"exceeded {self.max_restarts} restarts") from e
+                # A save still being written is a checkpoint taken: wait
+                # for it before looking (the reference looks first, and a
+                # failure during an async save replays from the start).
+                self.ckpt.wait()
+                latest = self.ckpt.latest_step()
+                if latest is None:
+                    log.warning("failure before first checkpoint; "
+                                "restarting from initial state")
+                    state = tree_map(_placed, init_state, devices)
+                    step = start_step
+                    continue
+                state, step = self.ckpt.restore(state)
+                log.info("restored step %d after failure (%d restarts)",
+                         step, self.restarts)
+        self.ckpt.wait()
+        return state, step
 
 
 @dataclasses.dataclass(frozen=True)

@@ -105,7 +105,7 @@ def _state(seed=0):
 
 
 def _leaves(tree):
-    from repro_torch.runtime.checkpoint import _flatten
+    from repro_torch.tree import flatten as _flatten
     return [np.asarray(a) if not isinstance(a, torch.Tensor)
             else a.numpy() for a in _flatten(tree)[0]]
 
@@ -221,6 +221,87 @@ def test_format_parity_port_writes_reference_reads(tmp_path):
     for m in man:
         m.pop("time")
     assert man[0] == man[1]
+
+
+# bfloat16 leaves (ROADMAP.md Queue C13): the reference stores a bfloat16
+# array as a 2-byte void ``|V2`` entry; the port writes the same bytes and
+# restores them, and the reference's own file, bit for bit.
+
+def _bf16_values():
+    rng = np.random.default_rng(7)
+    return (rng.normal(size=(5, 3)) * 3).astype(np.float32)
+
+
+def _npz(d):
+    path = os.path.join(d, "step-000000001", "arrays.npz")
+    with open(path, "rb") as f:
+        return f.read(), np.load(path)["leaf_00000"].dtype
+
+
+def test_bf16_leaf_file_is_the_references(tmp_path):
+    v = _bf16_values()
+    JCheckpointManager(str(tmp_path / "j"), async_save=False).save(
+        1, {"w": jnp.asarray(v, jnp.bfloat16)})
+    CheckpointManager(str(tmp_path / "p"), async_save=False).save(
+        1, {"w": torch.from_numpy(v).to(torch.bfloat16)})
+    (jb, jdt), (pb, pdt) = _npz(tmp_path / "j"), _npz(tmp_path / "p")
+    assert jdt.str == pdt.str == "|V2"
+    assert pb == jb
+
+
+def test_bf16_checkpoint_of_the_reference_restores_bitwise(tmp_path):
+    v = jnp.asarray(_bf16_values(), jnp.bfloat16)
+    JCheckpointManager(str(tmp_path), async_save=False).save(1, {"w": v})
+    got, _ = CheckpointManager(str(tmp_path)).restore(
+        {"w": torch.zeros(5, 3, dtype=torch.bfloat16)})
+    assert got["w"].dtype == torch.bfloat16
+    np.testing.assert_array_equal(got["w"].view(torch.int16).numpy(),
+                                  np.asarray(v).view(np.int16))
+
+
+def test_bf16_roundtrip_is_bitwise(tmp_path):
+    from repro_torch.optim import adam_init
+    w = torch.from_numpy(_bf16_values()).to(torch.bfloat16)
+    state = {"params": {"w": w, "b": torch.arange(3.0)},
+             "opt": adam_init({"w": w, "b": torch.arange(3.0)},
+                              torch.bfloat16)}
+    mgr = CheckpointManager(str(tmp_path), async_save=True)
+    mgr.save(4, state)
+    mgr.wait()
+    got, step = mgr.restore(state)
+    assert step == 4 and type(got["opt"]).__name__ == "AdamState"
+    from repro_torch.tree import leaves
+    for a, b in zip(leaves(got), leaves(state)):
+        assert a.dtype == b.dtype
+        assert torch.equal(a.reshape(-1).view(torch.uint8),
+                           b.reshape(-1).view(torch.uint8))
+    with pytest.raises(ValueError, match="bfloat16"):
+        mgr.restore({"params": {"w": torch.zeros(5, 3), "b": 0},
+                     "opt": state["opt"]})
+
+
+def test_named_tuple_state_renders_as_jax_treedef(tmp_path):
+    from repro.optim.adam import adam_init as jadam_init
+    from repro_torch.optim import adam_init
+    CheckpointManager(str(tmp_path / "p"), async_save=False).save(
+        1, {"params": {"w": torch.ones(3)},
+            "opt": adam_init({"w": torch.ones(3)})})
+    JCheckpointManager(str(tmp_path / "j"), async_save=False).save(
+        1, {"params": {"w": jnp.ones(3)}, "opt": jadam_init({"w": jnp.ones(3)})})
+    man = [CheckpointManager(str(tmp_path / d)).manifest() for d in "pj"]
+    assert man[0]["treedef"] == man[1]["treedef"]
+    assert man[0]["num_leaves"] == man[1]["num_leaves"] == 4
+
+
+def test_reference_cannot_restore_its_own_bf16_leaf(tmp_path):
+    """ROADMAP.md known property 9: the reference writes a bfloat16 leaf
+    but its restore casts the stored ``|V2`` array with ``np.asarray(a,
+    dtype=bfloat16)``, which has no cast from void."""
+    mgr = JCheckpointManager(str(tmp_path), async_save=False)
+    v = jnp.asarray(_bf16_values(), jnp.bfloat16)
+    mgr.save(1, {"w": v})
+    with pytest.raises(ValueError, match="No cast function"):
+        mgr.restore({"w": v})
 
 
 # ------------------------------------------------------ AnnealCheckpointer

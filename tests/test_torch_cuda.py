@@ -1,6 +1,7 @@
 """The CUDA kernels of the port on the card, against their plain PyTorch
 twins and the oracles: the SoftSort apply (dense, banded, v1), the
-flash-attention forward and the threefry bits.  Every test here is marked ``cuda`` and skips
+flash-attention forward and the threefry bits; and the LM zoo's serving
+and training on the card against the host.  Every test here is marked ``cuda`` and skips
 without a CUDA device; the file imports neither JAX nor the reference
 package, so it runs on a machine that has only PyTorch:
 
@@ -1483,3 +1484,102 @@ def test_cuda_lm_decode_over_a_long_cache_launches_the_combine(cuda):
     for got, want in zip(out["logits"], ref):
         np.testing.assert_allclose(got.cpu().numpy(), want.numpy(),
                                    atol=1e-4, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "granite-moe-3b-a800m",
+                                  "whisper-small"])
+def test_cuda_train_step_matches_the_host(cuda, arch):
+    """One ``make_train_step`` at the tiny preset (float32, remat "full")
+    on the card against the same weights and batch on the host: the
+    flash forwards of the step, recomputed under remat, are launched on
+    the card; loss and gradient norm within 1e-5 relative, and the new
+    parameters within 2 x lr (Adam's first step is sign-like)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import synthetic_batch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.steps import make_train_step, model_params
+    from repro_torch.launch.train import PRESETS
+    from repro_torch.models import init_model, reduced_config
+    from repro_torch.optim import adam_init
+    from repro_torch.tree import tree_map
+    cfg = dataclasses.replace(reduced_config(get_config(arch),
+                                             **PRESETS["tiny"]), remat=True)
+    params = model_params(init_model(cfg, "cuda", seed=0))
+    state = {"params": params, "opt": adam_init(params)}
+    batch = synthetic_batch(cfg, 2, 32, 0, device="cuda")
+    host = tree_map(lambda t: t.cpu(), (state, batch))
+    step = make_train_step(cfg, lr=1e-3)
+    reset_launch_counts()
+    new, m = step(state, batch)
+    torch.cuda.synchronize()
+    unit, repeats = cfg.block_program()
+    kinds = unit * repeats
+    attn = (sum(k.startswith("attn") or k == "cross_attn" for k in kinds)
+            + kinds.count("cross_attn") + cfg.encoder_layers)
+    assert launch_counts()["flash_forward"] == 2 * attn
+    hnew, hm = step(*host)
+    for k in ("loss", "grad_norm"):
+        np.testing.assert_allclose(float(m[k]), float(hm[k]), rtol=1e-5)
+    for k, p in new["params"].items():
+        np.testing.assert_allclose(p.cpu().numpy(),
+                                   hnew["params"][k].numpy(), rtol=0,
+                                   atol=2e-3)
+
+
+@pytest.mark.cuda
+def test_cuda_bf16_checkpoint_roundtrip(cuda, tmp_path):
+    """bfloat16 leaves saved from the card come back on the card, bit for
+    bit (the reference's ``|V2`` layout)."""
+    from repro_torch.runtime.checkpoint import CheckpointManager
+    g = torch.Generator(device="cuda").manual_seed(0)
+    state = {"w": torch.randn(64, 33, device="cuda", generator=g).to(
+        torch.bfloat16), "m": torch.randn(7, device="cuda", generator=g)}
+    mgr = CheckpointManager(str(tmp_path))
+    mgr.save(3, state)
+    mgr.wait()
+    got, step = mgr.restore(state)
+    assert step == 3
+    for k, v in state.items():
+        assert got[k].device.type == "cuda" and got[k].dtype == v.dtype
+        assert torch.equal(got[k].reshape(-1).view(torch.uint8),
+                           v.reshape(-1).view(torch.uint8))
+
+
+@pytest.mark.cuda
+def test_cuda_supervisor_resume_is_bitwise(cuda, tmp_path):
+    """A train run at the tiny preset on the card with a failure injected
+    after a checkpoint ends bitwise the uninterrupted run."""
+    from repro_torch.data import synthetic_batch
+    from repro_torch.launch.train import build
+    from repro_torch.runtime.checkpoint import CheckpointManager
+    from repro_torch.runtime.fault_tolerance import (TrainSupervisor,
+                                                     WorkerFailure)
+    from repro_torch.tree import leaves
+
+    def run(d, fail_at):
+        cfg, state, step = build("qwen1.5-0.5b", "tiny", 1e-3, False,
+                                 "cuda")
+        armed = {"on": fail_at is not None}
+
+        def step_fn(state, batch):
+            i = batch.pop("step")
+            if armed["on"] and i == fail_at:
+                armed["on"] = False
+                raise WorkerFailure("injected")
+            return step(state, batch)
+
+        sup = TrainSupervisor(
+            step_fn, lambda i: dict(synthetic_batch(cfg, 2, 32, i,
+                                                    device="cuda"), step=i),
+            CheckpointManager(str(d)), checkpoint_every=5)
+        state, n = sup.run(state, 0, 12)
+        return state, n, sup.restarts
+
+    clean, n0, r0 = run(tmp_path / "a", None)
+    failed, n1, r1 = run(tmp_path / "b", 8)
+    assert (n0, r0, n1, r1) == (12, 0, 12, 1)
+    for a, b in zip(leaves(clean), leaves(failed)):
+        assert torch.equal(a, b)

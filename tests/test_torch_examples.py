@@ -8,6 +8,8 @@ examples in ``examples/``, on the CPU.
   directory: valid permutations, a better layout than the unsorted one
   (DPQ up, neighbour distance down), and the quickstart's PPM files; the
   quickstart's colours bitwise the reference's ``PRNGKey(42)`` draw.
+* ``repro_torch.examples.train_lm`` (``examples/train_lm.py``) at the
+  ``tiny`` preset: a restart after an injected failure, a falling loss.
 """
 import importlib.util
 import pathlib
@@ -117,3 +119,16 @@ def test_batched_image_grids_runs_on_the_cpu(tmp_path, monkeypatch):
 def test_examples_refuse_a_non_square_n(main):
     with pytest.raises(SystemExit):
         main(["--n", "63", "--rounds", "1", "--device", "cpu"])
+
+
+def test_train_lm_example_runs_on_the_cpu(tmp_path, capsys):
+    """The training example at ``tiny``: a failure at step 12, a restart
+    from step 10's checkpoint, and a falling loss."""
+    from repro_torch.examples import train_lm
+    stats = train_lm.main(["--preset", "tiny", "--steps", "20", "--batch",
+                           "2", "--seq", "16", "--lr", "1e-3", "--fail-at",
+                           "12", "--ckpt-every", "10", "--ckpt-dir",
+                           str(tmp_path), "--device", "cpu"])
+    assert stats["steps"] == 20 and stats["restarts"] == 1
+    assert stats["last_loss"] < stats["first_loss"]
+    assert capsys.readouterr().out.splitlines()[-1].startswith("OK: loss")

@@ -228,9 +228,9 @@ def test_params_from_jax_takes_the_reference_init():
     unit = len(cfg.block_program()[0])
     for r in range(cfg.num_layers // unit):
         np.testing.assert_array_equal(
-            model.blocks[r * unit].attn.wq.w.numpy(),
+            model.blocks[r * unit].attn.wq.w.detach().numpy(),
             tree["blocks"][0]["attn"]["wq"]["w"][r])
-    np.testing.assert_array_equal(model.lm_head.w.numpy(),
+    np.testing.assert_array_equal(model.lm_head.w.detach().numpy(),
                                   tree["lm_head"]["w"])
 
 

@@ -32,6 +32,14 @@ from repro_torch.models.config import ModelConfig  # noqa: E402
 from repro_torch.models.model import load_tree  # noqa: E402
 
 ATOL = 2e-5
+
+
+@pytest.fixture(autouse=True)
+def _no_autograd():
+    """Forward parity only: the parameters require gradients (they are
+    trainable), so each test runs without recording a graph."""
+    with torch.no_grad():
+        yield
 B, T = 2, 11
 
 

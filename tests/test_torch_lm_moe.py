@@ -28,6 +28,14 @@ from repro_torch.models.model import load_tree  # noqa: E402
 
 ATOL = 2e-5
 MIN_GAP = 1e-6
+
+
+@pytest.fixture(autouse=True)
+def _no_autograd():
+    """Forward parity only: the parameters require gradients (they are
+    trainable), so each test runs without recording a graph."""
+    with torch.no_grad():
+        yield
 E, K, D = 4, 2, 16
 
 

@@ -27,6 +27,14 @@ from repro_torch.models.config import ModelConfig  # noqa: E402
 from repro_torch.models.model import load_tree  # noqa: E402
 
 ATOL = 2e-5
+
+
+@pytest.fixture(autouse=True)
+def _no_autograd():
+    """Forward parity only: the parameters require gradients (they are
+    trainable), so each test runs without recording a graph."""
+    with torch.no_grad():
+        yield
 B, D = 2, 32
 KW = dict(name="s", family="ssm", num_layers=1, d_model=D, num_heads=2,
           num_kv_heads=2, d_ff=0, vocab_size=64, ssm_state=8,
