@@ -166,7 +166,9 @@ start):
     against ``flash_attention_ref``, values and dq, dk, dv, at a small GQA
     shape; times at the NeMo shapes with the yardstick
     ``scaled_dot_product_attention`` (float32, TF32 off), decode both
-    warm and with the L2 cache flushed before each launch.
+    warm and with the L2 cache flushed before each launch; the merge also
+    per launch from one CUDA graph of 100 back-to-back launches
+    (``graph100_ms``).
 12. ``flash_main_run`` — that NeMo layer's attention through
     ``flash_attention``, prefill then one decode step, against the oracle,
     the decode row against the prefill's last row; 2 launches of
@@ -178,7 +180,8 @@ start):
     of ``threefry_draws`` (split, bits, permutation, uniform) in both
     counter layouts against jax's digests (``THREEFRY_DIGESTS``); ms per
     shuffle round at B.S = 8, N = 4096 of ``ThreefryShuffleSource`` and
-    ``TorchShuffleSource``; the kernel's times at two shapes.
+    ``TorchShuffleSource``; the kernel's times at two shapes, also per
+    launch from one CUDA graph of 100 launches (``graph100_ms``).
 14. ``paper_table_run`` — the paper's Table III at N = 1024, full budget,
     kernel tier (``repro_torch.bench.paper_table``): each row's
     parameters, seconds, DPQ_16, neighbour distance and validity, its
@@ -264,9 +267,37 @@ start):
     final checkpoint bitwise the uninterrupted run's, and
     ``--compress-grads`` with a falling loss.
 
+23. ``lm_dryrun_run`` — the dry-run (``repro_torch.launch.dryrun``) on
+    the host: one process as rank 0 of 256 or 512 under torch's in-process
+    ``fake`` group, ``meta`` tensors, Qwen1.5-0.5B at full size in the
+    four shape cells on the (16, 16) and (2, 16, 16) meshes (train_4k,
+    prefill_32k, decode_32k ``ok``, long_500k ``skipped``), and one arch
+    of each other family on (16, 16) at ``LM_DRYRUN_FAMILIES``' cells;
+    each record's argument bytes per device within the card's memory, its
+    four roofline inputs and its roofline row at the H100's peaks
+    (``repro_torch.bench.roofline``).  The records are made in a child
+    process started after the build (``start_lm_dryrun``), so that this
+    host work overlaps the card's phases and its fake group never meets
+    the card's process group.
+24. ``lm_mesh_run`` — the sharded builders (``repro_torch.launch.steps.
+    lower_cell``) on the card: an ``nccl`` group of one rank, a (1, 1)
+    ("data", "model") mesh, Qwen1.5-0.5B at full size (bfloat16, random
+    weights from seed 0) in the three cells cut to one card
+    (``LM_MESH_CUTS``): each step bitwise the unsharded path on the same
+    inputs (``make_train_step``'s state and metrics; ``prefill``'s logits
+    and caches; ``decode_step``'s logits and its cache writes), the
+    dry-run's per-device argument bytes of the cut cell equal to the
+    bytes of the step's real arguments, and exactly the flash launches
+    ``lm_train_calls`` / ``lm_flash_calls`` give (kernel 10 everywhere,
+    10c at decode); ms per step (host clock, a sync, the first apart),
+    peak memory, the cost source's FLOPs of the step (``CostMode`` over
+    the card's ops) against ``model_flops`` of the cut cell, and
+    ``roofline_frac`` (model FLOPs over the bf16 peak, over the measured
+    seconds).
+
 Phases 9, 11 and 13 run right after phase 3, so that a faulty kernel
 stops the script before the long runs; 10, 12 and 14 run after phase 8,
-and 18 to 22 right after 12.
+and 18 to 24 right after 12.
 
 Then the ``{"kernels": [...]}`` summary line, the card's name and power
 limit as ``nvidia-smi`` reports them, and ``{"ok": true, "device": ...}``
@@ -446,6 +477,23 @@ def graph_ms(torch, fn, reps=15, flush=None):
     with torch.cuda.graph(graph):
         fn()
     return time_ms(torch, graph.replay, reps, flush=flush)
+
+
+def graph100_ms(torch, fn, launches=100, reps=15):
+    """Milliseconds per call of ``fn()`` from one CUDA graph of
+    ``launches`` back-to-back calls (median replay over ``launches``):
+    the kernel's own time once one replay's fixed cost is spread."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    return time_ms(torch, graph.replay, reps) / launches
 
 
 def max_err(got, want):
@@ -2716,6 +2764,7 @@ def flash_kernel_phase(torch, F, fops):
             merge = lambda: F.flash_combine(*parts)  # noqa: E731
             comb = {"max_abs_err": err, "shape": list(shape), "splits": n,
                     "ms": graph_ms(torch, merge),
+                    "graph100_ms": graph100_ms(torch, merge),
                     "call_ms": time_ms(torch, merge),
                     "plain_ms": time_ms(torch, lambda: F.flash_combine_plain(
                         *parts), reps=5),
@@ -3133,7 +3182,7 @@ def lm_serve_run(torch, kernels, F, fops):
 # full published size (bfloat16 parameters, float32 moments, remat
 # "full"), then the train CLI's failure recovery at the 10m preset.
 LM_TRAIN_ARCH = dict(batch=2, seq=32)
-LM_TRAIN = dict(batch=2, seq=4096, steps=20, lr=3e-4, grad_clip=1.0)
+LM_TRAIN = dict(batch=2, seq=4096, steps=12, lr=3e-4, grad_clip=1.0)
 LM_TRAIN_CUTS = ["the train_4k cell's global batch 256 -> 2 (one card)"]
 # card against host, float32 (TF32 off), per leaf: max abs error over
 # max |g| of the host's leaf, plus 1e-7 (the CPU tests' gradient bound)
@@ -3143,8 +3192,6 @@ LM_TRAIN_F32_LOSS_RTOL = 1e-5
 LM_TRAIN_F32_GRAD_RTOL = 1e-4
 LM_RECOVERY = ["--preset", "10m", "--steps", "30", "--fail-at", "15",
                "--ckpt-every", "10"]
-H100_BF16_PEAK = 989e12           # NVIDIA's data sheet, SXM, dense
-
 
 def lm_train_calls(cfg, batch, seq):
     """(kv planes, packed query rows, keys) of every flash_attention call
@@ -3327,6 +3374,7 @@ def lm_train_run(torch, kernels, F, fops):
     from repro_torch.data import synthetic_batch
     from repro_torch.launch.steps import (make_train_step, model_params,
                                           value_and_grad)
+    from repro_torch.kernels.bounds import PEAK_BF16_FLOPS
     from repro_torch.models import attention as A
     from repro_torch.models import init_model, param_count
     from repro_torch.optim import adam_init
@@ -3390,7 +3438,7 @@ def lm_train_run(torch, kernels, F, fops):
                                                          for s in secs],
          tokens_per_s=tokens / step_s, peak_memory_gb=peak_gb,
          peak_memory_gb_no_remat=peak_no_remat, model_tflops=tflops,
-         mfu=tflops * 1e12 / H100_BF16_PEAK,
+         mfu=tflops * 1e12 / PEAK_BF16_FLOPS,
          attention_fwd_ms_per_layer=attn_fwd,
          attention_bwd_ms_per_layer=attn_bwd,
          attention_bwd_share=cfg.num_layers * attn_bwd / step_ms,
@@ -3504,6 +3552,331 @@ def lm_train_recovery_run(torch, kernels, F):
     return total
 
 
+LM_DRYRUN_FAMILIES = {            # one arch per other family, (16, 16)
+    "granite-moe-3b-a800m": ("decode_32k",),
+    "mamba2-370m": ("decode_32k", "long_500k"),
+    "jamba-v0.1-52b": ("decode_32k", "long_500k"),
+    "whisper-small": ("decode_32k",),
+    "llama-3.2-vision-90b": ("decode_32k",),
+}
+LM_DRYRUN_SHAPES = ("train_4k", "prefill_32k", "decode_32k", "long_500k")
+# the three cells on one card: (cell, seq, global batch)
+LM_MESH_CELLS = (("train_4k", 4096, 2), ("prefill_32k", 32768, 1),
+                 ("decode_32k", 32768, 8))
+LM_MESH_CUTS = ["train_4k: global batch 256 -> 2 (lm_train_run's cut)",
+                "prefill_32k: global batch 32 -> 1",
+                "decode_32k: global batch 128 -> 8 (a 25.8 GB bf16 cache), "
+                "4 steps at positions 32764..32767 of a random-filled cache"]
+LM_MESH_DECODE_STEPS = 4
+
+
+DRYRUN_CHILD = r"""
+import json, os, sys, time
+root, out, qwen, shapes, families = sys.argv[1:6]
+sys.path.insert(0, os.path.join(root, "src"))
+import torch
+torch.set_num_threads(1)
+from repro_torch.launch import dryrun
+shapes, families = json.loads(shapes), json.loads(families)
+t0 = time.perf_counter()
+records = (dryrun.run([qwen], shapes, "single")
+           + dryrun.run([qwen], shapes, "multi"))
+for arch, cells in families.items():
+    records += dryrun.run([arch], cells, "single")
+with open(out, "w") as f:
+    json.dump({"records": records, "seconds": time.perf_counter() - t0}, f)
+"""
+
+
+def start_lm_dryrun():
+    """Start ``lm_dryrun_run``'s records in a child process: host work on
+    ``meta`` tensors under its own fake group, which overlaps the card's
+    phases.  The child is killed at exit if it is still running."""
+    import atexit
+    import shutil
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+    out, log = os.path.join(tmp, "records.json"), os.path.join(tmp, "log")
+    with open(log, "w") as f:
+        proc = subprocess.Popen(
+            [sys.executable, "-c", DRYRUN_CHILD, ROOT, out, LM_QWEN,
+             json.dumps(LM_DRYRUN_SHAPES), json.dumps(LM_DRYRUN_FAMILIES)],
+            stdout=f, stderr=subprocess.STDOUT)
+
+    def stop():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    atexit.register(stop)
+    return proc, out, log
+
+
+def lm_dryrun_run(torch, child):
+    """Phase 23: the dry-run records (``repro_torch.launch.dryrun.run``,
+    each mesh under its own fake group, destroyed after) of Qwen1.5-0.5B
+    in the four cells on both meshes and of one arch per other family,
+    made by the child of ``start_lm_dryrun``; each cell's status as the
+    reference's, its per-device argument bytes within the card's memory.
+    Returns the records."""
+    from repro_torch.bench.roofline import analyze
+
+    proc, out, log = child
+    memory = torch.cuda.get_device_properties(0).total_memory
+    t0 = time.perf_counter()
+    rc = proc.wait(timeout=600)
+    with open(log) as f:
+        tail = f.read()[-2000:]
+    require(rc == 0 and os.path.exists(out),
+            f"the dry-run child exited {rc}: {tail}")
+    with open(out) as f:
+        done = json.load(f)
+    records, seconds = done["records"], done["seconds"]
+    rows = {(r["arch"], r["shape"], r["mesh"]): r for r in analyze(records)}
+    for rec in records:
+        want = ("skipped" if rec["shape"] == "long_500k"
+                and rec["arch"] == LM_QWEN else "ok")
+        require(rec["status"] == want, f"dry-run {rec['arch']} x "
+                f"{rec['shape']} x {rec['mesh']}: {rec['status']} "
+                f"{rec.get('error', '')}")
+        if rec["status"] != "ok":
+            emit("lm_dryrun_run", **rec)
+            continue
+        args = rec["memory_analysis"]["argument_size_in_bytes"]
+        require(args <= memory, f"{rec['arch']} x {rec['shape']} x "
+                f"{rec['mesh']}: {args} argument bytes per device")
+        emit("lm_dryrun_run", arch=rec["arch"], shape=rec["shape"],
+             mesh=rec["mesh"], status=rec["status"],
+             argument_size_in_bytes=args,
+             output_size_in_bytes=rec["memory_analysis"][
+                 "output_size_in_bytes"],
+             roofline_inputs=rec["roofline_inputs"],
+             collectives={k: v for k, v in rec["collectives"].items()
+                          if k == "total_bytes" or v["count"]},
+             roofline_h100=rows[(rec["arch"], rec["shape"], rec["mesh"])],
+             run_s=rec["run_s"])
+    emit("lm_dryrun_summary", records=len(records), seconds=seconds,
+         waited_s=time.perf_counter() - t0, memory_per_device=memory)
+    return records
+
+
+def _same(torch, got, want, what):
+    """``got`` (DTensors on a one-rank mesh, or tensors) bitwise ``want``,
+    leaf by leaf."""
+    from repro_torch.tree import flatten
+    gl, gs = flatten(got)
+    wl, ws = flatten(want)
+    require(gs == ws, f"{what}: trees differ")
+    for i, (g, w) in enumerate(zip(gl, wl)):
+        g = g.to_local() if hasattr(g, "to_local") else g
+        require(g.dtype == w.dtype and g.shape == w.shape
+                and torch.equal(g, w), f"{what}: leaf {i} differs")
+    return len(gl)
+
+
+def _tensor_bytes(tree):
+    from repro_torch.tree import flatten
+    return sum(t.numel() * t.element_size() for t in flatten(tree)[0]
+               if hasattr(t, "numel"))
+
+
+def lm_mesh_run(torch, kernels, F):
+    """Phase 24: the builders' steps on a (1, 1) mesh against the
+    unsharded path, bitwise, on the card (see the module docstring).
+    Returns the flash counts of the builders' steps."""
+    import torch.distributed as dist
+
+    from repro_torch.bench.roofline import model_flops
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.bounds import PEAK_BF16_FLOPS
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.models import init_model
+    from repro_torch.models.config import ShapeCell
+
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1, device_id=torch.device("cuda", 0))
+    total = {k: 0 for k in FLASH}
+    try:
+        mesh = make_production_mesh(shape=(1, 1))
+        require(mesh.device_type == "cuda", f"mesh on {mesh.device_type}")
+        cfg = get_config(LM_QWEN)
+        model = init_model(cfg, "cuda", seed=0)
+        params = steps.model_params(model)
+        for name, seq, batch in LM_MESH_CELLS:
+            cell = ShapeCell(name, seq, batch, name.split("_")[0])
+            low = steps.lower_cell(cfg, cell, mesh)
+            fn = {"train": _mesh_train, "prefill": _mesh_prefill,
+                  "decode": _mesh_decode}[cell.kind]
+            counts, fields = fn(torch, kernels, F, cfg, model, params, low,
+                                cell)
+            for k in FLASH:
+                total[k] += counts[k]
+            mf = model_flops(LM_QWEN, "decode_32k" if cell.kind == "decode"
+                             else name, cell.kind)
+            # model_flops reads the published cell; scale to the cut
+            full = {"train": 256 * 4096, "prefill": 32 * 32768,
+                    "decode": 128}[cell.kind]
+            cut = batch * (1 if cell.kind == "decode" else seq)
+            mf = mf / full * cut
+            step_s = fields["step_ms"] / 1e3
+            emit("lm_mesh_run", model=LM_QWEN, cell=name, seq=seq,
+                 batch=batch, cuts=LM_MESH_CUTS, mesh=[1, 1],
+                 model_flops=mf, roofline_frac=mf / PEAK_BF16_FLOPS / step_s,
+                 flops_over_model_flops=fields["cost_flops"] / mf,
+                 nvidia_smi=nvidia_smi_line(), **fields)
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    return total
+
+
+def _timed_steps(torch, run, n):
+    """Host ms of ``n`` calls of ``run`` (a sync after each), the first
+    apart: (first, median of the rest, all)."""
+    secs = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        secs.append((time.perf_counter() - t0) * 1e3)
+    return secs[0], statistics.median(secs[1:]), secs
+
+
+def _cost_flops(torch, run):
+    from repro_torch.launch.dryrun import CostMode
+    with CostMode() as mode:
+        run()
+    torch.cuda.synchronize()
+    return float(mode.flops)
+
+
+def _mesh_train(torch, kernels, F, cfg, model, params, low, cell):
+    from repro_torch.data import synthetic_batch
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import adam_init
+    b, t = cell.global_batch, cell.seq_len
+    state = {"params": params, "opt": adam_init(params)}
+    batch = synthetic_batch(cfg, b, t, 0, device="cuda")
+    want_state, want_m = make_train_step(cfg)(state, batch)
+    want_bytes = _tensor_bytes((state, batch))
+    require(low.argument_bytes() == want_bytes,
+            f"train argument bytes {low.argument_bytes()} != {want_bytes}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    got_state, got_m = low(state, batch)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    want = lm_train_want(F, cfg, b, t)
+    require_counts(counts, want)
+    leaves = _same(torch, (got_state, got_m), (want_state, want_m),
+                   "train step")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    del want_state, got_state
+    first, step_ms, all_ms = _timed_steps(torch, lambda: low(state, batch), 3)
+    cost = _cost_flops(torch, lambda: low(state, batch))
+    return counts, dict(bitwise=True, leaves=leaves,
+                        argument_bytes=want_bytes, peak_memory_gb=peak,
+                        first_ms=first, step_ms=step_ms, step_ms_all=all_ms,
+                        cost_flops=cost, loss=float(want_m["loss"]),
+                        launches={k: counts[k] for k in FLASH},
+                        expected=want)
+
+
+def _mesh_prefill(torch, kernels, F, cfg, model, params, low, cell):
+    from repro_torch.models import model as model_lib
+    b, t = cell.global_batch, cell.seq_len
+    g = torch.Generator(device="cuda").manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (b, t), device="cuda",
+                           generator=g, dtype=torch.int32)
+    with torch.no_grad():
+        want = model_lib.prefill(model, tokens)
+    want_bytes = _tensor_bytes((params, tokens))
+    require(low.argument_bytes() == want_bytes,
+            f"prefill argument bytes {low.argument_bytes()} != {want_bytes}")
+    require(tuple(want[0].shape) == (b, 1, cfg.padded_vocab),
+            f"prefill logits {tuple(want[0].shape)}: not the last position")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    got = low(params, tokens)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    calls = [(b * cfg.num_kv_heads, cfg.num_heads // cfg.num_kv_heads * t,
+              t)] * cfg.num_layers
+    expect = {"flash_forward": len(calls),
+              "flash_combine": sum(F.decode_splits(*c) > 1 for c in calls)}
+    require_counts(counts, expect)
+    leaves = _same(torch, got, want, "prefill")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    del got, want
+    first, step_ms, all_ms = _timed_steps(torch, lambda: low(params, tokens),
+                                          3)
+    cost = _cost_flops(torch, lambda: low(params, tokens))
+    return counts, dict(bitwise=True, leaves=leaves,
+                        argument_bytes=want_bytes, peak_memory_gb=peak,
+                        first_ms=first, step_ms=step_ms, step_ms_all=all_ms,
+                        cost_flops=cost,
+                        launches={k: counts[k] for k in FLASH},
+                        expected=expect)
+
+
+def _mesh_decode(torch, kernels, F, cfg, model, params, low, cell):
+    from repro_torch.models import model as model_lib
+    b, s = cell.global_batch, cell.seq_len
+    g = torch.Generator(device="cuda").manual_seed(2)
+    caches = model_lib.make_caches(cfg, b, s, torch.bfloat16, "cuda")
+    for c in caches:
+        for t in c:
+            t.normal_(generator=g)
+    token = torch.randint(0, cfg.vocab_size, (b, 1), device="cuda",
+                          generator=g, dtype=torch.int32)
+    pos = s - LM_MESH_DECODE_STEPS
+    want_bytes = _tensor_bytes((params, token, caches)) + 4
+    require(low.argument_bytes() == want_bytes,
+            f"decode argument bytes {low.argument_bytes()} != {want_bytes}")
+    saved = [(c.k[:, pos].clone(), c.v[:, pos].clone()) for c in caches]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    got_logits, _ = low(params, token, caches,
+                        torch.tensor(pos, dtype=torch.int32))
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    calls = [(b * cfg.num_kv_heads, cfg.num_heads // cfg.num_kv_heads, s)
+             ] * cfg.num_layers
+    expect = {"flash_forward": len(calls),
+              "flash_combine": sum(F.decode_splits(*c) > 1 for c in calls)}
+    require_counts(counts, expect)
+    written = [(c.k[:, pos].clone(), c.v[:, pos].clone()) for c in caches]
+    for c, (k, v) in zip(caches, saved):        # the cache as it was
+        c.k[:, pos], c.v[:, pos] = k, v
+    with torch.no_grad():
+        want_logits, _ = model_lib.decode_step(model, token, caches, pos)
+    want_written = [(c.k[:, pos].clone(), c.v[:, pos].clone())
+                    for c in caches]
+    leaves = _same(torch, got_logits, want_logits, "decode logits")
+    leaves += _same(torch, written, want_written, "decode cache writes")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    steps_run = iter(range(pos, s))
+    first, step_ms, all_ms = _timed_steps(torch, lambda: low(
+        params, token, caches, torch.tensor(next(steps_run),
+                                            dtype=torch.int32)),
+        LM_MESH_DECODE_STEPS)
+    cost = _cost_flops(torch, lambda: low(params, token, caches,
+                                          torch.tensor(s - 1,
+                                                       dtype=torch.int32)))
+    del caches
+    return counts, dict(bitwise=True, leaves=leaves,
+                        argument_bytes=want_bytes, peak_memory_gb=peak,
+                        first_ms=first, step_ms=step_ms, step_ms_all=all_ms,
+                        cost_flops=cost, decode_position=pos,
+                        launches={k: counts[k] for k in FLASH},
+                        expected=expect)
+
+
 def draw_digest(t):
     """sha256 (16 hex digits) of a draw: float32 values, or words and
     indices as uint32."""
@@ -3598,6 +3971,7 @@ def threefry_run(torch, core):
         bound = (r * 2 * 8 + r * m * 4) / PEAK_BYTES * 1e3
         stats[(r, m)] = {"ms": time_ms(torch, kern),
                          "graph_ms": graph_ms(torch, kern),
+                         "graph100_ms": graph100_ms(torch, kern),
                          "plain_ms": time_ms(torch, plain, reps=5),
                          "bound_ms": bound, "bound_by": "bytes",
                          "library_ms": None, "max_abs_err": float(err),
@@ -3934,6 +4308,7 @@ def main():
              if "registers" in ln or "spill" in ln or "entry function" in ln]
     emit("build", seconds=time.perf_counter() - t0, sources=sorted(logs),
          flags=build.NVCC_FLAGS, ptxas=ptxas)
+    dryrun_child = start_lm_dryrun()
     stats = kernel_phase(torch, K)
     band_stats = band_kernel_phase(torch, K, core)
     stats.update(band_stats[SOG_SHAPE])
@@ -3970,6 +4345,8 @@ def main():
                  lm_train_arch_run(torch, kernels, F),
                  lm_train_run(torch, kernels, F, flash_ops),
                  lm_train_recovery_run(torch, kernels, F))
+    lm_dryrun_run(torch, dryrun_child)
+    lm_counts += (lm_mesh_run(torch, kernels, F),)
     for k in FLASH:
         launches[k] += sum(c[k] for c in lm_counts)
     train_threefry = sum(c.get("threefry_bits", 0) for c in lm_counts[2:])

@@ -12,6 +12,10 @@
 #   paper_table.py     — the paper's Table III (Gumbel-Sinkhorn, Kissing,
 #                        SoftSort, ShuffleSoftSort); gates itself with
 #                        --check
-#   run.py             — the reference's CSV entry point: Table III and
-#                        the kernel bench's cells
+#   run.py             — the reference's CSV entry point: Table III, the
+#                        kernel bench's cells and the dry-run's roofline
+#                        rows
 #   fixed_path_ab.py   — A/B of the fixed path between two checkouts
+#   roofline.py        — the dry-run records' roofline at H100 peaks
+#   compare_sweeps.py  — before / after table of two dry-run sweeps
+#   hillclimb.py       — one cell's costs under named sharding variants

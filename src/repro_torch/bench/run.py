@@ -11,14 +11,16 @@
 * ``kernel.<cell>.<tier>`` — the port's ``kernel_bench`` cells: one
   fwd+grad call of each tier, with its parity and bound (``--smoke``: the
   bench's small cell).
-
-The reference's roofline rows read its dry-run JSON of XLA's HLO, which
-the port does not have yet (ROADMAP.md A16d): the section prints the
-reference's note that the records are missing.
+* ``roofline.<arch>.<shape>`` — the bound of each dry-run record of
+  ``--records`` (``repro_torch.launch.dryrun --all --out ...``) at an
+  H100 SXM's peaks (``repro_torch.bench.roofline``); without the file, the
+  reference's note that the records are missing.
 """
 from __future__ import annotations
 
 import argparse
+import json
+import os
 import sys
 import time
 
@@ -32,6 +34,7 @@ def main(argv=None) -> int:
                          "or cpu, where the plain twins run")
     ap.add_argument("--smoke", action="store_true",
                     help="the kernel bench's small cell only")
+    ap.add_argument("--records", default="dryrun_single.json")
     args = ap.parse_args(argv)
 
     from repro_torch.bench import kernel_bench, paper_table
@@ -66,10 +69,26 @@ def main(argv=None) -> int:
                 print(f"kernel.N{nn}_d{d}_B{bsz}_K{band}_{dtype}.{tier},"
                       f"{secs * 1e6:.0f},{';'.join(derived)}")
 
-    # ---- roofline terms: not ported (A16d) ----------------------------
-    sys.stderr.write("[no dryrun_single.json; run repro.launch.dryrun "
-                     "--all --out ... for roofline rows]\n")
+    # ---- roofline terms from the dry-run (figure analogue) ------------
+    roofline_rows(args.records)
     return 0
+
+
+def roofline_rows(path: str) -> None:
+    """Print one CSV row per analysed record of ``path``, or the note that
+    it is missing."""
+    if not os.path.exists(path):
+        sys.stderr.write(f"[no {path}; run repro_torch.launch.dryrun "
+                         "--all --out ... for roofline rows]\n")
+        return
+    from repro_torch.bench.roofline import analyze
+    with open(path) as f:
+        recs = json.load(f)
+    for r in analyze(recs):
+        bound_s = max(r["compute_s"], r["memory_s"], r["collective_s"])
+        print(f"roofline.{r['arch']}.{r['shape']},{bound_s * 1e6:.0f},"
+              f"dominant={r['dominant']};useful={r['useful_ratio']:.3f};"
+              f"roofline_frac={r['roofline_frac']:.3f}")
 
 
 if __name__ == "__main__":

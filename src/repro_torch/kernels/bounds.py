@@ -17,6 +17,11 @@ from __future__ import annotations
 # HBM3.
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
+# H100 SXM (NVIDIA data sheet): bfloat16 dense on the tensor cores, and
+# NVLink 4, per direction per GPU (the LM roofline's rates,
+# ``repro_torch.bench.roofline``).
+PEAK_BF16_FLOPS = 989e12
+PEAK_LINK_BYTES = 450e9
 
 # The kernels one fwd+grad of each kernel tier of the SoftSort apply
 # launches (the v1 backward is plain torch and launches none).

@@ -1,7 +1,25 @@
-"""Device meshes for sharded permutation workloads, the port's counterpart
-of ``repro.launch.mesh.make_sort_mesh``.
+"""Device meshes, the port's counterpart of ``repro.launch.mesh``.
 
-ShuffleSoftSort instances are embarrassingly parallel (N parameters each,
+Two workload families share this module.
+
+**LM training and serving** (``make_production_mesh``): a
+``torch.distributed`` ``DeviceMesh`` of the reference's shapes and axis
+names,
+
+    single-pod: (16, 16)      axes ("data", "model")        256 ranks
+    multi-pod : (2, 16, 16)   axes ("pod", "data", "model") 512 ranks
+
+The batch shards over ("pod", "data"); parameters and optimizer moments
+FSDP over "data"; tensor and expert parallelism over "model", the
+innermost axis, so that its collectives stay on the fastest links (on
+H100s, NVLink inside a node of 8: a "model" axis of 16 spans two nodes).
+The factory takes any shape for elastic restarts.  The mesh needs a
+process group of at least as many ranks: the dry-run
+(``repro_torch.launch.dryrun``) makes one process stand for rank 0 of 256
+or 512 with torch's in-process ``fake`` group; on a card the group is
+``nccl`` (a (1, 1) mesh on one card, world size 1).
+
+**Permutation workloads** (``make_sort_mesh``): ShuffleSoftSort instances are embarrassingly parallel (N parameters each,
 no cross-instance communication until the best-restart argmin), so the
 mesh is one-dimensional: the engines flatten the B problems x S restarts
 grid and split it over the mesh's "data" axis, padding the tail slot with
@@ -17,8 +35,6 @@ several slots.  ``mesh.without(ids)``, the mesh over the survivors of an
 eviction, keeps their ids, so a health monitor's verdicts keep naming the
 same slots.
 
-The LM path's meshes (``make_production_mesh``, ``axis_rules_for``) wait
-for the LM meshes and dry-run (ROADMAP.md Queue A16d).
 """
 from __future__ import annotations
 
@@ -26,6 +42,60 @@ import dataclasses
 from typing import Sequence
 
 import torch
+
+from repro_torch.models.layers import AxisRules, P, axis_names, placements
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         shape: tuple[int, ...] | None = None):
+    """The LM mesh: ``shape`` (default (16, 16), or (2, 16, 16) with
+    ``multi_pod``) over ranks 0.. of the initialised process group, axes
+    ("data", "model") or ("pod", "data", "model"); a "cuda" mesh on an
+    ``nccl`` group, else a "cpu" one (the ``fake`` and ``gloo`` groups).
+    Raises ``RuntimeError`` when the group has fewer ranks than
+    the shape needs; it never shrinks the mesh."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    if shape is None:
+        shape = (2, 16, 16) if multi_pod else (16, 16)
+    shape = tuple(int(s) for s in shape)
+    axes = (("pod", "data", "model") if len(shape) == 3
+            else ("data", "model"))
+    ndev = 1
+    for s in shape:
+        ndev *= s
+    avail = dist.get_world_size() if dist.is_initialized() else 0
+    if avail < ndev:
+        raise RuntimeError(
+            f"mesh {shape} needs {ndev} ranks, have {avail}; the dry-run "
+            "entry point initialises torch's in-process 'fake' process "
+            "group (torch.testing._internal.distributed.fake_pg.FakeStore, "
+            f"world_size >= {ndev}) before building the mesh")
+    device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    return DeviceMesh(device_type, torch.arange(ndev).reshape(shape),
+                      mesh_dim_names=axes)
+
+
+def axis_rules_for(mesh) -> AxisRules:
+    names = axis_names(mesh)
+    dp = ("pod", "data") if "pod" in names else ("data",)
+    return AxisRules(fsdp="data", tp="model", dp=dp)
+
+
+def dp_axes(mesh):
+    return ("pod", "data") if "pod" in axis_names(mesh) else ("data",)
+
+
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """A tensor laid out as ``spec`` on ``mesh`` (the counterpart of
+    ``jax.sharding.NamedSharding``); a leaf of the port's trees."""
+    mesh: object
+    spec: P
+
+    @property
+    def placements(self) -> tuple:
+        return placements(self.mesh, self.spec)
 
 
 @dataclasses.dataclass(frozen=True)

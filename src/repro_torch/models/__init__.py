@@ -15,6 +15,7 @@ from repro_torch.models.model import (  # noqa: F401
     loss_fn,
     make_caches,
     param_count,
+    param_specs,
     params_from_jax,
     prefill,
     reduced_config,

@@ -28,7 +28,9 @@ import torch
 from torch import nn
 
 from repro_torch.kernels.flash_ops import flash_attention
-from repro_torch.models.layers import Linear, apply_rope, linear
+from repro_torch.models.layers import (Linear, apply_rope, constrain_dims,
+                                       linear, linear_specs, prefixed)
+from repro_torch.models.sharded import heads_view, merge_heads, write_cache
 
 
 class KVCache(NamedTuple):
@@ -46,11 +48,18 @@ class Attention(nn.Module):
         self.wk = Linear(d, hkv * dh, dtype, generator, device, bias=bias)
         self.wv = Linear(d, hkv * dh, dtype, generator, device, bias=bias)
         self.wo = Linear(h * dh, d, dtype, generator, device)
+        self.bias = bias
+
+    def specs(self, rules):
+        fsdp, tp = rules.fsdp, rules.tp
+        return {**prefixed("wq", linear_specs(self.bias, fsdp, tp)),
+                **prefixed("wk", linear_specs(self.bias, fsdp, tp)),
+                **prefixed("wv", linear_specs(self.bias, fsdp, tp)),
+                **prefixed("wo", linear_specs(False, tp, fsdp))}
 
 
 def _split_heads(x, n_heads, dh):
-    b, t, _ = x.shape
-    return x.reshape(b, t, n_heads, dh)
+    return heads_view(x, n_heads, dh)
 
 
 def qkv(p, cfg, x, positions):
@@ -64,27 +73,36 @@ def qkv(p, cfg, x, positions):
 
 
 def _out(p, o):
-    b, t, h, dh = o.shape
-    return linear(p.wo, o.reshape(b, t, h * dh))
+    return linear(p.wo, merge_heads(o))
 
 
-def _positions(b, t, device, start=0):
-    return torch.arange(start, start + t, device=device).expand(b, t)
+def _positions(t, device, start=0):
+    """Positions (1, T), broadcast over the batch by RoPE."""
+    return torch.arange(start, start + t, device=device)[None]
+
+
+def _seq_shard(cfg, q, k, v):
+    """Sequence-sharded attention (``attn_seq_shard``): q rows over tp,
+    heads whole; k and v over the batch only."""
+    if cfg.attn_seq_shard:
+        q = constrain_dims(q, {0: "dp", 1: "tp"})
+        k = constrain_dims(k, {0: "dp"})
+        v = constrain_dims(v, {0: "dp"})
+    return q, k, v
 
 
 def attention_full(p, cfg, x, *, causal: bool = True, positions=None):
     """Train / prefill path over the whole sequence."""
-    b, t, _ = x.shape
     if positions is None:
-        positions = _positions(b, t, x.device)
-    q, k, v = qkv(p, cfg, x, positions)
+        positions = _positions(x.shape[1], x.device)
+    q, k, v = _seq_shard(cfg, *qkv(p, cfg, x, positions))
     return _out(p, flash_attention(q, k, v, causal, 0))
 
 
 def attention_prefill(p, cfg, x):
     """Full causal pass that also returns the populated KV cache."""
-    b, t, _ = x.shape
-    q, k, v = qkv(p, cfg, x, _positions(b, t, x.device))
+    q, k, v = _seq_shard(cfg, *qkv(p, cfg, x, _positions(x.shape[1],
+                                                        x.device)))
     return _out(p, flash_attention(q, k, v, True, 0)), KVCache(k, v)
 
 
@@ -92,10 +110,9 @@ def attention_decode(p, cfg, x, cache: KVCache, pos: int):
     """One-token step.  x (B, 1, D); cache K/V (B, S, Hkv, Dh); ``pos`` the
     index written (the same for the batch).  Writes K/V at ``pos`` into
     the cache in place and returns it."""
-    b = x.shape[0]
-    q, k_new, v_new = qkv(p, cfg, x, _positions(b, 1, x.device, pos))
-    cache.k[:, pos:pos + 1] = k_new
-    cache.v[:, pos:pos + 1] = v_new
+    q, k_new, v_new = qkv(p, cfg, x, _positions(1, x.device, pos))
+    write_cache(cache.k, k_new, pos)
+    write_cache(cache.v, v_new, pos)
     return _out(p, flash_attention(q, cache.k, cache.v, True, pos)), cache
 
 

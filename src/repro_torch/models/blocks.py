@@ -19,8 +19,10 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from repro_torch.models import attention as attn
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.attention import KVCache
-from repro_torch.models.layers import MLP, RMSNorm, mlp, param, rmsnorm
+from repro_torch.models.layers import (MLP, P, RMSNorm, constrain_act, mlp,
+                                       param, rmsnorm)
 from repro_torch.models.moe import MoE, moe_ffn, moe_ffn_gather
+from repro_torch.models.sharded import heads_view
 from repro_torch.models.ssm import SSMCache
 
 _F32 = torch.float32
@@ -52,6 +54,17 @@ class Layer(nn.Module):
             self.norm2 = RMSNorm(d, dtype, device)
             self.mlp = MLP(d, cfg.d_ff, dtype, generator, device)
 
+    def specs(self, rules):
+        return {"xgate": P()} if self.kind == "cross_attn" else {}
+
+
+def _res(x, y):
+    """The residual stream x + y, pinned to the launcher's activation
+    layout: a sub-block whose last product contracts over the
+    tensor-parallel axis gives a partial sum, reduced here, as the
+    reference's SPMD program reduces it before its next layer."""
+    return constrain_act(x + y)
+
 
 def _gated(p, cfg, x, ctx_kv):
     """x plus the tanh-gated cross-attention to the context.  The gate is
@@ -59,7 +72,7 @@ def _gated(p, cfg, x, ctx_kv):
     it (torch would compute a 0-d float32 tensor times bf16 in bf16)."""
     y = attn.cross_attention(p.xattn, cfg, rmsnorm(p.norm_c, x, cfg.norm_eps),
                              ctx_kv)
-    return x + (torch.tanh(p.xgate) * y.to(_F32)).to(x.dtype)
+    return _res(x, (torch.tanh(p.xgate) * y.to(_F32)).to(x.dtype))
 
 
 def _ffn(p, cfg, x, capacity_factor=None):
@@ -68,9 +81,9 @@ def _ffn(p, cfg, x, capacity_factor=None):
         moe = moe_ffn_gather if cfg.moe_impl == "gather" else moe_ffn
         y, aux = moe(p.moe, cfg, rmsnorm(p.norm2, x, cfg.norm_eps),
                      capacity_factor=capacity_factor)
-        return x + y, aux["moe_balance"] + aux["router_z"]
+        return _res(x, y), aux["moe_balance"] + aux["router_z"]
     if hasattr(p, "mlp"):
-        return x + mlp(p.mlp, rmsnorm(p.norm2, x, cfg.norm_eps)), None
+        return _res(x, mlp(p.mlp, rmsnorm(p.norm2, x, cfg.norm_eps))), None
     return x, None
 
 
@@ -78,12 +91,13 @@ def apply_layer_full(p, cfg, x, *, causal: bool, ctx=None):
     """Train path: full sequence, no cache.  Returns (x, aux)."""
     kind = p.kind
     if kind.startswith("attn") or kind == "cross_attn":
-        x = x + attn.attention_full(p.attn, cfg,
-                                    rmsnorm(p.norm1, x, cfg.norm_eps),
-                                    causal=causal)
+        x = _res(x, attn.attention_full(p.attn, cfg,
+                                        rmsnorm(p.norm1, x, cfg.norm_eps),
+                                        causal=causal))
     elif kind.startswith("mamba"):
-        x = x + ssm_mod.mamba_forward(p.mamba, cfg,
-                                      rmsnorm(p.norm1, x, cfg.norm_eps))
+        x = _res(x, ssm_mod.mamba_forward(p.mamba, cfg,
+                                          rmsnorm(p.norm1, x,
+                                                  cfg.norm_eps)))
     if kind == "cross_attn":
         x = _gated(p, cfg, x, attn.context_kv(p.xattn, cfg, ctx))
     x, aux = _ffn(p, cfg, x)
@@ -93,8 +107,10 @@ def apply_layer_full(p, cfg, x, *, causal: bool, ctx=None):
 
 def _unit_full(layers, cfg, x, causal, ctx):
     aux = torch.zeros((), dtype=_F32, device=x.device)
+    x = constrain_act(x)
     for layer in layers:
         x, a = apply_layer_full(layer, cfg, x, causal=causal, ctx=ctx)
+        x = constrain_act(x)
         aux = aux + a
     return x, aux
 
@@ -142,10 +158,10 @@ def apply_layer_prefill(p, cfg, x, *, ctx=None):
     h = rmsnorm(p.norm1, x, cfg.norm_eps)
     if kind.startswith("attn") or kind == "cross_attn":
         y, cache = attn.attention_prefill(p.attn, cfg, h)
-        x = x + y
+        x = _res(x, y)
     elif kind.startswith("mamba"):
         # an SSM's prefill: the full forward, and the state after it
-        x = x + ssm_mod.mamba_forward(p.mamba, cfg, h)
+        x = _res(x, ssm_mod.mamba_forward(p.mamba, cfg, h))
         cache = _ssm_state_after(p.mamba, cfg, h)
     if kind == "cross_attn":
         x = _gated(p, cfg, x, attn.context_kv(p.xattn, cfg, ctx))
@@ -174,7 +190,7 @@ def _final_state_scan(mp, cfg, h):
     nc = t // q
     x, bm, dt = ssm_mod._inputs(mp, h, t_true, t)
     la = dt * -torch.exp(mp.a_log)
-    xh = x.reshape(b, t, hh, p_).to(_F32)
+    xh = heads_view(x, hh, p_).to(_F32)
 
     cum = torch.cumsum(la.reshape(b, nc, q, hh), dim=2)
     w_end = torch.exp(cum[:, :, -1:, :] - cum) * dt.reshape(b, nc, q, hh)
@@ -196,7 +212,7 @@ def apply_layer_decode(p, cfg, x, cache, pos: int, ctx_kv: KVCache | None):
         y, cache = attn.attention_decode(p.attn, cfg, h, cache, pos)
     else:
         y, cache = ssm_mod.mamba_decode(p.mamba, cfg, h, cache)
-    x = x + y
+    x = _res(x, y)
     if kind == "cross_attn":
         x = _gated(p, cfg, x, ctx_kv)
     return _ffn(p, cfg, x, float(cfg.num_experts))[0], cache

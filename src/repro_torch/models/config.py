@@ -8,10 +8,12 @@ dense/MoE).  The port builds a plain list of ``num_layers`` layers from
 that unit: layer ``r * len(unit) + i`` is unit position ``i`` of repeat
 ``r``.
 
-Some fields only steer the reference's SPMD sharding or its sharded
-state specs and are inert data here: ``embed_shard``, ``attn_seq_shard``,
-``scan_unroll`` and ``moment_dtype`` (read by the sharded builders, ROADMAP.md
-A16d).  ``remat`` and ``remat_policy`` steer the train path
+``embed_shard`` picks the embedding table's spec (``LM.specs``),
+``attn_seq_shard`` the sequence-sharded attention under the launcher
+(``repro_torch.models.attention``), and ``moment_dtype`` the moments of the
+sharded train state (``repro_torch.launch.steps.model_state_specs``).
+``scan_unroll`` is inert: the port runs its layers in a Python loop, with
+nothing to unroll.  ``remat`` and ``remat_policy`` steer the train path
 (``repro_torch.models.blocks.stack_full``).
 """
 from __future__ import annotations

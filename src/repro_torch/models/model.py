@@ -39,12 +39,19 @@ from repro_torch.core.shufflesoftsort import resolve_device
 from repro_torch.models import blocks
 from repro_torch.models.attention import context_kv
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.sharded import (is_dtensor, lse_and_pick,
+                                        vocab_sharded)
 from repro_torch.models.layers import (
+    AxisRules,
     Embedding,
     Linear,
+    P,
     RMSNorm,
+    constrain_act,
     embed,
     linear,
+    linear_specs,
+    prefixed,
     rmsnorm,
     torch_dtype,
     unembed,
@@ -88,6 +95,40 @@ class LM(nn.Module):
 
     def forward(self, tokens, context=None) -> LMOutputs:
         return forward(self, tokens, context)
+
+    def specs(self, rules):
+        cfg = self.cfg
+        out = {}
+        if cfg.embed_shard == "hidden":
+            # local lookup (vocab replicated), hidden dim over tp: no
+            # per-forward (B, S, D) sum of a vocab-sharded table
+            out["embed.table"] = P(None, rules.tp)
+        if self.lm_head is not None:
+            out.update(prefixed("lm_head", linear_specs(
+                False, rules.fsdp, rules.tp)))
+        if self.vision_proj is not None:
+            out.update(prefixed("vision_proj", linear_specs(
+                False, None, rules.fsdp)))
+        return out
+
+
+def param_specs(model: nn.Module, rules: AxisRules | None = None) -> dict:
+    """{parameter name: P}, the spec the reference's ``init_model``
+    returns beside each array (without the stacked layers' leading
+    repeats axis): each module's ``specs(rules)`` for its own parameters,
+    a parent's overriding its children's.  Raises if a parameter has
+    none."""
+    rules = rules or AxisRules()
+    out = {}
+    for prefix, mod in reversed(list(model.named_modules())):
+        if hasattr(mod, "specs"):
+            pre = f"{prefix}." if prefix else ""
+            out.update({pre + k: v for k, v in mod.specs(rules).items()})
+    names = [k for k, _ in model.named_parameters()]
+    missing = [k for k in names if k not in out]
+    if missing:
+        raise ValueError(f"no spec for parameters {missing}")
+    return {k: out[k] for k in names}
 
 
 def init_model(cfg: ModelConfig, device=None, seed: int = 0) -> LM:
@@ -175,8 +216,12 @@ def _head(model, x):
         logits = linear(model.lm_head, x.to(_F32))
     if cfg.padded_vocab != cfg.vocab_size:
         # vocab-padding columns never reach a softmax or an argmax
-        logits[..., cfg.vocab_size:] = -1e30
-    return logits
+        if is_dtensor(logits):      # per vocab shard, no gather
+            cols = torch.arange(cfg.padded_vocab, device=x.device)
+            logits = logits.masked_fill(cols >= cfg.vocab_size, -1e30)
+        else:
+            logits[..., cfg.vocab_size:] = -1e30
+    return constrain_act(logits, vocab_dim=True)
 
 
 # ---------------------------------------------------------------- forward
@@ -187,8 +232,8 @@ def forward(model: LM, tokens, context=None) -> LMOutputs:
     cfg = model.cfg
     ctx = _encode_context(model, context)
     x, aux = blocks.stack_full(model.blocks, len(cfg.block_program()[0]),
-                               cfg, embed(model.embed, tokens), causal=True,
-                               ctx=ctx)
+                               cfg, constrain_act(embed(model.embed, tokens)),
+                               causal=True, ctx=ctx)
     x = rmsnorm(model.final_norm, x, cfg.norm_eps)
     return LMOutputs(_head(model, x), aux)
 
@@ -198,8 +243,12 @@ def loss_fn(model: LM, batch) -> tuple[torch.Tensor, dict]:
     losses."""
     out = forward(model, batch["tokens"], batch.get("context"))
     logits = out.logits
-    lse = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, batch["labels"][..., None].long())[..., 0]
+    if vocab_sharded(logits):
+        lse, ll = lse_and_pick(logits, batch["labels"])
+    else:
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = torch.gather(logits, -1,
+                          batch["labels"][..., None].long())[..., 0]
     nll = (lse - ll).mean()
     return nll + out.aux_loss, {"nll": nll, "aux": out.aux_loss,
                                 "ppl": torch.exp(torch.clamp(nll, max=20.0))}
@@ -209,10 +258,14 @@ def prefill(model: LM, tokens, context=None):
     """(last-position logits (B, 1, V), caches) for the decode steps."""
     cfg = model.cfg
     ctx = _encode_context(model, context)
-    x = embed(model.embed, tokens)
+    x = constrain_act(embed(model.embed, tokens))
+    unit_len = len(cfg.block_program()[0])
     caches = []
-    for layer in model.blocks:
+    for i, layer in enumerate(model.blocks):
+        if i % unit_len == 0:
+            x = constrain_act(x)
         x, c = blocks.apply_layer_prefill(layer, cfg, x, ctx=ctx)
+        x = constrain_act(x)
         caches.append(c)
     x = rmsnorm(model.final_norm, x[:, -1:, :], cfg.norm_eps)
     return _head(model, x), caches
@@ -239,9 +292,12 @@ def decode_step(model: LM, token, caches, pos: int, context=None,
     cfg = model.cfg
     if ctx_kvs is None:
         ctx_kvs = precompute_ctx_kvs(model, context)
-    x = embed(model.embed, token)
+    x = constrain_act(embed(model.embed, token))
+    unit_len = len(cfg.block_program()[0])
     new = []
     for i, (layer, cache) in enumerate(zip(model.blocks, caches)):
+        if i % unit_len == 0:
+            x = constrain_act(x)
         ck = ctx_kvs[i] if ctx_kvs is not None else None
         x, c = blocks.apply_layer_decode(layer, cfg, x, cache, pos, ck)
         new.append(c)

@@ -16,7 +16,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.models.layers import RMSNorm, normal, param, rmsnorm
+from repro_torch.models.layers import P, RMSNorm, normal, param, rmsnorm
+from repro_torch.models.sharded import heads_view, merge_heads
 
 _F32 = torch.float32
 
@@ -60,11 +61,19 @@ class Mamba(nn.Module):
         self.wo = lin(din, d)
         self.norm = RMSNorm(din, dtype, device)
 
+    def specs(self, rules):
+        fsdp, tp = rules.fsdp, rules.tp
+        return {"wz": P(fsdp, tp), "wx": P(fsdp, tp), "wb": P(fsdp, None),
+                "wc": P(fsdp, None), "wdt": P(fsdp, tp),
+                "conv_x": P(None, tp), "conv_b": P(None, None),
+                "conv_c": P(None, None), "a_log": P(tp), "dt_bias": P(tp),
+                "d_skip": P(tp), "wo": P(tp, fsdp)}
+
 
 def _causal_conv(x, kernel):
     """x (B, T, C); kernel (K, C): depthwise causal conv."""
     k = kernel.shape[0]
-    xp = F.pad(x, (0, 0, k - 1, 0))
+    xp = _zeros_along_t(x, k - 1, before=True)
     return sum(xp[:, i:i + x.shape[1], :] * kernel[i][None, None, :]
                for i in range(k))
 
@@ -87,8 +96,17 @@ def _inputs(p, h, t_true, t):
     return x, bm, dt
 
 
+def _zeros_along_t(x, n: int, before: bool):
+    """x (B, T, C) with n zero steps before or after it: a concatenation,
+    where ``F.pad`` would do, since torch 2.11's DTensor gives a padded
+    DTensor a one-dim layout on a mesh of more dims."""
+    z = x.new_zeros((x.shape[0], n, x.shape[2]))
+    return torch.cat([z, x] if before else [x, z], dim=1)
+
+
 def _pad(h, t):
-    return F.pad(h, (0, 0, 0, t - h.shape[1])) if t != h.shape[1] else h
+    return _zeros_along_t(h, t - h.shape[1], before=False) \
+        if t != h.shape[1] else h
 
 
 def mamba_forward(p, cfg, xin):
@@ -108,7 +126,7 @@ def mamba_forward(p, cfg, xin):
 
     a = -torch.exp(p.a_log)                                     # (H,) < 0
     la = dt * a                                                 # (B,T,H) <= 0
-    xh = x.reshape(b, t, h, p_).to(_F32)
+    xh = heads_view(x, h, p_).to(_F32)
 
     cum = torch.cumsum(la.reshape(b, nc, q, h), dim=2)          # (B,Nc,Q,H)
     xc = xh.reshape(b, nc, q, h, p_)
@@ -143,7 +161,7 @@ def mamba_forward(p, cfg, xin):
 
     y = (y_intra + y_inter).reshape(b, t, h, p_)
     y = y + p.d_skip[None, None, :, None] * xh
-    y = y.reshape(b, t, h * p_).to(xin.dtype)
+    y = merge_heads(y).to(xin.dtype)
     y = rmsnorm(p.norm, y * F.silu(z), cfg.norm_eps)
     return (y @ p.wo)[:, :t_true, :]
 
@@ -164,12 +182,12 @@ def mamba_decode(p, cfg, xin, cache: SSMCache):
     dt = F.softplus((xt @ p.wdt).to(_F32) + p.dt_bias)          # (B, H)
 
     decay = torch.exp(dt * -torch.exp(p.a_log))                 # (B, H)
-    xh = x.reshape(b, h, p_).to(_F32)
+    xh = heads_view(x, h, p_).to(_F32)
     upd = torch.einsum("bh,bn,bhp->bhnp", dt, bm, xh)
     state = decay[:, :, None, None] * cache.state + upd
     y = torch.einsum("bn,bhnp->bhp", cm, state)
     y = y + p.d_skip[None, :, None] * xh
-    y = y.reshape(b, h * p_).to(xin.dtype)
+    y = merge_heads(y).to(xin.dtype)
     y = rmsnorm(p.norm, y * F.silu(z), cfg.norm_eps)
     return (y @ p.wo)[:, None, :], SSMCache(conv_x, conv_b, conv_c, state)
 

@@ -61,11 +61,13 @@ def _render(node) -> str:
 
 
 def _host(leaf) -> np.ndarray:
-    """A host copy of a tensor (or an array, as it is).  A bfloat16 tensor
-    comes back as its bit patterns in a 2-byte void array, the ``|V2``
+    """A host copy of a tensor (a DTensor gathered whole; an array as it
+    is).  A bfloat16 tensor comes back as its bit patterns in a 2-byte void array, the ``|V2``
     entry ``np.savez`` writes of the reference's bfloat16 arrays."""
     if isinstance(leaf, torch.Tensor):
         leaf = leaf.detach()
+        if type(leaf) is not torch.Tensor and hasattr(leaf, "full_tensor"):
+            leaf = leaf.full_tensor()            # a DTensor: the whole
         if leaf.dtype == torch.bfloat16:
             return leaf.view(torch.int16).cpu().numpy().view("V2")
         return leaf.cpu().numpy()
@@ -179,12 +181,18 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, like: PyTree, step: int | None = None
-                ) -> tuple[PyTree, int]:
+    def restore(self, like: PyTree, step: int | None = None, *,
+                shardings: PyTree = None) -> tuple[PyTree, int]:
         """Load into the structure of ``like``.  A leaf of ``like`` that is
         a torch tensor comes back as a tensor of its dtype on its device,
         one with a numpy dtype as an array of that dtype, any other (a
-        plain int) as the stored array, uncast."""
+        plain int) as the stored array, uncast.  ``shardings`` (a tree of
+        ``repro_torch.launch.mesh.NamedSharding`` of ``like``'s structure,
+        or one for every leaf) reshards elastically: each tensor leaf comes
+        back as a DTensor laid out on the new mesh
+        (``distribute_tensor``), whatever mesh it was saved under; a
+        DTensor leaf of ``like`` gives its local dtype and the device of
+        the new mesh."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoint in {self.directory}")
@@ -206,7 +214,11 @@ class CheckpointManager:
             elif hasattr(lk, "dtype"):
                 a = np.asarray(a, dtype=lk.dtype)
             out.append(a)
-        return unflatten(structure, out), step
+        state = unflatten(structure, out)
+        if shardings is not None:
+            from repro_torch.launch.steps import place_tree
+            state = place_tree(state, shardings)
+        return state, step
 
     def manifest(self, step: int | None = None) -> dict:
         step = step if step is not None else self.latest_step()

@@ -325,9 +325,13 @@ class FaultInjector:
 
 
 def _host_copy(x):
-    """A host snapshot of one leaf of a train state."""
+    """A host snapshot of one leaf of a train state (a DTensor gathered
+    whole)."""
     if isinstance(x, torch.Tensor):
-        return x.detach().to("cpu", copy=True)
+        x = x.detach()
+        if type(x) is not torch.Tensor and hasattr(x, "full_tensor"):
+            x = x.full_tensor()
+        return x.to("cpu", copy=True)
     return np.array(x) if isinstance(x, np.ndarray) else x
 
 
@@ -351,9 +355,10 @@ class TrainSupervisor:
     before the first one, replays from a host snapshot of the initial
     state.  The state is a tree of tensors (``repro_torch.tree``) and
     comes back on its devices.  ``history`` holds one ``metrics`` entry
-    per step, and ``straggler`` and ``failure`` events.  The reference's
-    ``shardings`` (a restore onto another mesh's layout) comes with the
-    LM meshes (ROADMAP.md A16d); ``mesh`` is recorded in the manifests."""
+    per step, and ``straggler`` and ``failure`` events.  ``shardings`` (a
+    tree of ``repro_torch.launch.mesh.NamedSharding``) restores each
+    checkpoint onto that layout (``CheckpointManager.restore``), whatever
+    mesh wrote it; ``mesh`` is recorded in the manifests."""
 
     def __init__(
         self,
@@ -364,6 +369,7 @@ class TrainSupervisor:
         checkpoint_every: int = 50,
         max_restarts: int = 10,
         mesh=None,
+        shardings=None,
         straggler=None,
     ):
         self.step_fn = step_fn
@@ -372,6 +378,7 @@ class TrainSupervisor:
         self.checkpoint_every = checkpoint_every
         self.max_restarts = max_restarts
         self.mesh = mesh
+        self.shardings = shardings
         self.straggler = straggler or StragglerMonitor()
         self.restarts = 0
         self.history: list[dict] = []
@@ -387,7 +394,7 @@ class TrainSupervisor:
         init_state = tree_map(_host_copy, state)
         latest = self.ckpt.latest_step()
         if latest is not None and latest > step:
-            state, step = self.ckpt.restore(state)
+            state, step = self.ckpt.restore(state, shardings=self.shardings)
             log.info("resumed at step %d", step)
 
         while step < target:
@@ -420,9 +427,13 @@ class TrainSupervisor:
                     log.warning("failure before first checkpoint; "
                                 "restarting from initial state")
                     state = tree_map(_placed, init_state, devices)
+                    if self.shardings is not None:
+                        from repro_torch.launch.steps import place_tree
+                        state = place_tree(state, self.shardings)
                     step = start_step
                     continue
-                state, step = self.ckpt.restore(state)
+                state, step = self.ckpt.restore(state,
+                                                shardings=self.shardings)
                 log.info("restored step %d after failure (%d restarts)",
                          step, self.restarts)
         self.ckpt.wait()

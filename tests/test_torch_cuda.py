@@ -1583,3 +1583,125 @@ def test_cuda_supervisor_resume_is_bitwise(cuda, tmp_path):
     assert (n0, r0, n1, r1) == (12, 0, 12, 1)
     for a, b in zip(leaves(clean), leaves(failed)):
         assert torch.equal(a, b)
+
+
+@pytest.fixture
+def card_mesh(cuda):
+    """A (1, 1) ("data", "model") mesh over an nccl group of one rank."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_production_mesh
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1, device_id=torch.device("cuda", 0))
+    try:
+        yield make_production_mesh(shape=(1, 1))
+    finally:
+        dist.destroy_process_group()
+
+
+def _bitwise(got, want):
+    from repro_torch.tree import flatten
+    gl, gs = flatten(got)
+    wl, ws = flatten(want)
+    assert gs == ws
+    for g, w in zip(gl, wl):
+        g = g.to_local() if hasattr(g, "to_local") else g
+        assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "granite-moe-3b-a800m",
+                                  "jamba-v0.1-52b"])
+def test_cuda_one_rank_builders_are_bitwise_the_unsharded_steps(card_mesh,
+                                                                arch):
+    """``lower_cell``'s train, prefill and decode steps on a (1, 1) mesh
+    of the card, at the tiny preset (float32), are bitwise
+    ``make_train_step``, ``prefill`` and ``decode_step`` on the same
+    inputs, their flash forwards launched on the card (none for the
+    jamba preset, whose two layers are Mamba layers)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import synthetic_batch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import steps
+    from repro_torch.launch.train import PRESETS
+    from repro_torch.models import init_model, reduced_config
+    from repro_torch.models import model as model_lib
+    from repro_torch.models.config import ShapeCell
+    from repro_torch.optim import adam_init
+    cfg = reduced_config(get_config(arch), **PRESETS["tiny"])
+    model = init_model(cfg, "cuda", seed=0)
+    params = steps.model_params(model)
+    b, t = 2, 32
+    batch = synthetic_batch(cfg, b, t, 0, device="cuda")
+    state = {"params": params, "opt": adam_init(params)}
+    want = steps.make_train_step(cfg)(state, batch)
+    reset_launch_counts()
+    got = steps.lower_cell(cfg, ShapeCell("t", t, b, "train"),
+                           card_mesh)(state, batch)
+    torch.cuda.synchronize()
+    kinds = cfg.block_program()[0] * cfg.block_program()[1]
+    attn = (sum(k.startswith("attn") or k == "cross_attn" for k in kinds)
+            + kinds.count("cross_attn") + cfg.encoder_layers)
+    assert launch_counts()["flash_forward"] == attn * (2 if cfg.remat
+                                                       else 1)
+    _bitwise(got, want)
+
+    with torch.no_grad():
+        want = model_lib.prefill(model, batch["tokens"])
+    got = steps.lower_cell(cfg, ShapeCell("p", t, b, "prefill"),
+                           card_mesh)(params, batch["tokens"])
+    _bitwise(got, want)
+
+    caches = model_lib.make_caches(cfg, b, t + 8, torch.float32, "cuda")
+    for c, w in zip(caches, want[1]):
+        if hasattr(c, "k"):
+            c.k[:, :t], c.v[:, :t] = w.k, w.v
+    mine = [type(c)(*(x.clone() for x in c)) for c in caches]
+    token = batch["tokens"][:, -1:]
+    with torch.no_grad():
+        want = model_lib.decode_step(model, token, mine, t)
+    got = steps.lower_cell(cfg, ShapeCell("d", t + 8, b, "decode"),
+                           card_mesh)(params, token, caches,
+                                      torch.tensor(t, dtype=torch.int32))
+    _bitwise(got, want)
+
+
+@pytest.mark.cuda
+def test_cuda_restore_with_shardings_places_on_the_card(card_mesh,
+                                                        tmp_path):
+    """``restore(shardings=)`` on the card's mesh: each leaf a DTensor on
+    the card with the saved bits."""
+    from repro_torch.launch.mesh import NamedSharding
+    from repro_torch.models.layers import P
+    from repro_torch.runtime.checkpoint import CheckpointManager
+    state = {"w": torch.arange(12.0, device="cuda").reshape(3, 4),
+             "b": torch.arange(4, device="cuda").to(torch.bfloat16)}
+    mgr = CheckpointManager(str(tmp_path), async_save=False)
+    mgr.save(1, state)
+    sh = {"w": NamedSharding(card_mesh, P("data", "model")),
+          "b": NamedSharding(card_mesh, P())}
+    got, _ = mgr.restore(state, shardings=sh)
+    for k, v in state.items():
+        assert got[k].to_local().device.type == "cuda"
+        assert torch.equal(got[k].to_local(), v)
+
+
+@pytest.mark.cuda
+def test_cuda_tensors_on_a_host_mesh_raise(cuda):
+    """A gloo group gives a "cpu" mesh: placing a CUDA tensor there raises
+    rather than copying it to the host and running the step there."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import NamedSharding, make_production_mesh
+    from repro_torch.launch.steps import place
+    from repro_torch.models.layers import P
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = make_production_mesh(shape=(1, 1))
+        assert mesh.device_type == "cpu"
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            place(torch.ones(4, 2, device=cuda), NamedSharding(mesh,
+                                                               P("data")))
+    finally:
+        dist.destroy_process_group()
