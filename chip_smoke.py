@@ -11,7 +11,11 @@ Phases, one JSON line each (``"phase"`` key, ``"t"`` seconds since the
 start):
 
 1. ``env`` / ``build`` — versions, the card, and the ``nvcc`` build of
-   ``src/repro_torch/kernels/csrc/*.cu`` for sm_90a, with its time.
+   ``src/repro_torch/kernels/csrc/*.cu`` for sm_90a, with its time, each
+   kernel's ``-Xptxas -v`` registers and spills, the clusters of the
+   merging flash forward resident at once at 2 to 8 blocks
+   (``cudaOccupancyMaxActiveClusters``), and the threefry hash's SASS
+   instruction mix (``threefry_sass``).
 2. ``kernel_check`` — each of the four dense SoftSort-apply kernels
    (1-4) against its plain PyTorch twin on the same card tensors, at
    (B, N, d) = (8, 4096, 50) (the main run's shape), (3, 1000, 3),
@@ -153,7 +157,8 @@ start):
     pass and the ``v1_stats``, ``v1_apply`` and ``colsum`` counts must
     move.
 11. ``flash_check`` / ``flash_times`` — the one-pass flash-attention
-    kernel ``flash_forward`` (and its split-K merge ``flash_combine``) on
+    kernel ``flash_forward`` (merging 2 to 8 key splits in its cluster
+    epilogue, more in the split-K merge ``flash_combine``) on
     the model layout read in place, at ``decode_splits``' split count and
     at 3 splits, at the shapes of ``tests/test_flash_attention.py``, a
     negative offset, ragged Dh (100, 30), and one attention layer of
@@ -168,27 +173,35 @@ start):
     ``scaled_dot_product_attention`` (float32, TF32 off), decode both
     warm and with the L2 cache flushed before each launch; the merge also
     per launch from one CUDA graph of 100 back-to-back launches
-    (``graph100_ms``).
+    (``graph100_ms``).  ``flash_cluster_check``: at one Qwen1.5-0.5B
+    decode call (``QWEN_DECODE``) with 2, 3 and 4 key splits, the cluster
+    merge bitwise the two-launch path, its launches, and both routes'
+    ms, ``graph100_ms`` and call ms, the forward and the combine apart.
 12. ``flash_main_run`` — that NeMo layer's attention through
     ``flash_attention``, prefill then one decode step, against the oracle,
     the decode row against the prefill's last row; 2 launches of
-    ``flash_forward`` and 1 of ``flash_combine`` (the decode step's).
+    ``flash_forward`` and 1 of ``flash_combine`` (the decode step's 64
+    splits).
 
-13. ``threefry_run`` — the threefry kernel (``threefry_bits``,
-    ``csrc/threefry.cu``) bitwise its twin on the card in its three
-    layouts at ``THREEFRY_SHAPES``; jax's known-answer vectors; the draws
-    of ``threefry_draws`` (split, bits, permutation, uniform) in both
-    counter layouts against jax's digests (``THREEFRY_DIGESTS``); ms per
-    shuffle round at B.S = 8, N = 4096 of ``ThreefryShuffleSource`` and
-    ``TorchShuffleSource``; the kernel's times at two shapes, also per
-    launch from one CUDA graph of 100 launches (``graph100_ms``).
+13. ``threefry_run`` — the threefry kernels (``threefry_bits`` and the
+    fused shuffle round ``threefry_round``, ``csrc/threefry.cu``) bitwise
+    their twins on the card: ``threefry_bits`` in its four layouts at
+    ``THREEFRY_SHAPES``, ``fold_in`` (one launch) at ``FOLD_DATA``, the
+    round in both counter layouts at ``THREEFRY_ROUND_SHAPES``; jax's
+    known-answer vectors through ``threefry_2x32`` on the kernel; the
+    draws of ``threefry_draws`` (split, bits, permutation, uniform) in
+    both counter layouts against jax's digests (``THREEFRY_DIGESTS``); ms
+    per shuffle round at B.S = 8, N = 4096 of ``ThreefryShuffleSource``
+    (one launch) and ``TorchShuffleSource``; the kernels' times, also per
+    launch from one CUDA graph of 100 launches (``graph100_ms``), beside
+    their bounds and an empty kernel's (the launch floor).
 14. ``paper_table_run`` — the paper's Table III at N = 1024, full budget,
     kernel tier (``repro_torch.bench.paper_table``): each row's
     parameters, seconds, DPQ_16, neighbour distance and validity, its
     ``--check`` (ShuffleSoftSort's DPQ_16 above SoftSort's, every row but
     Kissing's valid, exact parameter counts; Kissing's validity as
     found), 16000 launches of each dense kernel (8000 steps of each
-    SoftSort row) and the threefry kernel's.
+    SoftSort row) and the threefry kernels'.
 
 15. ``serve_key_check`` (after ``serve_run``) — raw ``jax.random`` keys on
     ``SortServer.submit`` (ROADMAP.md Queue C11), kernel tier, 1024
@@ -222,8 +235,9 @@ start):
     at the serve CLI's ``tiny`` preset, float32, 4 requests, prompts <= 24,
     8 new tokens; exactly the ``flash_forward`` launches its layer kinds
     and steps make (``lm_flash_calls``: the encoder again at each decode
-    step for the audio model) and ``flash_combine`` wherever the keys
-    split; every step's logits against the same weights on the host (the
+    step for the audio model), the cluster merges and ``flash_combine``
+    wherever the keys split; every step's logits against the same weights
+    on the host (the
     plain twins), teacher-forced with the card's tokens, within
     ``LM_ARCH_ATOL``; whether the greedy tokens agree.
 19. ``lm_serve_run`` — Qwen1.5-0.5B at its full published size (24
@@ -289,7 +303,8 @@ start):
     dry-run's per-device argument bytes of the cut cell equal to the
     bytes of the step's real arguments, and exactly the flash launches
     ``lm_train_calls`` / ``lm_flash_calls`` give (kernel 10 everywhere,
-    10c at decode); ms per step (host clock, a sync, the first apart),
+    merging in its cluster epilogue at decode); ms per step (host clock,
+    a sync, the first apart),
     peak memory, the cost source's FLOPs of the step (``CostMode`` over
     the card's ops) against ``model_flops`` of the cut cell, and
     ``roofline_frac`` (model FLOPs over the bf16 peak, over the measured
@@ -332,13 +347,21 @@ REPLACES = {
                      "src/repro/kernels/flash_attention.py:62",
     "flash_combine": "src/repro/kernels/flash_attention.py:42, "
                      "src/repro/kernels/flash_attention.py:62",
+    "flash_forward_cluster": "src/repro/kernels/flash_attention.py:42, "
+                             "src/repro/kernels/flash_attention.py:62",
     "threefry_bits": "none: the reference draws through XLA's threefry2x32 "
                      "op (jax._src.prng), no Pallas kernel",
+    "threefry_round": "none: the reference draws through XLA's threefry2x32 "
+                      "op (jax._src.prng), no Pallas kernel",
 }
 DENSE = ("fwd_fused", "colsum", "bwd_dws_delta", "bwd_dx")
 BAND = ("fwd_band", "colsum_band", "bwd_band_dws_delta", "bwd_band_dcol")
 V1 = ("v1_stats", "v1_apply")
-FLASH = ("flash_forward", "flash_combine")
+# flash_forward counts every forward launch, flash_forward_cluster those
+# that merged their key splits in the cluster epilogue, flash_combine the
+# standalone merges.
+FLASH = ("flash_forward", "flash_combine", "flash_forward_cluster")
+THREEFRY = ("threefry_bits", "threefry_round")
 FWD_ATOL, GRAD_RTOL, BF16_RTOL = 2e-5, 1e-4, 2e-2
 # ... and (1, 1024, 3): paper_table_run's SoftSort row (1024 colours).
 SHAPES = [(8, 4096, 50), (3, 1000, 3), (1, 17, 1), (1, 1024, 3)]
@@ -371,6 +394,21 @@ NEMO_PREFILL = (1, 4096, 4096, 32, 8, 128, True, 0)
 NEMO_DECODE = (1, 1, 4096, 32, 8, 128, True, 4095)
 NEMO_CUTS = ["context 128k -> 4096 keys, for time",
              "one layer's attention of 40, not the model"]
+# One Qwen1.5-0.5B decode attention call of lm_serve_run's traffic (b): 8
+# requests x 16 heads (16 kv heads, Dh 64) over a 1088-key cache, merged
+# in the cluster epilogue and in two launches at S = 2 key splits (what
+# decode_splits gives it: 128 clusters are resident at once), 3 and 4
+# (which take a second wave of clusters; 4 was the count before the
+# cluster route).
+QWEN_DECODE = (8, 1, 1088, 16, 16, 64, True, 1087)
+# flash_cluster_check's cases, (name, shape, split counts): the Qwen
+# decode call; the 10m recovery run's train attention (8 x 8 heads of 32
+# over 128 tokens, 64-row tiles); lm_mesh_run's decode over a 32 K cache
+# (2 splits, and 4, the count before the cluster route).
+CLUSTER_CASES = [("qwen_decode", QWEN_DECODE, (2, 3, 4)),
+                 ("recovery_10m", (8, 128, 128, 8, 8, 32, True, 0), (2,)),
+                 ("mesh_decode_32k", (8, 1, 32768, 16, 16, 64, True, 32767),
+                  (2, 4))]
 # threefry_run: the draws of ``threefry_draws`` in each counter layout,
 # sha256 (first 16 hex digits) of their words (uint32), int32 permutations
 # or float32 values, computed from jax 0.9.0's jax.random on the CPU
@@ -397,6 +435,13 @@ THREEFRY_KNOWN = [((0x00000000, 0x00000000), (0x00000000, 0x00000000),
 # (R, M) of the kernel checks: main_run's shuffle round (B.S = 8, N =
 # 4096), the paper table's Gumbel noise (N^2 at N = 1024), an odd size.
 THREEFRY_SHAPES = [(8, 4096), (1, 1024 * 1024), (3, 1001)]
+# (R, N) of the fused shuffle round's checks: main_run's round (2
+# permutation rounds), Table III's N = 1024 (1 round), odd sizes whose
+# rows and second halves are not 16-byte aligned.
+THREEFRY_ROUND_SHAPES = [(8, 4096), (2, 1024), (3, 1001), (5, 4098), (1, 1)]
+# fold_in's data words of the checks: 0, 1, 2^31, 2^32 - 1 (and 2^32 + 5,
+# folded mod 2^32).
+FOLD_DATA = (0, 1, 2 ** 31, 2 ** 32 - 1, 2 ** 32 + 5)
 # The previous sampled loss normaliser (pairs from a torch.Generator,
 # ``parent_norm``) gave main_run these orders and losses (sha256 of
 # all_orders, then all_losses, as repro_torch.bench.fixed_path_ab digests
@@ -2708,11 +2753,14 @@ def flash_errors(F, views, folded, causal, off, splits, s):
 
 
 def flash_kernel_phase(torch, F, fops):
-    """Phase 11: flash_forward (and flash_combine) against the twins at
-    FLASH_SHAPES and the NeMo shapes; flash_combine against its twin on
-    the decode step's partials; the Function against the oracle; times at
-    the NeMo shapes, decode warm and cold.  Returns the stats of both
-    kernels: flash_forward at the prefill, flash_combine at decode."""
+    """Phase 11: flash_forward (merging in its cluster epilogue or in
+    flash_combine) against the twins at FLASH_SHAPES and the NeMo shapes;
+    flash_combine against its twin on the NeMo decode step's partials; the
+    cluster merge against the two-launch path (``flash_cluster_check``);
+    the Function against the oracle; times at the NeMo shapes, decode warm
+    and cold.  Returns the stats of the kernels line: flash_forward at the
+    prefill, flash_combine at decode, flash_forward_cluster at
+    QWEN_DECODE."""
     from repro_torch.kernels.bounds import flash_bound_ms
 
     stats = {}
@@ -2722,7 +2770,7 @@ def flash_kernel_phase(torch, F, fops):
         q, k, v = flash_operands(torch, b, tq, s, h, hkv, dh, seed=tq + s)
         views = [fops.heads_major(t) for t in (q, k, v)]
         folded = [fops.fold_heads(t) for t in (q, k, v)]
-        auto = F.decode_splits(b * hkv, h // hkv * tq, s)
+        auto = F.decode_splits(b * hkv, h // hkv * tq, s, dh, "cuda")
         nemo = shape in (NEMO_PREFILL, NEMO_DECODE)
         worst = {}
         for splits in sorted({auto} if nemo else {auto, 3}):
@@ -2796,6 +2844,8 @@ def flash_kernel_phase(torch, F, fops):
             stats["flash_combine"] = times["flash_combine"]
         del qf, kf, vf, folded, views, q, k, v
 
+    stats["flash_forward_cluster"] = flash_cluster_check(torch, F, fops)
+
     # The Function: values and dq, dk, dv against the oracle's autograd.
     q, k, v = flash_operands(torch, 2, 64, 64, 4, 2, 32, seed=9)
     dout = torch.randn(q.shape, generator=torch.Generator().manual_seed(10)
@@ -2816,6 +2866,125 @@ def flash_kernel_phase(torch, F, fops):
     return stats
 
 
+def max_active_clusters(F):
+    """``F.resident_clusters`` (cudaOccupancyMaxActiveClusters of the
+    forward's merging variant, which ``decode_splits`` reads), "rows tile
+    x Dh tile x stages" -> {splits: clusters resident at once}; 16 x 128 x
+    1 is a decode block of 81 KB of shared memory.  Raises if any cluster
+    of up to 8 blocks cannot be resident."""
+    out = {}
+    for rows, dh, stages in ((16, 64, 1), (16, 128, 1), (16, 128, 2),
+                             (64, 64, 1), (64, 128, 1), (64, 128, 2)):
+        row = {}
+        for splits in range(2, 9):
+            n = F.resident_clusters("cuda", rows, dh, stages, splits)
+            require(n > 0, f"clusters of {splits} blocks at {rows} x {dh} "
+                           f"x {stages}: {n} resident")
+            row[splits] = n
+        out[f"{rows}x{dh}x{stages}"] = row
+    return out
+
+
+def flash_cluster_check(torch, F, fops):
+    """The key splits merged in the forward's cluster epilogue against the
+    two-launch path (``flash_forward_split`` then ``flash_combine``) at
+    CLUSTER_CASES: o, m and l bitwise, one launch counted on
+    ``flash_forward`` and on ``flash_forward_cluster``, each route's ms
+    (one graph replay), and but for the 32 K decode its graph100_ms and
+    call_ms and the forward and the combine apart; at QWEN_DECODE o, m and
+    l within FWD_ATOL of the twin.  Returns the kernels line's stats at
+    QWEN_DECODE and decode_splits' S."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.bounds import flash_bound_ms
+
+    row = None
+    for case, shape, split_counts in CLUSTER_CASES:
+        b, tq, s, h, hkv, dh, causal, off = shape
+        heavy = s > 4096
+        if heavy:     # 2.1 GB of K and V: drawn on the card
+            g = torch.Generator(device="cuda").manual_seed(31)
+            q, k, v = (torch.randn(b, t, n_, dh, device="cuda", generator=g)
+                       for t, n_ in ((tq, h), (s, hkv), (s, hkv)))
+        else:
+            q, k, v = flash_operands(torch, b, tq, s, h, hkv, dh, seed=29)
+        views = [fops.heads_major(t) for t in (q, k, v)]
+        auto = F.decode_splits(b * hkv, h // hkv * tq, s, dh, "cuda")
+        require(auto in split_counts, f"decode_splits at {shape}: {auto}")
+        for splits in split_counts:
+            n = F.split_plan(s, splits)[0]
+            require(n == splits and F.merges_in_cluster(n),
+                    f"{splits} splits of {s} keys: {n} ranges")
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            got = F.flash_forward(*views, causal, off, splits)
+            torch.cuda.synchronize()
+            counts = {k_: v_ for k_, v_ in launch_counts().items() if v_}
+            require(counts == {"flash_forward": 1,
+                               "flash_forward_cluster": 1},
+                    f"the cluster route launched {counts}")
+            parts = F.flash_forward_split(*views, causal, off, splits)
+            want = F.flash_combine(*parts)
+            torch.cuda.synchronize()
+            for name, g_, w_ in zip("oml", got, want):
+                require(torch.equal(g_.reshape(w_.shape), w_),
+                        f"cluster merge {name} != two-launch {name} at "
+                        f"{case}, S = {splits}: max diff "
+                        f"{max_err(g_.reshape(w_.shape), w_)}")
+            fields = {}
+            if shape == QWEN_DECODE:
+                qf, kf, vf = (fops.fold_heads(t) for t in (q, k, v))
+                o1, m1, l1 = F.flash_forward_plain(qf, kf, vf, causal, off, n)
+                fields["max_abs_err_vs_twin"] = max(
+                    check("cluster o", got[0].reshape(o1.shape), o1,
+                          atol=FWD_ATOL),
+                    check("cluster m", got[1].reshape(m1.shape), m1,
+                          atol=FWD_ATOL),
+                    check("cluster l", got[2].reshape(l1.shape), l1,
+                          rtol=FWD_ATOL))
+            routes = {
+                "cluster": lambda: F.flash_forward(*views, causal, off,
+                                                   splits),
+                "two_launch": lambda: F.flash_combine(*F.flash_forward_split(
+                    *views, causal, off, splits))}
+            if not heavy:
+                routes["forward_split"] = lambda: F.flash_forward_split(
+                    *views, causal, off, splits)
+                routes["combine"] = lambda: F.flash_combine(*parts)
+            times = {k_: {"ms": graph_ms(torch, fn)} if heavy else
+                     {"ms": graph_ms(torch, fn),
+                      "graph100_ms": graph100_ms(torch, fn),
+                      "call_ms": time_ms(torch, fn)}
+                     for k_, fn in routes.items()}
+            if not heavy:
+                fields["merge_in_epilogue_graph100_ms"] = (
+                    times["cluster"]["graph100_ms"]
+                    - times["forward_split"]["graph100_ms"])
+            bound = flash_bound_ms("flash_forward", b * h, b * hkv, tq, s,
+                                   dh, causal, off)
+            merge_bound = flash_bound_ms("flash_merge_cluster", b * h,
+                                         b * hkv, tq, s, dh, causal, off, n)
+            emit("flash_cluster_check", case=case, shape=list(shape),
+                 splits=n, decode_splits=auto, bitwise_two_launch=True,
+                 launches=counts, times=times, merge_bound_ms=merge_bound[0],
+                 merge_bound_by=merge_bound[1], bound_ms=bound[0],
+                 bound_by=bound[1], **fields)
+            if shape == QWEN_DECODE and n == auto:
+                plain = lambda: F.flash_forward_plain(  # noqa: E731
+                    qf, kf, vf, causal, off, n)
+                row = {"max_abs_err": fields["max_abs_err_vs_twin"],
+                       "shape": list(shape), "splits": n,
+                       "ms": times["cluster"]["ms"],
+                       "graph100_ms": times["cluster"]["graph100_ms"],
+                       "plain_ms": time_ms(torch, plain, reps=5),
+                       "library_ms": graph_ms(torch, sdpa(
+                           torch, q, k, v, False), reps=5),
+                       "bound_ms": bound[0], "bound_by": bound[1]}
+            del parts, got, want
+        del q, k, v, views
+    torch.cuda.empty_cache()
+    return row
+
+
 def flash_main_run(torch, kernels, F, fops):
     """Phase 12: one Mistral-NeMo-12B attention layer through
     ``flash_attention``, prefill then one decode step, counts set to 0
@@ -2823,8 +2992,8 @@ def flash_main_run(torch, kernels, F, fops):
     b, tq, s, h, hkv, dh, _, _ = NEMO_PREFILL
     q, k, v = flash_operands(torch, b, tq, s, h, hkv, dh, seed=123)
     q_dec = q[:, -1:].clone()
-    splits = sum(F.decode_splits(b * hkv, h // hkv * t, s) > 1
-                 for t in (tq, 1))    # the steps whose keys split
+    want = flash_routes(F, [(b * hkv, h // hkv * t, s) for t in (tq, 1)],
+                        dh)
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
@@ -2835,7 +3004,7 @@ def flash_main_run(torch, kernels, F, fops):
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     counts = kernels.launch_counts()
-    require_counts(counts, {"flash_forward": 2, "flash_combine": splits})
+    require_counts(counts, want)
     require(o_pre.shape == q.shape and o_dec.shape == q_dec.shape,
             "flash output shapes")
     require(bool(torch.isfinite(o_pre).all() and torch.isfinite(o_dec).all()),
@@ -2898,10 +3067,23 @@ def lm_flash_calls(cfg, requests, max_len, max_new):
     return calls
 
 
-def lm_want(F, cfg, requests, max_len, max_new):
-    calls = lm_flash_calls(cfg, requests, max_len, max_new)
+def flash_routes(F, calls, dh, device="cuda"):
+    """The launch counts of flash_attention ``calls`` (kv planes, packed
+    query rows, keys) of head width ``dh`` on ``device``: ``flash_forward``
+    each; of
+    those, ``flash_forward_cluster`` where the keys split into 2 to
+    ``MAX_CLUSTER`` ranges, merged in the kernel's epilogue; and
+    ``flash_combine`` where they split into more."""
+    n = [F.split_plan(tk, F.decode_splits(bhkv, rows, tk, dh, device))[0]
+         for bhkv, rows, tk in calls]
     return {"flash_forward": len(calls),
-            "flash_combine": sum(F.decode_splits(*c) > 1 for c in calls)}
+            "flash_combine": sum(s > F.MAX_CLUSTER for s in n),
+            "flash_forward_cluster": sum(F.merges_in_cluster(s) for s in n)}
+
+
+def lm_want(F, cfg, requests, max_len, max_new, device="cuda"):
+    return flash_routes(F, lm_flash_calls(cfg, requests, max_len, max_new),
+                        cfg.resolved_head_dim, device)
 
 
 def lm_teacher_forced(torch, model, cfg, prompts, tokens, device):
@@ -3028,8 +3210,9 @@ def lm_serve_run(torch, kernels, F, fops):
     d = 1024, 16 heads of 64, vocab 151936 padded to 152064, bfloat16),
     random weights from seed 0, through ``serve_lm`` at traffic points (a)
     and (b) (LM_SERVE_POINTS), counts set to 0 just before each and read
-    just after: every attention call on ``flash_forward``, and
-    ``flash_combine`` at (b)'s decode steps.  Logits finite and tokens in
+    just after: every attention call on ``flash_forward``, merging (b)'s
+    decode splits in its cluster epilogue (no ``flash_combine``).  Logits
+    finite and tokens in
     range; prefill(T) + decode_step(T) against forward(T + 1) at the last
     position; layer 0's attention on its own q/k/v against the oracle;
     the teacher-forced logits of the kernel route against the oracle
@@ -3073,7 +3256,8 @@ def lm_serve_run(torch, kernels, F, fops):
              launches={k: counts[k] for k in FLASH}, expected=want,
              kv_splits=F.decode_splits(
                  traffic["requests"] * cfg.num_kv_heads, 1,
-                 out["max_len"] + traffic["max_new"]),
+                 out["max_len"] + traffic["max_new"], cfg.resolved_head_dim,
+                 "cuda"),
              nvidia_smi=nvidia_smi_line())
         for k in FLASH:
             total[k] += counts[k]
@@ -3210,20 +3394,19 @@ def lm_train_calls(cfg, batch, seq):
     return calls
 
 
-def lm_train_want(F, cfg, batch, seq, steps=1):
-    """Exact launches of ``steps`` train steps: each forward's calls, run
-    again by the backward under remat."""
+def lm_train_want(F, cfg, batch, seq, steps=1, device="cuda"):
+    """Exact launches of ``steps`` train steps on ``device``: each
+    forward's calls, run again by the backward under remat."""
     calls = lm_train_calls(cfg, batch, seq) * (2 if cfg.remat else 1)
-    return {"flash_forward": steps * len(calls),
-            "flash_combine": steps * sum(F.decode_splits(*c) > 1
-                                         for c in calls)}
+    return {k: steps * v for k, v in flash_routes(
+        F, calls, cfg.resolved_head_dim, device).items()}
 
 
 def threefry_per_batch(cfg):
-    """``threefry_bits`` launches of one ``synthetic_batch``: the key's
-    split, randint's split and its two draws, and the context's draw of
-    a vlm or audio model (``fold_in`` hashes in plain torch)."""
-    return 4 + (cfg.family == "vlm" or cfg.is_encdec)
+    """``threefry_bits`` launches of one ``synthetic_batch``: the step's
+    ``fold_in``, the key's split, randint's split and its two draws, and
+    the context's draw of a vlm or audio model."""
+    return 5 + (cfg.family == "vlm" or cfg.is_encdec)
 
 
 def to_host(tree):
@@ -3404,7 +3587,8 @@ def lm_train_run(torch, kernels, F, fops):
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     want = lm_train_want(F, cfg, b, t, n)
     require(want == {"flash_forward": 2 * cfg.num_layers * n,
-                     "flash_combine": 0}, f"expected launches {want}")
+                     "flash_combine": 0, "flash_forward_cluster": 0},
+            f"expected launches {want}")
     want["threefry_bits"] = threefry_per_batch(cfg) * n
     require_counts(counts, want)
     require(all(np.isfinite(losses)) and all(np.isfinite(norms)),
@@ -3806,8 +3990,7 @@ def _mesh_prefill(torch, kernels, F, cfg, model, params, low, cell):
     counts = kernels.launch_counts()
     calls = [(b * cfg.num_kv_heads, cfg.num_heads // cfg.num_kv_heads * t,
               t)] * cfg.num_layers
-    expect = {"flash_forward": len(calls),
-              "flash_combine": sum(F.decode_splits(*c) > 1 for c in calls)}
+    expect = flash_routes(F, calls, cfg.resolved_head_dim)
     require_counts(counts, expect)
     leaves = _same(torch, got, want, "prefill")
     peak = torch.cuda.max_memory_allocated() / 1e9
@@ -3847,8 +4030,7 @@ def _mesh_decode(torch, kernels, F, cfg, model, params, low, cell):
     counts = kernels.launch_counts()
     calls = [(b * cfg.num_kv_heads, cfg.num_heads // cfg.num_kv_heads, s)
              ] * cfg.num_layers
-    expect = {"flash_forward": len(calls),
-              "flash_combine": sum(F.decode_splits(*c) > 1 for c in calls)}
+    expect = flash_routes(F, calls, cfg.resolved_head_dim)
     require_counts(counts, expect)
     written = [(c.k[:, pos].clone(), c.v[:, pos].clone()) for c in caches]
     for c, (k, v) in zip(caches, saved):        # the cache as it was
@@ -3905,27 +4087,79 @@ def threefry_draws(tf, device, partitionable):
     }
 
 
+def threefry_sass(build):
+    """The integer instruction mix of the built threefry library's
+    ``threefry_round_kernel`` (``cuobjdump -sass``), and per hash (its
+    SHF.L.W rotations / 20) the hash's opcodes: the rotations, the xors
+    (LOP3.LUT) and the adds (IMAD.IADD, IADD3, VIADD), and their sums on
+    the INT32 (ALU) pipe (SHF, LOP3, IADD3) and the FMA pipe (IMAD.IADD,
+    and VIADD counted there), ``kernels/bounds.py``'s
+    THREEFRY_ALU_OPS_PER_HASH and THREEFRY_FMA_OPS_PER_HASH."""
+    import re
+    import shutil
+    from pathlib import Path
+    tool = str(Path(build.nvcc_path()).with_name("cuobjdump"))
+    if not Path(tool).exists():
+        tool = shutil.which("cuobjdump")
+    lib = build._lib_path(build.CSRC / "threefry.cu")
+    out = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                         text=True, check=True, timeout=120).stdout
+    mix, inside = {}, False
+    for line in out.splitlines():
+        if "Function :" in line:
+            inside = "threefry_round_kernel" in line
+            continue
+        hit = re.search(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][\w.]*)",
+                        line)
+        if inside and hit:
+            op = hit.group(1)
+            mix[op] = mix.get(op, 0) + 1
+    alu, fma = ("SHF.L.W.U32.HI", "LOP3.LUT", "IADD3"), ("IMAD.IADD", "VIADD")
+    hashes = mix.get("SHF.L.W.U32.HI", 0) / 20      # 20 rotations a hash
+    per_hash = {k: mix.get(k, 0) / hashes for k in alu + fma} if hashes \
+        else {}
+    pipe = (lambda ops: sum(per_hash[k] for k in ops) if hashes  # noqa: E731
+            else None)
+    return {"hashes_in_kernel": hashes, "per_hash": per_hash,
+            "ops_per_hash": pipe(alu + fma), "alu_ops_per_hash": pipe(alu),
+            "fma_ops_per_hash": pipe(fma),
+            "mix": dict(sorted(mix.items(), key=lambda kv: -kv[1]))}
+
+
 def threefry_run(torch, core):
-    """The threefry kernel (``tf_bits``) bitwise its twin on the card in
-    every layout at ``THREEFRY_SHAPES``, the known-answer vectors, the
-    draws bitwise jax's (``THREEFRY_DIGESTS``), and the ms of one shuffle
-    round of main_run's shape (B.S = 8, N = 4096) from
-    ``ThreefryShuffleSource`` beside ``TorchShuffleSource``.  Returns the
-    kernel's stats for the kernels line, at the paper table's Gumbel
-    noise shape."""
+    """The threefry kernels bitwise their twins on the card:
+    ``threefry_bits`` in every layout at ``THREEFRY_SHAPES``, ``fold_in``
+    on the kernel's FOLD layout at ``FOLD_DATA`` over a batch of keys, and
+    the fused shuffle round (``threefry_round``) in both layouts, with
+    and without the source's split, at ``THREEFRY_ROUND_SHAPES``; the
+    known-answer vectors; the draws bitwise jax's
+    (``THREEFRY_DIGESTS``); the ms of one shuffle round of main_run's
+    shape (B.S = 8, N = 4096) from ``ThreefryShuffleSource`` beside
+    ``TorchShuffleSource`` and its launches; each kernel's times beside
+    its bound (``kernels/bounds.py``) and the launch floor (an empty
+    kernel in a graph of 100).  Returns the kernels' stats for the
+    kernels line: ``threefry_bits`` at the paper table's Gumbel noise
+    shape, ``threefry_round`` at main_run's round."""
+    import ctypes
     import importlib
 
     from repro_torch.core import threefry as tf
-    from repro_torch.kernels.bounds import PEAK_BYTES
+    from repro_torch.kernels import clib
+    from repro_torch.kernels.bounds import (threefry_bound_ms,
+                                            threefry_round_bound_ms)
     TK = importlib.import_module("repro_torch.kernels.threefry")
 
     dev = torch.device("cuda")
     checked = []
+    TK.threefry_bits.launches = 0
     for key, count, want in THREEFRY_KNOWN:
         got = tf.threefry_2x32(np.array(key, np.uint32),
                                np.array(count, np.uint32), device=dev)
         require(got.tolist() == list(want),
                 f"threefry_2x32{key, count}: {got.tolist()} != {want}")
+    require(TK.threefry_bits.launches == len(THREEFRY_KNOWN),
+            f"threefry_2x32 on the card: {TK.threefry_bits.launches} "
+            f"launches for {len(THREEFRY_KNOWN)} hashes")
     got = TK.threefry_bits(torch.zeros((1, 2), dtype=torch.int64,
                                        device=dev), 2, TK.PAIRS)
     require(TK.words(got)[0].tolist() == list(THREEFRY_KNOWN[0][2]),
@@ -3933,15 +4167,47 @@ def threefry_run(torch, core):
     err = 0
     for r, m in THREEFRY_SHAPES:
         keys = tf.split(tf.prng_key(r + m), r, device=dev)
-        for mode in (TK.XOR, TK.ORIGINAL, TK.PAIRS):
-            mm = m + (m % 2 if mode == TK.PAIRS else 0)
-            a = TK.threefry_bits(keys, mm, mode)
-            b = TK.threefry_bits_plain(keys, mm, mode)
+        for mode in (TK.XOR, TK.ORIGINAL, TK.PAIRS, TK.FOLD):
+            mm = m + (m % 2 if mode in (TK.PAIRS, TK.FOLD) else 0)
+            a = TK.threefry_bits(keys, mm, mode, 7)
+            b = TK.threefry_bits_plain(keys, mm, mode, 7)
             torch.cuda.synchronize()
             require(torch.equal(a, b),
                     f"threefry kernel != twin at {(r, mm)} mode {mode}")
             err = max(err, int((a.long() - b.long()).abs().max()))
             checked.append([r, mm, mode])
+    # fold_in: one counted launch, bitwise its twin on the host
+    keys = tf.split(tf.prng_key(11), 6, device=dev)
+    for data in FOLD_DATA:
+        TK.threefry_bits.launches = 0
+        got = tf.fold_in(keys, data)
+        require(TK.threefry_bits.launches == 1,
+                f"fold_in launched {TK.threefry_bits.launches} kernels")
+        want = tf.fold_in(keys.cpu(), data)
+        require(torch.equal(got.cpu(), want), f"fold_in(keys, {data}) on "
+                f"the card != its twin")
+    # the fused round against its twin, and against the unfused draws
+    rounds_checked = []
+    for r, n in THREEFRY_ROUND_SHAPES:
+        keys = tf.split(tf.prng_key(r * n), r, device=dev)
+        for part in (True, False):
+            for split_keys in (True, False):
+                rounds = TK.permutation_rounds(n)
+                TK.threefry_round.launches = 0
+                kept, words_ = TK.threefry_round(keys, n, rounds, part,
+                                                 split_keys)
+                launched = int(split_keys or bool(rounds and n))
+                require(TK.threefry_round.launches == launched,
+                        "threefry_round launched "
+                        f"{TK.threefry_round.launches} kernels")
+                kp, wp = TK.threefry_round_plain(keys, n, rounds, part,
+                                                 split_keys)
+                torch.cuda.synchronize()
+                require(torch.equal(words_, wp) and (
+                    kept is None and kp is None or torch.equal(kept, kp)),
+                        f"threefry_round != twin at {(r, n)} "
+                        f"partitionable={part} split={split_keys}")
+                rounds_checked.append([r, n, rounds, part, split_keys])
     digests = {}
     for part in (True, False):
         got = {k: draw_digest(v) for k, v in
@@ -3958,30 +4224,53 @@ def threefry_run(torch, core):
     to = core.TorchShuffleSource(core.instance_seeds(0, bs), n, dev)
     round_ms = {"threefry": time_ms(torch, th.next_round),
                 "torch": time_ms(torch, to.next_round)}
-    TK.threefry_bits.launches = 0
+    for k_ in TK.KERNELS:
+        k_.launches = 0
     th.next_round()
-    launches_per_round = TK.threefry_bits.launches
+    per_round = {k_.__name__: k_.launches for k_ in TK.KERNELS}
+    require(per_round == {"threefry_bits": 0, "threefry_round": 1},
+            f"one shuffle round launched {per_round}")
 
-    stats = {}
+    noop = clib._symbol("threefry", "tf_noop", (clib.P,), ctypes.c_int)
+    floor_ms = graph100_ms(torch, lambda: noop(
+        torch.cuda.current_stream().cuda_stream))
+
+    stats, times = {}, {}
     for r, m in THREEFRY_SHAPES[:2]:
         keys = tf.split(tf.prng_key(1), r, device=dev)
         kern = lambda: TK.threefry_bits(keys, m, TK.XOR)      # noqa: E731
         plain = lambda: TK.threefry_bits_plain(keys, m, TK.XOR)  # noqa: E731
-        # keys read as int64, the words written as int32: 4 B each
-        bound = (r * 2 * 8 + r * m * 4) / PEAK_BYTES * 1e3
+        bound, by = threefry_bound_ms(r, m, TK.XOR)
         stats[(r, m)] = {"ms": time_ms(torch, kern),
                          "graph_ms": graph_ms(torch, kern),
                          "graph100_ms": graph100_ms(torch, kern),
                          "plain_ms": time_ms(torch, plain, reps=5),
-                         "bound_ms": bound, "bound_by": "bytes",
+                         "bound_ms": bound, "bound_by": by,
                          "library_ms": None, "max_abs_err": float(err),
                          "shape": [r, m]}
+        times[f"bits_{r}x{m}"] = stats[(r, m)]
+    keys = tf.split(tf.prng_key(1), bs, device=dev)
+    rounds = TK.permutation_rounds(n)
+    fused = lambda: TK.threefry_round(keys, n, rounds, True,  # noqa: E731
+                                      True)
+    twin = lambda: TK.threefry_round_plain(keys, n, rounds,  # noqa: E731
+                                           True, True)
+    bound, by = threefry_round_bound_ms(bs, n, rounds, True)
+    rnd = {"ms": time_ms(torch, fused), "graph_ms": graph_ms(torch, fused),
+           "graph100_ms": graph100_ms(torch, fused),
+           "plain_ms": time_ms(torch, twin, reps=5), "bound_ms": bound,
+           "bound_by": by, "library_ms": None, "max_abs_err": 0.0,
+           "shape": [bs, n, rounds]}
+    times[f"round_{bs}x{n}x{rounds}"] = rnd
     emit("threefry_run", known_answers=len(THREEFRY_KNOWN) + 1,
-         kernel_vs_twin=checked, bitwise=True, digests=digests,
+         kernel_vs_twin=checked, fold_in_data=list(FOLD_DATA),
+         round_vs_twin=rounds_checked, bitwise=True, digests=digests,
          shuffle_round_ms=round_ms,
-         threefry_launches_per_shuffle_round=launches_per_round,
-         times={f"{r}x{m}": v for (r, m), v in stats.items()})
-    return {"threefry_bits": stats[THREEFRY_SHAPES[1]]}
+         threefry_launches_per_shuffle_round=sum(per_round.values()),
+         launches_per_shuffle_round=per_round,
+         launch_floor_graph100_ms=floor_ms, times=times)
+    return {"threefry_bits": stats[THREEFRY_SHAPES[1]],
+            "threefry_round": rnd}
 
 
 def paper_table_step_check(torch, paper_table, n):
@@ -4055,7 +4344,7 @@ def paper_table_run(torch, kernels):
     require(not bad, f"paper table check: {bad}")
     require_counts(counts, {**{k: steps for k in DENSE},
                             **{k: 0 for k in BAND}})
-    require(counts["threefry_bits"] > 0, "no threefry launch")
+    require(all(counts[k] > 0 for k in THREEFRY), "no threefry launch")
     return counts
 
 
@@ -4217,8 +4506,7 @@ def batched_bench_run(torch, kernels):
     emit("batched_bench_run", seconds=seconds, cut=BATCHED_BENCH_CUTS,
          check="passed (adaptive_partitionable ungated)",
          launches={k: v for k, v in counts.items() if v})
-    require(all(counts[k] > 0 for k in DENSE)
-            and counts["threefry_bits"] > 0,
+    require(all(counts[k] > 0 for k in DENSE + THREEFRY),
             f"the batched bench missed a kernel: {counts}")
     return counts
 
@@ -4307,7 +4595,9 @@ def main():
     ptxas = [ln.strip() for log in logs.values() for ln in log.splitlines()
              if "registers" in ln or "spill" in ln or "entry function" in ln]
     emit("build", seconds=time.perf_counter() - t0, sources=sorted(logs),
-         flags=build.NVCC_FLAGS, ptxas=ptxas)
+         flags=build.NVCC_FLAGS, ptxas=ptxas,
+         max_active_clusters=max_active_clusters(F),
+         threefry_sass=threefry_sass(build))
     dryrun_child = start_lm_dryrun()
     stats = kernel_phase(torch, K)
     band_stats = band_kernel_phase(torch, K, core)
@@ -4349,18 +4639,20 @@ def main():
     lm_counts += (lm_mesh_run(torch, kernels, F),)
     for k in FLASH:
         launches[k] += sum(c[k] for c in lm_counts)
-    train_threefry = sum(c.get("threefry_bits", 0) for c in lm_counts[2:])
     table_counts = paper_table_run(torch, kernels)
     for k in DENSE:
         launches[k] += table_counts[k]
-    launches["threefry_bits"] = (table_counts["threefry_bits"]
-                                 + bench_counts["threefry_bits"]
-                                 + train_threefry)
+    for k in THREEFRY:
+        launches[k] = (table_counts[k] + bench_counts[k]
+                       + sum(c.get(k, 0) for c in lm_counts[2:]))
+    require(all(launches[k] > 0 for k in stats),
+            f"a kernel of the line was never launched on the main paths: "
+            f"{ {k: launches[k] for k in stats} }")
 
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda",
          "source": (FLASH_CU if k in FLASH else THREEFRY_CU
-                    if k == "threefry_bits" else SOFTSORT_CU),
+                    if k in THREEFRY else SOFTSORT_CU),
          "replaces": REPLACES[k], "launches": launches[k],
          "max_abs_err": v["max_abs_err"], "ms": v["ms"],
          "plain_ms": v["plain_ms"], "bound_ms": v["bound_ms"],

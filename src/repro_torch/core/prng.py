@@ -147,8 +147,10 @@ class ThreefryShuffleSource:
     """Per-instance ``jax.random`` key chains: the state is the (BS, 2)
     uint32 keys, the reference's ``keys``; a round of instances ``rows``
     splits their keys, keeps the first halves and draws
-    ``permutation(second, n)`` for all of them at once (one hash launch
-    per ``split`` and per sort-key draw, ``repro_torch.kernels.threefry``).
+    ``permutation(second, n)`` for all of them at once: on CUDA the whole
+    chain of hashes in one launch (``threefry.shuffle_round``,
+    ``repro_torch.kernels.threefry.threefry_round``), then the stable
+    sorts.
     ``partitionable`` as in ``repro_torch.core.threefry``; the kind names
     it, so a checkpoint resumes only on the layout that wrote it."""
 
@@ -161,15 +163,15 @@ class ThreefryShuffleSource:
 
     def next_round(self, rows=None) -> torch.Tensor:
         if rows is None:
-            pair = threefry.split(self.keys, partitionable=self.partitionable)
-            self.keys = pair[:, 0].contiguous()
+            kept, out = threefry.shuffle_round(
+                self.keys, self.n, partitionable=self.partitionable)
+            self.keys = kept.contiguous()
         else:
             idx = torch.as_tensor(_rows(rows, len(self)), device=self.device)
-            pair = threefry.split(self.keys[idx],
-                                  partitionable=self.partitionable)
-            self.keys = self.keys.index_copy(0, idx, pair[:, 0])
-        return threefry.permutation(pair[:, 1], self.n,
-                                    partitionable=self.partitionable)
+            kept, out = threefry.shuffle_round(
+                self.keys[idx], self.n, partitionable=self.partitionable)
+            self.keys = self.keys.index_copy(0, idx, kept)
+        return out
 
     def state_dict(self) -> np.ndarray:
         """(BS, 2) uint32 keys (a copy from the device)."""

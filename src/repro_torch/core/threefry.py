@@ -33,12 +33,15 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.threefry import (
+    FOLD,
     MASK,
     ORIGINAL,
     PAIRS,
     XOR,
+    permutation_rounds,
     threefry2x32_plain,
     threefry_bits,
+    threefry_round,
     words,
 )
 
@@ -95,14 +98,24 @@ def _shape(shape) -> tuple[int, ...]:
 
 def threefry_2x32(key, count, *, device=None) -> torch.Tensor:
     """``jax._src.prng.threefry_2x32(key, count)``: the hash of the words
-    of ``count`` (any shape), paired as its flat halves (padded with one 0
-    when odd), with one key (2,).  int64 words of ``count``'s shape."""
+    of ``count``, paired as its flat halves (padded with one 0 when odd),
+    with one key (2,).  int64 words of ``count``'s shape.  On the CPU any
+    shape (the twin's hash); on CUDA one counter pair (at most 2 words,
+    read on the host), hashed by the kernel (``threefry_bits``' ``FOLD``
+    layout)."""
     k = as_keys(key, device).reshape(2)
     c = torch.as_tensor(np.asarray(count).astype(np.int64) if not
                         isinstance(count, torch.Tensor) else count,
                         device=k.device).to(torch.int64) & MASK
     flat = c.reshape(-1)
     m = flat.numel()
+    if k.device.type != "cpu":
+        if m > 2:
+            raise ValueError(f"threefry_2x32 on {k.device} hashes one "
+                             f"counter pair, got {m} words")
+        x0, x1 = (flat.tolist() + [0, 0])[:2]
+        out = words(threefry_bits(k[None], 2, FOLD, x0 << 32 | x1))[0]
+        return out[:m].reshape(c.shape)
     h = (m + 1) // 2
     padded = torch.cat([flat, flat.new_zeros(2 * h - m)])
     x0, x1 = threefry2x32_plain(k[0], k[1], padded[:h], padded[h:])
@@ -137,14 +150,13 @@ def split(key, num: int = 2, *, partitionable: bool = True,
 
 def fold_in(key, data: int, *, device=None) -> torch.Tensor:
     """``jax.random.fold_in(key, data)``: each key's hash of the counter
-    words ``(0, data mod 2**32)``, the seed words of a uint32 ``data``.
-    One layout: jax folds in alike with ``jax_threefry_partitionable`` on
-    or off.  (..., 2) key data in, the same shape out."""
-    k = as_keys(key, device)
-    x1 = torch.full_like(k[..., 0], int(data) & MASK)
-    h0, h1 = threefry2x32_plain(k[..., 0], k[..., 1], torch.zeros_like(x1),
-                                x1)
-    return torch.stack([h0, h1], dim=-1)
+    words ``(0, data mod 2**32)``, the seed words of a uint32 ``data``, in
+    one launch of the kernel's ``FOLD`` layout.  One layout: jax folds in
+    alike with ``jax_threefry_partitionable`` on or off.  (..., 2) key
+    data in, the same shape out."""
+    k, lead = _flat(key, device)
+    return words(threefry_bits(k, 2, FOLD, int(data) & MASK)).reshape(
+        *lead, 2)
 
 
 def uniform(key, shape=(), minval=0.0, maxval=1.0, *,
@@ -242,22 +254,33 @@ def randint(key, shape, minval: int, maxval: int, *,
     return val.to(torch.int32).reshape(*lead, *shape)
 
 
+def _shuffle(words_, r: int, n: int, device) -> torch.Tensor:
+    """``arange(n)`` per row through each round's stable sort (ties keep
+    the earlier index first, as ``lax.sort_key_val(..., is_stable=True)``).
+    int64 (r, n)."""
+    x = torch.arange(n, dtype=torch.int64, device=device).repeat(r, 1)
+    for sort_keys in words_:
+        x = torch.gather(x, 1, torch.argsort(sort_keys, dim=1, stable=True))
+    return x
+
+
 def permutation(key, n: int, *, partitionable: bool = True,
                 device=None) -> torch.Tensor:
     """``jax.random.permutation(key, n)``: ``_shuffle`` of ``arange(n)``,
     ``ceil(3 ln n / ln(2**32 - 1))`` rounds of ``key, sub = split(key)``,
-    32-bit sort keys from ``sub`` and a stable sort (ties keep the earlier
-    index first, as ``lax.sort_key_val(..., is_stable=True)``).  int64
-    (*keys, n)."""
+    32-bit sort keys from ``sub`` and a stable sort.  int64 (*keys, n)."""
     k, lead = _flat(key, device)
     n = int(n)
-    x = torch.arange(n, dtype=torch.int64,
-                     device=k.device).repeat(k.shape[0], 1)
-    rounds = int(np.ceil(3 * np.log(max(1, n))
-                         / np.log(np.iinfo(np.uint32).max)))
-    for _ in range(rounds):
-        pair = split(k, partitionable=partitionable)
-        k, sub = pair[:, 0], pair[:, 1]
-        sort_keys = _sort_words(sub, (n,), partitionable, None)
-        x = torch.gather(x, 1, torch.argsort(sort_keys, dim=1, stable=True))
-    return x.reshape(*lead, n)
+    _, sort_words = threefry_round(k, n, permutation_rounds(n), partitionable,
+                                   False)
+    return _shuffle(sort_words, k.shape[0], n, k.device).reshape(*lead, n)
+
+
+def shuffle_round(keys, n: int, *, partitionable: bool = True):
+    """One round of ``ThreefryShuffleSource``: ``keys, sub = split(keys)``
+    and ``permutation(sub, n)``.  keys (R, 2) int64 -> (the kept keys (R,
+    2), the (R, n) int64 shuffles); on CUDA one kernel launch."""
+    n = int(n)
+    kept, sort_words = threefry_round(keys, n, permutation_rounds(n),
+                                      partitionable, True)
+    return kept, _shuffle(sort_words, keys.shape[0], n, keys.device)

@@ -1,7 +1,8 @@
 # Hand-written CUDA kernels, each beside its plain PyTorch twin: the
 # SoftSort apply (forward + backward, dense and banded, and the v1 split
 # forward of the kernel bench), the flash-attention forward, and the
-# threefry-2x32 bits behind the port's jax.random-compatible draws.
+# threefry-2x32 bits and shuffle rounds behind the port's
+# jax.random-compatible draws.
 #
 #   ops.py              — ``softsort_apply`` / ``softsort_apply_banded`` /
 #                         ``softsort_apply_v1``: the autograd.Functions over
@@ -40,8 +41,12 @@ def reset_launch_counts() -> None:
     """Set the launch count of every kernel of the package to 0."""
     for k in KERNELS:
         k.launches = 0
+    _flash.flash_forward.cluster_launches = 0
 
 
 def launch_counts() -> dict[str, int]:
-    """Kernel name -> launches since the last reset, for every kernel."""
-    return {k.__name__: k.launches for k in KERNELS}
+    """Kernel name -> launches since the last reset, for every kernel;
+    ``flash_forward_cluster`` counts the ``flash_forward`` launches that
+    merged their key splits in the cluster epilogue."""
+    return {**{k.__name__: k.launches for k in KERNELS},
+            "flash_forward_cluster": _flash.flash_forward.cluster_launches}

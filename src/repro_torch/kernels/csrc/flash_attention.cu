@@ -13,6 +13,12 @@
 //               o_i = sum_j exp(s_ij - m_i) / max(l_i, 1e-30) v_j
 //   fa_combine  (o, m, l) from the partials of the key splits of fa_fwd
 //
+// With 2 to 8 key splits (MAX_CLUSTER) fa_fwd merges them itself: the
+// splits of one row tile are one thread block cluster, and after the key
+// loop each block hands its partial to the others through distributed
+// shared memory (fa_fwd_kernel's MERGE epilogue, below).  fa_combine
+// stays for more splits, and for partials merged across ranks.
+//
 // They replace the Pallas TPU kernels of src/repro/kernels/
 // flash_attention.py: _stats_kernel (:42), which gave m and l, and
 // _apply_kernel (:62), which gave o from them, both driven by
@@ -44,8 +50,10 @@
 // - At decode (tq = 1) bytes: every key and value row is read for a few
 //   query rows.  A 16-row tile holds the rep packed rows, and the keys are
 //   split into ranges, one block each, so that some 2 blocks per SM
-//   stream K and V; fa_combine merges the splits' partial (o, m, l),
-//   weighting each by exp(m_s - m).  A split of one key tile has no next
+//   stream K and V; the splits' partials (o, m, l) are merged, weighting
+//   each by exp(m_s - m): in the forward's cluster epilogue for up to 8
+//   splits (no second launch, no partials in device memory), else by
+//   fa_combine.  A split of one key tile has no next
 //   tile to prefetch, so it keeps one K/V stage (81 KB, two blocks per
 //   SM), and the warps whose 16-row share is all padding skip the
 //   products.
@@ -63,10 +71,13 @@
 //        -Xcompiler -fPIC -o libflash_attention.so flash_attention.cu
 // (no --use_fast_math: the parity needs expf, not __expf).
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include "smem_limit.cuh"
 
 #include <climits>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -76,6 +87,8 @@ constexpr int KT = 64;         // keys per tile
 constexpr int TPR = 16;        // threads sharing a row group
 constexpr int PLD = KT + 16;   // row stride of the P tile, in floats
 constexpr unsigned FULL = 0xffffffffu;
+constexpr int MAX_CLUSTER = 8; // the portable cluster size: splits merged in
+                               // the forward's epilogue
 
 struct Geom {
   long long sqb, sqh, sqt;   // q strides: batch, head, row (elements)
@@ -166,6 +179,114 @@ __device__ __forceinline__ int tile_of_rank(int rank, const Geom& g) {
   return g.row_tiles - 1 - rank;
 }
 
+// The reductions of fa_combine_kernel over S <= MAX_CLUSTER splits,
+// operation for operation, so that the cluster epilogue and the
+// two-launch path agree bitwise.  There lane s < S of warp 0 holds split
+// s's term and every other lane the identity (NEG_INF for the max, 0 for
+// the sum, terms that are >= NEG_INF and >= 0); block_reduce's butterfly
+// (xor 16, 8, 4, 2, 1) leaves lane 0 with the tree below, and the other
+// warps add identities only.  Terms past S are the identity here too.
+__device__ __forceinline__ float tree_max8(const float (&x)[MAX_CLUSTER]) {
+  return fmaxf(fmaxf(fmaxf(x[0], x[4]), fmaxf(x[2], x[6])),
+               fmaxf(fmaxf(x[1], x[5]), fmaxf(x[3], x[7])));
+}
+
+__device__ __forceinline__ float tree_sum8(const float (&x)[MAX_CLUSTER]) {
+  return ((x[0] + x[4]) + (x[2] + x[6])) + ((x[1] + x[5]) + (x[3] + x[7]));
+}
+
+// The splits' o of one element group, row i and columns c..c+VW-1 of the
+// peers' po (row stride LD), through distributed shared memory; 0 past
+// the cluster's ns splits.
+template <int VW, int LD>
+__device__ __forceinline__ void load_split_o(const cg::cluster_group& cluster,
+                                             float* po, int i, int c, int ns,
+                                             float (&os)[MAX_CLUSTER][VW]) {
+#pragma unroll
+  for (int s = 0; s < MAX_CLUSTER; ++s) {
+#pragma unroll
+    for (int u = 0; u < VW; ++u) os[s][u] = 0.f;
+    if (s >= ns) continue;
+    const float* const src = cluster.map_shared_rank(po, s) + i * LD + c;
+    if constexpr (VW == 4) {
+      const float4 x = *reinterpret_cast<const float4*>(src);
+      os[s][0] = x.x, os[s][1] = x.y, os[s][2] = x.z, os[s][3] = x.w;
+    } else {
+      os[s][0] = *src;
+    }
+  }
+}
+
+// The merge of a cluster's partials (po, pm, pl in every block's shared
+// memory) into the tile's nrow rows of o, m_out and l_out, by one block
+// of the cluster.  Thread i < nrow computes row i's weights exp(m_s - m)
+// and denominator once, into rw and rden of this block; then the block
+// merges an equal share of the nrow x dh elements, VW columns at a time,
+// each the splits' o weighted and summed in fa_combine_kernel's order
+// (four accumulators over groups of four splits, the rest into the
+// first) over the row's rden.  Rank 0 writes m and l.
+template <int VW, int LD>
+__device__ __forceinline__ void cluster_merge(
+    const cg::cluster_group& cluster, float* po, float* pm, float* pl,
+    float* rw, float* rden, float* o, float* m_out, float* l_out, int nrow,
+    int dh) {
+  const int tid = (int)threadIdx.x;
+  const int ns = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int per_row = dh / VW;
+  const int total = nrow * per_row;
+  const int share = (total + ns - 1) / ns;
+  const int e_end = min(total, (rank + 1) * share);
+  const int grouped = ns & ~3;   // splits summed in groups of four
+  int e = rank * share + tid;
+  float os[MAX_CLUSTER][VW];
+  if (tid < nrow) {
+    float ms[MAX_CLUSTER], ls[MAX_CLUSTER], terms[MAX_CLUSTER];
+#pragma unroll
+    for (int s = 0; s < MAX_CLUSTER; ++s) {
+      ms[s] = s < ns ? cluster.map_shared_rank(pm, s)[tid] : NEG_INF;
+      ls[s] = s < ns ? cluster.map_shared_rank(pl, s)[tid] : 0.f;
+    }
+    const float m = tree_max8(ms);
+#pragma unroll
+    for (int s = 0; s < MAX_CLUSTER; ++s) {
+      const float w = s < ns ? expf(ms[s] - m) : 0.f;
+      rw[tid * MAX_CLUSTER + s] = w;
+      // the combine's l += l_s * w_s from 0: the product rounded alone
+      terms[s] = s < ns ? __fmul_rn(ls[s], w) : 0.f;
+    }
+    const float l = tree_sum8(terms);
+    rden[tid] = fmaxf(l, 1e-30f);
+    if (rank == 0) {
+      m_out[tid] = m;
+      l_out[tid] = l;
+    }
+  }
+  __syncthreads();
+  if (e < e_end)
+    load_split_o<VW, LD>(cluster, po, e / per_row, e % per_row * VW, ns, os);
+  while (e < e_end) {
+    const int i = e / per_row, c = e % per_row * VW;
+    const float* const w = rw + i * MAX_CLUSTER;
+#pragma unroll
+    for (int u = 0; u < VW; ++u) {
+      float a[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int s = 0; s < MAX_CLUSTER; ++s) {
+        if (s < grouped)
+          a[s & 3] = fmaf(os[s][u], w[s], a[s & 3]);
+        else if (s < ns)
+          a[0] = fmaf(os[s][u], w[s], a[0]);
+      }
+      o[i * dh + c + u] = ((a[0] + a[1]) + (a[2] + a[3])) / rden[i];
+    }
+    e += NT;
+    if (e < e_end)
+      load_split_o<VW, LD>(cluster, po, e / per_row, e % per_row * VW, ns,
+                           os);
+  }
+}
+
 // ---------------------------------------------------------------------------
 // fa_fwd: block = (row tile x kv plane, key split).  Thread t owns the rows
 // t / 16 + 16 rr (rr < ROWS / 16) of the tile; in a score tile the keys
@@ -177,8 +298,21 @@ __device__ __forceinline__ int tile_of_rank(int rank, const Geom& g) {
 // memory, so that two blocks share an SM.  A warp whose rows are all
 // padding (a decode tile holds rep real rows of 16) stages tiles but
 // skips the products.
+//
+// MERGE: the launch's splits are one cluster per row tile (cluster dims
+// (1, S, 1), S = gridDim.y <= MAX_CLUSTER), and the block writes no
+// partial to device memory.  After the key loop it leaves its partial in
+// its own shared memory, over the K/V stage (o unnormalised, ROWS x LD,
+// then m and l).  After a cluster barrier every block computes each real
+// row's weights exp(m_s - m) and denominator once, from the splits' m and
+// l (read through distributed shared memory, cluster.map_shared_rank),
+// and then merges an equal share of the tile's (row, column) elements,
+// reading only the splits' o (cluster_merge); the arithmetic and its order
+// are fa_combine_kernel's (tree_max8, tree_sum8, its four accumulators),
+// so the result is the two-launch path's, bit for bit.  A second barrier
+// keeps every block's shared memory alive until its peers have read it.
 // ---------------------------------------------------------------------------
-template <int ROWS, int DHP, int STAGES>
+template <int ROWS, int DHP, int STAGES, bool MERGE>
 __global__ void __launch_bounds__(NT)
 fa_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, float* __restrict__ o,
@@ -380,26 +514,60 @@ fa_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     __syncthreads();   // before the next tile's copies and P overwrite
   }
 
-  // Output rows: split s, query plane plane * rep + p / tq, position p % tq
-  // -> row s * (bhkv * rows) + plane * rows + p of (o, m, l).
-  const bool final_out = gridDim.y == 1;
+  if constexpr (MERGE) {
+    float* const po = k_s;
+    float* const pm = po + ROWS * LD;
+    float* const pl = pm + ROWS;
 #pragma unroll
-  for (int rr = 0; rr < RPT; ++rr) {
-    const int p = p0 + tr + TPR * rr;
-    if (!real[rr]) continue;
-    const long long row = ((long long)blockIdx.y * g.bhkv + plane) * rows + p;
-    const float den = final_out ? fmaxf(l_r[rr], 1e-30f) : 1.f;
-    float* const orow = o + row * g.dh;
+    for (int rr = 0; rr < RPT; ++rr) {
+      const int i = tr + TPR * rr;
 #pragma unroll
-    for (int gg = 0; gg < NG; ++gg)
-#pragma unroll
-      for (int cc = 0; cc < 4; ++cc) {
-        const int c = 64 * gg + 4 * tc + cc;
-        if (c < g.dh) orow[c] = acc[rr][4 * gg + cc] / den;
+      for (int gg = 0; gg < NG; ++gg)
+        *reinterpret_cast<float4*>(po + i * LD + 64 * gg + 4 * tc) =
+            make_float4(acc[rr][4 * gg], acc[rr][4 * gg + 1],
+                        acc[rr][4 * gg + 2], acc[rr][4 * gg + 3]);
+      if (tc == 0) {
+        pm[i] = m_r[rr];
+        pl[i] = l_r[rr];
       }
-    if (tc == 0) {
-      m_out[row] = m_r[rr];
-      l_out[row] = l_r[rr];
+    }
+    cg::cluster_group cluster = cg::this_cluster();
+    cluster.sync();
+    const long long row0 = (long long)plane * rows + p0;
+    // The row weights go to this block's q tile: the key loop is done
+    // with it.
+    float* const rw = q_s;                          // ROWS x MAX_CLUSTER
+    float* const rden = rw + ROWS * MAX_CLUSTER;    // ROWS
+    if (g.dh % 4 == 0)
+      cluster_merge<4, LD>(cluster, po, pm, pl, rw, rden, o + row0 * g.dh,
+                           m_out + row0, l_out + row0, p_end - p0, g.dh);
+    else
+      cluster_merge<1, LD>(cluster, po, pm, pl, rw, rden, o + row0 * g.dh,
+                           m_out + row0, l_out + row0, p_end - p0, g.dh);
+    cluster.sync();
+  } else {
+    // Output rows: split s, query plane plane * rep + p / tq, position
+    // p % tq -> row s * (bhkv * rows) + plane * rows + p of (o, m, l).
+    const bool final_out = gridDim.y == 1;
+#pragma unroll
+    for (int rr = 0; rr < RPT; ++rr) {
+      const int p = p0 + tr + TPR * rr;
+      if (!real[rr]) continue;
+      const long long row =
+          ((long long)blockIdx.y * g.bhkv + plane) * rows + p;
+      const float den = final_out ? fmaxf(l_r[rr], 1e-30f) : 1.f;
+      float* const orow = o + row * g.dh;
+#pragma unroll
+      for (int gg = 0; gg < NG; ++gg)
+#pragma unroll
+        for (int cc = 0; cc < 4; ++cc) {
+          const int c = 64 * gg + 4 * tc + cc;
+          if (c < g.dh) orow[c] = acc[rr][4 * gg + cc] / den;
+        }
+      if (tc == 0) {
+        m_out[row] = m_r[rr];
+        l_out[row] = l_r[rr];
+      }
     }
   }
 }
@@ -482,28 +650,74 @@ fa_combine_kernel(const float* __restrict__ o_part,
   }
 }
 
-template <int ROWS, int DHP, int STAGES>
+template <int ROWS, int DHP, int STAGES, bool MERGE>
 int launch_fwd(const float* q, const float* k, const float* v, float* o,
                float* m, float* l, const Geom& g, int splits,
                cudaStream_t stream) {
   constexpr int bytes = smem_floats<ROWS, DHP, STAGES>() * (int)sizeof(float);
   static bool limit_set[MAX_DEVICES] = {};
-  if (const int e = raise_smem_limit(limit_set,
-                                     fa_fwd_kernel<ROWS, DHP, STAGES>, bytes))
-    return e;
+  auto* const kern = fa_fwd_kernel<ROWS, DHP, STAGES, MERGE>;
+  if (const int e = raise_smem_limit(limit_set, kern, bytes)) return e;
   const dim3 grid(g.row_tiles * g.bhkv, splits);
-  fa_fwd_kernel<ROWS, DHP, STAGES><<<grid, NT, bytes, stream>>>(q, k, v, o, m,
-                                                               l, g);
+  if constexpr (MERGE) {
+    // One cluster per row tile: the tile's S splits, grid y = S.
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = 1;
+    attr[0].val.clusterDim.y = splits;
+    attr[0].val.clusterDim.z = 1;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = grid;
+    cfg.blockDim = dim3(NT);
+    cfg.dynamicSmemBytes = bytes;
+    cfg.stream = stream;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    const cudaError_t e = cudaLaunchKernelEx(&cfg, kern, q, k, v, o, m, l, g);
+    if (e != cudaSuccess) return (int)e;
+  } else {
+    kern<<<grid, NT, bytes, stream>>>(q, k, v, o, m, l, g);
+  }
   return (int)cudaGetLastError();
 }
 
 template <int ROWS, int DHP>
 int launch_fwd_staged(const float* q, const float* k, const float* v,
                       float* o, float* m, float* l, const Geom& g, int splits,
-                      cudaStream_t stream) {
+                      int merge, cudaStream_t stream) {
+  if (merge)
+    return g.tiles_per_split == 1
+               ? launch_fwd<ROWS, DHP, 1, true>(q, k, v, o, m, l, g, splits,
+                                                stream)
+               : launch_fwd<ROWS, DHP, 2, true>(q, k, v, o, m, l, g, splits,
+                                                stream);
   return g.tiles_per_split == 1
-             ? launch_fwd<ROWS, DHP, 1>(q, k, v, o, m, l, g, splits, stream)
-             : launch_fwd<ROWS, DHP, 2>(q, k, v, o, m, l, g, splits, stream);
+             ? launch_fwd<ROWS, DHP, 1, false>(q, k, v, o, m, l, g, splits,
+                                               stream)
+             : launch_fwd<ROWS, DHP, 2, false>(q, k, v, o, m, l, g, splits,
+                                               stream);
+}
+
+// cudaOccupancyMaxActiveClusters of the merging variant: how many
+// clusters of `splits` blocks fit on the device at once.
+template <int ROWS, int DHP, int STAGES>
+int max_clusters(int splits, int* count) {
+  constexpr int bytes = smem_floats<ROWS, DHP, STAGES>() * (int)sizeof(float);
+  static bool limit_set[MAX_DEVICES] = {};
+  auto* const kern = fa_fwd_kernel<ROWS, DHP, STAGES, true>;
+  if (const int e = raise_smem_limit(limit_set, kern, bytes)) return e;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = splits;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(1, splits);
+  cfg.blockDim = dim3(NT);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return (int)cudaOccupancyMaxActiveClusters(count, kern, &cfg);
 }
 
 }  // namespace
@@ -513,7 +727,9 @@ int launch_fwd_staged(const float* q, const float* k, const float* v,
 // q (B, H, tq, dh), k and v (B, Hkv, tk, dh) through their strides (in
 // elements, unit along dh); o (splits, B H tq, dh), m and l (splits,
 // B H tq), contiguous.  rows_tile is 16 or 64, dh at most 128; splits key
-// splits of tiles_per_split 64-key tiles each.
+// splits of tiles_per_split 64-key tiles each.  merge (2 <= splits <=
+// MAX_CLUSTER): the splits merge in the cluster epilogue, and o, m and l
+// are the merged (B H tq, dh), (B H tq), (B H tq).
 FA_EXPORT int fa_fwd_f32(const void* q, const void* k, const void* v,
                          void* o, void* m, void* l, int batch, int hq,
                          int hkv, int tq, int tk, int dh, long long sqb,
@@ -522,9 +738,10 @@ FA_EXPORT int fa_fwd_f32(const void* q, const void* k, const void* v,
                          long long svh, long long svt, float scale,
                          int causal, int q_offset, int splits,
                          int tiles_per_split, int rows_tile, int vec16,
-                         void* stream) {
+                         int merge, void* stream) {
   if (dh < 1 || dh > 128 || (rows_tile != 16 && rows_tile != 64) ||
-      hkv < 1 || hq % hkv != 0)
+      hkv < 1 || hq % hkv != 0 ||
+      (merge && (splits < 2 || splits > MAX_CLUSTER)))
     return (int)cudaErrorInvalidValue;
   Geom g{sqb, sqh, sqt, skb, skh, skt, svb, svh, svt,
          hq, hkv, hq / hkv, tq, tk, dh, causal, q_offset,
@@ -540,13 +757,37 @@ FA_EXPORT int fa_fwd_f32(const void* q, const void* k, const void* v,
   if (rows_tile == 16)
     return dh <= 64
                ? launch_fwd_staged<16, 64>(qf, kf, vf, of, mf, lf, g, splits,
-                                           st)
+                                           merge, st)
                : launch_fwd_staged<16, 128>(qf, kf, vf, of, mf, lf, g,
-                                            splits, st);
+                                            splits, merge, st);
   return dh <= 64
-             ? launch_fwd_staged<64, 64>(qf, kf, vf, of, mf, lf, g, splits, st)
+             ? launch_fwd_staged<64, 64>(qf, kf, vf, of, mf, lf, g, splits,
+                                         merge, st)
              : launch_fwd_staged<64, 128>(qf, kf, vf, of, mf, lf, g, splits,
-                                          st);
+                                          merge, st);
+}
+
+// The most clusters of `splits` blocks of the merging forward that are
+// resident at once, at rows_tile 16 or 64, dh <= 64 or 128 and stages 1
+// or 2 (cudaOccupancyMaxActiveClusters), into *count.
+FA_EXPORT int fa_max_active_clusters(int rows_tile, int dh, int stages,
+                                     int splits, void* count) {
+  int* const n = (int*)count;
+  if ((rows_tile != 16 && rows_tile != 64) || (stages != 1 && stages != 2) ||
+      dh < 1 || dh > 128 || splits < 1 || splits > MAX_CLUSTER)
+    return (int)cudaErrorInvalidValue;
+  if (rows_tile == 16) {
+    if (dh <= 64)
+      return stages == 1 ? max_clusters<16, 64, 1>(splits, n)
+                         : max_clusters<16, 64, 2>(splits, n);
+    return stages == 1 ? max_clusters<16, 128, 1>(splits, n)
+                       : max_clusters<16, 128, 2>(splits, n);
+  }
+  if (dh <= 64)
+    return stages == 1 ? max_clusters<64, 64, 1>(splits, n)
+                       : max_clusters<64, 64, 2>(splits, n);
+  return stages == 1 ? max_clusters<64, 128, 1>(splits, n)
+                     : max_clusters<64, 128, 2>(splits, n);
 }
 
 // o_part (splits, nrows, dh), m_part and l_part (splits, nrows) -> o

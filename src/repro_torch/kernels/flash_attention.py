@@ -13,15 +13,25 @@ causal, ``j <= i + q_offset``:
 * ``flash_forward`` — one pass over the keys with an online softmax: o,
                       and the row max ``m`` and denominator
                       ``l = sum_j exp(s_ij - m_i)``.  With ``splits > 1``
-                      each block covers one range of 64-key tiles and
-                      writes a partial (o, m, l);
-* ``flash_combine`` — merges those partials.
+                      each block covers one range of 64-key tiles; with
+                      up to ``MAX_CLUSTER`` ranges the blocks of a row
+                      tile are one thread block cluster and merge their
+                      partials in the kernel's epilogue, through
+                      distributed shared memory (one launch, counted on
+                      ``flash_forward.cluster_launches`` too);
+* ``flash_combine`` — merges the partials of more ranges, in a second
+                      launch (and the ranks' partials of a sharded
+                      decode, ``flash_ops.flash_merge``).
 
-``flash_forward_split`` is the forward kernel alone (its partials), for
-timing it apart from the merge.
+The two merges are bitwise one another: the epilogue repeats the
+combine's arithmetic in its order.  ``flash_forward_split`` is the forward
+kernel alone (its partials), for timing it apart from the merge and for
+holding the epilogue to the two-launch path.
 
 ``decode_splits`` picks the split count: 1 when the row tiles alone fill
-the card, else enough key ranges for about two blocks per SM.  A row with
+the card, else enough key ranges for about two blocks per SM, and where
+those are merged in clusters, no more than one wave of resident
+clusters holds.  A row with
 no scored key (causal with ``i + q_offset < 0``) is the uniform average of
 the Tk value rows, as the oracle ``flash_ops.flash_attention_ref`` gives
 it.
@@ -38,6 +48,9 @@ counts its kernel launches in its ``launches`` attribute.
 """
 from __future__ import annotations
 
+import ctypes
+import functools
+
 import torch
 
 from repro_torch.kernels import clib
@@ -47,6 +60,8 @@ PLAIN_BLOCK = 128      # key block of the plain twins
 KT = 64                # keys per tile of the kernel (csrc KT)
 MAX_DH = 128           # the widest head the kernel's tiles hold
 BLOCKS_WANTED = 264    # about two blocks on each of an H100's 132 SMs
+MAX_CLUSTER = 8        # the portable cluster size: the most key ranges
+                       # merged in the forward's epilogue (csrc MAX_CLUSTER)
 _F32 = torch.float32
 
 
@@ -154,17 +169,68 @@ def split_plan(tk: int, splits: int) -> tuple[int, int]:
     return -(-nkt // tps), tps
 
 
-def decode_splits(bhkv: int, rows: int, tk: int) -> int:
+def merges_in_cluster(splits: int) -> bool:
+    """Whether ``flash_forward`` merges ``splits`` key ranges (a
+    ``split_plan`` count) in its cluster epilogue: 2 to ``MAX_CLUSTER``.
+    One range needs no merge; more go to ``flash_combine``."""
+    return 1 < splits <= MAX_CLUSTER
+
+
+@functools.lru_cache(maxsize=None)
+def _resident(index: int, rows_tile: int, dh_tile: int, stages: int,
+              splits: int) -> int:
+    fn = clib._symbol("flash_attention", "fa_max_active_clusters",
+                      (clib.I,) * 4 + (clib.P,), ctypes.c_int)
+    count = ctypes.c_int(0)
+    with torch.cuda.device(index):
+        rc = fn(rows_tile, dh_tile, stages, splits, ctypes.addressof(count))
+    if rc != 0:
+        msg = clib._symbol("flash_attention", "fa_error_string",
+                           (ctypes.c_int,), ctypes.c_char_p)(rc).decode()
+        raise RuntimeError(f"fa_max_active_clusters failed ({rc}: {msg})")
+    return count.value
+
+
+def resident_clusters(device, rows_tile: int, dh: int, stages: int,
+                      splits: int) -> int:
+    """How many clusters of ``splits`` blocks of the merging forward the
+    CUDA ``device`` holds at once (``cudaOccupancyMaxActiveClusters``) at
+    a ``rows_tile`` row tile, heads of width ``dh`` and ``stages`` K/V
+    stages; asked of the card once per device and shape."""
+    device = torch.device(device)
+    index = (device.index if device.index is not None
+             else torch.cuda.current_device())
+    return _resident(index, rows_tile, 64 if dh <= 64 else MAX_DH, stages,
+                     splits)
+
+
+def decode_splits(bhkv: int, rows: int, tk: int, dh: int,
+                  device=None) -> int:
     """The key split count of ``flash_forward`` for ``bhkv`` kv planes of
-    ``rows`` packed query rows over ``tk`` keys: 1 when the row tiles fill
-    the card (``BLOCKS_WANTED`` blocks), else as many key ranges as give
-    that many blocks with at least one 64-key tile each."""
-    blocks = bhkv * -(-rows // row_tile(rows))
+    ``rows`` packed query rows over ``tk`` keys of width ``dh``: 1 when
+    the row tiles fill the card (``BLOCKS_WANTED`` blocks), else as many
+    key ranges as give that many blocks with at least one 64-key tile
+    each.  On a CUDA ``device``, where that is 2 to ``MAX_CLUSTER``
+    ranges, merged in clusters, the most ranges up to it whose clusters
+    are all resident at once (``resident_clusters``), or 1: a second wave
+    of clusters costs more than the ranges save (PERF.md).  Elsewhere
+    (the plain twins on the CPU) the count of two blocks per SM."""
+    tile = row_tile(rows)
+    blocks = bhkv * -(-rows // tile)
     if blocks == 0 or blocks >= BLOCKS_WANTED:
         return 1
     nkt = -(-tk // KT)
     tps = max(1, nkt // -(-BLOCKS_WANTED // blocks))
-    return -(-nkt // tps)
+    splits = -(-nkt // tps)
+    if (splits > MAX_CLUSTER or device is None
+            or torch.device(device).type != "cuda"):
+        return splits
+    for want in range(splits, 1, -1):
+        n, tps = split_plan(tk, want)
+        if n > 1 and blocks <= resident_clusters(device, tile, dh,
+                                                 1 if tps == 1 else 2, n):
+            return n
+    return 1
 
 
 def flash_combine_plain(o_part, m_part, l_part):
@@ -221,7 +287,7 @@ def flash_forward_plain(q, k, v, causal=True, q_offset=0, splits=1):
 
 
 _P, _I, _F, _L = clib.P, clib.I, clib.F, clib.L
-_FWD_ARGS = ([_P] * 6 + [_I] * 6 + [_L] * 9 + [_F] + [_I] * 6)
+_FWD_ARGS = ([_P] * 6 + [_I] * 6 + [_L] * 9 + [_F] + [_I] * 7)
 
 
 def _strides(t):
@@ -254,15 +320,10 @@ def flash_combine(o_part, m_part, l_part):
     return o, m, l
 
 
-def flash_forward_split(q, k, v, causal=True, q_offset=0, splits=1):
-    """The forward kernel alone, on CUDA operands, at the key ranges of
-    ``split_plan(Tk, splits)``: (o, m, l) of shapes (S, R, Dh), (S, R),
-    (S, R) with R = B·H·Tq rows.  With S = 1 they are the result; with
-    more, each split's partial (o unnormalised) for ``flash_combine``.
-    Counts its launch on ``flash_forward``."""
+def _forward(q, k, v, causal, q_offset, splits, merge):
+    """Launch the forward kernel on CUDA operands: (o, m, l) of shapes
+    (S, R, Dh), (S, R), (S, R), S = 1 when ``merge``."""
     batch, hq, hkv, tq, tk, dh = _check(q, k, v)
-    if clib.route(q, k, v) == "cpu":
-        return flash_forward_split_plain(q, k, v, causal, q_offset, splits)
     if dh > MAX_DH:
         raise ValueError(f"head_dim {dh} > {MAX_DH}, the kernel's widest")
     if any(t.stride(-1) != 1 for t in (q, k, v)):
@@ -272,27 +333,45 @@ def flash_forward_split(q, k, v, causal=True, q_offset=0, splits=1):
              and all(t.data_ptr() % 16 == 0 for t in (q, k, v)))
     n, tps = split_plan(tk, splits)
     nrows = batch * hq * tq
-    o = torch.empty(n, nrows, dh, dtype=_F32, device=q.device)
-    m = torch.empty(n, nrows, dtype=_F32, device=q.device)
+    out = 1 if merge else n
+    o = torch.empty(out, nrows, dh, dtype=_F32, device=q.device)
+    m = torch.empty(out, nrows, dtype=_F32, device=q.device)
     l = torch.empty_like(m)
     if nrows:
         clib.launch(flash_forward, "flash_attention", "fa_fwd_f32",
                     _FWD_ARGS, q, k, v, o, m, l, batch, hq, hkv, tq, tk, dh,
                     *strides, dh ** -0.5, int(causal), int(q_offset), n, tps,
-                    row_tile(hq // hkv * tq), int(vec16))
+                    row_tile(hq // hkv * tq), int(vec16), int(merge))
+        if merge:
+            flash_forward.cluster_launches += 1
     return o, m, l
 
 
+def flash_forward_split(q, k, v, causal=True, q_offset=0, splits=1):
+    """The forward kernel alone, on CUDA operands, at the key ranges of
+    ``split_plan(Tk, splits)``: (o, m, l) of shapes (S, R, Dh), (S, R),
+    (S, R) with R = B·H·Tq rows.  With S = 1 they are the result; with
+    more, each split's partial (o unnormalised) for ``flash_combine``.
+    Counts its launch on ``flash_forward``."""
+    _check(q, k, v)
+    if clib.route(q, k, v) == "cpu":
+        return flash_forward_split_plain(q, k, v, causal, q_offset, splits)
+    return _forward(q, k, v, causal, q_offset, splits, False)
+
+
 def flash_forward(q, k, v, causal=True, q_offset=0, splits=None):
-    """The one-pass forward kernel and, with several key splits, the
-    combine.  ``splits`` None takes ``decode_splits``.  Returns (o, m, l):
-    o shaped like q, m and l q.shape[:-1], contiguous float32."""
+    """The one-pass forward kernel, merging its key splits in its cluster
+    epilogue (up to ``MAX_CLUSTER``) or, with more, in the combine.
+    ``splits`` None takes ``decode_splits``.  Returns (o, m, l): o shaped
+    like q, m and l q.shape[:-1], contiguous float32."""
     batch, hq, hkv, tq, tk, dh = _check(q, k, v)
     if splits is None:
-        splits = decode_splits(batch * hkv, hq // hkv * tq, tk)
+        splits = decode_splits(batch * hkv, hq // hkv * tq, tk, dh,
+                               q.device)
     if clib.route(q, k, v) == "cpu":
         return flash_forward_plain(q, k, v, causal, q_offset, splits)
-    o, m, l = flash_forward_split(q, k, v, causal, q_offset, splits)
+    merge = merges_in_cluster(split_plan(tk, splits)[0])
+    o, m, l = _forward(q, k, v, causal, q_offset, splits, merge)
     o, m, l = flash_combine(o, m, l) if o.shape[0] > 1 else (
         o[0], m[0], l[0])
     return o.reshape(q.shape), m.reshape(q.shape[:-1]), l.reshape(
@@ -302,3 +381,4 @@ def flash_forward(q, k, v, causal=True, q_offset=0, splits=None):
 KERNELS = (flash_forward, flash_combine)
 for _k in KERNELS:
     _k.launches = 0
+flash_forward.cluster_launches = 0   # the launches that merged in-kernel

@@ -4,8 +4,9 @@ KV cache, and cross-attention.
 Counterpart of ``repro.models.attention``.  Where the reference computes
 attention as einsums (``_sdpa``), every call here goes through the port's
 flash attention (``repro_torch.kernels.flash_ops.flash_attention``): on
-CUDA tensors it launches the ``flash_forward`` kernel and, when the keys
-split, ``flash_combine``; on the CPU it runs their plain twins.
+CUDA tensors it launches the ``flash_forward`` kernel, which merges up to
+8 key splits in its cluster epilogue, and ``flash_combine`` for more; on
+the CPU it runs their plain twins.
 
 - full / prefill: causal, ``q_offset = 0``; the encoder's: not causal;
 - decode over the whole padded cache: causal with ``q_offset = pos``,

@@ -616,8 +616,9 @@ def test_cuda_flash_kernels_match_plain_twins(cuda, shape, splits):
     at one key split, at five and at decode_splits' count, against the
     twins on folded card tensors: m and l against the stats twin, o against
     the apply twin fed the kernel's own m and l and against the one-pass
-    twin at the same split count; one launch of flash_forward, and one of
-    flash_combine exactly when the keys split."""
+    twin at the same split count; one launch of flash_forward, merging 2
+    to 8 key splits in its cluster epilogue, and one of flash_combine
+    exactly when the keys split into more."""
     from repro_torch.kernels import flash_ops
 
     F = importlib.import_module("repro_torch.kernels.flash_attention")
@@ -625,14 +626,17 @@ def test_cuda_flash_kernels_match_plain_twins(cuda, shape, splits):
     ops_ = _flash_operands(b, tq, s, h, hkv, dh, tq + s, cuda)
     q, k, v = (flash_ops.fold_heads(t) for t in ops_)
     n = F.split_plan(s, splits if splits is not None else
-                     F.decode_splits(b * hkv, h // hkv * tq, s))[0]
+                     F.decode_splits(b * hkv, h // hkv * tq, s, dh,
+                                     cuda))[0]
     for kern in F.KERNELS:
         kern.launches = 0
+    F.flash_forward.cluster_launches = 0
     o, m, l = F.flash_forward(*(flash_ops.heads_major(t) for t in ops_),
                               causal, off, splits)
     torch.cuda.synchronize()
-    assert (F.flash_forward.launches, F.flash_combine.launches) == (
-        1, int(n > 1))
+    assert (F.flash_forward.launches, F.flash_combine.launches,
+            F.flash_forward.cluster_launches) == (
+        1, int(n > F.MAX_CLUSTER), int(F.merges_in_cluster(n)))
     o, m, l = o.reshape(q.shape), m.reshape(q.shape[:2]), l.reshape(
         q.shape[:2])
     m0, l0 = F.flash_stats_plain(q, k, causal, off)
@@ -671,8 +675,9 @@ def test_cuda_flash_forward_strided_matches_contiguous(cuda):
                                    (1, 1, 300, 8, 2, 64, True, 299)])
 def test_cuda_flash_attention_matches_oracle(cuda, shape):
     """The Function on the card: output and dq, dk, dv against the
-    oracle's autograd, one launch of flash_forward per forward, and one
-    of flash_combine when the keys split (the decode step)."""
+    oracle's autograd, one launch of flash_forward per forward, merging
+    in its cluster epilogue when the keys split (the decode step) into 2
+    to 8 ranges, and one of flash_combine when into more."""
     from repro_torch.kernels import (flash_attention, flash_attention_ref,
                                      launch_counts, reset_launch_counts)
 
@@ -690,11 +695,55 @@ def test_cuda_flash_attention_matches_oracle(cuda, shape):
         results.append((o, *torch.autograd.grad(o, args, dout)))
         if len(results) == 1:
             counts = launch_counts()
-            split = F.decode_splits(b * hkv, h // hkv * tq, s) > 1
-            assert (counts["flash_forward"], counts["flash_combine"]) == (
-                1, int(split))
+            n = F.split_plan(s, F.decode_splits(b * hkv, h // hkv * tq,
+                                                s, dh, cuda))[0]
+            assert (counts["flash_forward"], counts["flash_combine"],
+                    counts["flash_forward_cluster"]) == (
+                1, int(n > F.MAX_CLUSTER), int(F.merges_in_cluster(n)))
     for g, r in zip(*results):
         _close(g.detach().cpu(), r.detach().cpu(), GRAD_RTOL)
+
+
+# (B, Tq, S, H, Hkv, Dh, causal, q_offset) of the cluster merge: 1000 keys
+# are 16 tiles, so 2, 3, 4 and 8 splits are exact; decode (16-row tiles),
+# a causal block with an offset and one with rows that see no key (64-row
+# tiles), no mask.
+CLUSTER_SHAPES = [(2, 1, 1000, 8, 2, 0, True, 999),
+                  (1, 40, 1000, 4, 2, 0, True, 960),
+                  (1, 70, 1000, 4, 1, 0, True, -5),
+                  (2, 3, 1000, 6, 3, 0, False, 0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh", [30, 64, 128])
+@pytest.mark.parametrize("splits", [2, 3, 4, 8])
+@pytest.mark.parametrize("shape", CLUSTER_SHAPES)
+def test_cuda_flash_cluster_merge_is_bitwise_the_two_launch_path(
+        cuda, shape, splits, dh):
+    """flash_forward merging its key splits in the cluster epilogue: o, m
+    and l bitwise flash_forward_split + flash_combine on the same
+    operands, in one launch counted on flash_forward and
+    flash_forward_cluster, none of flash_combine; Dh 30 ends each row in
+    a part of a four-column group."""
+    from repro_torch.kernels import (flash_ops, launch_counts,
+                                     reset_launch_counts)
+
+    F = importlib.import_module("repro_torch.kernels.flash_attention")
+    b, tq, s, h, hkv, _, causal, off = shape
+    views = [flash_ops.heads_major(t) for t in _flash_operands(
+        b, tq, s, h, hkv, dh, splits + dh, cuda)]
+    assert F.split_plan(s, splits)[0] == splits
+    assert F.row_tile(h // hkv * tq) == (16 if h // hkv * tq <= 16 else 64)
+    reset_launch_counts()
+    got = F.flash_forward(*views, causal, off, splits)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    assert (counts["flash_forward"], counts["flash_forward_cluster"],
+            counts["flash_combine"]) == (1, 1, 0)
+    want = F.flash_combine(*F.flash_forward_split(*views, causal, off,
+                                                  splits))
+    for g, w in zip(got, want):
+        assert torch.equal(g.reshape(w.shape), w)
 
 
 # ------------------------------------------------ one temperature per instance
@@ -1334,16 +1383,69 @@ def test_cuda_threefry_kernel_is_bitwise_its_twin(cuda, r, m):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("r,n", [(8, 4096), (2, 1024), (3, 1001), (5, 4098),
+                                 (1, 1)])
+def test_cuda_threefry_round_is_bitwise_its_twin(cuda, r, n):
+    """The fused shuffle round in both layouts, with and without the
+    source's split: kept keys and every round's sort words bitwise the
+    twin's, in one launch."""
+    TK = importlib.import_module("repro_torch.kernels.threefry")
+    keys = torch.tensor(np.random.default_rng(n).integers(
+        0, 2 ** 32, (r, 2)), dtype=torch.int64, device=cuda)
+    rounds = TK.permutation_rounds(n)
+    for part in (True, False):
+        for split_keys in (True, False):
+            TK.threefry_round.launches = 0
+            kept, got = TK.threefry_round(keys, n, rounds, part, split_keys)
+            assert TK.threefry_round.launches == int(
+                split_keys or bool(rounds and n))
+            kp, want = TK.threefry_round_plain(keys.cpu(), n, rounds, part,
+                                               split_keys)
+            assert torch.equal(got.cpu(), want)
+            assert (kept is None and kp is None) or torch.equal(kept.cpu(),
+                                                                kp)
+
+
+@pytest.mark.cuda
+def test_cuda_fold_in_and_threefry_2x32_launch_the_kernel(cuda):
+    """fold_in over a batch of keys and threefry_2x32 of one counter pair
+    on CUDA: one threefry_bits launch each, bitwise the CPU twin, and no
+    other kernel of the package."""
+    from repro_torch.core import threefry as tf
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    keys = tf.split(tf.prng_key(11), 6, device=cuda)
+    for data in (0, 1, 2 ** 31, 2 ** 32 - 1):
+        reset_launch_counts()
+        got = tf.fold_in(keys, data)
+        assert {k: v for k, v in launch_counts().items() if v} == {
+            "threefry_bits": 1}
+        assert torch.equal(got.cpu(), tf.fold_in(keys.cpu(), data))
+    key, count = np.array([0x13198A2E, 0x03707344], np.uint32), np.array(
+        [0x243F6A88, 0x85A308D3], np.uint32)
+    reset_launch_counts()
+    got = tf.threefry_2x32(key, count, device=cuda)
+    assert launch_counts()["threefry_bits"] == 1
+    assert got.tolist() == [0xC4923A9C, 0x483DF7A0]
+    with pytest.raises(ValueError):
+        tf.threefry_2x32(key, np.arange(4, dtype=np.uint32), device=cuda)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("partitionable", [True, False])
 def test_cuda_threefry_source_is_bitwise_the_cpu_source(cuda, partitionable):
     from repro_torch.core import threefry as tf
     from repro_torch.core.prng import ThreefryShuffleSource
     keys = tf.split(tf.prng_key(5), 8, partitionable=partitionable,
                     device="cpu")
+    TK = importlib.import_module("repro_torch.kernels.threefry")
     a = ThreefryShuffleSource(keys, 4096, cuda, partitionable)
     b = ThreefryShuffleSource(keys, 4096, "cpu", partitionable)
     for rows in (None, [3, 1], None):
+        for k in TK.KERNELS:
+            k.launches = 0
         assert torch.equal(a.next_round(rows).cpu(), b.next_round(rows))
+        assert (TK.threefry_bits.launches, TK.threefry_round.launches) == (
+            0, 1)
     np.testing.assert_array_equal(a.state_dict(), b.state_dict())
     for name in ("uniform", "normal"):
         fn = getattr(tf, name)
@@ -1470,17 +1572,26 @@ def test_cuda_lm_serve_runs_attention_on_flash(cuda, arch):
 
 
 @pytest.mark.cuda
-def test_cuda_lm_decode_over_a_long_cache_launches_the_combine(cuda):
-    """One request, a 563-token prompt: its two kv planes split the keys
+@pytest.mark.parametrize("prompt_len,t,splits,route", [
+    (520, 196, 4, "flash_forward_cluster"), (600, 563, 9, "flash_combine")])
+def test_cuda_lm_decode_over_a_long_cache_merges_its_key_splits(
+        cuda, prompt_len, t, splits, route):
+    """One request, a t-token prompt: its two kv planes split the keys
     (``decode_splits``) at the prefill and at each decode step, so every
-    attention call also launches flash_combine."""
-    from repro_torch.kernels.flash_attention import decode_splits
-    cfg, out, counts, ref = _lm_on_card_and_host("qwen1.5-0.5b", 1, 6, 600)
-    t, rep = out["max_len"], cfg.num_heads // cfg.num_kv_heads
-    assert t == 563
-    assert decode_splits(cfg.num_kv_heads, rep * t, t) > 1
-    assert decode_splits(cfg.num_kv_heads, rep, t + 6) > 1
-    assert (counts["flash_forward"], counts["flash_combine"]) == (12, 12)
+    attention call merges them: 4 splits in the forward's cluster
+    epilogue, 9 (more than 8) in a flash_combine launch."""
+    from repro_torch.kernels.flash_attention import decode_splits, split_plan
+    cfg, out, counts, ref = _lm_on_card_and_host("qwen1.5-0.5b", 1, 6,
+                                                 prompt_len)
+    rep = cfg.num_heads // cfg.num_kv_heads
+    assert out["max_len"] == t
+    for rows, keys in [(rep * t, t)] + [(rep, t + 6)] * 5:
+        assert split_plan(keys, decode_splits(
+            cfg.num_kv_heads, rows, keys, cfg.resolved_head_dim,
+            cuda))[0] == splits
+    merges = {"flash_forward_cluster": 0, "flash_combine": 0, route: 12}
+    assert counts["flash_forward"] == 12
+    assert {k: counts[k] for k in merges} == merges
     for got, want in zip(out["logits"], ref):
         np.testing.assert_allclose(got.cpu().numpy(), want.numpy(),
                                    atol=1e-4, rtol=0)

@@ -350,7 +350,7 @@ def test_decode_splits_at_nemo_shapes(cell):
     decode's 8 blocks of 4 packed rows split the 64 key tiles one each,
     512 blocks; every split holds at least one key tile."""
     h, hkv, tq, tk, _, _, _ = NEMO[cell]
-    splits = decode_splits(hkv, h // hkv * tq, tk)
+    splits = decode_splits(hkv, h // hkv * tq, tk, NEMO[cell][4])
     assert splits == {"prefill": 1, "decode": 64}[cell]
     n, tps = split_plan(tk, splits)
     assert n == splits and (n - 1) * tps < -(-tk // 64) <= n * tps
@@ -374,3 +374,157 @@ def test_flash_bounds_at_nemo_shapes():
     nbytes = 65 * (32 * 128 * 4 + 2 * 32 * 4)
     assert by == "bytes"
     np.testing.assert_allclose(ms, nbytes / 3.35e12 * 1e3, rtol=1e-12)
+
+
+# ------------------------------------------------ the cluster merge's route
+
+def _chip_smoke():
+    """chip_smoke.py's module, for its launch expectations."""
+    import importlib.util
+    import pathlib
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke_routes", path)
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    return cs
+
+
+def test_cluster_route_takes_two_to_eight_splits():
+    """flash_forward merges 2 to 8 key ranges (a portable cluster) in its
+    epilogue; one range needs no merge, more go to flash_combine."""
+    from repro_torch.kernels.flash_attention import MAX_CLUSTER, \
+        merges_in_cluster
+    assert MAX_CLUSTER == 8
+    assert [merges_in_cluster(s) for s in range(1, 11)] == [
+        False] + [True] * 7 + [False] * 2
+
+
+# cudaOccupancyMaxActiveClusters of the merging forward on an H100 SXM
+# (chip_smoke.py's build line): clusters of S blocks resident at once for
+# kernels of two blocks per SM (up to 108 KB of shared memory) and of one
+# (a 128-wide head with two K/V stages or 64-row tiles).
+H100_CLUSTERS = {2: {2: 132, 3: 79, 4: 62, 5: 47, 6: 39, 7: 32, 8: 30},
+                 1: {2: 66, 3: 39, 4: 30, 5: 22, 6: 17, 7: 15, 8: 15}}
+
+
+def _h100_clusters(device, rows_tile, dh, stages, splits):
+    assert torch.device(device).type == "cuda"
+    one_per_sm = dh > 64 and (rows_tile == 64 or stages == 2)
+    return H100_CLUSTERS[1 if one_per_sm else 2][splits]
+
+
+# (kv planes, packed query rows, keys, Dh) -> (splits on the CPU, on an
+# H100): Qwen1.5-0.5B's decode at lm_serve_run's traffic (b) and
+# lm_mesh_run's 32 K cache (4 on the CPU; 2 on the card, where 4 splits of
+# two blocks per SM would take a second wave of clusters), the 10m
+# recovery run's training (2), the card test's tiny prefill and decode
+# (4), and the NeMo decode and a tiny 563-token prefill, whose 64 and 9
+# splits stay on flash_combine.
+LM_SPLITS = [((128, 1, 1088, 64), 4, 2), ((128, 1, 32768, 64), 4, 2),
+             ((64, 128, 128, 32), 2, 2), ((2, 392, 196, 16), 4, 4),
+             ((2, 2, 202, 16), 4, 4), ((8, 4, 4096, 128), 64, 64),
+             ((2, 1126, 563, 16), 9, 9)]
+
+
+@pytest.mark.parametrize("call,cpu,card", LM_SPLITS)
+def test_decode_splits_keep_merged_splits_to_one_wave_of_clusters(
+        call, cpu, card, monkeypatch):
+    """On a CUDA device, where the keys split into at most 8 ranges (the
+    cluster route), every cluster of the launch is resident at once, as
+    the card's occupancy query (here an H100's answers) says; the counts
+    of more ranges, and every count off the card, are the rule's of two
+    blocks per SM."""
+    import importlib
+    F = importlib.import_module("repro_torch.kernels.flash_attention")
+    monkeypatch.setattr(F, "resident_clusters", _h100_clusters)
+    bhkv, rows, tk, dh = call
+    assert split_plan(tk, decode_splits(bhkv, rows, tk, dh))[0] == cpu
+    assert split_plan(tk, decode_splits(bhkv, rows, tk, dh, "cpu"))[0] == cpu
+    n, tps = split_plan(tk, decode_splits(bhkv, rows, tk, dh, "cuda"))
+    assert n == card
+    if F.merges_in_cluster(n):
+        tile = F.row_tile(rows)
+        clusters = bhkv * -(-rows // tile)
+        assert clusters <= _h100_clusters("cuda", tile, dh,
+                                          1 if tps == 1 else 2, n)
+
+
+@pytest.mark.parametrize("device", ["cpu", "cuda"])
+def test_lm_launch_expectations_merge_every_split_in_the_cluster(
+        device, monkeypatch):
+    """chip_smoke.py's launch expectations: Qwen1.5-0.5B serving at
+    traffic (b) (8 requests, prompts padded to 1024, 64 new tokens) and
+    the 10m recovery run's train steps merge every split in the cluster
+    epilogue and launch no flash_combine; the NeMo layer's decode keeps
+    its one."""
+    import importlib
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import PRESETS
+    from repro_torch.models import reduced_config
+    F = importlib.import_module("repro_torch.kernels.flash_attention")
+    monkeypatch.setattr(F, "resident_clusters", _h100_clusters)
+    cs = _chip_smoke()
+    qwen = get_config("qwen1.5-0.5b")
+    assert cs.lm_want(F, qwen, 8, 1024, 64, device) == {
+        "flash_forward": 24 * 64, "flash_combine": 0,
+        "flash_forward_cluster": 24 * 63}
+    tiny = reduced_config(qwen, **PRESETS["10m"])
+    calls = 3 * tiny.num_layers * (2 if tiny.remat else 1)
+    assert cs.lm_train_want(F, tiny, 8, 128, 3, device) == {
+        "flash_forward": calls, "flash_combine": 0,
+        "flash_forward_cluster": calls}
+    b, tq, s, h, hkv, dh, _, _ = cs.NEMO_PREFILL
+    assert cs.flash_routes(F, [(b * hkv, h // hkv * t, s) for t in (tq, 1)],
+                           dh, device) == {"flash_forward": 2, "flash_combine": 1,
+                                   "flash_forward_cluster": 0}
+
+
+@pytest.fixture
+def recorded(monkeypatch):
+    """Route CPU tensors to the CUDA path with the kernel library
+    replaced by a recorder: each entry is (symbol, args)."""
+    import contextlib
+    import types
+
+    from repro_torch.kernels import clib
+    calls = []
+
+    def symbol(stem, name, argtypes, restype):
+        def fn(*args):
+            assert len(args) == len(argtypes)
+            calls.append((name, args))
+            return 0
+        return fn
+
+    monkeypatch.setattr(clib, "route", lambda *tensors: "cuda")
+    monkeypatch.setattr(clib, "_symbol", symbol)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev: types.SimpleNamespace(cuda_stream=0))
+    return calls
+
+
+@pytest.mark.parametrize("splits,merge", [(1, 0), (2, 1), (8, 1), (12, 0)])
+def test_forward_merges_up_to_eight_splits_in_one_launch(recorded, splits,
+                                                          merge):
+    """``flash_forward`` on the CUDA route: with 2 to 8 key ranges one
+    ``fa_fwd_f32`` launch with the merge flag set, writing the merged (1,
+    R, Dh) o and (1, R) m and l, counted on ``flash_forward`` and
+    ``flash_forward_cluster``; with more, the forward's partials and a
+    ``fa_combine_f32`` launch; with one, neither."""
+    tk = 64 * 24                      # 24 key tiles: each count is exact
+    q, k, v = (torch.tensor(t) for t in _qkv(2, 1, tk, 8, 2, 32, 3))
+    views = [tfo.heads_major(t) for t in (q, k, v)]
+    reset_launch_counts()
+    o, m, l = flash_forward(*views, True, tk - 1, splits)
+    assert o.shape == (2, 8, 1, 32) and m.shape == l.shape == (2, 8, 1)
+    names = [name for name, _ in recorded]
+    assert names == ["fa_fwd_f32"] + (["fa_combine_f32"]
+                                      if splits > 8 else [])
+    args = recorded[0][1]   # ..., splits, tiles per split, rows tile,
+    assert args[-6:-1] == (splits, 24 // splits, 16, 1, merge)  # vec16, merge
+    counts = launch_counts()
+    assert (counts["flash_forward"], counts["flash_combine"],
+            counts["flash_forward_cluster"]) == (1, int(splits > 8), merge)

@@ -188,10 +188,10 @@ def test_permutation_sort_is_stable_on_tied_keys(monkeypatch):
     crafted = [rng.integers(0, 40, n).astype(np.int64),
                np.where(rng.random(n) < 0.5, 7,
                         rng.integers(0, 2 ** 32, n)).astype(np.int64)]
-    calls = iter(crafted)
-    monkeypatch.setattr(tf, "_sort_words",
-                        lambda key, shape, *args: torch.as_tensor(
-                            next(calls) - 2 ** 31).to(torch.int32)[None])
+    monkeypatch.setattr(tf, "threefry_round",
+                        lambda keys, n, rounds, *args: (None, torch.stack([
+                            torch.as_tensor(sk - 2 ** 31).to(torch.int32)[None]
+                            for sk in crafted[:rounds]])))
     got = tf.permutation(np.asarray(_key()), n, device=CPU)
     x = jnp.arange(n)
     for sk in crafted:
@@ -211,6 +211,164 @@ def test_kernel_wrapper_routes_cpu_tensors_to_the_twin():
         ktf.threefry_bits(keys, 7, ktf.PAIRS)
     with pytest.raises(ValueError):
         ktf.threefry_bits(keys.to(torch.int32), 8, ktf.XOR)
+
+
+FOLD_DATA = [0, 1, 2 ** 31, 2 ** 32 - 1]
+
+
+@pytest.mark.parametrize("data", FOLD_DATA)
+def test_fold_in_twin_is_jax_bitwise(data):
+    """The kernel twin's FOLD layout (the counter ``(0, data)``) and
+    ``fold_in`` over a batch of keys, bitwise ``jax.random.fold_in`` of
+    each key (one layout under either ``jax_threefry_partitionable``)."""
+    keys = np.asarray(jax.random.split(_key(13), 5))
+    want = np.stack([np.asarray(jax.random.fold_in(k, data)) for k in keys])
+    t = torch.as_tensor(keys.astype(np.int64))
+    _eq(ktf.words(ktf.threefry_bits_plain(t, 2, ktf.FOLD, data)), want)
+    _eq(tf.fold_in(keys, data, device=CPU), want)
+    _eq(tf.fold_in(keys[None], data, device=CPU), want[None])
+
+
+@pytest.mark.parametrize("partitionable", LAYOUTS)
+@pytest.mark.parametrize("n", [1000, 4096])
+def test_fused_round_twin_is_the_unfused_draws_and_jaxs(partitionable, n):
+    """``threefry_round_plain`` at N = 1000 (1 permutation round) and 4096
+    (2): bitwise the unfused ``split`` and ``_sort_words`` draws (composed
+    here, as ``permutation`` drew them before the fused round), and
+    through the stable sorts jax's ``split`` then ``permutation`` of each
+    key, with the source split first (the kept keys jax's first halves)
+    and without."""
+    rounds = ktf.permutation_rounds(n)
+    assert rounds == {1000: 1, 4096: 2}[n]
+    with jax.threefry_partitionable(partitionable):
+        keys = jax.random.split(_key(n), 3)
+        pairs = jax.vmap(jax.random.split)(keys)
+        want_kept = np.asarray(pairs[:, 0])
+        want_split = np.stack([np.asarray(jax.random.permutation(k, n))
+                               for k in pairs[:, 1]])
+        want_plain = np.stack([np.asarray(jax.random.permutation(k, n))
+                               for k in keys])
+    t = torch.as_tensor(np.asarray(keys).astype(np.int64))
+    for split_keys, want in ((True, want_split), (False, want_plain)):
+        kept, words_ = ktf.threefry_round_plain(t, n, rounds, partitionable,
+                                                split_keys)
+        kept_u, k = (None, t)
+        if split_keys:
+            pair = tf.split(t, partitionable=partitionable)
+            kept_u, k = pair[:, 0], pair[:, 1]
+        words_u = []
+        for _ in range(rounds):
+            pair = tf.split(k, partitionable=partitionable)
+            k = pair[:, 0]
+            words_u.append(tf._sort_words(pair[:, 1], (n,), partitionable,
+                                          None))
+        assert words_.shape == (rounds, 3, n)
+        for a, b in zip(words_, words_u):
+            _eq(a, b)
+        _eq(tf._shuffle(words_, 3, n, t.device), want)
+        if split_keys:
+            _eq(kept, want_kept)
+            _eq(kept_u, want_kept)
+        else:
+            assert kept is None and kept_u is None
+    got_kept, got = tf.shuffle_round(t, n, partitionable=partitionable)
+    _eq(got_kept, want_kept)
+    _eq(got, want_split)
+
+
+def test_fold_in_and_threefry_2x32_on_cpu_launch_nothing():
+    """CPU tensors take the twins: no kernel launch is counted, and the
+    one-pair hash of the kernel's FOLD layout is the known answer."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    reset_launch_counts()
+    tf.fold_in(np.asarray(jax.random.split(_key(2), 4)), 7, device=CPU)
+    tf.threefry_2x32(np.array(KNOWN[2][0], np.uint32),
+                     np.array(KNOWN[2][1], np.uint32), device=CPU)
+    ThreefryShuffleSource(np.asarray(jax.random.split(_key(3), 2)), 64,
+                          CPU).next_round()
+    assert not any(launch_counts().values())
+    (k0, k1), (x0, x1), want = KNOWN[2]
+    got = ktf.threefry_bits_plain(torch.tensor([[k0, k1]]), 2, ktf.FOLD,
+                                  x0 << 32 | x1)
+    _eq(ktf.words(got)[0], want)
+
+
+def test_threefry_bounds_by_hand():
+    """Row 11's bound: the larger of the bytes (16 B of key per row in, 4
+    B per word out) over 3.35 TB/s and the hashes at the ALU pipe's
+    operations of one (the SASS's 396 SHF.L.W, 412 LOP3.LUT and 126 IADD3
+    over its 19.8 hashes, 47.2: more than the FMA pipe's 348 IMAD.IADD and
+    84 VIADD) over 132 x 64 INT32 lanes at 67e12 / (132 x 256) Hz; the
+    fused round's: its keys in and out, its words, and two hashes per
+    split of the key chain."""
+    from repro_torch.kernels.bounds import (PEAK_INT32_OPS,
+                                            THREEFRY_OPS_PER_HASH,
+                                            threefry_bound_ms,
+                                            threefry_round_bound_ms)
+    np.testing.assert_allclose(PEAK_INT32_OPS, 132 * 64 * 67e12 / (132 * 256))
+    ops = (396 + 412 + 126) / 19.8
+    assert (348 + 84) / 19.8 < ops
+    np.testing.assert_allclose(THREEFRY_OPS_PER_HASH, ops, rtol=1e-12)
+    for (r, m, mode), hashes in (((1, 1024 ** 2, ktf.XOR), 1024 ** 2),
+                                 ((8, 4096, ktf.XOR), 8 * 4096),
+                                 ((3, 1001, ktf.ORIGINAL), 3 * 501),
+                                 ((5, 2, ktf.FOLD), 5)):
+        ms, by = threefry_bound_ms(r, m, mode)
+        t_ops = hashes * ops / PEAK_INT32_OPS * 1e3
+        t_bytes = (r * 16 + r * m * 4) / 3.35e12 * 1e3
+        np.testing.assert_allclose(ms, max(t_ops, t_bytes), rtol=1e-12)
+        assert by == ("operations" if t_ops >= t_bytes else "bytes")
+    ms, by = threefry_round_bound_ms(8, 4096, 2, True)
+    hashes = 8 * (2 * 3 + 2 * 4096)
+    np.testing.assert_allclose(ms, hashes * ops / PEAK_INT32_OPS * 1e3,
+                               rtol=1e-12)
+    assert by == "operations"
+
+
+@pytest.fixture
+def recorded(monkeypatch):
+    """CPU tensors routed to the CUDA path, the kernel library replaced by
+    a recorder of (symbol, args)."""
+    import contextlib
+    import types
+
+    from repro_torch.kernels import clib
+    calls = []
+
+    def symbol(stem, name, argtypes, restype):
+        def fn(*args):
+            assert len(args) == len(argtypes)
+            calls.append((name, args))
+            return 0
+        return fn
+
+    monkeypatch.setattr(clib, "route", lambda *tensors: "cuda")
+    monkeypatch.setattr(clib, "_symbol", symbol)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev: types.SimpleNamespace(cuda_stream=0))
+    return calls
+
+
+def test_wrappers_launch_the_fold_and_round_kernels(recorded):
+    """On the CUDA route ``fold_in``'s words come from one ``tf_bits``
+    launch in the FOLD layout with ``data`` as the counter, and a shuffle
+    round from one ``tf_round`` launch, the kept keys' pointer given only
+    when the source splits first."""
+    keys = torch.tensor([[0, 42], [1, 2], [3, 4]], dtype=torch.int64)
+    for k in ktf.KERNELS:
+        k.launches = 0
+    ktf.threefry_bits(keys, 2, ktf.FOLD, 2 ** 32 - 1)
+    kept, words_ = ktf.threefry_round(keys, 4096, 2, True, True)
+    _, words2 = ktf.threefry_round(keys, 1000, 1, False, False)
+    (n1, a1), (n2, a2), (n3, a3) = recorded
+    assert (n1, a1[2:]) == ("tf_bits", (3, 2, ktf.FOLD, 2 ** 32 - 1, 0))
+    assert n2 == n3 == "tf_round"
+    assert a2[1] == kept.data_ptr() and a2[3:] == (3, 4096, 2, 1, 0)
+    assert a3[1] is None and a3[3:] == (3, 1000, 1, 0, 0)
+    assert words_.shape == (2, 3, 4096) and words2.shape == (1, 3, 1000)
+    assert (ktf.threefry_bits.launches, ktf.threefry_round.launches) == (1, 2)
 
 
 # ------------------------------------------------ ThreefryShuffleSource
