@@ -183,18 +183,24 @@ start):
     ``flash_forward`` and 1 of ``flash_combine`` (the decode step's 64
     splits).
 
-13. ``threefry_run`` — the threefry kernels (``threefry_bits`` and the
-    fused shuffle round ``threefry_round``, ``csrc/threefry.cu``) bitwise
+13. ``threefry_run`` — the threefry kernels (``threefry_bits``, the
+    fused shuffle round ``threefry_round`` and ``threefry_given``,
+    ``csrc/threefry.cu``) bitwise
     their twins on the card: ``threefry_bits`` in its four layouts at
     ``THREEFRY_SHAPES``, ``fold_in`` (one launch) at ``FOLD_DATA``, the
     round in both counter layouts at ``THREEFRY_ROUND_SHAPES``; jax's
-    known-answer vectors through ``threefry_2x32`` on the kernel; the
+    known-answer vectors through ``threefry_2x32`` on the kernel, and
+    ``threefry_2x32`` of counts held on the card at ``THREEFRY_COUNTS``
+    (1 to 7 words, 4096, a (3, 5) count; Queue C15), each one
+    ``threefry_given`` launch bitwise the host's twin; the
     draws of ``threefry_draws`` (split, bits, permutation, uniform) in
     both counter layouts against jax's digests (``THREEFRY_DIGESTS``); ms
     per shuffle round at B.S = 8, N = 4096 of ``ThreefryShuffleSource``
     (one launch) and ``TorchShuffleSource``; the kernels' times, also per
     launch from one CUDA graph of 100 launches (``graph100_ms``), beside
-    their bounds and an empty kernel's (the launch floor).
+    their bounds and an empty kernel's (the launch floor);
+    ``threefry_given`` (on no main path) at its largest checked count,
+    4096 words, beside its bound.
 14. ``paper_table_run`` — the paper's Table III at N = 1024, full budget,
     kernel tier (``repro_torch.bench.paper_table``): each row's
     parameters, seconds, DPQ_16, neighbour distance and validity, its
@@ -289,10 +295,17 @@ start):
     of each other family on (16, 16) at ``LM_DRYRUN_FAMILIES``' cells;
     each record's argument bytes per device within the card's memory, its
     four roofline inputs and its roofline row at the H100's peaks
-    (``repro_torch.bench.roofline``).  The records are made in a child
-    process started after the build (``start_lm_dryrun``), so that this
-    host work overlaps the card's phases and its fake group never meets
-    the card's process group.
+    (``repro_torch.bench.roofline``).  The child also makes the paper
+    cell (``--paper``: one ShuffleSoftSort round at N = 2^20, d = 59) on
+    both meshes, ``ok``, with wire bytes 475791360 and 253755392 per
+    device (``PAPER_COLLECTIVE_BYTES``, the hand arithmetic of
+    ``repro_torch.launch.paper``), and hillclimb's five ``paper_sort``
+    variants on (16, 16), each one's wire bytes its own hand arithmetic;
+    each is printed with its roofline terms at the H100's peaks
+    (``paper_dryrun``, ``paper_sort_variant``).  The records are made in
+    a child process started after the build (``start_lm_dryrun``), so
+    that this host work overlaps the card's phases and its fake group
+    never meets the card's process group.
 24. ``lm_mesh_run`` — the sharded builders (``repro_torch.launch.steps.
     lower_cell``) on the card: an ``nccl`` group of one rank, a (1, 1)
     ("data", "model") mesh, Qwen1.5-0.5B at full size (bfloat16, random
@@ -309,10 +322,17 @@ start):
     the card's ops) against ``model_flops`` of the cut cell, and
     ``roofline_frac`` (model FLOPs over the bf16 peak, over the measured
     seconds).
+25. ``paper_round_run`` — the paper cell's per-shard round
+    (``repro_torch.launch.paper.paper_round``) on an ``nccl`` group of
+    one rank at N = 2^14 on the 128 x 128 grid and at N = 2^16 (the
+    largest that fits) on 256 x 256, d = 59, chunk 512, 2 inner steps,
+    tau_r = 1.0: order and loss bitwise the unsharded ``_outer_round`` on
+    the card, one ``threefry_round`` launch per round; host ms per round,
+    peak memory.
 
 Phases 9, 11 and 13 run right after phase 3, so that a faulty kernel
 stops the script before the long runs; 10, 12 and 14 run after phase 8,
-and 18 to 24 right after 12.
+and 18 to 25 right after 12.
 
 Then the ``{"kernels": [...]}`` summary line, the card's name and power
 limit as ``nvidia-smi`` reports them, and ``{"ok": true, "device": ...}``
@@ -439,6 +459,9 @@ THREEFRY_SHAPES = [(8, 4096), (1, 1024 * 1024), (3, 1001)]
 # permutation rounds), Table III's N = 1024 (1 round), odd sizes whose
 # rows and second halves are not 16-byte aligned.
 THREEFRY_ROUND_SHAPES = [(8, 4096), (2, 1024), (3, 1001), (5, 4098), (1, 1)]
+# threefry_2x32's counts on the card (Queue C15): 1 to 7 words, 4096, and
+# a 2-D count, each bitwise the host's twin in one launch.
+THREEFRY_COUNTS = [(1,), (2,), (3,), (4,), (7,), (4096,), (3, 5)]
 # fold_in's data words of the checks: 0, 1, 2^31, 2^32 - 1 (and 2^32 + 5,
 # folded mod 2^32).
 FOLD_DATA = (0, 1, 2 ** 31, 2 ** 32 - 1, 2 ** 32 + 5)
@@ -3767,8 +3790,19 @@ records = (dryrun.run([qwen], shapes, "single")
            + dryrun.run([qwen], shapes, "multi"))
 for arch, cells in families.items():
     records += dryrun.run([arch], cells, "single")
+lm_s = time.perf_counter() - t0
+paper = (dryrun.run([], [], "single", paper=True)
+         + dryrun.run([], [], "multi", paper=True))
+from repro_torch.bench import hillclimb
+from repro_torch.launch.mesh import make_production_mesh
+dryrun.init_fake_group(256)
+try:
+    variants = hillclimb.run_paper_variants(make_production_mesh())
+finally:
+    dryrun.destroy_group()
 with open(out, "w") as f:
-    json.dump({"records": records, "seconds": time.perf_counter() - t0}, f)
+    json.dump({"records": records, "paper": paper, "paper_sort": variants,
+               "lm_seconds": lm_s, "seconds": time.perf_counter() - t0}, f)
 """
 
 
@@ -3839,9 +3873,53 @@ def lm_dryrun_run(torch, child):
                           if k == "total_bytes" or v["count"]},
              roofline_h100=rows[(rec["arch"], rec["shape"], rec["mesh"])],
              run_s=rec["run_s"])
+    paper_dryrun_checks(done["paper"], done["paper_sort"])
     emit("lm_dryrun_summary", records=len(records), seconds=seconds,
-         waited_s=time.perf_counter() - t0, memory_per_device=memory)
+         lm_seconds=done["lm_seconds"], waited_s=time.perf_counter() - t0,
+         memory_per_device=memory)
     return records
+
+
+# The paper cell's wire bytes per device at N = 2^20, d = 59 (the hand
+# arithmetic of repro_torch.launch.paper's docstring), by mesh.
+PAPER_COLLECTIVE_BYTES = {"single": 475_791_360, "multi": 253_755_392}
+
+
+def paper_dryrun_checks(paper, variants):
+    """The dry-run child's paper records: the cell (``--paper``) on both
+    meshes, ``ok``, its wire bytes the hand arithmetic; hillclimb's five
+    ``paper_sort`` variants on (16, 16), each one's wire bytes its own
+    (``paper_sort_collectives``).  Each emitted with its roofline terms
+    at the H100's peaks."""
+    from repro_torch.bench.hillclimb import PAPER_VARIANTS
+    from repro_torch.bench.roofline import HBM_BW, LINK_BW, PEAK_FLOPS
+    from repro_torch.launch.paper import paper_sort_collectives
+
+    require(sorted(r["mesh"] for r in paper) == ["multi", "single"],
+            f"paper records: {[r.get('mesh') for r in paper]}")
+    for rec in paper:
+        require(rec["status"] == "ok", f"paper cell x {rec['mesh']}: "
+                f"{rec['status']} {rec.get('error', '')}")
+        coll = rec["collectives"]["total_bytes"]
+        require(coll == PAPER_COLLECTIVE_BYTES[rec["mesh"]],
+                f"paper cell x {rec['mesh']}: {coll} wire bytes, hand "
+                f"arithmetic {PAPER_COLLECTIVE_BYTES[rec['mesh']]}")
+        cost = rec["cost_analysis"]
+        terms = {"compute_s": cost["flops"] / PEAK_FLOPS,
+                 "memory_s": cost["bytes_accessed"] / HBM_BW,
+                 "collective_s": coll / LINK_BW}
+        emit("paper_dryrun", **rec, roofline_h100=dict(
+            terms, bound_s=max(terms.values())))
+    require([v["variant"] for v in variants] == [
+        v[0] for v in PAPER_VARIANTS], f"paper_sort: {variants}")
+    for rec, (_, chunk, bf16, all_axes) in zip(variants, PAPER_VARIANTS):
+        want = paper_sort_collectives(1 << 20, 59, chunk,
+                                      256 if all_axes else 16,
+                                      2 if bf16 else 4)["total_bytes"]
+        require(abs(rec["coll"] - want) <= 1e-9 * want,
+                f"paper_sort {rec['variant']}: {rec['coll']} wire bytes, "
+                f"hand arithmetic {want}")
+        emit("paper_sort_variant", **rec)
 
 
 def _same(torch, got, want, what):
@@ -3913,6 +3991,121 @@ def lm_mesh_run(torch, kernels, F):
     finally:
         dist.destroy_process_group()
     return total
+
+
+# paper_round_run: the paper cell's round cut to one card, at N = 2^14
+# (5 timed rounds) and at N = 2^16, the largest power of two whose
+# autograd fits on an 80 GB card (3 timed rounds): the plain chunked
+# apply keeps ~2.5 N^2 float32 of score blocks, 2.7 GB at 2^14, ~43 GB at
+# 2^16 and ~172 GB at 2^17.
+PAPER_ROUND = dict(d=59, chunk=512, inner_steps=2, tau=1.0)
+PAPER_ROUND_SIZES = [dict(n=1 << 14, hw=(128, 128), reps=5),
+                     dict(n=1 << 16, hw=(256, 256), reps=3)]
+
+
+def paper_round_run(torch):
+    """Phase 25: the paper cell's per-shard round
+    (``repro_torch.launch.paper.paper_round``, the dry-run's ``--paper``)
+    on an ``nccl`` group of one rank, at ``PAPER_ROUND`` and each of
+    ``PAPER_ROUND_SIZES``: N uniform 59-d rows on the square grid, the
+    plain chunked apply at chunk 512, 2 inner steps, tau_r = 1.0.  Its
+    order and loss bitwise the unsharded ``_outer_round`` with
+    ``softsort_apply_chunked`` on the card, on the same shuffle; exactly
+    one ``threefry_round`` launch per round and no other kernel of the
+    package; host ms per round (a sync, the first apart, the median of
+    ``reps``), peak memory.
+
+    The full N = 2^20 stays a dry-run (``lm_dryrun_run``'s paper records):
+    the plain chunked apply's autograd keeps each chunk's score block for
+    the backward, 2048 blocks of 512 x 2^20 float32 = 4 TiB, and the
+    reference records no memory for the cell either.  N = 2^16 is the
+    largest power of two that fits on the card.  Returns the path's
+    launch counts."""
+    import functools
+
+    import torch.distributed as dist
+
+    from repro_torch.core import threefry as tf
+    from repro_torch.core.losses import mean_pairwise_distance
+    from repro_torch.core.shufflesoftsort import (ShuffleSoftSortConfig,
+                                                  _adam_bias, _inner_ramp,
+                                                  _outer_round)
+    from repro_torch.core.softsort import softsort_apply_chunked
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.paper import paper_round
+
+    c = PAPER_ROUND
+    dev = torch.device("cuda", 0)
+    tau = torch.tensor(c["tau"], dtype=torch.float32, device=dev)
+    cfg = ShuffleSoftSortConfig(inner_steps=c["inner_steps"],
+                                chunk=c["chunk"])
+    total = 0
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1, device_id=dev)
+    try:
+        for size in PAPER_ROUND_SIZES:
+            n, hw, reps = size["n"], tuple(size["hw"]), size["reps"]
+            rng = np.random.default_rng(31)
+            x = torch.as_tensor(rng.random((n, c["d"]), dtype=np.float32),
+                                device=dev)
+            order = torch.as_tensor(rng.permutation(n).astype(np.int32),
+                                    device=dev)
+            key = torch.as_tensor(tf.prng_key(31).astype(np.int64),
+                                  device=dev)
+            norm = mean_pairwise_distance(x).reshape(())
+
+            def run():
+                return paper_round(x, order, key, tau, norm, hw=hw, cfg=cfg,
+                                   group=dist.group.WORLD)
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            new, loss = run()
+            torch.cuda.synchronize()
+            first_ms = (time.perf_counter() - t0) * 1e3
+            launched = {k: v for k, v in launch_counts().items() if v}
+            require(launched == {"threefry_round": 1},
+                    f"one paper round at N = {n} launched {launched}")
+            peak = torch.cuda.max_memory_allocated()
+            _, median_ms, all_ms = _timed_steps(torch, run, reps + 1)
+            path = launch_counts()["threefry_round"]
+            require(path == reps + 2,
+                    f"{reps + 2} paper rounds at N = {n} launched {path} "
+                    "threefry_round kernels")
+            total += path
+            # the unsharded round on the same shuffle (not the path's draw)
+            shuf = tf.permutation(key, n)
+            ramp = torch.as_tensor(_inner_ramp(cfg), device=dev)
+            want_order, want_loss, _ = _outer_round(
+                x[None], order.to(torch.int64)[None], shuf[None],
+                (tau * ramp)[None], norm.reshape(1), *_adam_bias(cfg, dev),
+                hw=hw, cfg=cfg, apply_fn=functools.partial(
+                    softsort_apply_chunked, chunk=c["chunk"]))
+            require(new.dtype == torch.int32 and torch.equal(
+                new.to(torch.int64), want_order[0]),
+                    f"the paper round's order at N = {n} != the unsharded "
+                    "round's")
+            require(torch.equal(loss, want_loss[0]),
+                    f"the paper round's loss {float(loss)!r} at N = {n} != "
+                    f"the unsharded round's {float(want_loss[0])!r}")
+            require(bool(torch.isfinite(loss)),
+                    f"paper round loss {float(loss)}")
+            emit("paper_round_run", **c, n=n, hw=hw, reps=reps,
+                 cuts=[f"N = 2^20 -> 2^{n.bit_length() - 1} and the grid "
+                       f"1024 x 1024 -> {hw[0]} x {hw[1]} (one card; see "
+                       "paper_round_run)"],
+                 first_ms=first_ms, median_ms=median_ms, all_ms=all_ms,
+                 peak_memory_bytes=peak, loss=float(loss),
+                 order_bitwise=True, loss_bitwise=True,
+                 threefry_round_per_round=1, launches=path,
+                 nvidia_smi=nvidia_smi_line())
+            del x, new, loss, want_order, want_loss, shuf
+    finally:
+        dist.destroy_process_group()
+        torch.cuda.empty_cache()
+    return {"threefry_round": total}
 
 
 def _timed_steps(torch, run, n):
@@ -4131,35 +4324,53 @@ def threefry_run(torch, core):
     ``threefry_bits`` in every layout at ``THREEFRY_SHAPES``, ``fold_in``
     on the kernel's FOLD layout at ``FOLD_DATA`` over a batch of keys, and
     the fused shuffle round (``threefry_round``) in both layouts, with
-    and without the source's split, at ``THREEFRY_ROUND_SHAPES``; the
-    known-answer vectors; the draws bitwise jax's
+    and without the source's split, at ``THREEFRY_ROUND_SHAPES``;
+    ``threefry_given`` (``threefry_2x32`` of counts on the card) at
+    ``THREEFRY_COUNTS`` and the known-answer vectors; the draws bitwise jax's
     (``THREEFRY_DIGESTS``); the ms of one shuffle round of main_run's
     shape (B.S = 8, N = 4096) from ``ThreefryShuffleSource`` beside
     ``TorchShuffleSource`` and its launches; each kernel's times beside
     its bound (``kernels/bounds.py``) and the launch floor (an empty
-    kernel in a graph of 100).  Returns the kernels' stats for the
-    kernels line: ``threefry_bits`` at the paper table's Gumbel noise
-    shape, ``threefry_round`` at main_run's round."""
+    kernel in a graph of 100), ``threefry_given``'s at 4096 words (it is
+    on no main path, so it has no row in the kernels line).  Returns the
+    kernels' stats for the kernels line: ``threefry_bits`` at the paper
+    table's Gumbel noise shape, ``threefry_round`` at main_run's round."""
     import ctypes
     import importlib
 
     from repro_torch.core import threefry as tf
     from repro_torch.kernels import clib
     from repro_torch.kernels.bounds import (threefry_bound_ms,
+                                            threefry_given_bound_ms,
                                             threefry_round_bound_ms)
     TK = importlib.import_module("repro_torch.kernels.threefry")
 
     dev = torch.device("cuda")
     checked = []
-    TK.threefry_bits.launches = 0
+    TK.threefry_given.launches = 0
     for key, count, want in THREEFRY_KNOWN:
         got = tf.threefry_2x32(np.array(key, np.uint32),
                                np.array(count, np.uint32), device=dev)
         require(got.tolist() == list(want),
                 f"threefry_2x32{key, count}: {got.tolist()} != {want}")
-    require(TK.threefry_bits.launches == len(THREEFRY_KNOWN),
-            f"threefry_2x32 on the card: {TK.threefry_bits.launches} "
+    require(TK.threefry_given.launches == len(THREEFRY_KNOWN),
+            f"threefry_2x32 on the card: {TK.threefry_given.launches} "
             f"launches for {len(THREEFRY_KNOWN)} hashes")
+    # Queue C15: counts of any shape, on the card, one launch each
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    rng = np.random.default_rng(15)
+    for shape in THREEFRY_COUNTS:
+        key = rng.integers(0, 2 ** 32, 2, dtype=np.uint32)
+        count = rng.integers(0, 2 ** 32, shape, dtype=np.uint32)
+        on_card = torch.as_tensor(count.astype(np.int64), device=dev)
+        reset_launch_counts()
+        got = tf.threefry_2x32(key, on_card, device=dev)
+        launched = {k: v for k, v in launch_counts().items() if v}
+        require(launched == {"threefry_given": 1},
+                f"threefry_2x32 of a {shape} count launched {launched}")
+        require(tuple(got.shape) == shape and torch.equal(
+            got.cpu(), tf.threefry_2x32(key, count, device="cpu")),
+                f"threefry_2x32 of a {shape} count on the card != its twin")
     got = TK.threefry_bits(torch.zeros((1, 2), dtype=torch.int64,
                                        device=dev), 2, TK.PAIRS)
     require(TK.words(got)[0].tolist() == list(THREEFRY_KNOWN[0][2]),
@@ -4228,7 +4439,8 @@ def threefry_run(torch, core):
         k_.launches = 0
     th.next_round()
     per_round = {k_.__name__: k_.launches for k_ in TK.KERNELS}
-    require(per_round == {"threefry_bits": 0, "threefry_round": 1},
+    require(per_round == {"threefry_bits": 0, "threefry_round": 1,
+                          "threefry_given": 0},
             f"one shuffle round launched {per_round}")
 
     noop = clib._symbol("threefry", "tf_noop", (clib.P,), ctypes.c_int)
@@ -4262,8 +4474,25 @@ def threefry_run(torch, core):
            "bound_by": by, "library_ms": None, "max_abs_err": 0.0,
            "shape": [bs, n, rounds]}
     times[f"round_{bs}x{n}x{rounds}"] = rnd
+    # threefry_given at its largest checked count, one key
+    m = max(int(np.prod(c)) for c in THREEFRY_COUNTS)
+    key1 = tf.prng_key(2)[None]
+    keys = torch.as_tensor(key1.astype(np.int64), device=dev)
+    counts = torch.as_tensor(np.random.default_rng(2).integers(
+        0, 2 ** 32, m), device=dev)
+    given = lambda: TK.threefry_given(keys, counts)  # noqa: E731
+    plain = lambda: TK.threefry_given_plain(keys, counts)  # noqa: E731
+    require(torch.equal(given(), plain()), "threefry_given != its twin")
+    bound, by = threefry_given_bound_ms(1, m)
+    times[f"given_1x{m}"] = {
+        "ms": time_ms(torch, given), "graph_ms": graph_ms(torch, given),
+        "graph100_ms": graph100_ms(torch, given),
+        "plain_ms": time_ms(torch, plain, reps=5), "bound_ms": bound,
+        "bound_by": by, "library_ms": None, "max_abs_err": 0.0,
+        "shape": [1, m]}
     emit("threefry_run", known_answers=len(THREEFRY_KNOWN) + 1,
          kernel_vs_twin=checked, fold_in_data=list(FOLD_DATA),
+         threefry_2x32_counts=[list(c) for c in THREEFRY_COUNTS],
          round_vs_twin=rounds_checked, bitwise=True, digests=digests,
          shuffle_round_ms=round_ms,
          threefry_launches_per_shuffle_round=sum(per_round.values()),
@@ -4636,9 +4865,9 @@ def main():
                  lm_train_run(torch, kernels, F, flash_ops),
                  lm_train_recovery_run(torch, kernels, F))
     lm_dryrun_run(torch, dryrun_child)
-    lm_counts += (lm_mesh_run(torch, kernels, F),)
+    lm_counts += (lm_mesh_run(torch, kernels, F), paper_round_run(torch))
     for k in FLASH:
-        launches[k] += sum(c[k] for c in lm_counts)
+        launches[k] += sum(c.get(k, 0) for c in lm_counts)
     table_counts = paper_table_run(torch, kernels)
     for k in DENSE:
         launches[k] += table_counts[k]

@@ -39,9 +39,10 @@ from repro_torch.kernels.threefry import (
     PAIRS,
     XOR,
     permutation_rounds,
-    threefry2x32_plain,
     threefry_bits,
+    threefry_given,
     threefry_round,
+    threefry_round_op,
     words,
 )
 
@@ -99,27 +100,16 @@ def _shape(shape) -> tuple[int, ...]:
 def threefry_2x32(key, count, *, device=None) -> torch.Tensor:
     """``jax._src.prng.threefry_2x32(key, count)``: the hash of the words
     of ``count``, paired as its flat halves (padded with one 0 when odd),
-    with one key (2,).  int64 words of ``count``'s shape.  On the CPU any
-    shape (the twin's hash); on CUDA one counter pair (at most 2 words,
-    read on the host), hashed by the kernel (``threefry_bits``' ``FOLD``
-    layout)."""
+    with one key (2,).  int64 words of ``count``'s shape, from one
+    ``threefry_given`` launch on CUDA, which reads the count's words where
+    they lie (no host read); the twin on the CPU."""
     k = as_keys(key, device).reshape(2)
     c = torch.as_tensor(np.asarray(count).astype(np.int64) if not
                         isinstance(count, torch.Tensor) else count,
                         device=k.device).to(torch.int64) & MASK
     flat = c.reshape(-1)
-    m = flat.numel()
-    if k.device.type != "cpu":
-        if m > 2:
-            raise ValueError(f"threefry_2x32 on {k.device} hashes one "
-                             f"counter pair, got {m} words")
-        x0, x1 = (flat.tolist() + [0, 0])[:2]
-        out = words(threefry_bits(k[None], 2, FOLD, x0 << 32 | x1))[0]
-        return out[:m].reshape(c.shape)
-    h = (m + 1) // 2
-    padded = torch.cat([flat, flat.new_zeros(2 * h - m)])
-    x0, x1 = threefry2x32_plain(k[0], k[1], padded[:h], padded[h:])
-    return torch.cat([x0, x1])[:m].reshape(c.shape)
+    out = threefry_given(k[None], flat)
+    return words(out)[0].reshape(c.shape)
 
 
 def _sort_words(key, shape, partitionable: bool, device) -> torch.Tensor:
@@ -268,11 +258,13 @@ def permutation(key, n: int, *, partitionable: bool = True,
                 device=None) -> torch.Tensor:
     """``jax.random.permutation(key, n)``: ``_shuffle`` of ``arange(n)``,
     ``ceil(3 ln n / ln(2**32 - 1))`` rounds of ``key, sub = split(key)``,
-    32-bit sort keys from ``sub`` and a stable sort.  int64 (*keys, n)."""
+    32-bit sort keys from ``sub`` and a stable sort.  int64 (*keys, n).
+    The sort words come from one ``repro_torch::threefry_round`` op (one
+    kernel launch on CUDA), so ``meta`` keys give a ``meta`` shuffle."""
     k, lead = _flat(key, device)
     n = int(n)
-    _, sort_words = threefry_round(k, n, permutation_rounds(n), partitionable,
-                                   False)
+    sort_words = threefry_round_op(k, n, permutation_rounds(n),
+                                   bool(partitionable))
     return _shuffle(sort_words, k.shape[0], n, k.device).reshape(*lead, n)
 
 

@@ -165,6 +165,14 @@ def threefry_bound_ms(r: int, m: int, mode: int) -> tuple[float, str]:
     return _int_roofline(ops, r * 2 * 8 + r * m * 4)
 
 
+def threefry_given_bound_ms(r: int, m: int) -> tuple[float, str]:
+    """(ms, "operations" or "bytes") of ``threefry_given``: R keys of two
+    int64 words and the m int64 words of the count in, R x m int32 words
+    out; one hash per pair of count words, ceil(m / 2) per key."""
+    ops = r * -(-m // 2) * THREEFRY_OPS_PER_HASH
+    return _int_roofline(ops, r * 2 * 8 + m * 8 + r * m * 4)
+
+
 def threefry_round_bound_ms(r: int, n: int, rounds: int,
                             partitionable: bool) -> tuple[float, str]:
     """(ms, "operations" or "bytes") of ``threefry_round`` with the

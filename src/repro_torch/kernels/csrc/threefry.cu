@@ -25,6 +25,11 @@
 //                 caller and writes both words; fold_in(key, data) is
 //                 ctr = data mod 2^32, in either jax layout.
 //
+// threefry_given_kernel is jax._src.prng.threefry_2x32(key, count) of a
+// count of M words held on the device (cnt, int64 words): TF_ORIGINAL's
+// pairing with the caller's words in place of iota(M), pair i hashing
+// (cnt[i], cnt[h + i]), the second word 0 past M.
+//
 // threefry_round_kernel fuses one shuffle round of the anneal into one
 // launch: for keys (R, 2) it writes the kept keys of split(keys) (when
 // the source is split first) and the sort words of every round of
@@ -131,6 +136,25 @@ threefry_bits_kernel(const long long* __restrict__ keys,
       row[2 * i + 1] = sort_word(x1);
     }
   }
+}
+
+// Grid: (ceil(h / TF_THREADS), R), h = ceil(M / 2) pairs per key.
+__global__ void __launch_bounds__(TF_THREADS)
+threefry_given_kernel(const long long* __restrict__ keys,
+                      const long long* __restrict__ cnt,
+                      int* __restrict__ out, long long M, long long h) {
+  const long long i = (long long)blockIdx.x * TF_THREADS + threadIdx.x;
+  if (i >= h) return;
+  const long long r = blockIdx.y;
+  const uint32_t k0 = (uint32_t)keys[2 * r];
+  const uint32_t k1 = (uint32_t)keys[2 * r + 1];
+  const bool second = h + i < M;
+  uint32_t x0 = (uint32_t)cnt[i];
+  uint32_t x1 = second ? (uint32_t)cnt[h + i] : 0u;
+  threefry2x32(k0, k1, x0, x1);
+  int* row = out + r * M;
+  row[i] = sort_word(x0);
+  if (second) row[h + i] = sort_word(x1);
 }
 
 // One key of split(key): `second` picks the second.  Partitionable
@@ -256,6 +280,19 @@ TF_EXPORT int tf_bits(const void* keys, void* out, int R, long long M,
   threefry_bits_kernel<<<grid, TF_THREADS, 0, (cudaStream_t)stream>>>(
       (const long long*)keys, (int*)out, M, items, mode,
       (unsigned long long)ctr);
+  return (int)cudaGetLastError();
+}
+
+// keys (R, 2) int64 and cnt (M,) int64 words of the count in, out (R, M)
+// int32, contiguous: threefry_2x32(key r, count) into row r.
+TF_EXPORT int tf_given(const void* keys, const void* cnt, void* out, int R,
+                       long long M, void* stream) {
+  if (R <= 0 || M <= 0) return 0;
+  if (R > 65535) return (int)cudaErrorInvalidValue;
+  const long long h = (M + 1) / 2;
+  dim3 grid((unsigned)((h + TF_THREADS - 1) / TF_THREADS), (unsigned)R);
+  threefry_given_kernel<<<grid, TF_THREADS, 0, (cudaStream_t)stream>>>(
+      (const long long*)keys, (const long long*)cnt, (int*)out, M, h);
   return (int)cudaGetLastError();
 }
 

@@ -20,16 +20,27 @@ uint32 values back as int64.  The layouts of ``jax._src.prng``
   ``threefry_2x32`` of one counter pair (x0, x1) that of ``x0 << 32 |
   x1``.
 
+``threefry_given(keys, counts)`` is ``threefry_2x32(key, count)`` of a
+count of m words held on the keys' device (int64 uint32 words, read
+there, never on the host): the ``ORIGINAL`` pairing with those words in
+place of ``iota(m)``, pair i hashing ``(counts[i], counts[h + i])``, 0
+past m (the one word an odd count pads).  Its twin is
+``threefry_given_plain``.
+
 ``threefry_round(keys, n, rounds, partitionable, split_keys)`` fuses one
 shuffle round (``ThreefryShuffleSource.next_round`` and ``permutation``)
 into one launch: the kept keys of ``split(keys)`` (when ``split_keys``)
 and the (rounds, R, n) sort words of every ``permutation`` round, the key
 chain recomputed in the kernel.  Its twin ``threefry_round_plain`` is the
 composition of ``threefry_bits_plain`` calls the unfused draw makes.
+``threefry_round_op`` is it without the split, as the custom op
+``repro_torch::threefry_round`` (``permutation`` calls it): one op on
+``meta`` tensors too.
 
 CPU tensors run the twins (int64 torch ops masked to 32 bits); CUDA
-tensors launch the kernels, counted in ``threefry_bits.launches`` and
-``threefry_round.launches``, and raise if the launch fails.
+tensors launch the kernels, counted in ``threefry_bits.launches``,
+``threefry_round.launches`` and ``threefry_given.launches``, and raise if
+the launch fails.
 """
 from __future__ import annotations
 
@@ -137,6 +148,37 @@ def threefry_bits(keys, m: int, mode: int, ctr: int = 0):
     return out
 
 
+def threefry_given_plain(keys, counts):
+    """Twin of ``threefry_given``: the halves of the padded count through
+    the bare hash."""
+    m = counts.numel()
+    h = (m + 1) // 2
+    padded = torch.cat([counts & MASK, counts.new_zeros(2 * h - m)])
+    x0, x1 = threefry2x32_plain(keys[:, 0:1] & MASK, keys[:, 1:2] & MASK,
+                                padded[None, :h], padded[None, h:])
+    return (torch.cat([x0, x1], dim=1)[:, :m] - TOP).to(torch.int32)
+
+
+def threefry_given(keys, counts):
+    """(R, m) int32 sort words of ``threefry_2x32(key r, counts)`` for
+    keys (R, 2) int64 and counts (m,) int64 words on the keys' device."""
+    _check_keys(keys)
+    if counts.dtype != torch.int64 or counts.dim() != 1:
+        raise ValueError(f"counts must be (m,) int64, got {counts.dtype} "
+                         f"{tuple(counts.shape)}")
+    if clib.route(keys, counts) == "cpu":
+        return threefry_given_plain(keys, counts)
+    keys = keys.contiguous()
+    m = counts.numel()
+    out = torch.empty((keys.shape[0], m), dtype=torch.int32,
+                      device=keys.device)
+    if keys.shape[0] and m:
+        clib.launch(threefry_given, "threefry", "tf_given",
+                    (clib.P, clib.P, clib.P, clib.I, clib.L), keys,
+                    counts.contiguous(), out, keys.shape[0], m)
+    return out
+
+
 def permutation_rounds(n: int) -> int:
     """``jax.random.permutation``'s shuffle rounds for n items:
     ``ceil(3 ln n / ln(2**32 - 1))``, enough for 32-bit sort keys to leave
@@ -193,6 +235,22 @@ def threefry_round(keys, n: int, rounds: int, partitionable: bool,
     return kept, out
 
 
-KERNELS = (threefry_bits, threefry_round)
+@torch.library.custom_op("repro_torch::threefry_round", mutates_args=())
+def threefry_round_op(keys: torch.Tensor, n: int, rounds: int,
+                      partitionable: bool) -> torch.Tensor:
+    """``threefry_round`` of ``permutation``'s own chain (no split first)
+    as one custom op: (rounds, R, n) int32 sort words.  On CUDA one
+    launch of the kernel, on the CPU the twin; on ``meta`` tensors only
+    the shape, so that the dry-run's cost mode sees one op, priced by its
+    bytes, where the card runs one launch."""
+    return threefry_round(keys, n, rounds, partitionable, False)[1]
+
+
+@threefry_round_op.register_fake
+def _(keys, n, rounds, partitionable):
+    return keys.new_empty((rounds, keys.shape[0], n), dtype=torch.int32)
+
+
+KERNELS = (threefry_bits, threefry_round, threefry_given)
 for _k in KERNELS:
     _k.launches = 0

@@ -3,6 +3,7 @@ the port's counterpart of ``repro.launch.dryrun``.
 
     python -m repro_torch.launch.dryrun --arch qwen1.5-0.5b --shape train_4k --mesh multi
     python -m repro_torch.launch.dryrun --all --mesh single --out dryrun.json
+    python -m repro_torch.launch.dryrun --paper --mesh multi
 
 One process stands for rank 0 of the mesh's 256 or 512: torch's in-process
 ``fake`` process group (``FakeStore``; its collectives move nothing), a
@@ -30,9 +31,24 @@ port records the same keys from the step it runs:
 
 The checked property is the reference's: each cell builds, and its state
 fits on a device (``argument_size_in_bytes``).  ``long_500k`` is skipped
-for pure full-attention archs, as the reference skips it.  The reference's
-``--paper`` cell (one ShuffleSoftSort round at N = 2^20) is not ported
-(ROADMAP.md A16d).
+for pure full-attention archs, as the reference skips it.
+
+    python -m repro_torch.launch.dryrun --paper --mesh single
+
+adds the paper's own cell (``run_paper_cell``, alone or beside ``--arch``
+/ ``--all``): one ShuffleSoftSort round at N = 2^20, d = 59 on the
+1024 x 1024 grid, ``inner_steps=2``, the plain chunked apply at chunk
+512, x and the order sharded on the mesh's first axis.  It runs
+``repro_torch.launch.paper.paper_round`` once on ``meta`` under
+``CostMode``, its collectives on the group of the mesh's first axis, the
+shuffle as one ``repro_torch::threefry_round`` op.  Its record has the
+reference's keys: ``lower_s`` is that run's seconds and ``compile_s``
+0.0 (nothing is compiled), ``cost_analysis`` counts every chunk's
+products (the reference's XLA counts one ``lax.map`` body, so its FLOPs
+grow with the chunk: ROADMAP.md Queue C's known properties), and
+``collectives`` are 475 791 360 bytes per device on (16, 16) and
+253 755 392 on (2, 16, 16) (``repro_torch.launch.paper``'s docstring
+gives the arithmetic).
 """
 from __future__ import annotations
 
@@ -64,7 +80,6 @@ _KINDS = {
     "broadcast_": "collective-permute",
 }
 _UNCOUNTED = {"wait_tensor", "_wrap_tensor_autograd"}
-
 
 def _group_size(name: str) -> int:
     from torch.distributed.distributed_c10d import _resolve_process_group
@@ -286,6 +301,48 @@ def run_cell(arch: str, shape: str, mesh, mesh_name: str,
     return rec
 
 
+def run_paper_cell(mesh, mesh_name: str, n: int = 1 << 20, d: int = 59,
+                   chunk: int = 512, *, hw=(1 << 10, 1 << 10)) -> dict:
+    """The paper's own workload at Self-Organizing-Gaussians scale: one
+    ShuffleSoftSort round over N = 2^20 splat attribute vectors (d = 59),
+    x and the order sharded on the mesh's first axis, run once on
+    ``meta`` by ``repro_torch.launch.paper.paper_round`` under
+    ``CostMode``.  ``hw`` (the grid, h * w = n) is the reference's
+    1024 x 1024 unless a smaller n needs another."""
+    import torch.distributed as dist
+
+    from repro_torch.core.shufflesoftsort import ShuffleSoftSortConfig
+    from repro_torch.launch.paper import paper_round
+    group = mesh.get_group(0)
+    shards = dist.get_world_size(group)
+    if n % shards:
+        raise ValueError(f"N = {n} rows do not split over {shards} ranks")
+    cfg = ShuffleSoftSortConfig(inner_steps=2, chunk=chunk)
+    meta = torch.device("meta")
+    x = torch.empty((n // shards, d), dtype=torch.float32, device=meta)
+    order = torch.empty((n // shards,), dtype=torch.int32, device=meta)
+    key = torch.empty((2,), dtype=torch.int64, device=meta)
+    tau = torch.empty((), dtype=torch.float32, device=meta)
+    norm = torch.empty((), dtype=torch.float32, device=meta)
+    rec = {"arch": "paper-sort-2^20x59", "shape": f"N={n} d={d}",
+           "mesh": mesh_name, "kind": "paper"}
+    t0 = time.time()
+    with CostMode() as mode:
+        paper_round(x, order, key, tau, norm, hw=tuple(hw), cfg=cfg,
+                    group=group)
+    rec["lower_s"] = round(time.time() - t0, 1)   # the one run on meta
+    rec["compile_s"] = 0.0                        # nothing is compiled
+    rec["cost_analysis"] = {"flops": float(mode.flops),
+                            "bytes_accessed": float(mode.bytes_accessed)}
+    rec["collectives"] = collective_stats(mode.collectives)
+    rec["torch"] = torch.__version__
+    rec["status"] = "ok"
+    print(f"  [paper-sort x {mesh_name}] run={rec['lower_s']}s "
+          f"flops={rec['cost_analysis']['flops']:.3e} "
+          f"coll={rec['collectives']['total_bytes']:.3e}B", flush=True)
+    return rec
+
+
 def init_fake_group(world_size: int):
     """Initialise torch's in-process ``fake`` process group of
     ``world_size`` ranks, this process rank 0 (no network, no peers)."""
@@ -303,10 +360,10 @@ def destroy_group():
         dist.destroy_process_group()
 
 
-def run(archs, shapes, mesh_name: str) -> list[dict]:
-    """Records of every (arch x shape) cell on the named mesh, under a
-    fake group made for it and destroyed after; a cell that raises is an
-    ``error`` record."""
+def run(archs, shapes, mesh_name: str, paper: bool = False) -> list[dict]:
+    """Records of the paper cell (with ``paper``) and of every (arch x
+    shape) cell on the named mesh, under a fake group made for it and
+    destroyed after; a cell that raises is an ``error`` record."""
     from repro_torch.launch.mesh import make_production_mesh
     init_fake_group(512 if mesh_name == "multi" else 256)
     try:
@@ -314,6 +371,15 @@ def run(archs, shapes, mesh_name: str) -> list[dict]:
         print(f"mesh: {dict(zip(mesh.mesh_dim_names, mesh.shape))} "
               f"({mesh.size()} ranks, fake group)", flush=True)
         records = []
+        if paper:
+            try:
+                records.append(run_paper_cell(mesh, mesh_name))
+            except Exception as e:                       # noqa: BLE001
+                records.append({"arch": "paper-sort-2^20x59",
+                                "mesh": mesh_name, "kind": "paper",
+                                "status": "error", "error": repr(e)})
+                print(f"  [paper-sort x {mesh_name}] ERROR: {e!r}",
+                      flush=True)
         for arch in archs:
             for shape in shapes:
                 try:
@@ -335,18 +401,21 @@ def main(argv=None) -> int:
     ap.add_argument("--mesh", choices=("single", "multi"), default="single")
     ap.add_argument("--all", action="store_true",
                     help="run every (arch x shape) cell")
+    ap.add_argument("--paper", action="store_true",
+                    help="run the paper's own sorting workload")
     ap.add_argument("--out", default=None, help="write JSON records here")
     args = ap.parse_args(argv)
 
+    archs, shapes = [], []
     if args.all:
         archs, shapes = list_archs(), [c.name for c in SHAPE_CELLS]
     elif args.arch:
         archs = [args.arch]
         shapes = [args.shape] if args.shape else [c.name
                                                   for c in SHAPE_CELLS]
-    else:
-        ap.error("give --arch or --all")
-    records = run(archs, shapes, args.mesh)
+    elif not args.paper:
+        ap.error("give --arch, --all or --paper")
+    records = run(archs, shapes, args.mesh, paper=args.paper)
     if args.out:
         with open(args.out, "w") as f:
             json.dump(records, f, indent=1)

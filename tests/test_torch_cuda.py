@@ -1408,9 +1408,10 @@ def test_cuda_threefry_round_is_bitwise_its_twin(cuda, r, n):
 
 @pytest.mark.cuda
 def test_cuda_fold_in_and_threefry_2x32_launch_the_kernel(cuda):
-    """fold_in over a batch of keys and threefry_2x32 of one counter pair
-    on CUDA: one threefry_bits launch each, bitwise the CPU twin, and no
-    other kernel of the package."""
+    """fold_in over a batch of keys on CUDA: one threefry_bits launch
+    each; threefry_2x32 of one counter pair and of 4- and 4096-word
+    counts: one threefry_given launch each; all bitwise the CPU twin, and
+    no other kernel of the package."""
     from repro_torch.core import threefry as tf
     from repro_torch.kernels import launch_counts, reset_launch_counts
     keys = tf.split(tf.prng_key(11), 6, device=cuda)
@@ -1424,10 +1425,37 @@ def test_cuda_fold_in_and_threefry_2x32_launch_the_kernel(cuda):
         [0x243F6A88, 0x85A308D3], np.uint32)
     reset_launch_counts()
     got = tf.threefry_2x32(key, count, device=cuda)
-    assert launch_counts()["threefry_bits"] == 1
+    assert {k: v for k, v in launch_counts().items() if v} == {
+        "threefry_given": 1}
     assert got.tolist() == [0xC4923A9C, 0x483DF7A0]
-    with pytest.raises(ValueError):
-        tf.threefry_2x32(key, np.arange(4, dtype=np.uint32), device=cuda)
+    for m in (4, 4096):
+        count = np.arange(m, dtype=np.uint32) * np.uint32(2654435761)
+        reset_launch_counts()
+        got = tf.threefry_2x32(key, count, device=cuda)
+        assert {k: v for k, v in launch_counts().items() if v} == {
+            "threefry_given": 1}
+        assert torch.equal(got.cpu(), tf.threefry_2x32(key, count,
+                                                       device="cpu"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1,), (2,), (3,), (4,), (7,), (4096,),
+                                   (3, 5)])
+def test_cuda_threefry_2x32_of_any_count_is_the_twin(cuda, shape):
+    """Queue C15: a count of any shape, held on the card, in one
+    ``threefry_given`` launch, bitwise the CPU twin."""
+    from repro_torch.core import threefry as tf
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    rng = np.random.default_rng(len(shape) * 10007 + shape[0])
+    key = rng.integers(0, 2 ** 32, 2, dtype=np.uint32)
+    count = rng.integers(0, 2 ** 32, shape, dtype=np.uint32)
+    on_card = torch.as_tensor(count.astype(np.int64), device=cuda)
+    reset_launch_counts()
+    got = tf.threefry_2x32(key, on_card, device=cuda)
+    assert {k: v for k, v in launch_counts().items() if v} == {
+        "threefry_given": 1}
+    assert got.shape == shape and got.device.type == "cuda"
+    assert torch.equal(got.cpu(), tf.threefry_2x32(key, count, device="cpu"))
 
 
 @pytest.mark.cuda
@@ -1816,3 +1844,44 @@ def test_cuda_tensors_on_a_host_mesh_raise(cuda):
                                                                P("data")))
     finally:
         dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_cuda_paper_round_is_bitwise_the_unsharded_round(card_mesh):
+    """The paper cell's per-shard round (``repro_torch.launch.paper``) on
+    the card over an nccl group of one rank, at N = 4096 on 64 x 64, chunk
+    512, 2 inner steps, tau_r = 1.0: order and loss bitwise the unsharded
+    ``_outer_round`` on the same shuffle, one ``threefry_round`` launch."""
+    import functools
+
+    from repro_torch.core import threefry as tf
+    from repro_torch.core.shufflesoftsort import (ShuffleSoftSortConfig,
+                                                  _adam_bias, _inner_ramp,
+                                                  _outer_round)
+    from repro_torch.core.softsort import softsort_apply_chunked
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.paper import paper_round
+    n, d, hw = 4096, 59, (64, 64)
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(8)
+    x = torch.as_tensor(rng.random((n, d), dtype=np.float32), device=dev)
+    order = torch.as_tensor(rng.permutation(n).astype(np.int32), device=dev)
+    key = torch.as_tensor(tf.prng_key(8).astype(np.int64), device=dev)
+    tau = torch.tensor(1.0, device=dev)
+    norm = torch.tensor(0.9, device=dev)
+    cfg = ShuffleSoftSortConfig(inner_steps=2, chunk=512)
+    reset_launch_counts()
+    new, loss = paper_round(x, order, key, tau, norm, hw=hw, cfg=cfg,
+                            group=card_mesh.get_group(0))
+    assert {k: v for k, v in launch_counts().items() if v} == {
+        "threefry_round": 1}
+    shuf = tf.permutation(key, n)
+    ramp = torch.as_tensor(_inner_ramp(cfg), device=dev)
+    want, want_loss, _ = _outer_round(
+        x[None], order.to(torch.int64)[None], shuf[None],
+        (tau * ramp)[None], norm.reshape(1), *_adam_bias(cfg, dev), hw=hw,
+        cfg=cfg, apply_fn=functools.partial(softsort_apply_chunked,
+                                            chunk=512))
+    assert new.dtype == torch.int32
+    assert torch.equal(new.to(torch.int64), want[0])
+    assert torch.equal(loss, want_loss[0])

@@ -67,6 +67,30 @@ def test_the_hillclimb_cells_are_the_references():
     assert hillclimb.CELLS == ref_hillclimb.CELLS
 
 
+def _cell_choices(main, *args):
+    """The ``--cell`` choices of a hillclimb ``main``'s parser, read where
+    it parses (nothing runs)."""
+    import argparse
+    import unittest.mock
+    seen = []
+
+    def grab(parser, *a, **k):
+        seen.extend(next(act.choices for act in parser._actions
+                         if act.dest == "cell"))
+        raise SystemExit(0)
+    with unittest.mock.patch.object(argparse.ArgumentParser, "parse_args",
+                                    grab), pytest.raises(SystemExit):
+        main(*args)
+    return seen
+
+
+def test_the_hillclimb_cell_choices_are_the_references():
+    """``--cell``: the reference's ``CELLS`` and ``paper_sort``."""
+    want = _cell_choices(ref_hillclimb.main)
+    assert want == list(ref_hillclimb.CELLS) + ["paper_sort"]
+    assert _cell_choices(hillclimb.main, []) == want
+
+
 def test_table_sweeps_and_run_rows_read_the_records(tmp_path, capsys):
     recs = _records()
     before, after = tmp_path / "before.json", tmp_path / "after.json"

@@ -87,6 +87,43 @@ def test_threefry_2x32_known_answers(key, count, want):
     _eq([int(x0), int(x1)], want)
 
 
+# counts of threefry_2x32 on any shape (Queue C15): 1, 2, 3, 7 and 4096
+# words, and a 2-D count
+COUNT_SHAPES = [(1,), (2,), (3,), (7,), (4096,), (3, 5)]
+
+
+@pytest.mark.parametrize("shape", COUNT_SHAPES)
+def test_threefry_2x32_of_any_count_is_jaxs(shape):
+    """``threefry_given`` hashes a count of any shape bitwise
+    ``jax._src.prng.threefry_2x32``, and its twin is the halves of the
+    padded count through the bare hash (the CPU path before it)."""
+    rng = np.random.default_rng(int(np.prod(shape)))
+    k = rng.integers(0, 2 ** 32, 2, dtype=np.uint32)
+    c = rng.integers(0, 2 ** 32, shape, dtype=np.uint32)
+    got = tf.threefry_2x32(k, c, device=CPU)
+    assert got.shape == shape and got.dtype == torch.int64
+    _eq(got, jprng.threefry_2x32(jnp.asarray(k), jnp.asarray(c)))
+    flat = torch.as_tensor(c.astype(np.int64)).reshape(-1)
+    m, h = flat.numel(), (flat.numel() + 1) // 2
+    padded = torch.cat([flat, flat.new_zeros(2 * h - m)])
+    kt = torch.as_tensor(k.astype(np.int64))
+    x0, x1 = ktf.threefry2x32_plain(kt[0], kt[1], padded[:h], padded[h:])
+    _eq(ktf.words(ktf.threefry_given_plain(kt[None], flat))[0],
+        torch.cat([x0, x1])[:m])
+
+
+def test_threefry_given_checks_its_inputs():
+    keys = torch.zeros((1, 2), dtype=torch.int64)
+    with pytest.raises(ValueError, match="int64"):
+        ktf.threefry_given(keys, torch.zeros(4, dtype=torch.int32))
+    with pytest.raises(ValueError, match="int64"):
+        ktf.threefry_given(keys, torch.zeros((2, 2), dtype=torch.int64))
+    with pytest.raises(ValueError, match="keys"):
+        ktf.threefry_given(keys[0], torch.zeros(4, dtype=torch.int64))
+    assert ktf.threefry_given(keys, torch.zeros(0, dtype=torch.int64)
+                              ).shape == (1, 0)
+
+
 @pytest.mark.parametrize("seed", [0, 1, 42, -1, 2 ** 40 + 3])
 def test_prng_key_matches_jax(seed):
     got = tf.prng_key(seed)
@@ -188,10 +225,10 @@ def test_permutation_sort_is_stable_on_tied_keys(monkeypatch):
     crafted = [rng.integers(0, 40, n).astype(np.int64),
                np.where(rng.random(n) < 0.5, 7,
                         rng.integers(0, 2 ** 32, n)).astype(np.int64)]
-    monkeypatch.setattr(tf, "threefry_round",
-                        lambda keys, n, rounds, *args: (None, torch.stack([
+    monkeypatch.setattr(tf, "threefry_round_op",
+                        lambda keys, n, rounds, *args: torch.stack([
                             torch.as_tensor(sk - 2 ** 31).to(torch.int32)[None]
-                            for sk in crafted[:rounds]])))
+                            for sk in crafted[:rounds]]))
     got = tf.permutation(np.asarray(_key()), n, device=CPU)
     x = jnp.arange(n)
     for sk in crafted:
@@ -325,6 +362,21 @@ def test_threefry_bounds_by_hand():
     assert by == "operations"
 
 
+@pytest.mark.parametrize("r,m", [(1, 4096), (1, 7), (3, 5)])
+def test_threefry_given_bound_by_hand(r, m):
+    """``threefry_given``'s bound: the keys, the count's int64 words and
+    the int32 words out over 3.35 TB/s, or ceil(m / 2) hashes per key at
+    the hash's operations over the INT32 peak, whichever is longer."""
+    from repro_torch.kernels.bounds import (PEAK_INT32_OPS,
+                                            THREEFRY_OPS_PER_HASH,
+                                            threefry_given_bound_ms)
+    ms, by = threefry_given_bound_ms(r, m)
+    t_ops = r * -(-m // 2) * THREEFRY_OPS_PER_HASH / PEAK_INT32_OPS * 1e3
+    t_bytes = (r * 16 + m * 8 + r * m * 4) / 3.35e12 * 1e3
+    np.testing.assert_allclose(ms, max(t_ops, t_bytes), rtol=1e-12)
+    assert by == ("operations" if t_ops >= t_bytes else "bytes")
+
+
 @pytest.fixture
 def recorded(monkeypatch):
     """CPU tensors routed to the CUDA path, the kernel library replaced by
@@ -369,6 +421,34 @@ def test_wrappers_launch_the_fold_and_round_kernels(recorded):
     assert a3[1] is None and a3[3:] == (3, 1000, 1, 0, 0)
     assert words_.shape == (2, 3, 4096) and words2.shape == (1, 3, 1000)
     assert (ktf.threefry_bits.launches, ktf.threefry_round.launches) == (1, 2)
+
+
+@pytest.mark.parametrize("shape", [(4,), (4096,), (3, 5)])
+def test_threefry_2x32_launches_one_given_kernel(recorded, shape):
+    """On the CUDA route ``threefry_2x32`` of any count is one ``tf_given``
+    launch that reads the count's words from the device tensor (its data
+    pointer, never its values on the host), counted on ``threefry_given``
+    and on no other wrapper."""
+    for k in ktf.KERNELS:
+        k.launches = 0
+    seen = []
+    real = ktf.threefry_given
+
+    def spy(keys, counts):
+        seen.append(counts)
+        return real(keys, counts)
+    import unittest.mock
+    with unittest.mock.patch.object(tf, "threefry_given", spy):
+        tf.threefry_2x32(np.array([1, 2], np.uint32),
+                         np.arange(int(np.prod(shape)),
+                                   dtype=np.uint32).reshape(shape),
+                         device=CPU)
+    ((name, args),) = recorded
+    m = int(np.prod(shape))
+    assert name == "tf_given" and args[1] == seen[0].data_ptr()
+    assert args[3:] == (1, m, 0)          # R, M, the stream
+    assert {k.__name__: k.launches for k in ktf.KERNELS} == {
+        "threefry_bits": 0, "threefry_round": 0, "threefry_given": 1}
 
 
 # ------------------------------------------------ ThreefryShuffleSource
