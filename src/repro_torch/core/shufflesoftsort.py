@@ -62,6 +62,12 @@ also go through the kernel and the plain apply (``_shadow_checks``).
 ``soft_sort_baseline`` is the paper's plain SoftSort (Table III): one key
 vector trained end to end, no shuffles.
 
+Under ``torch.profiler`` the engines mark their phases as spans of
+``repro_torch.spans`` (``call``, ``prep``, ``round``, ``shuffle``,
+``step``, ``loss``, ``apply.fwd``, ``backward``, ``adam``, ``commit``,
+``fetch``; the kernel tier's backward adds ``apply.bwd``); with no
+profiler recording a span is one flag check.
+
 Entry points run on CUDA unless ``device`` says otherwise; without a CUDA
 device they raise rather than fall back to the CPU.
 
@@ -79,6 +85,7 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch import spans
 from repro_torch.core.annealing import AdaptiveController, adaptive_seg_len
 from repro_torch.core.losses import grid_sorting_loss, mean_pairwise_distance
 from repro_torch.core import threefry
@@ -290,24 +297,26 @@ _LOSS_ROWS = 8
 def _loss_fn(w, x_shuf, inv_shuf, tau, hw, norm, cfg: ShuffleSoftSortConfig,
              apply_fn) -> torch.Tensor:
     """(BS,) losses of a (BS, N) key batch; ``norm`` is (BS,)."""
-    y_shuf, colsum = apply_fn(w, x_shuf, tau)
-    d = y_shuf.shape[-1]
-    y = torch.gather(y_shuf, 1, inv_shuf[..., None].expand(-1, -1, d))
-    loss = functools.partial(grid_sorting_loss, hw=hw,
-                             lambda_s=cfg.lambda_s,
-                             lambda_sigma=cfg.lambda_sigma)
-    bs = y.shape[0]
-    out = []
-    for b0 in range(0, bs, _LOSS_ROWS):
-        block = [t[b0:b0 + _LOSS_ROWS] for t in (y, colsum, x_shuf, norm)]
-        k = block[0].shape[0]
-        if k < _LOSS_ROWS:
-            # Copies of the block's first row, cut off from autograd: they
-            # only fill the block and are dropped with their losses.
-            block = [torch.cat([t, t[:1].detach().expand(
-                _LOSS_ROWS - k, *t.shape[1:])]) for t in block]
-        out.append(loss(block[0], block[1], block[2], norm=block[3])[:k])
-    return torch.cat(out)
+    with spans.span("loss", x_shuf.device):
+        with spans.span("apply.fwd", x_shuf.device):
+            y_shuf, colsum = apply_fn(w, x_shuf, tau)
+        d = y_shuf.shape[-1]
+        y = torch.gather(y_shuf, 1, inv_shuf[..., None].expand(-1, -1, d))
+        loss = functools.partial(grid_sorting_loss, hw=hw,
+                                 lambda_s=cfg.lambda_s,
+                                 lambda_sigma=cfg.lambda_sigma)
+        bs = y.shape[0]
+        out = []
+        for b0 in range(0, bs, _LOSS_ROWS):
+            block = [t[b0:b0 + _LOSS_ROWS] for t in (y, colsum, x_shuf, norm)]
+            k = block[0].shape[0]
+            if k < _LOSS_ROWS:
+                # Copies of the block's first row, cut off from autograd:
+                # they only fill the block and are dropped with their losses.
+                block = [torch.cat([t, t[:1].detach().expand(
+                    _LOSS_ROWS - k, *t.shape[1:])]) for t in block]
+            out.append(loss(block[0], block[1], block[2], norm=block[3])[:k])
+        return torch.cat(out)
 
 
 def _inner_ramp(cfg: ShuffleSoftSortConfig) -> np.ndarray:
@@ -342,34 +351,44 @@ def _outer_round(xs, orders, shuf, tau_inner, norms, bias1, bias2, *,
     trained keys ``w`` (BS, N).
     """
     bs, n = orders.shape
-    d = xs.shape[-1]
-    inv_shuf = torch.argsort(shuf, dim=-1, stable=True)
-    x_cur = torch.gather(xs, 1, orders[..., None].expand(-1, -1, d))
-    x_shuf = torch.gather(x_cur, 1, shuf[..., None].expand(-1, -1, d))
+    d, dev = xs.shape[-1], xs.device
+    with spans.span("shuffle", dev):
+        inv_shuf = torch.argsort(shuf, dim=-1, stable=True)
+        x_cur = torch.gather(xs, 1, orders[..., None].expand(-1, -1, d))
+        x_shuf = torch.gather(x_cur, 1, shuf[..., None].expand(-1, -1, d))
 
-    w = torch.arange(n, dtype=_F32, device=xs.device).repeat(bs, 1)
+    w = torch.arange(n, dtype=_F32, device=dev).repeat(bs, 1)
     mu = torch.zeros_like(w)
     nu = torch.zeros_like(w)
     taus = tau_inner.t().contiguous()       # row i: step i's temperatures
     loss = None
     for i in range(cfg.inner_steps):
-        wv = w.detach().requires_grad_(True)
-        with torch.enable_grad():
-            loss = _loss_fn(wv, x_shuf, inv_shuf, taus[i], hw, norms, cfg,
-                            apply_fn)
-            (g,) = torch.autograd.grad(loss.sum(), wv)
-        mu = cfg.b1 * mu + (1 - cfg.b1) * g
-        nu = cfg.b2 * nu + (1 - cfg.b2) * torch.square(g)
-        mhat = mu / bias1[i]
-        nuhat = nu / bias2[i]
-        w = w - cfg.lr * mhat / (torch.sqrt(nuhat) + 1e-8)
+        with spans.span("step", dev):
+            held = spans.allocated_bytes(dev)
+            wv = w.detach().requires_grad_(True)
+            with torch.enable_grad():
+                loss = _loss_fn(wv, x_shuf, inv_shuf, taus[i], hw, norms,
+                                cfg, apply_fn)
+                with spans.span("backward", dev):
+                    # What the step's forward graph holds for its backward.
+                    spans.gauge_max("step_graph_bytes",
+                                    spans.allocated_bytes(dev) - held)
+                    (g,) = torch.autograd.grad(loss.sum(), wv)
+            with spans.span("adam", dev):
+                mu = cfg.b1 * mu + (1 - cfg.b1) * g
+                nu = cfg.b2 * nu + (1 - cfg.b2) * torch.square(g)
+                mhat = mu / bias1[i]
+                nuhat = nu / bias2[i]
+                w = w - cfg.lr * mhat / (torch.sqrt(nuhat) + 1e-8)
 
     # Commit the hard permutation through the shuffle:
     #   new_grid[shuf[i]] = x_shuf[sort_idx[i]] = x_cur[shuf[sort_idx[i]]]
-    sort_idx = torch.argsort(w, dim=-1, stable=True)
-    g = torch.empty_like(shuf).scatter_(1, shuf, torch.gather(shuf, 1,
-                                                              sort_idx))
-    return torch.gather(orders, 1, g), loss.detach(), w
+    with spans.span("commit", dev):
+        sort_idx = torch.argsort(w, dim=-1, stable=True)
+        g = torch.empty_like(shuf).scatter_(1, shuf, torch.gather(shuf, 1,
+                                                                  sort_idx))
+        orders = torch.gather(orders, 1, g)
+    return orders, loss.detach(), w
 
 
 def _tau_schedule(cfg: ShuffleSoftSortConfig) -> np.ndarray:
@@ -478,13 +497,16 @@ def _run_rounds(xs_t, orders, source: ShuffleSource, norms_t, start: int,
     bias1, bias2 = _adam_bias(cfg, dev)
     losses, w = [], None
     for r in range(start, cfg.rounds if end is None else end):
-        shuf = source.next_round(rows)
-        orders, loss, w = _outer_round(
-            xs_t, orders, shuf, tau_inner[r:r + 1], norms_t, bias1, bias2,
-            hw=hw, cfg=cfg, apply_fn=band_fn if r >= switch else dense_fn)
-        losses.append(loss)
-        if on_round is not None:
-            on_round(r, orders, loss)
+        with spans.span("round", dev):
+            with spans.span("shuffle", dev):
+                shuf = source.next_round(rows)
+            orders, loss, w = _outer_round(
+                xs_t, orders, shuf, tau_inner[r:r + 1], norms_t, bias1,
+                bias2, hw=hw, cfg=cfg,
+                apply_fn=band_fn if r >= switch else dense_fn)
+            losses.append(loss)
+            if on_round is not None:
+                on_round(r, orders, loss)
     if not losses:
         return orders, torch.zeros((0, orders.shape[0]), dtype=_F32,
                                    device=dev), None
@@ -778,10 +800,13 @@ def _run_rounds_ragged(xs, orders, source: ShuffleSource, rows, tau_rows,
     bias1, bias2 = _adam_bias(cfg, dev)
     losses, w = [], None
     for t in range(tau_rows.shape[0]):
-        orders, loss, w = _outer_round(
-            xs, orders, source.next_round(rows), tau_inner[t], norms, bias1,
-            bias2, hw=hw, cfg=cfg, apply_fn=apply_fn)
-        losses.append(loss)
+        with spans.span("round", dev):
+            with spans.span("shuffle", dev):
+                shuf = source.next_round(rows)
+            orders, loss, w = _outer_round(
+                xs, orders, shuf, tau_inner[t], norms, bias1, bias2, hw=hw,
+                cfg=cfg, apply_fn=apply_fn)
+            losses.append(loss)
     return orders, torch.stack(losses), w
 
 
@@ -1100,43 +1125,44 @@ def _prep_instances(xs, hw, n_restarts, seed, seeds, source, norms, state,
 
     Returns (xs (B, N, d), B, S, N, source, xs_t, norms_t, orders,
     prior losses (BS, start))."""
-    xs = torch.as_tensor(xs if isinstance(xs, torch.Tensor) else
-                         np.asarray(xs), dtype=_F32, device=device)
-    if xs.dim() != 3:
-        raise ValueError(f"xs must be (B, N, d), got {tuple(xs.shape)}")
-    b, n, _ = xs.shape
-    s = int(n_restarts)
-    if s < 1 or n != hw[0] * hw[1]:
-        raise ValueError(f"need n_restarts >= 1 and N == h * w, got "
-                         f"n_restarts={n_restarts}, N={n}, hw={hw}")
-    bs = b * s
-    if norms is None:
-        norms = torch.stack([mean_pairwise_distance(xi) for xi in xs])
-    elif not isinstance(norms, torch.Tensor):
-        norms = torch.as_tensor(np.array(norms, np.float32))
-    norms = norms.to(device=device, dtype=_F32).reshape(b)
-    xs_t = torch.repeat_interleave(xs, s, dim=0)
-    norms_t = torch.repeat_interleave(norms, s, dim=0)
-    if state is None:
-        orders = torch.arange(n, device=device).repeat(bs, 1)
-        prior = torch.zeros((bs, 0), dtype=_F32, device=device)
-    else:
-        orders = torch.as_tensor(state[0], device=device).to(torch.int64)
-        prior = torch.as_tensor(state[1], dtype=_F32, device=device)
-        if (orders.shape != (bs, n) or prior.dim() != 2
-                or prior.shape[0] != bs):
-            raise ValueError(f"state must be (orders ({bs}, {n}), losses "
-                             f"({bs}, R0)), got {tuple(orders.shape)}, "
-                             f"{tuple(prior.shape)}")
-    key_src = _key_source(key, keys, bs, n, device,
-                          seeds is not None or source is not None)
-    source = key_src if key_src is not None else source
-    if source is None:
-        if seeds is None:
-            seeds = instance_seeds(seed, bs)
-        seeds = [int(v) for v in np.asarray(seeds, np.int64).reshape(bs)]
-        source = TorchShuffleSource(seeds, n, device)
-    return xs, b, s, n, source, xs_t, norms_t, orders, prior
+    with spans.span("prep", device):
+        xs = torch.as_tensor(xs if isinstance(xs, torch.Tensor) else
+                             np.asarray(xs), dtype=_F32, device=device)
+        if xs.dim() != 3:
+            raise ValueError(f"xs must be (B, N, d), got {tuple(xs.shape)}")
+        b, n, _ = xs.shape
+        s = int(n_restarts)
+        if s < 1 or n != hw[0] * hw[1]:
+            raise ValueError(f"need n_restarts >= 1 and N == h * w, got "
+                             f"n_restarts={n_restarts}, N={n}, hw={hw}")
+        bs = b * s
+        if norms is None:
+            norms = torch.stack([mean_pairwise_distance(xi) for xi in xs])
+        elif not isinstance(norms, torch.Tensor):
+            norms = torch.as_tensor(np.array(norms, np.float32))
+        norms = norms.to(device=device, dtype=_F32).reshape(b)
+        xs_t = torch.repeat_interleave(xs, s, dim=0)
+        norms_t = torch.repeat_interleave(norms, s, dim=0)
+        if state is None:
+            orders = torch.arange(n, device=device).repeat(bs, 1)
+            prior = torch.zeros((bs, 0), dtype=_F32, device=device)
+        else:
+            orders = torch.as_tensor(state[0], device=device).to(torch.int64)
+            prior = torch.as_tensor(state[1], dtype=_F32, device=device)
+            if (orders.shape != (bs, n) or prior.dim() != 2
+                    or prior.shape[0] != bs):
+                raise ValueError(f"state must be (orders ({bs}, {n}), losses "
+                                 f"({bs}, R0)), got {tuple(orders.shape)}, "
+                                 f"{tuple(prior.shape)}")
+        key_src = _key_source(key, keys, bs, n, device,
+                              seeds is not None or source is not None)
+        source = key_src if key_src is not None else source
+        if source is None:
+            if seeds is None:
+                seeds = instance_seeds(seed, bs)
+            seeds = [int(v) for v in np.asarray(seeds, np.int64).reshape(bs)]
+            source = TorchShuffleSource(seeds, n, device)
+        return xs, b, s, n, source, xs_t, norms_t, orders, prior
 
 
 def shuffle_soft_sort(
@@ -1210,65 +1236,67 @@ def shuffle_soft_sort(
         raise ValueError("checkpoint_dir/rung_hook are incompatible with "
                          "the per-round callback stream")
     device = resolve_device(device)
-    mon = _open_guardrails(guardrail, cfg, "sequential")
-    x_t = torch.as_tensor(np.asarray(x) if not isinstance(x, torch.Tensor)
-                          else x, dtype=_F32, device=device)
-    xs, _, _, n, source, xs_t, norms_t, orders, prior = _prep_instances(
-        x_t[None], hw, 1, seed, [seed] if key is None else None, source,
-        None if norm is None else [norm], state, device,
-        keys=None if key is None else threefry.as_keys(key, "cpu")[None])
-    losses = [float(v) for v in prior[0].cpu()]
-    start = len(losses)
-    meta = _engine_meta("sequential", cfg, n, 1, hw, source)
-    if resume and ckpt is not None:
-        got = ckpt.restore_latest(_meta_expect(meta))
-        if got is not None:
-            st, start, _ = got
-            orders = _orders_t(st["order"], device)[None]
-            source.load_state_dict(st["source"])
-            losses = [float(v) for v in st["losses"]]
-    rungs = ckpt is not None or mon is not None or rung_hook is not None
-    edges = (_checkpoint_edges(cfg.rounds,
-                               checkpoint_every or max(1, cfg.rounds // 8))
-             if rungs else [cfg.rounds])
-    taus = _tau_schedule(cfg)
-    seg_start = start
+    with spans.span("call", device):
+        mon = _open_guardrails(guardrail, cfg, "sequential")
+        x_t = torch.as_tensor(np.asarray(x) if not isinstance(x, torch.Tensor)
+                              else x, dtype=_F32, device=device)
+        xs, _, _, n, source, xs_t, norms_t, orders, prior = _prep_instances(
+            x_t[None], hw, 1, seed, [seed] if key is None else None, source,
+            None if norm is None else [norm], state, device,
+            keys=None if key is None else threefry.as_keys(key, "cpu")[None])
+        losses = [float(v) for v in prior[0].cpu()]
+        start = len(losses)
+        meta = _engine_meta("sequential", cfg, n, 1, hw, source)
+        if resume and ckpt is not None:
+            got = ckpt.restore_latest(_meta_expect(meta))
+            if got is not None:
+                st, start, _ = got
+                orders = _orders_t(st["order"], device)[None]
+                source.load_state_dict(st["source"])
+                losses = [float(v) for v in st["losses"]]
+        rungs = ckpt is not None or mon is not None or rung_hook is not None
+        edges = (_checkpoint_edges(cfg.rounds,
+                                   checkpoint_every or max(1, cfg.rounds // 8))
+                 if rungs else [cfg.rounds])
+        taus = _tau_schedule(cfg)
+        seg_start = start
 
-    def on_round(r, orders_r, loss_r):
-        losses.append(float(loss_r[0]))
-        if check_finite:
-            # The whole rung so far: the error names its FIRST bad round.
-            _check_finite(np.asarray(losses[seg_start:], np.float32)[:, None],
-                          seg_start, cfg, "sequential")
-        if callback is not None:
-            callback(r, orders_r[0].to(torch.int32).cpu().numpy(),
-                     losses[-1])
+        def on_round(r, orders_r, loss_r):
+            losses.append(float(loss_r[0]))
+            if check_finite:
+                # The whole rung so far: the error names its FIRST bad round.
+                _check_finite(
+                    np.asarray(losses[seg_start:], np.float32)[:, None],
+                    seg_start, cfg, "sequential")
+            if callback is not None:
+                callback(r, orders_r[0].to(torch.int32).cpu().numpy(),
+                         losses[-1])
 
-    for end in edges:
-        if end <= seg_start:
-            continue
-        if rung_hook is not None:
-            rung_hook(seg_start)
-        s_in = source.state_dict() if mon is not None else None
-        o_in = orders
-        orders, _ = _run_segment(xs_t, orders, source, norms_t, seg_start,
-                                 end, hw=hw, cfg=cfg, on_round=on_round)
-        if mon is not None:
-            _verify_rung(
-                mon, cfg, source, s_in, seg_start, end - seg_start,
-                lambda src: _run_rounds(xs_t, o_in, src, norms_t, seg_start,
-                                        end, hw=hw, cfg=cfg),
-                xs=xs_t, groups=_fixed_groups(cfg, n, 1, end),
-                losses=np.asarray(losses[seg_start:], np.float32),
-                orders=_host(orders), n=n, tau=float(taus[seg_start]))
-        if ckpt is not None:
-            ckpt.save(end, {"order": _orders_np(orders[0]),
-                            "source": source.state_dict(),
-                            "losses": np.asarray(losses, np.float32)},
-                      meta=dict(meta, round=end))
-        seg_start = end
-    order = orders[0].to(torch.int32).cpu().numpy()
-    return order, xs[0].cpu().numpy()[order], losses
+        for end in edges:
+            if end <= seg_start:
+                continue
+            if rung_hook is not None:
+                rung_hook(seg_start)
+            s_in = source.state_dict() if mon is not None else None
+            o_in = orders
+            orders, _ = _run_segment(xs_t, orders, source, norms_t, seg_start,
+                                     end, hw=hw, cfg=cfg, on_round=on_round)
+            if mon is not None:
+                _verify_rung(
+                    mon, cfg, source, s_in, seg_start, end - seg_start,
+                    lambda src: _run_rounds(xs_t, o_in, src, norms_t,
+                                            seg_start, end, hw=hw, cfg=cfg),
+                    xs=xs_t, groups=_fixed_groups(cfg, n, 1, end),
+                    losses=np.asarray(losses[seg_start:], np.float32),
+                    orders=_host(orders), n=n, tau=float(taus[seg_start]))
+            if ckpt is not None:
+                ckpt.save(end, {"order": _orders_np(orders[0]),
+                                "source": source.state_dict(),
+                                "losses": np.asarray(losses, np.float32)},
+                          meta=dict(meta, round=end))
+            seg_start = end
+        order = orders[0].to(torch.int32).cpu().numpy()
+        return order, xs[0].cpu().numpy()[order], losses
 
 
 def _check_adaptive(callback, state) -> None:
@@ -1381,53 +1409,56 @@ def shuffle_soft_sort_batched(
                          "sharded path; use mesh=None")
     ckpt = _open_checkpointer(checkpoint_dir, resume)
     device = _run_device(device, mesh)
-    mon = _open_guardrails(guardrail, cfg, "batched")
-    rungs = (ckpt is not None or rung_hook is not None or mon is not None
-             or mesh_hook is not None)
-    if callback is not None and rungs:
-        raise ValueError("checkpoint_dir/rung_hook/guardrail/mesh_hook are "
-                         "incompatible with the per-round callback stream")
-    xs, b, s, n, source, xs_t, norms_t, orders, prior = _prep_instances(
-        xs, hw, n_restarts, seed, seeds, source, norms, state, device,
-        key=key, keys=keys)
-    if cfg.schedule == "adaptive":
-        return _batched_adaptive(
-            xs, b, s, n, source, xs_t, norms_t, orders, hw=hw, cfg=cfg,
-            ckpt=ckpt, resume=resume, rung_hook=rung_hook,
-            check_finite=check_finite, monitor=mon, mesh=mesh,
-            mesh_hook=mesh_hook)
-    on_round = None
-    if callback is not None:
-        def on_round(r, orders_r, loss_r):
-            loss_np = loss_r.cpu().numpy()
-            if check_finite:
-                _check_finite(loss_np[None], r, cfg, "batched")
-            callback(r, orders_r.to(torch.int32).cpu().numpy(), loss_np)
+    with spans.span("call", device):
+        mon = _open_guardrails(guardrail, cfg, "batched")
+        rungs = (ckpt is not None or rung_hook is not None or mon is not None
+                 or mesh_hook is not None)
+        if callback is not None and rungs:
+            raise ValueError("checkpoint_dir/rung_hook/guardrail/mesh_hook "
+                             "are incompatible with the per-round callback "
+                             "stream")
+        xs, b, s, n, source, xs_t, norms_t, orders, prior = _prep_instances(
+            xs, hw, n_restarts, seed, seeds, source, norms, state, device,
+            key=key, keys=keys)
+        if cfg.schedule == "adaptive":
+            return _batched_adaptive(
+                xs, b, s, n, source, xs_t, norms_t, orders, hw=hw, cfg=cfg,
+                ckpt=ckpt, resume=resume, rung_hook=rung_hook,
+                check_finite=check_finite, monitor=mon, mesh=mesh,
+                mesh_hook=mesh_hook)
+        on_round = None
+        if callback is not None:
+            def on_round(r, orders_r, loss_r):
+                loss_np = loss_r.cpu().numpy()
+                if check_finite:
+                    _check_finite(loss_np[None], r, cfg, "batched")
+                callback(r, orders_r.to(torch.int32).cpu().numpy(), loss_np)
 
-    orders, losses_np = _run_fixed_checkpointed(
-        xs_t, orders, source, norms_t, hw=hw, cfg=cfg, ckpt=ckpt,
-        resume=resume,
-        every=((checkpoint_every or max(1, cfg.rounds // 8)) if rungs
-               else cfg.rounds),
-        rung_hook=rung_hook,
-        meta=_engine_meta("batched", cfg, n, b * s, hw, source),
-        check_finite=check_finite, monitor=mon, prior=prior,
-        on_round=on_round, mesh=mesh, mesh_hook=mesh_hook)
-    all_losses = losses_np.T
-    all_losses = all_losses.reshape(b, s, cfg.rounds)
-    all_orders = orders.to(torch.int32).cpu().numpy().reshape(b, s, n)
-    best = np.argmin(all_losses[:, :, -1], axis=1)
-    order = all_orders[np.arange(b), best]
-    xs_np = xs.cpu().numpy()
-    return BatchedSortResult(
-        order=order,
-        sorted=np.take_along_axis(xs_np, order[:, :, None].astype(np.int64),
-                                  axis=1),
-        losses=all_losses[np.arange(b), best],
-        best_restart=best,
-        all_orders=all_orders,
-        all_losses=all_losses,
-    )
+        orders, losses_np = _run_fixed_checkpointed(
+            xs_t, orders, source, norms_t, hw=hw, cfg=cfg, ckpt=ckpt,
+            resume=resume,
+            every=((checkpoint_every or max(1, cfg.rounds // 8)) if rungs
+                   else cfg.rounds),
+            rung_hook=rung_hook,
+            meta=_engine_meta("batched", cfg, n, b * s, hw, source),
+            check_finite=check_finite, monitor=mon, prior=prior,
+            on_round=on_round, mesh=mesh, mesh_hook=mesh_hook)
+        with spans.span("fetch", device):
+            all_losses = losses_np.T
+            all_losses = all_losses.reshape(b, s, cfg.rounds)
+            all_orders = orders.to(torch.int32).cpu().numpy().reshape(b, s, n)
+            best = np.argmin(all_losses[:, :, -1], axis=1)
+            order = all_orders[np.arange(b), best]
+            xs_np = xs.cpu().numpy()
+            return BatchedSortResult(
+                order=order,
+                sorted=np.take_along_axis(
+                    xs_np, order[:, :, None].astype(np.int64), axis=1),
+                losses=all_losses[np.arange(b), best],
+                best_restart=best,
+                all_orders=all_orders,
+                all_losses=all_losses,
+            )
 
 
 def _batched_adaptive(xs, b, s, n, source, xs_t, norms_t, orders, *, hw,
@@ -1584,100 +1615,101 @@ def restart_tournament(
     mesh = _check_mesh(mesh)
     ckpt = _open_checkpointer(checkpoint_dir, resume)
     device = _run_device(device, mesh)
-    mon = _open_guardrails(guardrail, cfg, "tournament")
-    xs, b, s, n, source, xs_t, norms_t, orders, _ = _prep_instances(
-        xs, hw, n_restarts, seed, seeds, source, norms, None, device,
-        key=key, keys=keys)
-    if cfg.schedule == "adaptive":
-        return _restart_tournament_adaptive(
-            xs, b, s, n, source, xs_t, norms_t, orders, hw=hw, cfg=cfg,
-            cull_fraction=cull_fraction, n_rungs=n_rungs,
-            rung_hook=rung_hook, check_finite=check_finite, ckpt=ckpt,
-            resume=resume, monitor=mon, mesh=mesh, mesh_hook=mesh_hook)
-    edges = _rung_boundaries(cfg.rounds, n_rungs)
-    taus = _tau_schedule(cfg)
+    with spans.span("call", device):
+        mon = _open_guardrails(guardrail, cfg, "tournament")
+        xs, b, s, n, source, xs_t, norms_t, orders, _ = _prep_instances(
+            xs, hw, n_restarts, seed, seeds, source, norms, None, device,
+            key=key, keys=keys)
+        if cfg.schedule == "adaptive":
+            return _restart_tournament_adaptive(
+                xs, b, s, n, source, xs_t, norms_t, orders, hw=hw, cfg=cfg,
+                cull_fraction=cull_fraction, n_rungs=n_rungs,
+                rung_hook=rung_hook, check_finite=check_finite, ckpt=ckpt,
+                resume=resume, monitor=mon, mesh=mesh, mesh_hook=mesh_hook)
+        edges = _rung_boundaries(cfg.rounds, n_rungs)
+        taus = _tau_schedule(cfg)
 
-    # The live set is problem-major: live slot j of problem p at row
-    # p * S_k + j; ``alive`` maps live slots to original restart indices.
-    alive = np.tile(np.arange(s), (b, 1))                 # (B, S_k)
-    survivors_log = []
-    rounds_run = start = k_done = 0
-    all_losses = np.full((b, s, cfg.rounds), np.nan, np.float32)
-    meta = _engine_meta("tournament", cfg, n, b * s, hw, source)
-    if resume and ckpt is not None:
-        got = ckpt.restore_latest(_meta_expect(meta))
-        if got is not None:
-            state, _, m = got
-            alive = np.asarray(state["alive"])
-            all_losses = np.asarray(state["all_losses"], np.float32).copy()
-            k_done = int(m["rung"])
-            survivors_log = [np.asarray(state[f"surv_{i:03d}"])
-                             for i in range(k_done)]
-            # The live set's xs is a gather of the inputs: only the carry
-            # (orders, streams, norms, alive) is stored.
-            xs_t = torch.repeat_interleave(xs, alive.shape[1], dim=0)
-            orders = _orders_t(state["orders"], device)
-            source.load_state_dict(state["source"])
-            norms_t = torch.as_tensor(state["norms"], device=device)
-            start = int(m["start"])
-            rounds_run = int(m["rounds_run"])
-    for k, end in enumerate(edges):
-        if k < k_done:
-            continue
-        if rung_hook is not None:
-            rung_hook(start)
-        mesh = _swap_mesh(mesh_hook, start, mesh)
-        s_k = alive.shape[1]
-        rows = (np.arange(b)[:, None] * s + alive).reshape(-1)
-        s_in = source.state_dict() if mon is not None else None
-        o_in = orders
-        orders, losses = _run_segment(xs_t, orders, source, norms_t, start,
-                                      end, rows=rows, hw=hw, cfg=cfg,
-                                      mesh=mesh)
-        rounds_run += (end - start) * _padded(b * s_k, mesh)
-        seg = _host(losses).astype(np.float32)            # (T, B * S_k)
-        if check_finite:
-            _check_finite(seg, start, cfg, "tournament")
-        if mon is not None:
-            _verify_rung(
-                mon, cfg, source, s_in, start, end - start,
-                lambda src: _run_rounds(
-                    xs_t, o_in, src, norms_t, start, end, rows=rows, hw=hw,
-                    cfg=cfg, mesh=mesh),
-                xs=xs_t, groups=_fixed_groups(cfg, n, len(rows), end),
-                losses=seg, orders=_host(orders), rows=rows,
-                tau=float(taus[start]))
-        all_losses[np.arange(b)[:, None], alive, start:end] = (
-            seg.T.reshape(b, s_k, end - start))
-        keep = _survivor_count(s_k, cull_fraction)
-        if k < len(edges) - 1 and keep < s_k:
-            last = seg[-1].reshape(b, s_k)
-            sel = _tournament_cull(last, keep)            # (B, keep)
-            alive = np.take_along_axis(alive, sel, axis=1)
-            idx = torch.as_tensor(
-                (np.arange(b)[:, None] * s_k + sel).reshape(-1),
-                device=device)
-            xs_t = torch.repeat_interleave(xs, keep, dim=0)
-            orders = orders.index_select(0, idx)
-            norms_t = norms_t.index_select(0, idx)
-        survivors_log.append(alive.copy())
-        start = end
-        if ckpt is not None:
-            st = {"orders": _orders_np(orders),
-                  "source": source.state_dict(),
-                  "norms": _host(norms_t), "alive": alive.copy(),
-                  "all_losses": all_losses.copy()}
-            for i, sv in enumerate(survivors_log):
-                st[f"surv_{i:03d}"] = sv
-            ckpt.save(end, st, meta=dict(meta, rung=k + 1, start=end,
-                                         rounds_run=rounds_run), mesh=mesh)
-    final = all_losses[np.arange(b)[:, None], alive, -1]  # (B, S_fin)
-    win = np.argmin(final, axis=1)                        # live slot
-    order = orders.to(torch.int32).cpu().numpy().reshape(
-        b, alive.shape[1], n)[np.arange(b), win]
-    return _tournament_result(xs, order, final[np.arange(b), win],
-                              alive[np.arange(b), win], survivors_log,
-                              all_losses, rounds_run, b * s * cfg.rounds)
+        # The live set is problem-major: live slot j of problem p at row
+        # p * S_k + j; ``alive`` maps live slots to original restart indices.
+        alive = np.tile(np.arange(s), (b, 1))                 # (B, S_k)
+        survivors_log = []
+        rounds_run = start = k_done = 0
+        all_losses = np.full((b, s, cfg.rounds), np.nan, np.float32)
+        meta = _engine_meta("tournament", cfg, n, b * s, hw, source)
+        if resume and ckpt is not None:
+            got = ckpt.restore_latest(_meta_expect(meta))
+            if got is not None:
+                state, _, m = got
+                alive = np.asarray(state["alive"])
+                all_losses = np.asarray(state["all_losses"], np.float32).copy()
+                k_done = int(m["rung"])
+                survivors_log = [np.asarray(state[f"surv_{i:03d}"])
+                                 for i in range(k_done)]
+                # The live set's xs is a gather of the inputs: only the carry
+                # (orders, streams, norms, alive) is stored.
+                xs_t = torch.repeat_interleave(xs, alive.shape[1], dim=0)
+                orders = _orders_t(state["orders"], device)
+                source.load_state_dict(state["source"])
+                norms_t = torch.as_tensor(state["norms"], device=device)
+                start = int(m["start"])
+                rounds_run = int(m["rounds_run"])
+        for k, end in enumerate(edges):
+            if k < k_done:
+                continue
+            if rung_hook is not None:
+                rung_hook(start)
+            mesh = _swap_mesh(mesh_hook, start, mesh)
+            s_k = alive.shape[1]
+            rows = (np.arange(b)[:, None] * s + alive).reshape(-1)
+            s_in = source.state_dict() if mon is not None else None
+            o_in = orders
+            orders, losses = _run_segment(xs_t, orders, source, norms_t, start,
+                                          end, rows=rows, hw=hw, cfg=cfg,
+                                          mesh=mesh)
+            rounds_run += (end - start) * _padded(b * s_k, mesh)
+            seg = _host(losses).astype(np.float32)            # (T, B * S_k)
+            if check_finite:
+                _check_finite(seg, start, cfg, "tournament")
+            if mon is not None:
+                _verify_rung(
+                    mon, cfg, source, s_in, start, end - start,
+                    lambda src: _run_rounds(
+                        xs_t, o_in, src, norms_t, start, end, rows=rows, hw=hw,
+                        cfg=cfg, mesh=mesh),
+                    xs=xs_t, groups=_fixed_groups(cfg, n, len(rows), end),
+                    losses=seg, orders=_host(orders), rows=rows,
+                    tau=float(taus[start]))
+            all_losses[np.arange(b)[:, None], alive, start:end] = (
+                seg.T.reshape(b, s_k, end - start))
+            keep = _survivor_count(s_k, cull_fraction)
+            if k < len(edges) - 1 and keep < s_k:
+                last = seg[-1].reshape(b, s_k)
+                sel = _tournament_cull(last, keep)            # (B, keep)
+                alive = np.take_along_axis(alive, sel, axis=1)
+                idx = torch.as_tensor(
+                    (np.arange(b)[:, None] * s_k + sel).reshape(-1),
+                    device=device)
+                xs_t = torch.repeat_interleave(xs, keep, dim=0)
+                orders = orders.index_select(0, idx)
+                norms_t = norms_t.index_select(0, idx)
+            survivors_log.append(alive.copy())
+            start = end
+            if ckpt is not None:
+                st = {"orders": _orders_np(orders),
+                      "source": source.state_dict(),
+                      "norms": _host(norms_t), "alive": alive.copy(),
+                      "all_losses": all_losses.copy()}
+                for i, sv in enumerate(survivors_log):
+                    st[f"surv_{i:03d}"] = sv
+                ckpt.save(end, st, meta=dict(meta, rung=k + 1, start=end,
+                                             rounds_run=rounds_run), mesh=mesh)
+        final = all_losses[np.arange(b)[:, None], alive, -1]  # (B, S_fin)
+        win = np.argmin(final, axis=1)                        # live slot
+        order = orders.to(torch.int32).cpu().numpy().reshape(
+            b, alive.shape[1], n)[np.arange(b), win]
+        return _tournament_result(xs, order, final[np.arange(b), win],
+                                  alive[np.arange(b), win], survivors_log,
+                                  all_losses, rounds_run, b * s * cfg.rounds)
 
 
 def _tournament_result(xs, order, final_loss, best_restart, survivors_log,

@@ -40,6 +40,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import spans
 from repro_torch.kernels.softsort_apply import (
     _tau_rows,
     bwd_band_dcol,
@@ -106,17 +107,23 @@ class _SoftSortApply(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dy, dc):
-        w32, xc, tau, perm, m, l, y = ctx.saved_tensors
-        cd = xc.dtype
-        ws = torch.gather(w32, -1, perm)
-        dy_c = dy.to(_F32).to(cd).contiguous()
-        dc_c = dc.to(_F32).to(cd).contiguous()
-        D, dws = bwd_dws_delta(ws, w32, xc, tau, m, l, dy_c, y, dc_c, ctx.dt)
-        dx, dw_cols, dtau_cols = bwd_dx(ws, w32, xc, tau, m, l, dy_c, dc_c, D,
-                                        ctx.dt)
-        dw = dw_cols + torch.zeros_like(dws).scatter_(-1, perm, dws)
-        dtau = _dtau(dtau_cols, ctx.shared_tau) if ctx.needs_input_grad[2] else None
-        return dw.to(ctx.dtypes[0]), dx.to(ctx.dtypes[1]), dtau, None, None
+        # Autograd runs this on its own thread on the card: the span's
+        # nesting comes from its device interval (``repro_torch.spans``).
+        with spans.span("apply.bwd", dy.device):
+            w32, xc, tau, perm, m, l, y = ctx.saved_tensors
+            cd = xc.dtype
+            ws = torch.gather(w32, -1, perm)
+            dy_c = dy.to(_F32).to(cd).contiguous()
+            dc_c = dc.to(_F32).to(cd).contiguous()
+            D, dws = bwd_dws_delta(ws, w32, xc, tau, m, l, dy_c, y, dc_c,
+                                   ctx.dt)
+            dx, dw_cols, dtau_cols = bwd_dx(ws, w32, xc, tau, m, l, dy_c,
+                                            dc_c, D, ctx.dt)
+            dw = dw_cols + torch.zeros_like(dws).scatter_(-1, perm, dws)
+            dtau = (_dtau(dtau_cols, ctx.shared_tau)
+                    if ctx.needs_input_grad[2] else None)
+            return (dw.to(ctx.dtypes[0]), dx.to(ctx.dtypes[1]), dtau, None,
+                    None)
 
 
 def softsort_apply(w, x, tau, descending: bool = False,
@@ -167,24 +174,28 @@ class _SoftSortApplyBanded(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dy, dc):
-        w32, xc, tau, perm, m, l, y = ctx.saved_tensors
-        cd, band = xc.dtype, ctx.band
-        ws, xs = _rank_order(w32, xc, perm)       # the saved perm: no sort
-        dy_c = dy.to(_F32).to(cd).contiguous()
-        dc_s = torch.gather(dc.to(_F32), -1, perm).to(cd).contiguous()
-        D, dws_row = bwd_band_dws_delta(ws, xs, tau, m, l, dy_c, y, dc_s,
-                                        band, ctx.dt)
-        dxs, dws_col, dtau_cols = bwd_band_dcol(ws, xs, tau, m, l, dy_c,
-                                                dc_s, D, band, ctx.dt)
-        # Both axes are sorted keys: the key gradient has a row and a
-        # column part, summed in rank order and scattered through perm.
-        dw = torch.empty_like(dws_row).scatter_(-1, perm, dws_row + dws_col)
-        idx = perm[..., None].expand(-1, -1, dxs.shape[-1])
-        dx = torch.empty(dxs.shape, dtype=_F32, device=dxs.device).scatter_(
-            1, idx, dxs.to(_F32))
-        dtau = _dtau(dtau_cols, ctx.shared_tau) if ctx.needs_input_grad[2] else None
-        return (dw.to(ctx.dtypes[0]), dx.to(ctx.dtypes[1]), dtau, None, None,
-                None)
+        with spans.span("apply.bwd", dy.device):
+            w32, xc, tau, perm, m, l, y = ctx.saved_tensors
+            cd, band = xc.dtype, ctx.band
+            ws, xs = _rank_order(w32, xc, perm)   # the saved perm: no sort
+            dy_c = dy.to(_F32).to(cd).contiguous()
+            dc_s = torch.gather(dc.to(_F32), -1, perm).to(cd).contiguous()
+            D, dws_row = bwd_band_dws_delta(ws, xs, tau, m, l, dy_c, y, dc_s,
+                                            band, ctx.dt)
+            dxs, dws_col, dtau_cols = bwd_band_dcol(ws, xs, tau, m, l, dy_c,
+                                                    dc_s, D, band, ctx.dt)
+            # Both axes are sorted keys: the key gradient has a row and a
+            # column part, summed in rank order and scattered through perm.
+            dw = torch.empty_like(dws_row).scatter_(-1, perm,
+                                                    dws_row + dws_col)
+            idx = perm[..., None].expand(-1, -1, dxs.shape[-1])
+            dx = torch.empty(dxs.shape, dtype=_F32,
+                             device=dxs.device).scatter_(1, idx,
+                                                         dxs.to(_F32))
+            dtau = (_dtau(dtau_cols, ctx.shared_tau)
+                    if ctx.needs_input_grad[2] else None)
+            return (dw.to(ctx.dtypes[0]), dx.to(ctx.dtypes[1]), dtau, None,
+                    None, None)
 
 
 def _rank_order(w32, xc, perm):

@@ -1885,3 +1885,48 @@ def test_cuda_paper_round_is_bitwise_the_unsharded_round(card_mesh):
     assert new.dtype == torch.int32
     assert torch.equal(new.to(torch.int64), want[0])
     assert torch.equal(loss, want_loss[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("band", [None, 64])
+def test_cuda_phase_spans_time_the_anneal_on_the_card(cuda, band):
+    """``repro_torch.spans`` on the card, over a batched call of 4 x 2
+    instances at N = 1024 on the kernel tier, dense and banded: the apply's
+    backward opens its span on autograd's worker thread and is counted,
+    each device interval comes from CUDA events and the self times tile the
+    call, the gauge reads the step graph's bytes, and orders and losses are
+    bitwise the unprofiled call's."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import spans
+    from repro_torch.core import (ShuffleSoftSortConfig,
+                                  shuffle_soft_sort_batched)
+    rounds, steps = 2, 2
+    cfg = ShuffleSoftSortConfig(rounds=rounds, inner_steps=steps,
+                                use_kernel=True, band=band, band_eps=1.0)
+    xs = np.random.default_rng(3).random((4, 1024, 8), dtype=np.float32)
+
+    def call():
+        return shuffle_soft_sort_batched(xs, (32, 32), cfg, n_restarts=2,
+                                         seed=5, device=cuda)
+
+    off = call()
+    spans.reset()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        on = call()
+    rep = spans.report()
+    spans.reset()
+    rows = rep["spans"]
+    for name, count in (("call", 1), ("round", rounds),
+                        ("shuffle", 2 * rounds), ("commit", rounds),
+                        ("step", rounds * steps),
+                        ("apply.fwd", rounds * steps),
+                        ("apply.bwd", rounds * steps)):
+        assert rows[name]["calls"] == count, name
+    assert rows["apply.bwd"]["self_s"] > 0
+    assert sum(r["self_s"] for r in rows.values()) == pytest.approx(
+        rows["call"]["device_s"], rel=1e-4)
+    assert rep["gauges"]["step_graph_bytes"] > 0
+    for field in ("order", "all_orders", "best_restart"):
+        np.testing.assert_array_equal(getattr(off, field), getattr(on, field))
+    assert off.all_losses.tobytes() == on.all_losses.tobytes()
